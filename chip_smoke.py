@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving path once on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,20 @@ not 0:
    per forward, the poses must be finite and orthonormal, and the same
    weights, input and pooling samples through the plain ops on the CPU must
    agree within 1e-3;
-5. throughput: crops/s at B=24, fp32, best of 3 windows.
+5. throughput: crops/s at B=24, fp32, best of 3 windows;
+6. training kernels: K12, K15, K11 and K13 against their plain versions at
+   every shape of the B=16, N=1028 train step: forwards within 1e-4 of the
+   largest value, winners equal on >= 99.9% of entries and near-ties where
+   not; backwards fed the same residuals as their plain versions, every
+   cotangent within 1e-4 of its largest value; kernel and plain times;
+7. training slice: ``build_train_step`` at full width takes 3 steps on a
+   (16, 1028) synthetic batch; the launch counters must show 9 KNN, 1 + 1
+   surface and 4 + 4 support training launches per step and no serving
+   launch, the losses must be finite, the parameters move and the optimizer
+   count advance; one train forward and backward at B=4 on the card and on
+   the CPU plain ops, with the same weights, batch and draws, must agree
+   (losses within 1e-3 relative, parameter gradients within the N=1028
+   gates of tests/test_torch_parity.py); then steps/s at B=16.
 
 The line before the last is one JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
@@ -43,6 +57,13 @@ KNN_AGREE = 0.999  # K1: share of kernel neighbours in the plain version's set
 KNN_TIE_REL = 1e-5  # K1: sorted neighbour distances agree to this (fp32 near-ties)
 SLICE_ATOL = 1e-3  # card against CPU on the pose outputs
 SEED = 0
+TRAIN_B = 16  # the train batch (train.batch_size)
+TRAIN_STEPS = 3
+WIN_AGREE = 0.999  # K11, K12: share of winners equal to the plain version's
+LOSS_REL = 1e-3  # card against CPU, each loss term
+GRAD_LEAF = (0.98, 0.2, 0.9, 1.1)  # per leaf: min cos, max norm_rel, norm ratio range
+GRAD_COS = 0.9995  # all parameter gradients as one vector
+ZERO_LEAF = 1e-5  # a leaf gradient below this share of the largest is rounding noise
 
 
 def log(phase: str, msg: str) -> None:
@@ -100,7 +121,11 @@ def phase_build() -> None:
 
 
 def cloud(rng, n: int) -> torch.Tensor:
-    return torch.from_numpy(rng.normal(scale=0.2, size=(B, n, 3)).astype(np.float32)).to(DEVICE)
+    return cloud_b(rng, B, n)
+
+
+def cloud_b(rng, b: int, n: int) -> torch.Tensor:
+    return torch.from_numpy(rng.normal(scale=0.2, size=(b, n, 3)).astype(np.float32)).to(DEVICE)
 
 
 def normal(rng, *shape, scale: float = 1.0) -> torch.Tensor:
@@ -110,6 +135,15 @@ def normal(rng, *shape, scale: float = 1.0) -> torch.Tensor:
 def unit_dirs(rng, n: int) -> torch.Tensor:
     d = normal(rng, 3, n)
     return d / d.norm(dim=0, keepdim=True)
+
+
+def record(rec: dict, name: str, err: float, ms: float, plain_ms: float) -> None:
+    """Add one call's numbers to a kernel's record: the largest error, and the
+    kernel and plain times summed over the calls of one pass of the path."""
+    r = rec.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["ms"] += ms
+    r["plain_ms"] += plain_ms
 
 
 def phase_kernels() -> dict:
@@ -127,10 +161,7 @@ def phase_kernels() -> dict:
     rec = {}
 
     def add(name, err, ms, plain_ms):
-        r = rec.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += ms
-        r["plain_ms"] += plain_ms
+        record(rec, name, err, ms, plain_ms)
 
     # K1: the nine searches of one forward, (points, D, k)
     for n, d, k in [(N, 3, 20), (N, 128, 20), (N, 3, 4),
@@ -314,6 +345,235 @@ def phase_throughput(smi: str) -> None:
                       f"{iters} forwards: {rates}) on {smi}")
 
 
+def train_counters():
+    from hspose_tpu_torch.ops import cuda_hs
+
+    return {"hs_surface_fwd": cuda_hs.hs_surface_fwd, "hs_surface_bwd": cuda_hs.hs_surface_bwd,
+            "hs_support_fwd": cuda_hs.hs_support_fwd, "hs_support_bwd": cuda_hs.hs_support_bwd}
+
+
+def phase_train_kernels() -> dict:
+    """K12, K15, K11, K13 against their plain versions at the train step's
+    shapes (B=16).  The backwards get the kernel forward's residuals on both
+    sides, so winner flips do not enter their comparison.  Returns per-kernel
+    records; ms and plain_ms sum the calls of one train step."""
+    from hspose_tpu_torch.ops import cuda_hs
+    from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
+    from hspose_tpu_torch.ops.knn import gather_neighbors, neighbor_directions_normalized
+
+    rng = np.random.default_rng(SEED + 4)
+    rec = {}
+    S, B = 7, TRAIN_B
+
+    def compare(name, label, pairs, ms, pms):
+        """pairs: (what, kernel tensor, plain tensor); each within TOL_REL of
+        its largest plain value.  Returns the largest error."""
+        torch.cuda.synchronize()
+        worst, parts = 0.0, []
+        for what, got, want in pairs:
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            parts.append(f"{what} {err:.3e} (bound {TOL_REL * scale:.3e})")
+            if not err <= TOL_REL * scale:
+                raise AssertionError(f"{name} {label} {what}: error {err} > {TOL_REL} * {scale}")
+            worst = max(worst, err)
+        log("train-kernels", f"{name} {label}: " + ", ".join(parts)
+            + f"; {ms:.4f} ms (plain {pms:.4f} ms)")
+        record(rec, name, worst, ms, pms)
+
+    def winners(name, label, wk, wp, mk, mp):
+        """Winners agree on >= WIN_AGREE of entries; where not, the values at
+        the two winners (mk, mp) are fp32 near-ties."""
+        agree = (wk == wp).double().mean().item()
+        scale = mp.abs().max().item()
+        gap = (mk - mp)[wk != wp].abs().max().item() if agree < 1 else 0.0
+        log("train-kernels", f"{name} {label}: winners agree {agree:.6f}, largest value "
+                             f"gap where not {gap:.3e} (bound {TOL_REL * scale:.3e})")
+        if agree < WIN_AGREE or not gap <= TOL_REL * scale:
+            raise AssertionError(f"{name} {label}: winners agree {agree}, gap {gap}")
+
+    # K12 / K15: conv_0
+    verts = cloud_b(rng, B, N)
+    rf = neighbor_directions_normalized(verts, knn_indices_cuda(verts, 20))
+    co, dirs = 128, unit_dirs(rng, S * 128)
+    label = f"conv_0 N={N} K=20 Co={co}"
+    out_k, win_k = cuda_hs.hs_surface_fwd(rf, dirs, S, co)
+    out_p, win_p = cuda_hs.hs_surface_fwd_plain(rf, dirs, S, co)
+    theta = torch.relu(rf.double() @ dirs.double())  # (B, N, K, S*Co)
+    winners("hs_surface_fwd", label, win_k, win_p,
+            theta.gather(2, win_k.long()[:, :, None]).squeeze(2),
+            theta.gather(2, win_p.long()[:, :, None]).squeeze(2))
+    del theta
+    compare("hs_surface_fwd", label, [("out", out_k, out_p)],
+            cuda_ms(lambda: cuda_hs.hs_surface_fwd(rf, dirs, S, co), 10),
+            cuda_ms(lambda: cuda_hs.hs_surface_fwd_plain(rf, dirs, S, co), 10))
+    gb = normal(rng, B, N, co)
+    args = (rf, dirs, win_k, gb, S, co)
+    compare("hs_surface_bwd", label,
+            list(zip(("drf", "dd"), cuda_hs.hs_surface_bwd(*args),
+                     cuda_hs.hs_surface_bwd_plain(*args))),
+            cuda_ms(lambda: cuda_hs.hs_surface_bwd(*args), 10),
+            cuda_ms(lambda: cuda_hs.hs_surface_bwd_plain(*args), 10))
+
+    # K11 / K13: conv_1 .. conv_4, w and b as column slices of the layer's matrix
+    for layer, cin, co, n, k in [(1, 128, 128, N, 20), (2, 128, 256, N // 4, 20),
+                                 (3, 256, 256, N // 4, 20), (4, 256, 512, N // 16, 8)]:
+        label = f"conv_{layer} {cin}->{co} N={n} K={k}"
+        verts = cloud_b(rng, B, n)
+        feat = torch.relu(normal(rng, B, n, cin))
+        idx = knn_indices_cuda(feat, k)
+        g = gather_neighbors(feat, idx)
+        rf = neighbor_directions_normalized(verts, idx)
+        stdv = 1.0 / (co * (S + 1)) ** 0.5
+        w_full = normal(rng, cin, (S + 1) * co, scale=stdv)
+        b_full = normal(rng, (S + 1) * co, scale=stdv)
+        fargs = (g, rf, w_full[:, co:], b_full[co:], unit_dirs(rng, S * co), S, co)
+        out_k, win_k, tw_k, pw_k = cuda_hs.hs_support_fwd(*fargs)
+        out_p, win_p, tw_p, pw_p = cuda_hs.hs_support_fwd_plain(*fargs)
+        winners("hs_support_fwd", label, win_k, win_p, tw_k * pw_k, tw_p * pw_p)
+        same = win_k == win_p
+        compare("hs_support_fwd", label,
+                [("out", out_k, out_p), ("twin", tw_k * same, tw_p * same),
+                 ("pwin", pw_k * same, pw_p * same)],
+                cuda_ms(lambda: cuda_hs.hs_support_fwd(*fargs), 10),
+                cuda_ms(lambda: cuda_hs.hs_support_fwd_plain(*fargs), 10))
+        gb = normal(rng, B, n, co)
+        bargs = (g, rf, fargs[2], fargs[4], win_k, tw_k, pw_k, gb, S, co)
+        compare("hs_support_bwd", label,
+                list(zip(("dg", "drf", "dw", "db", "dd"), cuda_hs.hs_support_bwd(*bargs),
+                         cuda_hs.hs_support_bwd_plain(*bargs))),
+                cuda_ms(lambda: cuda_hs.hs_support_bwd(*bargs), 10),
+                cuda_ms(lambda: cuda_hs.hs_support_bwd_plain(*bargs), 10))
+    return rec
+
+
+def build_train_model(device):
+    from hspose_tpu_torch.config import ModelConfig
+    from hspose_tpu_torch.models.hspose import build_model
+
+    torch.manual_seed(SEED)
+    return build_model(ModelConfig(), device=device, train_heads=True)
+
+
+def grad_gates(got: dict, want: dict) -> str:
+    """The N=1028 gates of tests/test_torch_parity.py on parameter gradients:
+    per leaf cosine, norm_rel and norm ratio, and the global cosine.
+
+    A bias that a train-mode BatchNorm follows has a zero gradient in exact
+    arithmetic (BN removes any constant shift), so both sides hold rounding
+    noise there and its direction means nothing: a leaf whose reference norm
+    is below ZERO_LEAF of the largest is held only to being as small on the
+    card."""
+    lo_cos, hi_rel, lo_ratio, hi_ratio = GRAD_LEAF
+    top = max(w.double().norm().item() for w in want.values())
+    worst, zero = (1.0, 0.0, 1.0), []
+    all_g, all_w = [], []
+    for name, w in want.items():
+        g = got[name].double().ravel()
+        w = w.double().ravel()
+        nw, ng = max(w.norm().item(), 1e-30), max(g.norm().item(), 1e-30)
+        if nw <= ZERO_LEAF * top:
+            zero.append(name)
+            if not ng <= ZERO_LEAF * top:
+                raise AssertionError(f"grad {name}: norm {ng:.3e} where the reference's "
+                                     f"{nw:.3e} is rounding noise (bound {ZERO_LEAF * top:.3e})")
+            continue
+        cos = (g @ w).item() / (ng * nw)
+        rel = (g - w).norm().item() / nw
+        if not (cos >= lo_cos and rel <= hi_rel and lo_ratio <= ng / nw <= hi_ratio):
+            raise AssertionError(f"grad {name}: cos {cos:.5f} norm_rel {rel:.3e} "
+                                 f"ratio {ng / nw:.4f}")
+        worst = (min(worst[0], cos), max(worst[1], rel),
+                 ng / nw if abs(ng / nw - 1) > abs(worst[2] - 1) else worst[2])
+        all_g.append(g)
+        all_w.append(w)
+    g, w = torch.cat(all_g), torch.cat(all_w)
+    cos = (g @ w).item() / (g.norm().item() * w.norm().item())
+    if not cos >= GRAD_COS:
+        raise AssertionError(f"global gradient cosine {cos} < {GRAD_COS}")
+    return (f"{len(all_g)} leaves gated, worst cos {worst[0]:.5f}, worst norm_rel "
+            f"{worst[1]:.3e}, worst norm ratio {worst[2]:.4f}, global cos {cos:.6f}; "
+            f"{len(zero)} leaves zero up to rounding on both sides ({', '.join(zero)})")
+
+
+def phase_train(smi: str) -> dict:
+    """The train step at full width: launches, sanity, card against CPU,
+    steps/s.  Returns the training kernels' launches of the main run."""
+    from hspose_tpu_torch.config import HSPoseConfig
+    from hspose_tpu_torch.engine.train_step import build_train_step, to_device
+    from hspose_tpu_torch.models.hspose import draw_train, train_forward
+    from hspose_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    cfg = HSPoseConfig()
+    model = build_train_model(DEVICE)
+    step = build_train_step(cfg, model, torch.Generator(device=DEVICE).manual_seed(SEED))
+    batch = to_device(synthetic_train_batch(TRAIN_B, N, seed=SEED), DEVICE)
+    before = [p.detach().clone() for p in model.parameters()]
+
+    wrappers = {**counters(), **train_counters()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    metrics = [step(batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log("train", f"{TRAIN_STEPS} steps of ({TRAIN_B}, {N}, 3): launches {launches}")
+    want = {"knn": 9, "hs_surface": 0, "hs_support": 0, "orl_global": 0,
+            "hs_surface_fwd": 1, "hs_surface_bwd": 1, "hs_support_fwd": 4,
+            "hs_support_bwd": 4}
+    for name, per_step in want.items():
+        if launches[name] != per_step * TRAIN_STEPS:
+            raise AssertionError(f"{name}: {launches[name]} launches, expected "
+                                 f"{per_step} per train step")
+    for i, m in enumerate(metrics):
+        log("train", f"step {i}: total_loss {m['total_loss']:.6f}, skipped_nan "
+                     f"{m['skipped_nan']}, {len(m) - 2} loss terms")
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad or m["skipped_nan"]:
+            raise AssertionError(f"step {i}: non-finite {bad}")
+    moved = sum(int(not torch.equal(a, p.detach())) for a, p in zip(before, model.parameters()))
+    change = max((a - p.detach()).abs().max().item() for a, p in zip(before, model.parameters()))
+    # at the start of the warm-up the rate is lr * 1e-3, so small steps round away
+    log("train", f"{moved} of {len(before)} parameter tensors moved (largest change "
+                 f"{change:.3e}), optimizer count {step.optimizer.count}")
+    if moved == 0 or step.optimizer.count != TRAIN_STEPS:
+        raise AssertionError("the train step did not update the model")
+
+    # one train forward and backward on the card and on the CPU plain ops
+    cpu_model = build_train_model("cpu").train()
+    card_model = copy.deepcopy(cpu_model).to(DEVICE)
+    small = synthetic_train_batch(4, N, seed=SEED + 5)
+    draws = draw_train(torch.Generator().manual_seed(SEED + 6), 4, N)
+    results = []
+    for mdl, dev, dr in ((card_model, DEVICE, draws.to(DEVICE)), (cpu_model, "cpu", draws)):
+        total, losses = train_forward(cfg, mdl, to_device(small, dev), draws=dr)
+        total.backward()
+        results.append(({f"{f}/{k}": v.item() for f, d in losses.items() for k, v in d.items()},
+                        {n: p.grad.detach().cpu() for n, p in mdl.named_parameters()}))
+    (card_loss, card_grad), (cpu_loss, cpu_grad) = results
+    rel = {k: abs(card_loss[k] - v) / max(abs(v), 1e-12) for k, v in cpu_loss.items()}
+    log("train", "card against CPU, loss terms: worst rel diff "
+                 f"{max(rel.values()):.3e} ({max(rel, key=rel.get)})")
+    if not max(rel.values()) <= LOSS_REL:
+        raise AssertionError(f"losses disagree beyond {LOSS_REL}: "
+                             f"{ {k: v for k, v in rel.items() if v > LOSS_REL} }")
+    log("train", "card against CPU, parameter gradients: " + grad_gates(card_grad, cpu_grad))
+
+    # throughput
+    for _ in range(2):
+        step(batch)
+    torch.cuda.synchronize()
+    iters, rates = 5, []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step(batch)
+        torch.cuda.synchronize()
+        rates.append(iters / (time.perf_counter() - t0))
+    log("train", f"{max(rates)} steps/s at B={TRAIN_B} fp32 (best of 3 windows of {iters} "
+                 f"steps: {rates}) on {smi}")
+    return launches
+
+
 SOURCES = {
     "knn": ("hspose_tpu_torch/csrc/knn.cu", "hspose_tpu/ops/pallas_knn.py:163"),
     "hs_surface": ("hspose_tpu_torch/csrc/hs_surface.cu",
@@ -321,6 +581,14 @@ SOURCES = {
     "hs_support": ("hspose_tpu_torch/csrc/hs_support.cu",
                    "hspose_tpu/ops/pallas_hs_fused.py:219"),
     "orl_global": ("hspose_tpu_torch/csrc/orl.cu", "hspose_tpu/ops/pallas_hs_fused.py:358"),
+    "hs_support_fwd": ("hspose_tpu_torch/csrc/hs_support_train.cu",
+                       "hspose_tpu/ops/pallas_hs.py:151"),
+    "hs_surface_fwd": ("hspose_tpu_torch/csrc/hs_surface_train.cu",
+                       "hspose_tpu/ops/pallas_hs.py:215"),
+    "hs_support_bwd": ("hspose_tpu_torch/csrc/hs_support_train.cu",
+                       "hspose_tpu/ops/pallas_hs.py:336"),
+    "hs_surface_bwd": ("hspose_tpu_torch/csrc/hs_surface_train.cu",
+                       "hspose_tpu/ops/pallas_hs.py:410"),
 }
 
 
@@ -333,6 +601,9 @@ def main() -> int:
     rec = phase_kernels()
     launches = phase_slice()
     phase_throughput(smi)
+    rec.update(phase_train_kernels())
+    train_launches = phase_train(smi)
+    launches.update({name: train_launches[name] for name in train_counters()})
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **rec[name]}
                for name, (src, rep) in SOURCES.items()]

@@ -5,9 +5,15 @@ nothing here imports it (its ``__init__`` imports JAX and flips JAX's global
 matmul precision, and the port must run where JAX is not installed).  Module names mirror
 ``hspose_tpu`` so each counterpart is easy to find.
 
-Slice ported so far: the fp32 serving forward — ``PoseNet9D`` in eval mode and
-``generate_RT`` — with its four hand-written CUDA kernels (KNN, HS surface,
-HS support, ORL global) built at first use by ``ops/_build.py``.
+Slices ported so far, each with hand-written CUDA kernels built at first use
+by ``ops/_build.py``:
+
+* the fp32 serving forward, ``PoseNet9D`` in eval mode and ``generate_RT``
+  (KNN, HS surface, HS support and ORL global kernels);
+* the fp32 train step, ``engine/train_step.py::build_train_step``: the
+  augmentation, the train forward with its heads, four loss families and
+  Ranger, with the HS training kernels forward and backward
+  (``ops/cuda_hs.py``) and the KNN kernel.
 """
 
 from hspose_tpu_torch.config import ModelConfig

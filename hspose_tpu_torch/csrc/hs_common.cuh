@@ -1,4 +1,5 @@
-// Shared pieces of the HS kernels (hs_surface.cu, hs_support.cu).
+// Shared pieces of the HS kernels (hs_surface.cu, hs_support.cu,
+// hs_surface_train.cu, hs_support_train.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,6 +48,24 @@ template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= (size_t)SMEM_DEFAULT) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Second pass of a deterministic reduction: out[e] = sum over p of
+// partial[p, e], added in the order of p.  The backward kernels write one
+// row of partial sums per block instead of adding into out with atomics.
+static __global__ void sum_partials_kernel(const float* __restrict__ partial,
+                                           float* __restrict__ out, int parts, int E) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  float s = 0.f;
+  for (int p = 0; p < parts; ++p) s += partial[(size_t)p * E + e];
+  out[e] = s;
+}
+
+static inline cudaError_t sum_partials(const float* partial, float* out, int parts, int E,
+                                cudaStream_t stream) {
+  sum_partials_kernel<<<(E + 255) / 256, 256, 0, stream>>>(partial, out, parts, E);
+  return cudaGetLastError();
 }
 
 }  // namespace hs

@@ -1,0 +1,2 @@
+"""Train step, optimizer and learning-rate schedules (counterpart of
+``hspose_tpu/engine``)."""

@@ -14,6 +14,12 @@ def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tenso
     return v / torch.clamp(n, min=eps)
 
 
+def batch_dot(a: torch.Tensor, b: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """Row-wise dot product over the last axis."""
+    out = (a * b).sum(-1)
+    return out[..., None] if keepdim else out
+
+
 def rodrigues_matrix(axis: torch.Tensor, s: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Rotations about unit ``axis`` (..., 3) with sin ``s`` / cos ``c``
     (..., 1) -> (..., 3, 3)."""
@@ -72,3 +78,14 @@ def generate_RT(green_vec: torch.Tensor, red_vec: torch.Tensor, f_green: torch.T
     res[:, :3, :3] = Rs
     res[:, :3, 3] = T
     return res
+
+
+def get_gt_v(Rs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """gt green (y column) and red (x column) axes of R, as the reference's
+    corner-matrix product gives them at its live call site."""
+    return Rs[..., :, 1], Rs[..., :, 0]
+
+
+def get_size(model: torch.Tensor) -> torch.Tensor:
+    """Axis-aligned extents of a model point cloud (..., P, 3) -> (..., 3)."""
+    return model.amax(dim=-2) - model.amin(dim=-2)

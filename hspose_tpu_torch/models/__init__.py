@@ -1,1 +1,1 @@
-"""Network modules of the port (eval forward)."""
+"""Network modules of the port (eval and train forward)."""

@@ -1,6 +1,8 @@
 """Pose heads (counterpart of ``hspose_tpu/models/heads.py``): two rotation
 heads (1286 -> 1024 -> 256 | max over points | 256 -> 256 -> 4) and the
-translation/size head (1289 -> ... -> 6), channel-last, eval mode."""
+translation/size head (1289 -> ... -> 6), channel-last.  In train mode each
+head applies dropout 0.2 after its third block, with an injected keep-mask
+when one is given."""
 
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ import torch
 from torch import nn
 
 from hspose_tpu_torch.models.face_recon import _bn, batch_norm
+
+KEEP_PROB = 1.0 - 0.2  # dropout 0.2 after bn3
 
 
 class VecHead(nn.Module):
@@ -23,11 +27,13 @@ class VecHead(nn.Module):
         self.bn2 = _bn(256, device)
         self.conv3 = nn.Linear(256, 256, device=device)
         self.bn3 = _bn(256, device)
-        self.dropout = nn.Dropout(0.2)
         self.conv4 = nn.Linear(256, out_c, device=device)
 
-    def forward(self, x: torch.Tensor, xyz: torch.Tensor | None = None) -> torch.Tensor:
-        """x (B, N, C) per-point features -> (B, out_c)."""
+    def forward(self, x: torch.Tensor, xyz: torch.Tensor | None = None,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
+        """x (B, N, C) per-point features -> (B, out_c).  ``keep`` (B, 256)
+        bool is the dropout keep-mask in train mode (drawn from torch's
+        global generator when None)."""
         if xyz is None:
             h = self.conv1(x)
         else:
@@ -37,9 +43,12 @@ class VecHead(nn.Module):
         h = torch.relu(batch_norm(self.bn1, h))
         h = torch.relu(batch_norm(self.bn2, self.conv2(h)))
         h = h.amax(dim=1, keepdim=True)  # global max over points (B, 1, 256)
-        h = torch.relu(batch_norm(self.bn3, self.conv3(h)))
-        h = self.conv4(self.dropout(h))
-        return h[:, 0, :]
+        h = torch.relu(batch_norm(self.bn3, self.conv3(h)))[:, 0, :]
+        if self.training:
+            if keep is None:
+                keep = torch.rand(h.shape, device=h.device) < KEEP_PROB
+            h = torch.where(keep, h / KEEP_PROB, 0.0)
+        return self.conv4(h)
 
 
 class RotationHead(nn.Module):
@@ -49,8 +58,8 @@ class RotationHead(nn.Module):
         super().__init__()
         self.vec = VecHead(in_c, 4, device=device)
 
-    def forward(self, feat: torch.Tensor) -> torch.Tensor:
-        return self.vec(feat)
+    def forward(self, feat: torch.Tensor, keep: torch.Tensor | None = None) -> torch.Tensor:
+        return self.vec(feat, keep=keep)
 
 
 class PoseTsHead(nn.Module):
@@ -61,6 +70,7 @@ class PoseTsHead(nn.Module):
         super().__init__()
         self.vec = VecHead(in_c + 3, 6, device=device)
 
-    def forward(self, feat: torch.Tensor, xyz: torch.Tensor):
-        x = self.vec(feat, xyz)
+    def forward(self, feat: torch.Tensor, xyz: torch.Tensor,
+                keep: torch.Tensor | None = None):
+        x = self.vec(feat, xyz, keep)
         return x[:, 0:3], x[:, 3:6]

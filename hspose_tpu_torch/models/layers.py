@@ -1,10 +1,13 @@
 """Hybrid-scope graph-conv layers, channel-last (counterpart of
-``hspose_tpu/models/layers.py``, eval path).
+``hspose_tpu/models/layers.py``).
 
 KNN index sets are computed by the caller and passed in, as in the JAX
-package.  The layers run the CUDA kernels of ``ops/cuda_hs_fused.py`` on CUDA
-tensors and their plain versions on CPU tensors; the semantics are those of
-the JAX layers' non-TPU branches.
+package.  In eval mode the layers run the serving kernels of
+``ops/cuda_hs_fused.py``; in train mode (``self.training``) they gather the
+receptive-field directions and neighbour features with autograd and run the
+differentiable kernels of ``ops/cuda_hs.py`` on them, as the JAX layers' v3
+training branch does, and the ORL branch is the plain gather, max and mean.
+Either way a CUDA tensor takes the kernel and a CPU tensor its plain version.
 """
 
 from __future__ import annotations
@@ -12,13 +15,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from hspose_tpu_torch.ops.cuda_hs import hs_support_reduce, hs_surface_reduce
 from hspose_tpu_torch.ops.cuda_hs_fused import (
     hs_support_fused,
     hs_surface_fused,
     orl_global_fused,
+    orl_global_plain,
 )
 from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
-from hspose_tpu_torch.ops.knn import gather_neighbors
+from hspose_tpu_torch.ops.knn import gather_neighbors, neighbor_directions_normalized
 
 
 def _uniform(shape, bound: float, device) -> nn.Parameter:
@@ -32,9 +37,14 @@ def _normalize_dirs(directions: torch.Tensor) -> torch.Tensor:
     return directions / torch.clamp(norm, min=1e-12)
 
 
-def orl_global(feature: torch.Tensor, orl_idx: torch.Tensor) -> torch.Tensor:
+def orl_global(feature: torch.Tensor, orl_idx: torch.Tensor,
+               train: bool = False) -> torch.Tensor:
     """Outlier-robust global feature: (B, N, C), vertex-KNN (B, N, K) ->
-    (B, 1, C) = mean over points of the max over each point's neighbours."""
+    (B, 1, C) = mean over points of the max over each point's neighbours.
+    Training takes the plain gather, max and mean with autograd (the max
+    splits a gradient over ties, as the JAX package's does)."""
+    if train:
+        return orl_global_plain(feature, orl_idx)
     return orl_global_fused(feature, orl_idx)
 
 
@@ -57,9 +67,14 @@ class HSLayerSurface(nn.Module):
     def forward(self, vertices: torch.Tensor, rf_idx: torch.Tensor,
                 orl_idx: torch.Tensor) -> torch.Tensor:
         f_ste = self.STE_layer(vertices)
-        feature = hs_surface_fused(vertices, rf_idx, _normalize_dirs(self.directions),
-                                   self.support_num, self.kernel_num)
-        f_global = orl_global(feature, orl_idx)
+        dirs = _normalize_dirs(self.directions)
+        if self.training:
+            rf = neighbor_directions_normalized(vertices, rf_idx)
+            feature = hs_surface_reduce(rf, dirs, self.support_num, self.kernel_num)
+        else:
+            feature = hs_surface_fused(vertices, rf_idx, dirs, self.support_num,
+                                       self.kernel_num)
+        f_global = orl_global(feature, orl_idx, self.training)
         feature = self.conv2(_with_global(feature, f_global)) + feature
         return feature + f_ste
 
@@ -88,11 +103,17 @@ class HSLayer(nn.Module):
         s, co = self.support_num, self.out_channel
         f_ste = self.STE_layer(feature_map)
         feature_center = feature_map @ self.weights[:, :co] + self.bias[:co]
-        activation = hs_support_fused(feature_map, vertices, rf_idx,
-                                      self.weights[:, co:], self.bias[co:],
-                                      _normalize_dirs(self.directions), s, co)
+        dirs = _normalize_dirs(self.directions)
+        if self.training:
+            rf = neighbor_directions_normalized(vertices, rf_idx)
+            g = gather_neighbors(feature_map, rf_idx)
+            activation = hs_support_reduce(g, rf, self.weights[:, co:], self.bias[co:],
+                                           dirs, s, co)
+        else:
+            activation = hs_support_fused(feature_map, vertices, rf_idx,
+                                          self.weights[:, co:], self.bias[co:], dirs, s, co)
         feature = feature_center + activation
-        f_global = orl_global(feature, orl_idx)
+        f_global = orl_global(feature, orl_idx, self.training)
         feature = self.conv2(_with_global(feature, f_global)) + feature
         return feature + f_ste
 

@@ -1,6 +1,8 @@
-"""PoseNet9D, eval path (counterpart of ``hspose_tpu/models/posenet.py``):
-points are centred, go through the backbone, and the rotation and
-translation/size heads read the per-point features."""
+"""PoseNet9D (counterpart of ``hspose_tpu/models/posenet.py``): points are
+centred, go through the backbone, and the rotation and translation/size heads
+read the per-point features.  In train mode the recon cloud is moved back by
+the centre and the 30-d face tensor splits into unit normals (18), distances
+(6) and sigmoid confidences (6)."""
 
 from __future__ import annotations
 
@@ -23,23 +25,44 @@ class PoseNetOutput(NamedTuple):
     pred_s: torch.Tensor     # (B, 3) size residual
 
 
+class PoseNetTrainOutput(NamedTuple):
+    recon: torch.Tensor        # (B, N, 3) world-frame recon
+    face_normal: torch.Tensor  # (B, N, 6, 3) unit normals
+    face_dis: torch.Tensor     # (B, N, 6) distances
+    face_f: torch.Tensor       # (B, N, 6) confidences
+    p_green_R: torch.Tensor
+    p_red_R: torch.Tensor
+    f_green_R: torch.Tensor
+    f_red_R: torch.Tensor
+    pred_T: torch.Tensor
+    pred_s: torch.Tensor
+
+
 class PoseNet9D(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, train_heads: bool = False):
         super().__init__()
         feat_c = FEAT_C + cfg.obj_c
-        self.face_recon = FaceRecon(cfg, device=device)
+        self.face_recon = FaceRecon(cfg, device=device, train_heads=train_heads)
         self.rot_green = RotationHead(feat_c, device=device)
         self.rot_red = RotationHead(feat_c, device=device)
         self.ts = PoseTsHead(feat_c, device=device)
 
     def forward(self, points: torch.Tensor, obj_id: torch.Tensor,
-                pool_samples: Sequence[torch.Tensor]) -> PoseNetOutput:
+                pool_samples: Sequence[torch.Tensor],
+                dropout_keep: Sequence[torch.Tensor] | None = None):
+        """PoseNetOutput in eval mode, PoseNetTrainOutput in train mode.
+        ``dropout_keep``: the keep-masks of rot_green, rot_red and ts (train
+        mode; drawn when None)."""
+        keep = dropout_keep if dropout_keep is not None else (None, None, None)
         center = points.mean(dim=1, keepdim=True)
         centred = points - center
-        feat = self.face_recon(centred, obj_id, pool_samples)
+        if self.training:
+            recon, face, feat = self.face_recon(centred, obj_id, pool_samples)
+        else:
+            feat = self.face_recon(centred, obj_id, pool_samples)
 
-        green_vec = self.rot_green(feat)  # (B, 4)
-        red_vec = self.rot_red(feat)
+        green_vec = self.rot_green(feat, keep[0])  # (B, 4)
+        red_vec = self.rot_red(feat, keep[1])
         # the + 1e-6 in the denominators is the reference's, not a clamp
         p_green_R = green_vec[:, 1:] / (torch.linalg.vector_norm(
             green_vec[:, 1:], dim=-1, keepdim=True) + 1e-6)
@@ -48,6 +71,13 @@ class PoseNet9D(nn.Module):
         f_green_R = torch.sigmoid(green_vec[:, 0])
         f_red_R = torch.sigmoid(red_vec[:, 0])
 
-        T, s = self.ts(feat, centred)
-        return PoseNetOutput(p_green_R, p_red_R, f_green_R, f_red_R,
-                             T + center[:, 0, :], s)
+        T, s = self.ts(feat, centred, keep[2])
+        pose = (p_green_R, p_red_R, f_green_R, f_red_R, T + center[:, 0, :], s)
+        if not self.training:
+            return PoseNetOutput(*pose)
+        B, N = points.shape[:2]
+        face_normal = face[..., :18].reshape(B, N, 6, 3)
+        face_normal = face_normal / torch.linalg.vector_norm(face_normal, dim=-1,
+                                                             keepdim=True)  # no clamp
+        return PoseNetTrainOutput(recon + center, face_normal, face[..., 18:24],
+                                  torch.sigmoid(face[..., 24:]), *pose)

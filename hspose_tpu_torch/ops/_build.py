@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``hspose_tpu_torch/csrc/*.cu``).
 
-At first use, ``nvcc`` compiles every source into one shared library with a
-plain C interface, ``build/hspose_tpu_torch/libhspose_kernels-<sha>.so`` under
-the repository root, named by a hash of the sources so an edit rebuilds.  The
+At first use, ``nvcc`` compiles every source, one process per file, all
+started together, and links the objects into one shared library with a plain
+C interface, ``build/hspose_tpu_torch/libhspose_kernels-<sha>.so`` under the
+repository root, named by a hash of the sources so an edit rebuilds.  The
 library is loaded with ``ctypes``; each entry point takes device pointers,
 int sizes and the CUDA stream, launches without synchronising, and returns
 ``cudaGetLastError()``.  Nothing is built when this module is imported.
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hspose_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 # ptxas reports each kernel's registers, shared memory and spills into the
 # build log kept beside the library (<library>.log)
 PTXAS_REPORT = "-Xptxas=-v"
@@ -42,6 +43,21 @@ SIGNATURES = {
     "hs_orl": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # N -> tiles of the ORL partial-sum scratch (no launch)
     "hs_orl_tiles": [_I],
+    # rf, dirs, out, win, B, N, K, S, Co, stream
+    "hs_surface_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # rf, dirs, win, gb, drf, partial, dd, B, N, K, S, Co, stream
+    "hs_surface_bwd": [_P] * 7 + [_I] * 5 + [_P],
+    # B, N -> rows of the surface backward's partial-sum scratch (no launch)
+    "hs_surface_bwd_parts": [_I, _I],
+    # g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S, Co, stream
+    "hs_support_fwd": [_P, _P, _P, _I] + [_P] * 6 + [_I] * 6 + [_P],
+    # g, rf, w, ldw, dirs, win, twin, pwin, gb, dg, drf, wt, partial, red,
+    # B, N, K, Cin, S, Co, stream
+    "hs_support_bwd": [_P, _P, _P, _I] + [_P] * 10 + [_I] * 6 + [_P],
+    # B * N -> rows of the support backward's partial-sum scratch (no launch)
+    "hs_support_bwd_parts": [_I],
+    # K, Cin, Co -> 0 when the training support kernels take these sizes (no launch)
+    "hs_support_train_supported": [_I, _I, _I],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -78,19 +94,36 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    nvcc = _nvcc()
     # write to a private name, then rename: concurrent processes never load a
     # half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, PTXAS_REPORT, "-o", tmp, *cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = str(Path(objdir) / (src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, PTXAS_REPORT, "-c", str(src), "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.PIPE, text=True)))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            _, err = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + err)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-3]} ({proc.returncode}):\n{err}")
+        if not failed:
+            link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n{proc.stderr}")
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stderr)
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    out.with_suffix(".log").write_text("\n".join(log))
     os.replace(tmp, out)
     return out
 
@@ -141,3 +174,16 @@ def check(t, name: str, dtype, shape: tuple) -> None:
     if t.dim() != len(shape) or any(s is not None and s != d
                                     for s, d in zip(shape, t.shape)):
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+
+
+def check_rows(t, name: str, shape: tuple) -> None:
+    """Raise unless ``t`` is fp32 of ``shape`` (rows, cols) with each row
+    contiguous: a column slice of a wider matrix passes, with its row stride
+    given to the kernel."""
+    import torch
+
+    rows, cols = shape
+    if (t.dtype != torch.float32 or tuple(t.shape) != (rows, cols)
+            or t.stride(1) != 1 or t.stride(0) < cols):
+        raise ValueError(f"{name}: expected fp32 ({rows}, {cols}) with contiguous rows, "
+                         f"got {t.dtype} {tuple(t.shape)} strides {t.stride()}")

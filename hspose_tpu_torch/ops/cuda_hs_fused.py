@@ -11,7 +11,11 @@ CPU tensors, and on CUDA tensors launches its kernel or raises:
   projection, then the gather-theta-max-mean reduction);
 * ``orl_global_fused`` -> ``csrc/orl.cu``.
 
-Inputs are fp32 and ``idx`` int32, with values in [0, N).
+Inputs are fp32 and ``idx`` int32, with values in [0, N).  These are the
+serving forwards: the kernels fill their outputs outside autograd, so every
+wrapper raises when grad mode is on and a floating input requires grad, on
+either device, rather than return a result cut from the graph.  Training
+goes through ``ops/cuda_hs.py``.
 """
 
 from __future__ import annotations
@@ -56,6 +60,12 @@ def orl_global_plain(feature: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return gather_neighbors(feature, idx).amax(dim=2).mean(dim=1, keepdim=True)
 
 
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is a serving kernel with no backward: call it under "
+                           f"torch.no_grad(), or train through ops/cuda_hs.py")
+
+
 def _check_idx(idx: torch.Tensor, B: int, N: int) -> int:
     _build.check(idx, "idx", torch.int32, (B, N, None))
     return idx.shape[2]
@@ -64,6 +74,7 @@ def _check_idx(idx: torch.Tensor, B: int, N: int) -> int:
 def hs_surface_fused(vertices: torch.Tensor, idx: torch.Tensor, dirs: torch.Tensor,
                      support_num: int, out_channel: int) -> torch.Tensor:
     """HS surface reduction (conv_0); see ``hs_surface_plain``."""
+    _refuse_grad("hs_surface_fused", vertices, dirs)
     if _build.on_cpu(vertices, idx, dirs):
         return hs_surface_plain(vertices, idx, dirs, support_num, out_channel)
     S, co = support_num, out_channel
@@ -86,6 +97,7 @@ def hs_support_fused(feature_map: torch.Tensor, vertices: torch.Tensor,
     ``weights`` may be a column slice of a wider matrix (rows need not be
     adjacent, but each row must be)."""
     tensors = (feature_map, vertices, idx, weights, bias, dirs)
+    _refuse_grad("hs_support_fused", *tensors)
     if _build.on_cpu(*tensors):
         return hs_support_plain(*tensors, support_num, out_channel)
     S, co = support_num, out_channel
@@ -93,11 +105,7 @@ def hs_support_fused(feature_map: torch.Tensor, vertices: torch.Tensor,
     B, N, cin = feature_map.shape
     _build.check(vertices, "vertices", torch.float32, (B, N, 3))
     K = _check_idx(idx, B, N)
-    if (weights.dtype != torch.float32 or tuple(weights.shape) != (cin, S * co)
-            or weights.stride(1) != 1 or weights.stride(0) < S * co):
-        raise ValueError(f"weights: expected fp32 ({cin}, {S * co}) with "
-                         f"contiguous rows, got {weights.dtype} "
-                         f"{tuple(weights.shape)} strides {weights.stride()}")
+    _build.check_rows(weights, "weights", (cin, S * co))
     _build.check(bias, "bias", torch.float32, (S * co,))
     _build.check(dirs, "dirs", torch.float32, (3, S * co))
     proj = torch.empty((B, N, S * co), dtype=torch.float32, device=feature_map.device)
@@ -111,6 +119,7 @@ def hs_support_fused(feature_map: torch.Tensor, vertices: torch.Tensor,
 
 def orl_global_fused(feature: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """ORL global branch; see ``orl_global_plain``."""
+    _refuse_grad("orl_global_fused", feature)
     if _build.on_cpu(feature, idx):
         return orl_global_plain(feature, idx)
     _build.check(feature, "feature", torch.float32, (None, None, None))

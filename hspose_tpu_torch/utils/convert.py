@@ -8,6 +8,11 @@ mapping is mechanical:
 * BatchNorm ``scale`` / ``bias`` become ``weight`` / ``bias``, and the
   ``batch_stats`` ``mean`` / ``var`` become ``running_mean`` / ``running_var``;
 * the HS layers' ``weights`` / ``bias`` / ``directions`` keep their layout.
+
+The training tree (``init(..., train=True)``) also holds the train-only
+heads (``face_recon.conv1d_block``, ``recon_head``, ``face_head``); it loads
+into a model built with ``train_heads=True``.  The eval tree loads into a
+model built without them.
 """
 
 from __future__ import annotations
@@ -27,6 +32,21 @@ def _leaves(tree, prefix=()):
             yield from _leaves(value, prefix + (key,))
         else:
             yield prefix + (key,), value
+
+
+def port_name(flax_path: tuple, stats: bool = False) -> tuple[str, bool]:
+    """(port parameter or buffer name, whether the value is transposed) for a
+    leaf of the flax ``params`` tree, or of ``batch_stats`` when ``stats``."""
+    *mod, last = flax_path
+    if stats:
+        if last not in _STATS:
+            raise KeyError(f"batch_stats leaf {'/'.join(flax_path)} has no place in the port")
+        return ".".join(mod + [_STATS[last]]), False
+    if last == "kernel":
+        return ".".join(mod + ["weight"]), True
+    if last == "scale":
+        return ".".join(mod + ["weight"]), False
+    return ".".join(flax_path), False
 
 
 def load_jax_params(model: nn.Module, params: Mapping, batch_stats: Mapping) -> None:
@@ -53,19 +73,10 @@ def load_jax_params(model: nn.Module, params: Mapping, batch_stats: Mapping) -> 
             t.copy_(v)
         filled.add(name)
 
-    for path, leaf in _leaves(params):
-        *mod, last = path
-        if last == "kernel":
-            put(path, ".".join(mod + ["weight"]), np.asarray(leaf).T)
-        elif last == "scale":
-            put(path, ".".join(mod + ["weight"]), leaf)
-        else:
-            put(path, ".".join(path), leaf)
-    for path, leaf in _leaves(batch_stats):
-        *mod, last = path
-        if last not in _STATS:
-            raise KeyError(f"batch_stats leaf {'/'.join(path)} has no place in the port")
-        put(path, ".".join(mod + [_STATS[last]]), leaf)
+    for tree, stats in ((params, False), (batch_stats, True)):
+        for path, leaf in _leaves(tree):
+            name, transpose = port_name(path, stats)
+            put(path, name, np.asarray(leaf).T if transpose else leaf)
 
     unset = sorted(n for n in targets
                    if n not in filled and not n.endswith("num_batches_tracked"))

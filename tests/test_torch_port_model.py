@@ -199,7 +199,9 @@ def test_port_imports_neither_jax_nor_hspose_tpu():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'hspose_tpu'))\n"
         "assert not bad, bad\n"
-        "assert 'hspose_tpu_torch.models.hspose' in sys.modules\n")
+        "for m in ('models.hspose', 'ops.cuda_hs', 'engine.train_step', "
+        "'engine.optimizer', 'losses.recon_loss', 'data.augment', 'utils.synthetic'):\n"
+        "    assert 'hspose_tpu_torch.' + m in sys.modules, m\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -16,11 +16,13 @@ import pytest
 import torch
 
 from hspose_tpu.ops import knn as jknn
+from hspose_tpu.ops.pallas_hs import hs_support_reduce as j_support_reduce
+from hspose_tpu.ops.pallas_hs import hs_surface_reduce as j_surface_reduce
 from hspose_tpu.ops.pallas_hs_fused import hs_support_fused as j_support
 from hspose_tpu.ops.pallas_hs_fused import hs_surface_fused as j_surface
 from hspose_tpu.ops.pallas_hs_fused import orl_global_fused as j_orl
 from hspose_tpu.ops.pallas_knn import knn_indices_pallas
-from hspose_tpu_torch.ops import _build, cuda_hs_fused, knn
+from hspose_tpu_torch.ops import _build, cuda_hs, cuda_hs_fused, knn
 from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
 
 torch.set_num_threads(2)  # the suite runs several workers on one host
@@ -208,4 +210,140 @@ def test_build_is_lazy_and_named_by_source_hash():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libhspose_kernels-") and path.suffix == ".so"
     assert {p.name for p in _build._sources()} >= {
-        "knn.cu", "hs_surface.cu", "hs_support.cu", "orl.cu"}
+        "knn.cu", "hs_surface.cu", "hs_support.cu", "orl.cu", "hs_surface_train.cu",
+        "hs_support_train.cu"}
+
+
+# --------------------------------------------------------------------------- #
+# training kernels: the plain versions of K11-K13 and K15 through their
+# autograd Functions, against hspose_tpu/ops/pallas_hs.py in interpret mode
+# (exact=True, bwd_store=True) and jax.grad; atol 2e-4 as
+# tests/test_pallas_hs.py:118-146 (bf16x3 splits inside the Pallas kernels)
+# --------------------------------------------------------------------------- #
+
+def _unit_rows(rng, shape):
+    rf = rng.normal(size=shape).astype(np.float32)
+    return rf / np.linalg.norm(rf, axis=-1, keepdims=True)
+
+
+def _support_inputs(rng, B, N, K, cin, s, co, dup: bool):
+    g = rng.normal(size=(B, N, K, cin)).astype(np.float32)
+    rf = _unit_rows(rng, (B, N, K, 3))
+    if dup:  # duplicated points: rf = 0, theta = 0 for every support, ties at 0
+        rf[:, ::3, : K // 2] = 0.0
+        g[:, ::5, 1] = g[:, ::5, 0]
+    w = rng.normal(scale=0.2, size=(cin, s * co)).astype(np.float32)
+    b = rng.normal(scale=0.1, size=(s * co,)).astype(np.float32)
+    d = rng.normal(size=(3, s * co)).astype(np.float32)
+    cot = rng.normal(size=(B, N, co)).astype(np.float32)
+    return g, rf, w, b, d, cot
+
+
+def _torch_grads(fn, args, cot):
+    ts = [t(a).requires_grad_(True) for a in args]
+    out = fn(*ts)
+    (out * t(cot)).sum().backward()
+    return out.detach().numpy(), [x.grad.numpy() for x in ts]
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_support_reduce_function_matches_pallas(rng, dup):
+    B, N, K, cin, s, co = 2, 60, 6, 32, 3, 16
+    g, rf, w, b, d, cot = _support_inputs(rng, B, N, K, cin, s, co, dup)
+
+    def loss(g, rf, w, b, d):
+        out = j_support_reduce(g, rf, w, b, d, s, co, tq=32, interpret=True,
+                               bwd_store=True)
+        return jnp.sum(out * cot), out
+
+    (_, want), jgrads = jax.value_and_grad(loss, argnums=(0, 1, 2, 3, 4), has_aux=True)(
+        *(jnp.asarray(a) for a in (g, rf, w, b, d)))
+    got, grads = _torch_grads(lambda *a: cuda_hs.hs_support_reduce(*a, s, co),
+                              (g, rf, w, b, d), cot)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=2e-4)
+    for name, gt, gj in zip(["dg", "drf", "dw", "db", "dd"], grads, jgrads):
+        np.testing.assert_allclose(gt, np.asarray(gj), rtol=0, atol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_surface_reduce_function_matches_pallas(rng, dup):
+    B, N, K, s, co = 2, 50, 5, 4, 8
+    rf = _unit_rows(rng, (B, N, K, 3))
+    if dup:
+        rf[:, ::3, :3] = 0.0
+        rf[:, 1::4] = 0.0  # every neighbour a duplicate: all thetas tie at 0
+    d = rng.normal(size=(3, s * co)).astype(np.float32)
+    cot = rng.normal(size=(B, N, co)).astype(np.float32)
+
+    def loss(r, d):
+        out = j_surface_reduce(r, d, s, co, tq=32, interpret=True)
+        return jnp.sum(out * cot), out
+
+    (_, want), jgrads = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(rf), jnp.asarray(d))
+    got, grads = _torch_grads(lambda *a: cuda_hs.hs_surface_reduce(*a, s, co), (rf, d), cot)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=2e-4)
+    for name, gt, gj in zip(["drf", "dd"], grads, jgrads):
+        np.testing.assert_allclose(gt, np.asarray(gj), rtol=0, atol=2e-4, err_msg=name)
+
+
+def test_training_kernels_route_ties_to_the_first_k(rng):
+    """Equal products at several k: the plain forward records the first and
+    the backward sends the whole cotangent there (torch.amax would split it)."""
+    B, N, K, cin, s, co = 1, 4, 5, 4, 1, 4
+    g = np.ones((B, N, K, cin), np.float32)
+    rf = np.tile(np.array([0.0, 0.0, 1.0], np.float32), (B, N, K, 1))
+    w = np.ones((cin, s * co), np.float32)
+    b = np.zeros(s * co, np.float32)
+    d = np.tile(np.array([[0.0], [0.0], [1.0]], np.float32), (1, s * co))
+    out, win, twin, pwin = cuda_hs.hs_support_fwd_plain(*(t(a) for a in (g, rf, w, b, d)),
+                                                        s, co)
+    assert win.dtype == torch.int32 and int(win.abs().max()) == 0
+    np.testing.assert_allclose(out.numpy(), 4.0)
+    gb = torch.ones((B, N, co))
+    dg, drf, dw, db, dd = cuda_hs.hs_support_bwd_plain(
+        *(t(a) for a in (g, rf, w, d)), win, twin, pwin, gb, s, co)
+    assert float(dg[:, :, 1:].abs().max()) == 0.0 and float(dg[:, :, 0].min()) > 0
+    _, swin = cuda_hs.hs_surface_fwd_plain(t(rf), t(d), s, co)
+    assert int(swin.abs().max()) == 0
+
+
+def test_training_wrappers_count_no_launch_on_cpu(rng):
+    B, N, K, cin, s, co = 1, 20, 4, 8, 2, 4
+    g, rf, w, b, d, cot = _support_inputs(rng, B, N, K, cin, s, co, False)
+    wrappers = (cuda_hs.hs_surface_fwd, cuda_hs.hs_surface_bwd, cuda_hs.hs_support_fwd,
+                cuda_hs.hs_support_bwd)
+    before = [f.launches for f in wrappers]
+    _torch_grads(lambda *a: cuda_hs.hs_support_reduce(*a, s, co), (g, rf, w, b, d), cot)
+    _torch_grads(lambda *a: cuda_hs.hs_surface_reduce(*a, s, co), (rf, d), cot)
+    assert [f.launches for f in wrappers] == before
+
+
+def test_surface_function_returns_no_rf_grad_unless_asked(rng):
+    rf = t(_unit_rows(rng, (1, 10, 4, 3)))
+    d = t(rng.normal(size=(3, 8)).astype(np.float32)).requires_grad_(True)
+    cuda_hs.hs_surface_reduce(rf, d, 2, 4).sum().backward()
+    assert rf.grad is None and d.grad is not None
+
+
+@pytest.mark.parametrize("name", ["hs_surface_fused", "hs_support_fused", "orl_global_fused"])
+def test_serving_wrappers_refuse_inputs_that_require_grad(rng, name):
+    """The serving kernels have no backward: with grad on, an input that
+    requires grad raises on either device instead of returning a result cut
+    from the graph; under no_grad the same call runs."""
+    N, K, cin, s, co = 30, 4, 8, 2, 4
+    verts = t(rng.normal(size=(1, N, 3)).astype(np.float32))
+    idx = knn.knn_indices(verts, K)
+    feat = t(rng.normal(size=(1, N, cin)).astype(np.float32))
+    w = t(rng.normal(size=(cin, s * co)).astype(np.float32))
+    b = t(np.zeros(s * co, np.float32))
+    d = t(_unit_dirs(rng, s * co))
+    fn = getattr(cuda_hs_fused, name)
+    args, leaf = {"hs_surface_fused": ((verts, idx, d, s, co), d),
+                  "hs_support_fused": ((feat, verts, idx, w, b, d, s, co), feat),
+                  "orl_global_fused": ((feat, idx), feat)}[name]
+    leaf.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*args)
+    with torch.no_grad():
+        assert torch.isfinite(fn(*args)).all()
