@@ -19,12 +19,23 @@ not 0:
    weights, input and pooling samples through the plain ops on the CPU must
    agree within 1e-3;
 5. throughput: crops/s at B=24, fp32, best of 3 windows;
-6. training kernels: K12, K15, K11 and K13 against their plain versions at
+6. bf16 kernels: the packed-key KNN and the bf16 surface, support and ORL
+   kernels against their plain versions on the card at every shape the
+   B=24 bf16 forward gives them (KNN: >= 99.9% of the neighbours shared and
+   swapped neighbours within 2^-10 relative distance; the reductions within
+   1e-4 of the largest value), with kernel and plain times;
+7. bf16 slice: the same model built with ``compute_dtype="bfloat16"``
+   serves the same requests; the launch counters must show 9 packed-key
+   KNN, no exact KNN, 1 surface, 4 support and 5 ORL bf16 launches and no
+   fp32 HS launch per forward, the poses must be finite and orthonormal,
+   the plain ops on the CPU must agree within 3e-2, and the deviation from
+   the fp32 tier is printed; then crops/s at B=24 in bf16, best of 3;
+8. training kernels: K12, K15, K11 and K13 against their plain versions at
    every shape of the B=16, N=1028 train step: forwards within 1e-4 of the
    largest value, winners equal on >= 99.9% of entries and near-ties where
    not; backwards fed the same residuals as their plain versions, every
    cotangent within 1e-4 of its largest value; kernel and plain times;
-7. training slice: ``build_train_step`` at full width takes 3 steps on a
+9. training slice: ``build_train_step`` at full width takes 3 steps on a
    (16, 1028) synthetic batch; the launch counters must show 9 KNN, 1 + 1
    surface and 4 + 4 support training launches per step and no serving
    launch, the losses must be finite, the parameters move and the optimizer
@@ -56,6 +67,8 @@ TOL_REL = 1e-4  # K2-K4: max |kernel - plain| <= TOL_REL * max |plain| (summatio
 KNN_AGREE = 0.999  # K1: share of kernel neighbours in the plain version's set
 KNN_TIE_REL = 1e-5  # K1: sorted neighbour distances agree to this (fp32 near-ties)
 SLICE_ATOL = 1e-3  # card against CPU on the pose outputs
+KNN_SWAP_REL = 2.0 ** -10  # packed-key KNN: distance gap of a swapped neighbour
+SLICE_ATOL_BF16 = 3e-2  # bf16 tier, card against CPU on the pose outputs
 SEED = 0
 TRAIN_B = 16  # the train batch (train.batch_size)
 TRAIN_STEPS = 3
@@ -146,29 +159,40 @@ def record(rec: dict, name: str, err: float, ms: float, plain_ms: float) -> None
     r["plain_ms"] += plain_ms
 
 
-def phase_kernels() -> dict:
-    """Every kernel against its plain version at the forward's shapes.
-    Returns per-kernel records; ms and plain_ms sum the forward's calls."""
+def phase_kernels(dtype: str = "float32") -> dict:
+    """Every kernel of one tier against its plain version at the B=24
+    forward's shapes: the exact KNN and fp32 HS kernels, or the packed-key
+    KNN and the HS kernels' bf16 variants (xyz stays fp32, features are
+    bf16).  Returns per-kernel records; ms and plain_ms sum the forward's
+    calls."""
     from hspose_tpu_torch.ops.cuda_hs_fused import (
         hs_support_fused, hs_support_plain, hs_surface_fused, hs_surface_plain,
         orl_global_fused, orl_global_plain)
     from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
-    from hspose_tpu_torch.ops.knn import gather_neighbors, knn_indices
+    from hspose_tpu_torch.ops.knn import gather_neighbors, knn_indices, knn_indices_packed
 
+    fast = dtype == "bfloat16"
+    phase, tag = ("bf16-kernels", "_bf16") if fast else ("kernels", "")
+    knn_name, knn_plain = ("knn_packed", knn_indices_packed) if fast else ("knn", knn_indices)
+    knn_gap = KNN_SWAP_REL if fast else KNN_TIE_REL
     rng = np.random.default_rng(SEED)
     n1, n2 = N // 4, N // 16
     clouds = {n: cloud(rng, n) for n in (N, n1, n2)}
     rec = {}
 
-    def add(name, err, ms, plain_ms):
-        record(rec, name, err, ms, plain_ms)
+    def features(n, c):
+        x = normal(rng, B, n, c)
+        return x.to(torch.bfloat16) if fast else x
 
-    # K1: the nine searches of one forward, (points, D, k)
+    def knn_cuda(pts, k):
+        return knn_indices_cuda(pts, k, packed=fast)
+
+    # the nine searches of one forward, (points, D, k)
     for n, d, k in [(N, 3, 20), (N, 128, 20), (N, 3, 4),
                     (n1, 3, 20), (n1, 128, 20), (n1, 256, 20), (n1, 3, 4),
                     (n2, 3, 8), (n2, 256, 8)]:
-        pts = clouds[n] if d == 3 else normal(rng, B, n, d)
-        got, want = knn_indices_cuda(pts, k), knn_indices(pts, k)
+        pts = clouds[n] if d == 3 else features(n, d)
+        got, want = knn_cuda(pts, k), knn_plain(pts, k)
         torch.cuda.synchronize()
         agree = (got[..., :, None] == want[..., None, :]).any(-1).double().mean().item()
         p64 = pts.double()
@@ -180,64 +204,66 @@ def phase_kernels() -> dict:
         dg, dw = sorted_d(got), sorted_d(want)
         err = (dg - dw).abs().max().item()
         rel = ((dg - dw).abs() / dw.clamp_min(1e-30)).max().item()
-        ms = cuda_ms(lambda: knn_indices_cuda(pts, k))
-        pms = cuda_ms(lambda: knn_indices(pts, k))
-        log("kernels", f"K1 knn N={n} D={d} k={k}: agreement {agree:.6f}, max rel "
-                       f"distance gap {rel:.3e}, {ms:.4f} ms (plain {pms:.4f} ms)")
-        if agree < KNN_AGREE or rel > KNN_TIE_REL:
-            raise AssertionError(f"K1 knn N={n} D={d} k={k} disagrees with its plain "
+        ms = cuda_ms(lambda: knn_cuda(pts, k))
+        pms = cuda_ms(lambda: knn_plain(pts, k))
+        log(phase, f"{knn_name} N={n} D={d} {pts.dtype} k={k}: agreement {agree:.6f}, max "
+                   f"rel distance gap {rel:.3e}, {ms:.4f} ms (plain {pms:.4f} ms)")
+        if agree < KNN_AGREE or rel > knn_gap:
+            raise AssertionError(f"{knn_name} N={n} D={d} k={k} disagrees with its plain "
                                  f"version: agreement {agree}, distance gap {rel}")
-        add("knn", err, ms, pms)
+        record(rec, knn_name, err, ms, pms)
 
     def close(name, label, got, want, ms, pms):
         torch.cuda.synchronize()
         scale = want.abs().max().item()
         err = (got - want).abs().max().item()
-        log("kernels", f"{name} {label}: max abs err {err:.3e} (bound "
-                       f"{TOL_REL * scale:.3e}), {ms:.4f} ms (plain {pms:.4f} ms)")
-        if not err <= TOL_REL * scale:
+        log(phase, f"{name} {label}: max abs err {err:.3e} (bound "
+                   f"{TOL_REL * scale:.3e}), {ms:.4f} ms (plain {pms:.4f} ms)")
+        if not (err <= TOL_REL * scale and got.dtype == torch.float32):
             raise AssertionError(f"{name} {label}: error {err} > {TOL_REL} * {scale}")
-        add(name, err, ms, pms)
+        record(rec, name, err, ms, pms)
 
     S = 7
-    # K2: conv_0
-    verts, idx = clouds[N], knn_indices_cuda(clouds[N], 20)
+    # conv_0
+    verts, idx = clouds[N], knn_cuda(clouds[N], 20)
     dirs = unit_dirs(rng, S * 128)
     args = (verts, idx, dirs, S, 128)
-    close("hs_surface", f"conv_0 N={N} K=20 Co=128", hs_surface_fused(*args),
-          hs_surface_plain(*args), cuda_ms(lambda: hs_surface_fused(*args)),
-          cuda_ms(lambda: hs_surface_plain(*args)))
+    close("hs_surface" + tag, f"conv_0 N={N} K=20 Co=128",
+          hs_surface_fused(*args, exact=not fast), hs_surface_plain(*args, exact=not fast),
+          cuda_ms(lambda: hs_surface_fused(*args, exact=not fast)),
+          cuda_ms(lambda: hs_surface_plain(*args, exact=not fast)))
 
-    # K3: conv_1 .. conv_4, weights as column slices of the (Cin, (S+1)Co) matrix
+    # conv_1 .. conv_4, weights as column slices of the (Cin, (S+1)Co) matrix
     for layer, cin, co, n, k in [(1, 128, 128, N, 20), (2, 128, 256, n1, 20),
                                  (3, 256, 256, n1, 20), (4, 256, 512, n2, 8)]:
         stdv = 1.0 / (co * (S + 1)) ** 0.5
         w_full = normal(rng, cin, (S + 1) * co, scale=stdv)
         b_full = normal(rng, (S + 1) * co, scale=stdv)
-        args = (normal(rng, B, n, cin), clouds[n], knn_indices_cuda(clouds[n], k),
+        args = (features(n, cin), clouds[n], knn_cuda(clouds[n], k),
                 w_full[:, co:], b_full[co:], unit_dirs(rng, S * co), S, co)
-        close("hs_support", f"conv_{layer} {cin}->{co} N={n} K={k}",
+        close("hs_support" + tag, f"conv_{layer} {cin}->{co} N={n} K={k}",
               hs_support_fused(*args), hs_support_plain(*args),
               cuda_ms(lambda: hs_support_fused(*args)),
               cuda_ms(lambda: hs_support_plain(*args)))
 
-    # K4: the ORL branch of each layer
+    # the ORL branch of each layer
     for layer, c, n, k in [(0, 128, N, 20), (1, 128, N, 20), (2, 256, n1, 20),
                            (3, 256, n1, 20), (4, 512, n2, 8)]:
-        feat, idx = normal(rng, B, n, c), knn_indices_cuda(clouds[n], k)
-        close("orl_global", f"conv_{layer} C={c} N={n} K={k}",
+        feat, idx = features(n, c), knn_cuda(clouds[n], k)
+        close("orl_global" + tag, f"conv_{layer} C={c} N={n} K={k}",
               orl_global_fused(feat, idx), orl_global_plain(feat, idx),
               cuda_ms(lambda: orl_global_fused(feat, idx)),
               cuda_ms(lambda: orl_global_plain(feat, idx)))
     return rec
 
 
-def build_seeded_model(device):
+def build_seeded_model(device, dtype: str = "float32"):
+    """The serving model with weights from SEED: the same in both tiers."""
     from hspose_tpu_torch.config import ModelConfig
     from hspose_tpu_torch.models.hspose import build_model
 
     torch.manual_seed(SEED)
-    model = build_model(ModelConfig(), device=device)
+    model = build_model(ModelConfig(compute_dtype=dtype), device=device)
     g = torch.Generator().manual_seed(SEED + 1)
     with torch.no_grad():
         for m in model.modules():
@@ -248,19 +274,69 @@ def build_seeded_model(device):
     return model
 
 
-def counters():
-    from hspose_tpu_torch.ops import cuda_hs_fused, cuda_knn
+def counters() -> dict:
+    """Kernel name -> (wrapper, attribute holding its launch count)."""
+    from hspose_tpu_torch.ops import cuda_hs_fused as f
+    from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda as knn
 
-    return {"knn": cuda_knn.knn_indices_cuda, "hs_surface": cuda_hs_fused.hs_surface_fused,
-            "hs_support": cuda_hs_fused.hs_support_fused,
-            "orl_global": cuda_hs_fused.orl_global_fused}
+    return {"knn": (knn, "launches"), "hs_surface": (f.hs_surface_fused, "launches"),
+            "hs_support": (f.hs_support_fused, "launches"),
+            "orl_global": (f.orl_global_fused, "launches"),
+            "knn_packed": (knn, "packed_launches"),
+            "hs_surface_bf16": (f.hs_surface_fused, "bf16_launches"),
+            "hs_support_bf16": (f.hs_support_fused, "bf16_launches"),
+            "orl_global_bf16": (f.orl_global_fused, "bf16_launches")}
 
 
-def phase_slice() -> dict:
+def reset_counts(counts: dict) -> None:
+    for fn, attr in counts.values():
+        setattr(fn, attr, 0)
+
+
+def read_counts(counts: dict) -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in counts.items()}
+
+
+def check_counts(launches: dict, per_run: dict, runs: int, what: str) -> None:
+    """Every counter must read its per-run count times ``runs``; a kernel
+    missing from ``per_run`` must not have launched."""
+    for name, n in launches.items():
+        if n != per_run.get(name, 0) * runs:
+            raise AssertionError(f"{name}: {n} launches, expected {per_run.get(name, 0)} "
+                                 f"per {what}")
+
+
+SERVE_LAUNCHES = {
+    "float32": {"knn": 9, "hs_surface": 1, "hs_support": 4, "orl_global": 5},
+    "bfloat16": {"knn_packed": 9, "hs_surface_bf16": 1, "hs_support_bf16": 4,
+                 "orl_global_bf16": 5},
+}
+
+
+def serve_requests(model, requests, samples, obj, sym) -> list:
+    from hspose_tpu_torch.geometry.rotations import generate_RT
+    from hspose_tpu_torch.models.hspose import eval_forward
+
+    results = []
+    for pc, smp in zip(requests, samples):
+        out = eval_forward(model, pc, obj, pool_samples=smp)
+        results.append((out, generate_RT(out.p_green_R, out.p_red_R, out.f_green_R,
+                                         out.f_red_R, out.pred_T, sym)))
+    torch.cuda.synchronize()
+    return results
+
+
+def phase_slice(dtype: str = "float32", fp32_results: list | None = None):
+    """A few requests through the serving path of one tier: launch counts,
+    finite orthonormal poses, card against the CPU plain ops; for bf16 also
+    the deviation from the fp32 tier's ``fp32_results``.  Returns the
+    launches and the results."""
     from hspose_tpu_torch.geometry.rotations import generate_RT
     from hspose_tpu_torch.models.hspose import draw_pool_samples, eval_forward
 
-    model = build_seeded_model(DEVICE)
+    phase = "slice" if dtype == "float32" else "bf16-slice"
+    bound = SLICE_ATOL if dtype == "float32" else SLICE_ATOL_BF16
+    model = build_seeded_model(DEVICE, dtype)
     rng = np.random.default_rng(SEED + 2)
     obj = torch.arange(B, device=DEVICE) % 6
     sym = torch.tensor([[0, 1, 0, 0]], dtype=torch.float32, device=DEVICE).repeat(B, 1)
@@ -268,22 +344,12 @@ def phase_slice() -> dict:
     requests = [cloud(rng, N) for _ in range(REQUESTS)]
     samples = [draw_pool_samples(N, gen, DEVICE) for _ in range(REQUESTS)]
 
-    wrappers = counters()
-    for fn in wrappers.values():
-        fn.launches = 0
-    results = []
-    for pc, smp in zip(requests, samples):
-        out = eval_forward(model, pc, obj, pool_samples=smp)
-        results.append((out, generate_RT(out.p_green_R, out.p_red_R, out.f_green_R,
-                                         out.f_red_R, out.pred_T, sym)))
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    want = {"knn": 9, "hs_surface": 1, "hs_support": 4, "orl_global": 5}
-    log("slice", f"{REQUESTS} requests of ({B}, {N}, 3): launches {launches}")
-    for name, per_forward in want.items():
-        if launches[name] != per_forward * REQUESTS:
-            raise AssertionError(f"{name}: {launches[name]} launches, expected "
-                                 f"{per_forward} per forward")
+    counts = counters()
+    reset_counts(counts)
+    results = serve_requests(model, requests, samples, obj, sym)
+    launches = read_counts(counts)
+    log(phase, f"{REQUESTS} requests of ({B}, {N}, 3): launches {launches}")
+    check_counts(launches, SERVE_LAUNCHES[dtype], REQUESTS, "forward")
 
     eye = torch.eye(3, device=DEVICE)
     for i, (out, RT) in enumerate(results):
@@ -293,8 +359,8 @@ def phase_slice() -> dict:
         R = RT[:, :3, :3]
         ortho = (R.transpose(1, 2) @ R - eye).abs().max().item()
         det = (torch.linalg.det(R) - 1).abs().max().item()
-        log("slice", f"request {i}: |R^T R - I| {ortho:.2e}, |det R - 1| {det:.2e}, "
-                     f"RT shape {tuple(RT.shape)}")
+        log(phase, f"request {i}: |R^T R - I| {ortho:.2e}, |det R - 1| {det:.2e}, "
+                   f"RT shape {tuple(RT.shape)}")
         if not (ortho < 1e-4 and det < 1e-4 and RT.shape == (B, 4, 4)):
             raise AssertionError(f"request {i}: R is not a rotation")
 
@@ -308,19 +374,32 @@ def phase_slice() -> dict:
     diffs = {name: (a.cpu() - b).abs().max().item()
              for name, a, b in zip(out._fields, out, out_cpu)}
     diffs["RT"] = (RT.cpu() - RT_cpu).abs().max().item()
-    log("slice", "card against CPU plain ops, max abs diff: "
-                 + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
-    bad = {k: v for k, v in diffs.items() if not v <= SLICE_ATOL}
+    log(phase, "card against CPU plain ops, max abs diff: "
+               + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
+    bad = {k: v for k, v in diffs.items() if not v <= bound}
     if bad:
-        raise AssertionError(f"card and CPU disagree beyond {SLICE_ATOL}: {bad}")
-    return launches
+        raise AssertionError(f"card and CPU disagree beyond {bound}: {bad}")
+
+    if fp32_results is not None:
+        dev = {name: max((a - b).abs().max().item()
+                         for (o, _), (o32, _) in zip(results, fp32_results)
+                         for a, b in [(getattr(o, name), getattr(o32, name))])
+               for name in out._fields}
+        R, R32 = (torch.cat([rt[:, :3, :3] for _, rt in res]) for res in (results, fp32_results))
+        cos = ((R32.transpose(1, 2) @ R).diagonal(dim1=1, dim2=2).sum(-1) - 1) / 2
+        angle = torch.rad2deg(torch.arccos(cos.clamp(-1, 1)))
+        log(phase, f"deviation from the fp32 tier over {REQUESTS * B} crops, max abs: "
+                   + ", ".join(f"{k} {v:.2e}" for k, v in dev.items())
+                   + f"; rotation angle mean {angle.mean().item():.4f} deg, max "
+                     f"{angle.max().item():.4f} deg")
+    return launches, results
 
 
-def phase_throughput(smi: str) -> None:
+def phase_throughput(smi: str, dtype: str = "float32") -> float:
     from hspose_tpu_torch.geometry.rotations import generate_RT
     from hspose_tpu_torch.models.hspose import eval_forward
 
-    model = build_seeded_model(DEVICE)
+    model = build_seeded_model(DEVICE, dtype)
     pc = cloud(np.random.default_rng(SEED + 3), N)
     obj = torch.arange(B, device=DEVICE) % 6
     sym = torch.tensor([[0, 1, 0, 0]], dtype=torch.float32, device=DEVICE).repeat(B, 1)
@@ -341,15 +420,18 @@ def phase_throughput(smi: str) -> None:
             serve()
         torch.cuda.synchronize()
         rates.append(B * iters / (time.perf_counter() - t0))
-    log("throughput", f"{max(rates)} crops/s at B={B} fp32 (best of 3 windows of "
+    tier = "fp32" if dtype == "float32" else "bf16"
+    log("throughput", f"{max(rates)} crops/s at B={B} {tier} (best of 3 windows of "
                       f"{iters} forwards: {rates}) on {smi}")
+    return max(rates)
 
 
-def train_counters():
+def train_counters() -> dict:
     from hspose_tpu_torch.ops import cuda_hs
 
-    return {"hs_surface_fwd": cuda_hs.hs_surface_fwd, "hs_surface_bwd": cuda_hs.hs_surface_bwd,
-            "hs_support_fwd": cuda_hs.hs_support_fwd, "hs_support_bwd": cuda_hs.hs_support_bwd}
+    return {name: (getattr(cuda_hs, name), "launches")
+            for name in ("hs_surface_fwd", "hs_surface_bwd", "hs_support_fwd",
+                         "hs_support_bwd")}
 
 
 def phase_train_kernels() -> dict:
@@ -510,20 +592,15 @@ def phase_train(smi: str) -> dict:
     batch = to_device(synthetic_train_batch(TRAIN_B, N, seed=SEED), DEVICE)
     before = [p.detach().clone() for p in model.parameters()]
 
-    wrappers = {**counters(), **train_counters()}
-    for fn in wrappers.values():
-        fn.launches = 0
+    counts = {**counters(), **train_counters()}
+    reset_counts(counts)
     metrics = [step(batch) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_counts(counts)
     log("train", f"{TRAIN_STEPS} steps of ({TRAIN_B}, {N}, 3): launches {launches}")
-    want = {"knn": 9, "hs_surface": 0, "hs_support": 0, "orl_global": 0,
-            "hs_surface_fwd": 1, "hs_surface_bwd": 1, "hs_support_fwd": 4,
-            "hs_support_bwd": 4}
-    for name, per_step in want.items():
-        if launches[name] != per_step * TRAIN_STEPS:
-            raise AssertionError(f"{name}: {launches[name]} launches, expected "
-                                 f"{per_step} per train step")
+    check_counts(launches, {"knn": 9, "hs_surface_fwd": 1, "hs_surface_bwd": 1,
+                            "hs_support_fwd": 4, "hs_support_bwd": 4}, TRAIN_STEPS,
+                 "train step")
     for i, m in enumerate(metrics):
         log("train", f"step {i}: total_loss {m['total_loss']:.6f}, skipped_nan "
                      f"{m['skipped_nan']}, {len(m) - 2} loss terms")
@@ -581,6 +658,15 @@ SOURCES = {
     "hs_support": ("hspose_tpu_torch/csrc/hs_support.cu",
                    "hspose_tpu/ops/pallas_hs_fused.py:219"),
     "orl_global": ("hspose_tpu_torch/csrc/orl.cu", "hspose_tpu/ops/pallas_hs_fused.py:358"),
+    # the bf16 tier: K1's packed-key branch (which also ports K7, :91), and the
+    # exact=False branches of K2-K4, the same sources instantiated for bf16
+    "knn_packed": ("hspose_tpu_torch/csrc/knn.cu", "hspose_tpu/ops/pallas_knn.py:213"),
+    "hs_surface_bf16": ("hspose_tpu_torch/csrc/hs_surface.cu",
+                        "hspose_tpu/ops/pallas_hs_fused.py:299"),
+    "hs_support_bf16": ("hspose_tpu_torch/csrc/hs_support.cu",
+                        "hspose_tpu/ops/pallas_hs_fused.py:219"),
+    "orl_global_bf16": ("hspose_tpu_torch/csrc/orl.cu",
+                        "hspose_tpu/ops/pallas_hs_fused.py:358"),
     "hs_support_fwd": ("hspose_tpu_torch/csrc/hs_support_train.cu",
                        "hspose_tpu/ops/pallas_hs.py:151"),
     "hs_surface_fwd": ("hspose_tpu_torch/csrc/hs_surface_train.cu",
@@ -599,8 +685,14 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     rec = phase_kernels()
-    launches = phase_slice()
-    phase_throughput(smi)
+    launches, fp32_results = phase_slice()
+    fp32_rate = phase_throughput(smi)
+    rec.update(phase_kernels("bfloat16"))
+    bf16_launches, _ = phase_slice("bfloat16", fp32_results)
+    launches.update({name: bf16_launches[name] for name in SERVE_LAUNCHES["bfloat16"]})
+    bf16_rate = phase_throughput(smi, "bfloat16")
+    log("throughput", f"bf16 / fp32 at B={B}: {bf16_rate:.1f} / {fp32_rate:.1f} crops/s "
+                      f"= {bf16_rate / fp32_rate:.3f}")
     rec.update(phase_train_kernels())
     train_launches = phase_train(smi)
     launches.update({name: train_launches[name] for name in train_counters()})

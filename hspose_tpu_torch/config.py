@@ -3,8 +3,8 @@
 Defaults are copied from ``hspose_tpu/config.py`` (``ModelConfig``,
 ``DataConfig.num_points``, ``AugConfig``, ``LossConfig``, ``OptimConfig`` and
 the ``TrainConfig`` fields the train step reads), leaving out the fields that
-neither package reads.  ``compute_dtype`` other than ``"float32"`` is not
-ported yet and raises where the model is built.
+neither package reads.  ``compute_dtype`` is ``"float32"`` or ``"bfloat16"``;
+``"f32x2"`` raises where the model is built.
 """
 
 from __future__ import annotations

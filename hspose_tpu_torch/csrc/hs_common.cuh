@@ -1,18 +1,39 @@
-// Shared pieces of the HS kernels (hs_surface.cu, hs_support.cu,
-// hs_surface_train.cu, hs_support_train.cu).
+// Shared pieces of the port's kernels (knn.cu, orl.cu, hs_surface.cu,
+// hs_support.cu, hs_surface_train.cu, hs_support_train.cu).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace hs {
 
 constexpr int SMEM_DEFAULT = 48 * 1024;
 
+// An operand element as fp32, from fp32 or bf16 storage.
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// The value x takes as a bf16 operand (round to nearest even), as fp32.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // Stage the unit receptive-field directions of queries q0 .. q0 + tq - 1 into
 // shared memory: srf[(t * K + j) * 3 + d] = normalize(v[idx[q, j]] - v[q])[d],
 // with the norm clamped at 1e-12 so a duplicated point gives exactly 0
 // (hspose_tpu/ops/knn.py::neighbor_directions_normalized).  When sidx is not
 // null it also receives the neighbour indices.  Rows past N are zero.
+//
+// FAST is the bf16 tier (hspose_tpu/ops/pallas_hs_fused.py, exact=False):
+// xyz rounded to bf16 (_xyz_parts), rf = v - c, norm = sqrt((r0^2 + r1^2) +
+// r2^2), rfn = rf * (1 / max(norm, 1e-12)) in fp32 (_rf_chain), then rfn
+// rounded to bf16 for the one-pass theta (_theta_relu).  A bf16 ulp of rfn
+// can move the max over k, so each step is a correctly rounded operation that
+// the compiler may not fuse into another (__f*_rn where a product meets a
+// sum), in the order of the plain version
+// (ops/cuda_hs_fused.py::_rf_fast); centre and neighbour round alike, so a
+// duplicated point still gives exactly 0.
+template <bool FAST = false>
 __device__ inline void stage_rf(const float* __restrict__ verts, const int* __restrict__ idx,
                                 float* srf, int* sidx, int b, int q0, int tq, int N, int K) {
   for (int e = threadIdx.x; e < tq * K; e += blockDim.x) {
@@ -23,13 +44,25 @@ __device__ inline void stage_rf(const float* __restrict__ verts, const int* __re
       nb = idx[((size_t)b * N + q) * K + j];
       const float* c = verts + ((size_t)b * N + q) * 3;
       const float* v = verts + ((size_t)b * N + nb) * 3;
-      r0 = v[0] - c[0];
-      r1 = v[1] - c[1];
-      r2 = v[2] - c[2];
-      const float den = fmaxf(sqrtf(r0 * r0 + r1 * r1 + r2 * r2), 1e-12f);
-      r0 /= den;
-      r1 /= den;
-      r2 /= den;
+      if constexpr (FAST) {
+        r0 = bf16_round(v[0]) - bf16_round(c[0]);
+        r1 = bf16_round(v[1]) - bf16_round(c[1]);
+        r2 = bf16_round(v[2]) - bf16_round(c[2]);
+        const float sq = __fadd_rn(__fadd_rn(__fmul_rn(r0, r0), __fmul_rn(r1, r1)),
+                                   __fmul_rn(r2, r2));
+        const float inv = __fdiv_rn(1.f, fmaxf(__fsqrt_rn(sq), 1e-12f));
+        r0 = bf16_round(__fmul_rn(r0, inv));
+        r1 = bf16_round(__fmul_rn(r1, inv));
+        r2 = bf16_round(__fmul_rn(r2, inv));
+      } else {
+        r0 = v[0] - c[0];
+        r1 = v[1] - c[1];
+        r2 = v[2] - c[2];
+        const float den = fmaxf(sqrtf(r0 * r0 + r1 * r1 + r2 * r2), 1e-12f);
+        r0 /= den;
+        r1 /= den;
+        r2 /= den;
+      }
     }
     srf[e * 3 + 0] = r0;
     srf[e * 3 + 1] = r1;
@@ -38,9 +71,13 @@ __device__ inline void stage_rf(const float* __restrict__ verts, const int* __re
   }
 }
 
-// Copy the (3, n) direction matrix into shared memory.
+// Copy the (3, n) direction matrix into shared memory; FAST rounds each
+// direction to bf16 (_w_parts).  With bf16 rfn and directions every product
+// of theta = r0 d0 + r1 d1 + r2 d2 is exact in fp32, so the compiler's fused
+// multiply-adds give the same sums as the plain version's ordered adds.
+template <bool FAST = false>
 __device__ inline void stage_dirs(const float* __restrict__ dirs, float* sd, int n) {
-  for (int e = threadIdx.x; e < 3 * n; e += blockDim.x) sd[e] = dirs[e];
+  for (int e = threadIdx.x; e < 3 * n; e += blockDim.x) sd[e] = FAST ? bf16_round(dirs[e]) : dirs[e];
 }
 
 // Allow a kernel more than the default 48 KB of dynamic shared memory.

@@ -22,8 +22,18 @@
 // directions in shared memory; each thread runs, per support, the max over k
 // of relu(theta) * P[neighbour] with coalesced loads of P rows, then sums the
 // supports in order.  No (B, N, K, ...) tensor exists.
+//
+// The bf16 tier (exact=False of the same TPU kernel) instantiates both with
+// bf16 operands: the GEMM reads bf16 features and rounds each weight to bf16
+// as it stages it (_w_parts), so every product is exact and the sum is fp32,
+// as the TPU kernel's one-pass bf16 product with fp32 accumulation (_mm);
+// P stays fp32 with the fp32 bias.  The reduction stages bf16-rounded rf
+// rows and directions (hs_common.cuh).  Projecting before the gather gives
+// each gathered row the same value as the TPU kernel's gather-then-project.
+// The GEMM runs on the CUDA cores; tensor cores are later work.
 
 #include <cfloat>
+#include <type_traits>
 
 #include "hs_common.cuh"
 
@@ -33,8 +43,9 @@ constexpr int BM = 64, BN = 64, BK = 16;
 constexpr int GEMM_THREADS = 256;
 constexpr int APAD = BM + 4;  // row stride of the transposed A tile
 
+template <typename TA>
 __global__ void __launch_bounds__(GEMM_THREADS)
-project_kernel(const float* __restrict__ A, const float* __restrict__ W, int ldw,
+project_kernel(const TA* __restrict__ A, const float* __restrict__ W, int ldw,
                const float* __restrict__ bias, float* __restrict__ C, int M, int Kd, int Nc) {
   __shared__ __align__(16) float As[BK][APAD];  // As[k][m]
   __shared__ __align__(16) float Ws[BK][BN];
@@ -50,11 +61,13 @@ project_kernel(const float* __restrict__ A, const float* __restrict__ W, int ldw
   for (int k0 = 0; k0 < Kd; k0 += BK) {
     for (int e = tid; e < BM * BK; e += GEMM_THREADS) {
       const int r = e / BK, c = e % BK;
-      As[c][r] = (m0 + r < M && k0 + c < Kd) ? A[(size_t)(m0 + r) * Kd + k0 + c] : 0.f;
+      As[c][r] = (m0 + r < M && k0 + c < Kd) ? hs::load_f(A + (size_t)(m0 + r) * Kd + k0 + c)
+                                             : 0.f;
     }
     for (int e = tid; e < BK * BN; e += GEMM_THREADS) {
       const int r = e / BN, c = e % BN;
-      Ws[r][c] = (k0 + r < Kd && n0 + c < Nc) ? W[(size_t)(k0 + r) * ldw + n0 + c] : 0.f;
+      const float w = (k0 + r < Kd && n0 + c < Nc) ? W[(size_t)(k0 + r) * ldw + n0 + c] : 0.f;
+      Ws[r][c] = std::is_same_v<TA, __nv_bfloat16> ? hs::bf16_round(w) : w;
     }
     __syncthreads();
 #pragma unroll
@@ -86,6 +99,7 @@ project_kernel(const float* __restrict__ A, const float* __restrict__ W, int ldw
 constexpr int TQ = 8;
 constexpr int THREADS = 128;
 
+template <bool FAST>
 __global__ void __launch_bounds__(THREADS)
 reduce_kernel(const float* __restrict__ proj, const float* __restrict__ verts,
               const int* __restrict__ idx, const float* __restrict__ dirs,
@@ -97,8 +111,8 @@ reduce_kernel(const float* __restrict__ proj, const float* __restrict__ verts,
   int* sidx = reinterpret_cast<int*>(srf + TQ * K * 3);  // (TQ, K)
   const int b = blockIdx.y, q0 = blockIdx.x * TQ;
 
-  hs::stage_dirs(dirs, sd, SC);
-  hs::stage_rf(verts, idx, srf, sidx, b, q0, TQ, N, K);
+  hs::stage_dirs<FAST>(dirs, sd, SC);
+  hs::stage_rf<FAST>(verts, idx, srf, sidx, b, q0, TQ, N, K);
   __syncthreads();
 
   const float* Pb = proj + (size_t)b * N * SC;
@@ -122,27 +136,45 @@ reduce_kernel(const float* __restrict__ proj, const float* __restrict__ verts,
   }
 }
 
-}  // namespace
-
-// feat (rows, Cin) @ W (Cin, Cout; row stride ldw) + b (Cout) -> proj (rows, Cout).
-extern "C" int hs_support_project(const float* feat, const float* w, int ldw, const float* b,
-                                  float* proj, int rows, int Cin, int Cout, void* stream) {
+template <typename TA>
+int project(const TA* feat, const float* w, int ldw, const float* b, float* proj, int rows,
+            int Cin, int Cout, cudaStream_t stream) {
   const dim3 grid((Cout + BN - 1) / BN, (rows + BM - 1) / BM);
-  project_kernel<<<grid, GEMM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      feat, w, ldw, b, proj, rows, Cin, Cout);
+  project_kernel<TA><<<grid, GEMM_THREADS, 0, stream>>>(feat, w, ldw, b, proj, rows, Cin, Cout);
   return (int)cudaGetLastError();
 }
 
-// proj (B, N, S*Co), verts (B, N, 3), idx (B, N, K) int32, dirs (3, S*Co) -> out (B, N, Co).
-extern "C" int hs_support_reduce(const float* proj, const float* verts, const int* idx,
-                                 const float* dirs, float* out, int B, int N, int K, int S,
-                                 int Co, void* stream) {
+template <bool FAST>
+int reduce(const float* proj, const float* verts, const int* idx, const float* dirs, float* out,
+           int B, int N, int K, int S, int Co, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (3 * (size_t)S * Co + (size_t)TQ * K * 3) +
                       sizeof(int) * (size_t)TQ * K;
-  cudaError_t err = hs::allow_smem(reduce_kernel, smem);
+  cudaError_t err = hs::allow_smem(reduce_kernel<FAST>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + TQ - 1) / TQ, B);
-  reduce_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      proj, verts, idx, dirs, out, N, K, S, Co);
+  reduce_kernel<FAST><<<grid, THREADS, smem, stream>>>(proj, verts, idx, dirs, out, N, K, S, Co);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// feat (rows, Cin) @ W (Cin, Cout; row stride ldw) + b (Cout) -> proj (rows, Cout).
+// fast != 0: feat is bf16 and W is rounded to bf16 (the bf16 tier); else both fp32.
+extern "C" int hs_support_project(const void* feat, int fast, const float* w, int ldw,
+                                  const float* b, float* proj, int rows, int Cin, int Cout,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return fast ? project(static_cast<const __nv_bfloat16*>(feat), w, ldw, b, proj, rows, Cin,
+                        Cout, s)
+              : project(static_cast<const float*>(feat), w, ldw, b, proj, rows, Cin, Cout, s);
+}
+
+// proj (B, N, S*Co), verts (B, N, 3), idx (B, N, K) int32, dirs (3, S*Co) -> out (B, N, Co);
+// fast != 0 runs the bf16 tier.
+extern "C" int hs_support_reduce(const float* proj, const float* verts, const int* idx,
+                                 const float* dirs, float* out, int B, int N, int K, int S,
+                                 int Co, int fast, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return fast ? reduce<true>(proj, verts, idx, dirs, out, B, N, K, S, Co, s)
+              : reduce<false>(proj, verts, idx, dirs, out, B, N, K, S, Co, s);
 }

@@ -15,6 +15,10 @@
 // holds one support's direction in registers while it runs the max over k,
 // and sums the supports in order.  The Pallas one-hot MXU gather is a plain
 // indexed load here.
+//
+// FAST is the bf16 tier (exact=False of the same TPU kernel): the staged
+// directions and rf rows are rounded as hs_common.cuh says, the rest is
+// unchanged; accumulation and output stay fp32.
 
 #include "hs_common.cuh"
 
@@ -23,6 +27,7 @@ namespace {
 constexpr int TQ = 16;
 constexpr int THREADS = 128;
 
+template <bool FAST>
 __global__ void __launch_bounds__(THREADS)
 surface_kernel(const float* __restrict__ verts, const int* __restrict__ idx,
                const float* __restrict__ dirs, float* __restrict__ out,
@@ -33,8 +38,8 @@ surface_kernel(const float* __restrict__ verts, const int* __restrict__ idx,
   float* srf = smem + 3 * SC;  // (TQ, K, 3)
   const int b = blockIdx.y, q0 = blockIdx.x * TQ;
 
-  hs::stage_dirs(dirs, sd, SC);
-  hs::stage_rf(verts, idx, srf, nullptr, b, q0, TQ, N, K);
+  hs::stage_dirs<FAST>(dirs, sd, SC);
+  hs::stage_rf<FAST>(verts, idx, srf, nullptr, b, q0, TQ, N, K);
   __syncthreads();
 
   const int tq = min(TQ, N - q0);
@@ -55,16 +60,24 @@ surface_kernel(const float* __restrict__ verts, const int* __restrict__ idx,
   }
 }
 
-}  // namespace
-
-// verts (B, N, 3), idx (B, N, K) int32, dirs (3, S*Co) -> out (B, N, Co).
-extern "C" int hs_surface(const float* verts, const int* idx, const float* dirs, float* out,
-                          int B, int N, int K, int S, int Co, void* stream) {
+template <bool FAST>
+int launch(const float* verts, const int* idx, const float* dirs, float* out, int B, int N,
+           int K, int S, int Co, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (3 * (size_t)S * Co + (size_t)TQ * K * 3);
-  cudaError_t err = hs::allow_smem(surface_kernel, smem);
+  cudaError_t err = hs::allow_smem(surface_kernel<FAST>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + TQ - 1) / TQ, B);
-  surface_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      verts, idx, dirs, out, N, K, S, Co);
+  surface_kernel<FAST><<<grid, THREADS, smem, stream>>>(verts, idx, dirs, out, N, K, S, Co);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// verts (B, N, 3), idx (B, N, K) int32, dirs (3, S*Co) -> out (B, N, Co);
+// fast != 0 runs the bf16 tier.
+extern "C" int hs_surface(const float* verts, const int* idx, const float* dirs, float* out,
+                          int B, int N, int K, int S, int Co, int fast, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return fast ? launch<true>(verts, idx, dirs, out, B, N, K, S, Co, s)
+              : launch<false>(verts, idx, dirs, out, B, N, K, S, Co, s);
 }

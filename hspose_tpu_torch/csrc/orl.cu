@@ -15,18 +15,24 @@
 // partial[b, tile, c].  A second small launch sums the tiles in order and
 // divides by N.  Both sums have a fixed order, with no atomics, so the result
 // is the same from run to run.
-
-#include <cuda_runtime.h>
+//
+// The bf16 tier (exact=False of the same TPU kernel) instantiates the first
+// launch on bf16 features, which halves the bytes read; the maxima are bf16
+// values and every sum stays fp32, as the TPU kernel's exact one-hot gather
+// of bf16 rows with fp32 accumulation.
 
 #include <cfloat>
+
+#include "hs_common.cuh"
 
 namespace {
 
 constexpr int TQ = 32;
 constexpr int THREADS = 128;
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-orl_partial_kernel(const float* __restrict__ feat, const int* __restrict__ idx,
+orl_partial_kernel(const T* __restrict__ feat, const int* __restrict__ idx,
                    float* __restrict__ partial, int N, int K, int C) {
   extern __shared__ int sidx[];  // (TQ, K)
   const int b = blockIdx.y, tile = blockIdx.x, q0 = tile * TQ;
@@ -35,12 +41,12 @@ orl_partial_kernel(const float* __restrict__ feat, const int* __restrict__ idx,
     sidx[e] = idx[((size_t)b * N + q0) * K + e];
   __syncthreads();
 
-  const float* Fb = feat + (size_t)b * N * C;
+  const T* Fb = feat + (size_t)b * N * C;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     float sum = 0.f;
     for (int t = 0; t < tq; ++t) {
       float m = -FLT_MAX;
-      for (int j = 0; j < K; ++j) m = fmaxf(m, Fb[(size_t)sidx[t * K + j] * C + c]);
+      for (int j = 0; j < K; ++j) m = fmaxf(m, hs::load_f(Fb + (size_t)sidx[t * K + j] * C + c));
       sum += m;
     }
     partial[((size_t)b * gridDim.x + tile) * C + c] = sum;
@@ -58,20 +64,28 @@ orl_finish_kernel(const float* __restrict__ partial, float* __restrict__ out, in
   }
 }
 
+template <typename T>
+int launch(const T* feat, const int* idx, float* partial, float* out, int B, int N, int K, int C,
+           cudaStream_t s) {
+  const int tiles = (N + TQ - 1) / TQ;
+  const size_t smem = sizeof(int) * (size_t)TQ * K;
+  orl_partial_kernel<T><<<dim3(tiles, B), THREADS, smem, s>>>(feat, idx, partial, N, K, C);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  orl_finish_kernel<<<B, THREADS, 0, s>>>(partial, out, tiles, N, C);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Tiles of the first launch: the partial-sum scratch is (B, hs_orl_tiles(N), C).
 extern "C" int hs_orl_tiles(int N) { return (N + TQ - 1) / TQ; }
 
-// feat (B, N, C), idx (B, N, K) int32, partial (B, hs_orl_tiles(N), C) scratch -> out (B, 1, C).
-extern "C" int hs_orl(const float* feat, const int* idx, float* partial, float* out, int B,
-                      int N, int K, int C, void* stream) {
+// feat (B, N, C) fp32, or bf16 when fast != 0; idx (B, N, K) int32;
+// partial (B, hs_orl_tiles(N), C) scratch -> out (B, 1, C) fp32.
+extern "C" int hs_orl(const void* feat, int fast, const int* idx, float* partial, float* out,
+                      int B, int N, int K, int C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = hs_orl_tiles(N);
-  const size_t smem = sizeof(int) * (size_t)TQ * K;
-  orl_partial_kernel<<<dim3(tiles, B), THREADS, smem, s>>>(feat, idx, partial, N, K, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  orl_finish_kernel<<<B, THREADS, 0, s>>>(partial, out, tiles, N, C);
-  return (int)cudaGetLastError();
+  return fast ? launch(static_cast<const __nv_bfloat16*>(feat), idx, partial, out, B, N, K, C, s)
+              : launch(static_cast<const float*>(feat), idx, partial, out, B, N, K, C, s);
 }

@@ -9,10 +9,16 @@ Per forward: nine KNN searches, one surface and four support reductions,
 and five ORL branches.  A model built with ``train_heads`` also has the
 conv1d, recon and face heads; in train mode the forward returns
 (recon, face, feat) from them, in eval mode feat alone.
+
+``compute_dtype="bfloat16"`` serves in bf16 as the JAX package's fast tier
+does: bf16 features and one-hot between the layers, BatchNorm rounded to
+bf16, all nine searches by packed keys, the 1-NN upsample still exact in
+fp32 on the vertices.  Training in bf16 is not ported.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -41,6 +47,13 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     this *biased* variance (torch's own update takes the unbiased one, which
     at the heads' B rows after the max-pool is B/(B-1) too large)."""
     x2 = x.reshape(-1, x.shape[-1])
+    if not bn.training and x.dtype == torch.bfloat16:
+        # flax's BatchNorm(dtype=bf16) in eval mode (hspose_tpu/models/
+        # face_recon.py:31-34, flax _normalize): bf16 x against the fp32
+        # running statistics promotes to fp32, and the result rounds once
+        y = (x2.float() - bn.running_mean) * (torch.rsqrt(bn.running_var + bn.eps)
+                                              * bn.weight) + bn.bias
+        return y.to(torch.bfloat16).reshape(x.shape)
     if not bn.training:
         return bn(x2).reshape(x.shape)
     mean = x2.mean(0)
@@ -51,6 +64,11 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
         bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
         bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
     return y.reshape(x.shape)
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The tier's activation type; parameters are fp32 in both."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
 def _bn(channels: int, device) -> nn.BatchNorm1d:
@@ -87,15 +105,16 @@ class FaceRecon(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None, train_heads: bool = False):
         super().__init__()
         self.cfg = cfg
-        s = cfg.gcn_sup_num
-        self.conv_0 = HSLayerSurface(128, s, device=device)
-        self.conv_1 = HSLayer(128, 128, s, device=device)
+        self.dtype = compute_dtype(cfg)
+        s, dt = cfg.gcn_sup_num, self.dtype
+        self.conv_0 = HSLayerSurface(128, s, device=device, dtype=dt)
+        self.conv_1 = HSLayer(128, 128, s, device=device, dtype=dt)
         self.bn1 = _bn(128, device)
-        self.conv_2 = HSLayer(128, 256, s, device=device)
+        self.conv_2 = HSLayer(128, 256, s, device=device, dtype=dt)
         self.bn2 = _bn(256, device)
-        self.conv_3 = HSLayer(256, 256, s, device=device)
+        self.conv_3 = HSLayer(256, 256, s, device=device, dtype=dt)
         self.bn3 = _bn(256, device)
-        self.conv_4 = HSLayer(256, 512, s, device=device)
+        self.conv_4 = HSLayer(256, 512, s, device=device, dtype=dt)
         self.train_heads = train_heads
         if train_heads:
             feat_c = FEAT_C + cfg.obj_c
@@ -111,36 +130,42 @@ class FaceRecon(nn.Module):
         the kept-row indices of the two pools.  Returns feat (B, N, 1286) in
         eval mode and (recon (B, N, 3), face (B, N, 30), feat) in train mode."""
         cfg = self.cfg
+        fast = self.dtype == torch.bfloat16
+        if fast and self.training:
+            raise NotImplementedError("bf16 training (the exact=False branches of the "
+                                      "training kernels) is not ported")
         # the relaxed-KNN tier serves only: training keeps gcn_n_num
         k = cfg.serve_k if cfg.serve_k > 0 and not self.training else cfg.gcn_n_num
         B, N, _ = vertices.shape
-        one_hot = F.one_hot(cat_id.long().reshape(B), cfg.obj_c).to(vertices.dtype)
+        one_hot = F.one_hot(cat_id.long().reshape(B), cfg.obj_c).to(self.dtype)
+        # the bf16 tier runs every search on packed keys
+        search = functools.partial(knn, packed=True) if fast else knn
 
         # resolution 0: N points
-        vert_idx_0 = knn(vertices, k)
+        vert_idx_0 = search(vertices, k)
         fm_0 = torch.relu(self.conv_0(vertices, vert_idx_0, vert_idx_0))
-        rf_1 = knn(fm_0, k)
+        rf_1 = search(fm_0, k)
         fm_1 = self.conv_1(vertices, fm_0, rf_1, vert_idx_0)
         fm_1 = torch.relu(batch_norm(self.bn1, fm_1))
-        pool_idx_0 = knn(vertices, 4)
+        pool_idx_0 = search(vertices, 4)
         v_pool_1, fm_pool_1 = pool_layer(vertices, fm_1, pool_idx_0, pool_samples[0])
 
         # resolution 1: N // 4 points
         k1 = min(k, v_pool_1.shape[1] // 8)
-        vert_idx_1 = knn(v_pool_1, k1)
-        rf_2 = knn(fm_pool_1, k1)
+        vert_idx_1 = search(v_pool_1, k1)
+        rf_2 = search(fm_pool_1, k1)
         fm_2 = self.conv_2(v_pool_1, fm_pool_1, rf_2, vert_idx_1)
         fm_2 = torch.relu(batch_norm(self.bn2, fm_2))
-        rf_3 = knn(fm_2, k1)
+        rf_3 = search(fm_2, k1)
         fm_3 = self.conv_3(v_pool_1, fm_2, rf_3, vert_idx_1)
         fm_3 = torch.relu(batch_norm(self.bn3, fm_3))
-        pool_idx_1 = knn(v_pool_1, 4)
+        pool_idx_1 = search(v_pool_1, 4)
         v_pool_2, fm_pool_2 = pool_layer(v_pool_1, fm_3, pool_idx_1, pool_samples[1])
 
         # resolution 2: N // 16 points
         k2 = min(k, v_pool_2.shape[1] // 8)
-        vert_idx_2 = knn(v_pool_2, k2)
-        rf_4 = knn(fm_pool_2, k2)
+        vert_idx_2 = search(v_pool_2, k2)
+        rf_4 = search(fm_pool_2, k2)
         fm_4 = self.conv_4(v_pool_2, fm_pool_2, rf_4, vert_idx_2)
 
         # 1-NN upsample back to N points

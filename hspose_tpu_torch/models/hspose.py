@@ -27,12 +27,16 @@ def build_model(cfg: ModelConfig, device="cpu", train_heads: bool = False) -> Po
     """PoseNet9D on ``device``, in eval mode; with ``train_heads`` it also
     has the conv1d, recon and face heads that the train forward needs.
 
-    The fp32 tier is the reference semantics, so this turns TF32 off for
-    matrix products and cuDNN process-wide: with TF32 on, KNN order and pose
-    geometry drift.  Only ``compute_dtype="float32"`` is ported."""
-    if cfg.compute_dtype != "float32":
+    ``compute_dtype`` is ``"float32"`` (the reference semantics) or
+    ``"bfloat16"`` (the fast serving tier; parameters stay fp32 and are cast
+    at use, as flax's ``param_dtype``, so ``load_jax_params`` fills either).
+    ``"f32x2"`` worked around the TPU compiler's lack of in-kernel fp32
+    products and has no counterpart here.  The fp32 tier must not drift, so
+    this turns TF32 off for matrix products and cuDNN process-wide: with
+    TF32 on, KNN order and pose geometry drift."""
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: only 'float32' is ported")
+            f"compute_dtype={cfg.compute_dtype!r}: only 'float32' and 'bfloat16' are ported")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return PoseNet9D(cfg, device=device, train_heads=train_heads).eval()

@@ -8,11 +8,20 @@ receptive-field directions and neighbour features with autograd and run the
 differentiable kernels of ``ops/cuda_hs.py`` on them, as the JAX layers' v3
 training branch does, and the ORL branch is the plain gather, max and mean.
 Either way a CUDA tensor takes the kernel and a CPU tensor its plain version.
+
+``dtype=torch.bfloat16`` is the bf16 serving tier: parameters stay fp32 and
+are cast at use, and the layers round where the JAX layers with
+``dtype=bfloat16`` do (hspose_tpu/models/layers.py:128-192, 235-343): the
+dense maps in bf16, the HS reductions through the kernels' bf16 variants
+into fp32, the centre projection in bf16 plus the fp32 bias, the ORL input
+and the concat in bf16, and the output rounded to bf16.  For fp32 every cast
+is the identity, so the fp32 tier runs the same operations as before.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from hspose_tpu_torch.ops.cuda_hs import hs_support_reduce, hs_surface_reduce
@@ -24,6 +33,16 @@ from hspose_tpu_torch.ops.cuda_hs_fused import (
 )
 from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
 from hspose_tpu_torch.ops.knn import gather_neighbors, neighbor_directions_normalized
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=dtype)``: input and fp32 parameters cast to
+    ``dtype``, the product in ``dtype`` (fp32 accumulation inside the matrix
+    product).  For fp32 it is ``layer(x)``."""
+    if dtype == torch.float32:
+        return layer(x)
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 def _uniform(shape, bound: float, device) -> nn.Parameter:
@@ -52,13 +71,26 @@ def _with_global(feature: torch.Tensor, f_global: torch.Tensor) -> torch.Tensor:
     return torch.cat([feature, f_global.expand(-1, feature.shape[1], -1)], dim=-1)
 
 
+def _finish(layer, feature: torch.Tensor, orl_idx: torch.Tensor,
+            f_ste: torch.Tensor) -> torch.Tensor:
+    """The common tail of both HS layers (gcn3d.py:109-113, 183-187): the
+    ORL branch on the layer's dtype, conv2 over [feature | global] plus the
+    fp32 feature, plus the shortcut, rounded to the layer's dtype."""
+    dt = layer.dtype
+    f_global = orl_global(feature.to(dt), orl_idx, layer.training).to(dt)
+    feature = dense(layer.conv2, _with_global(feature.to(dt), f_global), dt) + feature
+    return (feature + f_ste).to(dt)
+
+
 class HSLayerSurface(nn.Module):
     """First layer: learned support directions over the raw surface, an ORL
     global branch and a linear shortcut on xyz (``STE_layer``)."""
 
-    def __init__(self, kernel_num: int, support_num: int, device=None):
+    def __init__(self, kernel_num: int, support_num: int, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kernel_num, self.support_num = kernel_num, support_num
+        self.dtype = dtype
         self.directions = _uniform((3, support_num * kernel_num),
                                    1.0 / (support_num * kernel_num) ** 0.5, device)
         self.STE_layer = nn.Linear(3, kernel_num, bias=False, device=device)
@@ -66,17 +98,16 @@ class HSLayerSurface(nn.Module):
 
     def forward(self, vertices: torch.Tensor, rf_idx: torch.Tensor,
                 orl_idx: torch.Tensor) -> torch.Tensor:
-        f_ste = self.STE_layer(vertices)
+        dt = self.dtype
+        f_ste = dense(self.STE_layer, vertices, dt)
         dirs = _normalize_dirs(self.directions)
         if self.training:
             rf = neighbor_directions_normalized(vertices, rf_idx)
             feature = hs_surface_reduce(rf, dirs, self.support_num, self.kernel_num)
         else:
             feature = hs_surface_fused(vertices, rf_idx, dirs, self.support_num,
-                                       self.kernel_num)
-        f_global = orl_global(feature, orl_idx, self.training)
-        feature = self.conv2(_with_global(feature, f_global)) + feature
-        return feature + f_ste
+                                       self.kernel_num, exact=dt == torch.float32)
+        return _finish(self, feature, orl_idx, f_ste)
 
 
 class HSLayer(nn.Module):
@@ -86,10 +117,11 @@ class HSLayer(nn.Module):
     the directions and the ORL branch from the vertices."""
 
     def __init__(self, in_channel: int, out_channel: int, support_num: int,
-                 device=None):
+                 device=None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_channel, self.out_channel = in_channel, out_channel
         self.support_num = support_num
+        self.dtype = dtype
         s, co = support_num, out_channel
         stdv = 1.0 / (co * (s + 1)) ** 0.5
         self.weights = _uniform((in_channel, (s + 1) * co), stdv, device)
@@ -100,9 +132,10 @@ class HSLayer(nn.Module):
 
     def forward(self, vertices: torch.Tensor, feature_map: torch.Tensor,
                 rf_idx: torch.Tensor, orl_idx: torch.Tensor) -> torch.Tensor:
-        s, co = self.support_num, self.out_channel
-        f_ste = self.STE_layer(feature_map)
-        feature_center = feature_map @ self.weights[:, :co] + self.bias[:co]
+        s, co, dt = self.support_num, self.out_channel, self.dtype
+        feature_map = feature_map.to(dt)
+        f_ste = dense(self.STE_layer, feature_map, dt)
+        feature_center = feature_map @ self.weights[:, :co].to(dt) + self.bias[:co]
         dirs = _normalize_dirs(self.directions)
         if self.training:
             rf = neighbor_directions_normalized(vertices, rf_idx)
@@ -112,10 +145,7 @@ class HSLayer(nn.Module):
         else:
             activation = hs_support_fused(feature_map, vertices, rf_idx,
                                           self.weights[:, co:], self.bias[co:], dirs, s, co)
-        feature = feature_center + activation
-        f_global = orl_global(feature, orl_idx, self.training)
-        feature = self.conv2(_with_global(feature, f_global)) + feature
-        return feature + f_ste
+        return _finish(self, feature_center + activation, orl_idx, f_ste)
 
 
 def pool_layer(vertices: torch.Tensor, feature_map: torch.Tensor,
@@ -128,6 +158,8 @@ def pool_layer(vertices: torch.Tensor, feature_map: torch.Tensor,
     return vertices[:, sample, :], pooled
 
 
-def receptive_field_indices(feat_or_verts: torch.Tensor, k: int) -> torch.Tensor:
-    """RF-P (point distance) or RF-F (feature distance) neighbour search."""
-    return knn_indices_cuda(feat_or_verts, k)
+def receptive_field_indices(feat_or_verts: torch.Tensor, k: int,
+                            packed: bool = False) -> torch.Tensor:
+    """RF-P (point distance) or RF-F (feature distance) neighbour search;
+    ``packed`` is the bf16 tier's packed-key search."""
+    return knn_indices_cuda(feat_or_verts, k, packed=packed)

@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from hspose_tpu_torch.config import ModelConfig
-from hspose_tpu_torch.models.face_recon import FEAT_C, FaceRecon
+from hspose_tpu_torch.models.face_recon import FEAT_C, FaceRecon, compute_dtype
 from hspose_tpu_torch.models.heads import PoseTsHead, RotationHead
 
 
@@ -42,10 +42,11 @@ class PoseNet9D(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None, train_heads: bool = False):
         super().__init__()
         feat_c = FEAT_C + cfg.obj_c
+        dt = compute_dtype(cfg)
         self.face_recon = FaceRecon(cfg, device=device, train_heads=train_heads)
-        self.rot_green = RotationHead(feat_c, device=device)
-        self.rot_red = RotationHead(feat_c, device=device)
-        self.ts = PoseTsHead(feat_c, device=device)
+        self.rot_green = RotationHead(feat_c, device=device, dtype=dt)
+        self.rot_red = RotationHead(feat_c, device=device, dtype=dt)
+        self.ts = PoseTsHead(feat_c, device=device, dtype=dt)
 
     def forward(self, points: torch.Tensor, obj_id: torch.Tensor,
                 pool_samples: Sequence[torch.Tensor],
@@ -71,7 +72,9 @@ class PoseNet9D(nn.Module):
         f_green_R = torch.sigmoid(green_vec[:, 0])
         f_red_R = torch.sigmoid(red_vec[:, 0])
 
-        T, s = self.ts(feat, centred, keep[2])
+        # the bf16 tier feeds the centred points to the Ts head in bf16
+        # (hspose_tpu/models/posenet.py:82-83)
+        T, s = self.ts(feat, centred.to(feat.dtype), keep[2])
         pose = (p_green_R, p_red_R, f_green_R, f_red_R, T + center[:, 0, :], s)
         if not self.training:
             return PoseNetOutput(*pose)

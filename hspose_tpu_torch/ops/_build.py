@@ -33,14 +33,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # points, out, B, N, D, kk, stream
     "hs_knn": [_P, _P, _I, _I, _I, _I, _P],
-    # verts, idx, dirs, out, B, N, K, S, Co, stream
-    "hs_surface": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # feat, w, ldw, b, proj, rows, Cin, Cout, stream
-    "hs_support_project": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
-    # proj, verts, idx, dirs, out, B, N, K, S, Co, stream
-    "hs_support_reduce": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # feat, idx, partial, out, B, N, K, C, stream
-    "hs_orl": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # points, is_bf16, out, B, N, D, kk, stream
+    "hs_knn_packed": [_P, _I, _P, _I, _I, _I, _I, _P],
+    # verts, idx, dirs, out, B, N, K, S, Co, fast, stream
+    "hs_surface": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # feat, fast, w, ldw, b, proj, rows, Cin, Cout, stream
+    "hs_support_project": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
+    # proj, verts, idx, dirs, out, B, N, K, S, Co, fast, stream
+    "hs_support_reduce": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # feat, fast, idx, partial, out, B, N, K, C, stream
+    "hs_orl": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # N -> tiles of the ORL partial-sum scratch (no launch)
     "hs_orl_tiles": [_I],
     # rf, dirs, out, win, B, N, K, S, Co, stream

@@ -1,8 +1,9 @@
 """Plain PyTorch neighbour ops (counterpart of ``hspose_tpu/ops/knn.py``).
 
-These are the semantics the CUDA kernels are held to: ``knn_indices`` is the
-plain version of the KNN kernel (``ops/cuda_knn.py``), and the gathers and
-receptive-field directions feed the plain versions of the HS kernels
+These are the semantics the CUDA kernels are held to: ``knn_indices`` and
+``knn_indices_packed`` are the plain versions of the exact and packed-key KNN
+kernels (``ops/cuda_knn.py``), and the gathers and receptive-field
+directions feed the plain versions of the HS kernels
 (``ops/cuda_hs_fused.py``).  Indices are int32, as in the JAX package.
 """
 
@@ -33,6 +34,40 @@ def knn_indices(points: torch.Tensor, k: int) -> torch.Tensor:
     d = pairwise_sq_dist(points, points)
     order = torch.sort(d, dim=-1, stable=True).indices
     return order[..., 1:k + 1].to(torch.int32)
+
+
+IDX_BITS = 11  # the packed key's index bits (hspose_tpu/ops/pallas_knn.py:32)
+PACKED_MAX_N = 1 << IDX_BITS
+
+
+def knn_indices_packed(points: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k nearest neighbours by packed keys, the bf16 tier's
+    search (``hspose_tpu/ops/pallas_knn.py``, ``fast=True``): (B, N, D) fp32
+    or bf16 -> int32 (B, N, k), N <= 2048.
+
+    Distances are fp32 from the input's values: for D <= 8 the sum over the
+    dimensions, in order, of squared differences (pallas_knn.py:204-209),
+    above that ||x||^2 + ||q||^2 - 2 q.x (:198-203).  Each candidate's key is
+    (bits(max(d, 0)) & ~0x7FF) | index, a non-negative int that orders as the
+    distance truncated to 12 mantissa bits, ties to the lower index
+    (:213-215).  The k+1 smallest keys are taken and column 0 dropped.  Keys
+    are unique, so the order is total and ``topk`` returns it exactly."""
+    B, N, D = points.shape
+    if N > PACKED_MAX_N:
+        raise ValueError(f"packed keys hold indices below {PACKED_MAX_N}, got N={N}")
+    x = points.float()
+    if D <= 8:
+        d = torch.zeros((B, N, N), dtype=torch.float32, device=x.device)
+        for dim in range(D):
+            diff = x[:, None, :, dim] - x[:, :, None, dim]
+            d = d + diff * diff
+    else:
+        sq = (x * x).sum(-1)
+        d = (sq[:, None, :] + sq[:, :, None]) - 2.0 * torch.matmul(x, x.transpose(-1, -2))
+    col = torch.arange(N, dtype=torch.int32, device=x.device)
+    key = (d.clamp_min(0.0).view(torch.int32) & ~(PACKED_MAX_N - 1)) | col
+    smallest = torch.topk(key, k + 1, dim=-1, largest=False, sorted=True).values
+    return smallest[..., 1:] & (PACKED_MAX_N - 1)
 
 
 def nearest_index(target: torch.Tensor, source: torch.Tensor) -> torch.Tensor:

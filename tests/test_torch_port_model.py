@@ -176,8 +176,11 @@ def test_build_model_tiers():
     build_model(ModelConfig())
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+    model = build_model(ModelConfig(compute_dtype="bfloat16"))
+    assert model.face_recon.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
     with pytest.raises(NotImplementedError):
-        build_model(ModelConfig(compute_dtype="bfloat16"))
+        build_model(ModelConfig(compute_dtype="f32x2"))
 
 
 def test_load_jax_params_is_strict(models):
