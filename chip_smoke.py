@@ -42,7 +42,30 @@ not 0:
    count advance; one train forward and backward at B=4 on the card and on
    the CPU plain ops, with the same weights, batch and draws, must agree
    (losses within 1e-3 relative, parameter gradients within the N=1028
-   gates of tests/test_torch_parity.py); then steps/s at B=16.
+   gates of tests/test_torch_parity.py); then steps/s at B=16;
+10. bf16 training kernels: the bf16 instantiations of K12, K15, K11 and K13
+   against their plain versions (which make the same bf16 roundings) at
+   every shape of the B=16 bf16 train step: fp32 outputs within 1e-4 of
+   the largest value, winners as in phase 8, and the bf16 cotangents
+   (drf, dg, dd) within one bf16 ulp of each element plus 1e-4 of the
+   largest (the fp32 sums differ in order, which can move a rounding to
+   bf16 by one ulp);
+11. bf16 training slice: ``build_train_step`` on ``compute_dtype="bfloat16"``
+   takes 3 steps at (16, 1028); the counters must show 9 packed-key KNN and
+   1 + 1 surface and 4 + 4 support bf16 training launches per step, nothing
+   else (no exact KNN, no fp32 training kernel, no serving kernel); finite
+   losses, moved parameters; one bf16 train forward and backward at B=4 on
+   the card against the CPU plain ops, gated by ``SPREAD_MULT`` times the
+   card's own spread (the card against itself with the input cloud moved by
+   1e-6 relative), both printed; then bf16 steps/s beside the fp32 steps/s.
+
+Each kernel's ``bound_ms`` is the least time the card could take for its
+calls: per call the larger of the bytes it must move (each input read once,
+each output written once) over 3.35 TB/s and its multiply-adds (2 operations
+each) over the peak rate of their operand type (67 TFLOP/s fp32 outside the
+tensor cores, 989 TFLOP/s bf16), summed over the calls of one pass;
+``bound_by`` names the larger part.  No single PyTorch call computes any of
+these functions, so ``library_ms`` is null throughout.
 
 The line before the last is one JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
@@ -77,6 +100,10 @@ LOSS_REL = 1e-3  # card against CPU, each loss term
 GRAD_LEAF = (0.98, 0.2, 0.9, 1.1)  # per leaf: min cos, max norm_rel, norm ratio range
 GRAD_COS = 0.9995  # all parameter gradients as one vector
 ZERO_LEAF = 1e-5  # a leaf gradient below this share of the largest is rounding noise
+SPREAD_MULT = 4.0  # bf16 train step, card against CPU: at most this multiple of the card's spread
+SPREAD_EPS = 1e-6  # the relative move of the input cloud that measures the spread
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense, per operand type
 
 
 def log(phase: str, msg: str) -> None:
@@ -150,13 +177,28 @@ def unit_dirs(rng, n: int) -> torch.Tensor:
     return d / d.norm(dim=0, keepdim=True)
 
 
-def record(rec: dict, name: str, err: float, ms: float, plain_ms: float) -> None:
+def bound(tensors, macs: float, dtype) -> tuple[float, str]:
+    """(ms, what bounds it) of the least time the card could take for one
+    call: the bytes of ``tensors`` (its inputs and outputs, each once) over
+    HBM_BYTES_PER_S, or ``macs`` multiply-adds at the peak of ``dtype``."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, 2 * macs / PEAK_OPS[dtype] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def record(rec: dict, name: str, err: float, ms: float, plain_ms: float,
+           bnd: tuple[float, str]) -> None:
     """Add one call's numbers to a kernel's record: the largest error, and the
-    kernel and plain times summed over the calls of one pass of the path."""
-    r = rec.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+    kernel, plain and bound times summed over the calls of one pass of the
+    path; ``bound_by`` is whichever part holds most of the bound."""
+    r = rec.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                              "bound_by": "", "library_ms": None, "_by": {}})
     r["max_abs_err"] = max(r["max_abs_err"], err)
     r["ms"] += ms
     r["plain_ms"] += plain_ms
+    r["bound_ms"] += bnd[0]
+    r["_by"][bnd[1]] = r["_by"].get(bnd[1], 0.0) + bnd[0]
+    r["bound_by"] = max(r["_by"], key=r["_by"].get)
 
 
 def phase_kernels(dtype: str = "float32") -> dict:
@@ -211,9 +253,12 @@ def phase_kernels(dtype: str = "float32") -> dict:
         if agree < KNN_AGREE or rel > knn_gap:
             raise AssertionError(f"{knn_name} N={n} D={d} k={k} disagrees with its plain "
                                  f"version: agreement {agree}, distance gap {rel}")
-        record(rec, knn_name, err, ms, pms)
+        record(rec, knn_name, err, ms, pms,
+               bound([pts, got], B * n * n * d, torch.float32 if d == 3 else pts.dtype))
 
-    def close(name, label, got, want, ms, pms):
+    op_dtype = torch.bfloat16 if fast else torch.float32
+
+    def close(name, label, got, want, ms, pms, tensors, macs):
         torch.cuda.synchronize()
         scale = want.abs().max().item()
         err = (got - want).abs().max().item()
@@ -221,7 +266,7 @@ def phase_kernels(dtype: str = "float32") -> dict:
                    f"{TOL_REL * scale:.3e}), {ms:.4f} ms (plain {pms:.4f} ms)")
         if not (err <= TOL_REL * scale and got.dtype == torch.float32):
             raise AssertionError(f"{name} {label}: error {err} > {TOL_REL} * {scale}")
-        record(rec, name, err, ms, pms)
+        record(rec, name, err, ms, pms, bound(tensors + [got], macs, op_dtype))
 
     S = 7
     # conv_0
@@ -231,7 +276,8 @@ def phase_kernels(dtype: str = "float32") -> dict:
     close("hs_surface" + tag, f"conv_0 N={N} K=20 Co=128",
           hs_surface_fused(*args, exact=not fast), hs_surface_plain(*args, exact=not fast),
           cuda_ms(lambda: hs_surface_fused(*args, exact=not fast)),
-          cuda_ms(lambda: hs_surface_plain(*args, exact=not fast)))
+          cuda_ms(lambda: hs_surface_plain(*args, exact=not fast)),
+          [verts, idx, dirs], 3 * idx.numel() * S * 128)
 
     # conv_1 .. conv_4, weights as column slices of the (Cin, (S+1)Co) matrix
     for layer, cin, co, n, k in [(1, 128, 128, N, 20), (2, 128, 256, n1, 20),
@@ -244,7 +290,8 @@ def phase_kernels(dtype: str = "float32") -> dict:
         close("hs_support" + tag, f"conv_{layer} {cin}->{co} N={n} K={k}",
               hs_support_fused(*args), hs_support_plain(*args),
               cuda_ms(lambda: hs_support_fused(*args)),
-              cuda_ms(lambda: hs_support_plain(*args)))
+              cuda_ms(lambda: hs_support_plain(*args)),
+              list(args[:6]), B * n * cin * S * co + 3 * args[2].numel() * S * co)
 
     # the ORL branch of each layer
     for layer, c, n, k in [(0, 128, N, 20), (1, 128, N, 20), (2, 256, n1, 20),
@@ -253,7 +300,8 @@ def phase_kernels(dtype: str = "float32") -> dict:
         close("orl_global" + tag, f"conv_{layer} C={c} N={n} K={k}",
               orl_global_fused(feat, idx), orl_global_plain(feat, idx),
               cuda_ms(lambda: orl_global_fused(feat, idx)),
-              cuda_ms(lambda: orl_global_plain(feat, idx)))
+              cuda_ms(lambda: orl_global_plain(feat, idx)),
+              [feat, idx], 0)
     return rec
 
 
@@ -426,42 +474,66 @@ def phase_throughput(smi: str, dtype: str = "float32") -> float:
     return max(rates)
 
 
+TRAIN_KERNELS = ("hs_surface_fwd", "hs_surface_bwd", "hs_support_fwd", "hs_support_bwd")
+
+
 def train_counters() -> dict:
+    """The training kernels' counters: fp32 launches under the wrapper's
+    name, bf16 launches under the name with ``_bf16``."""
     from hspose_tpu_torch.ops import cuda_hs
 
-    return {name: (getattr(cuda_hs, name), "launches")
-            for name in ("hs_surface_fwd", "hs_surface_bwd", "hs_support_fwd",
-                         "hs_support_bwd")}
+    fp32 = {name: (getattr(cuda_hs, name), "launches") for name in TRAIN_KERNELS}
+    bf16 = {name + "_bf16": (getattr(cuda_hs, name), "bf16_launches") for name in TRAIN_KERNELS}
+    return {**fp32, **bf16}
 
 
-def phase_train_kernels() -> dict:
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |x| (8 significant bits), as fp32."""
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def phase_train_kernels(dtype: str = "float32") -> dict:
     """K12, K15, K11, K13 against their plain versions at the train step's
-    shapes (B=16).  The backwards get the kernel forward's residuals on both
-    sides, so winner flips do not enter their comparison.  Returns per-kernel
-    records; ms and plain_ms sum the calls of one train step."""
+    shapes (B=16), fp32 or the bf16 instantiations (bf16 rf, gathered rows
+    and directions as the bf16 train step forms them; W and b fp32).  The
+    backwards get the kernel forward's residuals on both sides, so winner
+    flips do not enter their comparison.  Returns per-kernel records; ms and
+    plain_ms sum the calls of one train step."""
     from hspose_tpu_torch.ops import cuda_hs
     from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
     from hspose_tpu_torch.ops.knn import gather_neighbors, neighbor_directions_normalized
 
+    fast = dtype == "bfloat16"
+    phase, tag = ("bf16-train-kernels", "_bf16") if fast else ("train-kernels", "")
+    op_dtype = torch.bfloat16 if fast else torch.float32
     rng = np.random.default_rng(SEED + 4)
     rec = {}
     S, B = 7, TRAIN_B
 
-    def compare(name, label, pairs, ms, pms):
-        """pairs: (what, kernel tensor, plain tensor); each within TOL_REL of
-        its largest plain value.  Returns the largest error."""
+    def compare(name, label, pairs, ms, pms, tensors, macs):
+        """pairs: (what, kernel tensor, plain tensor); fp32 ones within
+        TOL_REL of their largest plain value, bf16 ones also one bf16 ulp of
+        each element (the two fp32 sums differ in order, which can move the
+        final rounding by one ulp)."""
         torch.cuda.synchronize()
         worst, parts = 0.0, []
         for what, got, want in pairs:
             scale = want.abs().max().item()
-            err = (got - want).abs().max().item()
-            parts.append(f"{what} {err:.3e} (bound {TOL_REL * scale:.3e})")
-            if not err <= TOL_REL * scale:
-                raise AssertionError(f"{name} {label} {what}: error {err} > {TOL_REL} * {scale}")
+            diff = (got.float() - want.float()).abs()
+            slack = bf16_ulp(want) if got.dtype == torch.bfloat16 else torch.zeros_like(diff)
+            err = diff.max().item()
+            over = (diff - slack).max().item()
+            parts.append(f"{what} {err:.3e} (bound {TOL_REL * scale:.3e}"
+                         + (" + 1 bf16 ulp" if got.dtype == torch.bfloat16 else "") + ")")
+            if not (over <= TOL_REL * scale and got.dtype == want.dtype):
+                raise AssertionError(f"{name} {label} {what}: error {err} ({over} beyond the "
+                                     f"ulp slack) > {TOL_REL} * {scale}, or {got.dtype} is "
+                                     f"not {want.dtype}")
             worst = max(worst, err)
-        log("train-kernels", f"{name} {label}: " + ", ".join(parts)
-            + f"; {ms:.4f} ms (plain {pms:.4f} ms)")
-        record(rec, name, worst, ms, pms)
+        log(phase, f"{name} {label}: " + ", ".join(parts) + f"; {ms:.4f} ms (plain {pms:.4f} ms)")
+        record(rec, name + tag, worst, ms, pms,
+               bound(tensors + [got for _, got, _ in pairs], macs, op_dtype))
 
     def winners(name, label, wk, wp, mk, mp):
         """Winners agree on >= WIN_AGREE of entries; where not, the values at
@@ -469,15 +541,16 @@ def phase_train_kernels() -> dict:
         agree = (wk == wp).double().mean().item()
         scale = mp.abs().max().item()
         gap = (mk - mp)[wk != wp].abs().max().item() if agree < 1 else 0.0
-        log("train-kernels", f"{name} {label}: winners agree {agree:.6f}, largest value "
-                             f"gap where not {gap:.3e} (bound {TOL_REL * scale:.3e})")
+        log(phase, f"{name} {label}: winners agree {agree:.6f}, largest value gap where not "
+                   f"{gap:.3e} (bound {TOL_REL * scale:.3e})")
         if agree < WIN_AGREE or not gap <= TOL_REL * scale:
             raise AssertionError(f"{name} {label}: winners agree {agree}, gap {gap}")
 
     # K12 / K15: conv_0
     verts = cloud_b(rng, B, N)
-    rf = neighbor_directions_normalized(verts, knn_indices_cuda(verts, 20))
-    co, dirs = 128, unit_dirs(rng, S * 128)
+    rf = neighbor_directions_normalized(verts.to(op_dtype),
+                                        knn_indices_cuda(verts, 20, packed=fast))
+    co, dirs = 128, unit_dirs(rng, S * 128).to(op_dtype)
     label = f"conv_0 N={N} K=20 Co={co}"
     out_k, win_k = cuda_hs.hs_surface_fwd(rf, dirs, S, co)
     out_p, win_p = cuda_hs.hs_surface_fwd_plain(rf, dirs, S, co)
@@ -488,53 +561,59 @@ def phase_train_kernels() -> dict:
     del theta
     compare("hs_surface_fwd", label, [("out", out_k, out_p)],
             cuda_ms(lambda: cuda_hs.hs_surface_fwd(rf, dirs, S, co), 10),
-            cuda_ms(lambda: cuda_hs.hs_surface_fwd_plain(rf, dirs, S, co), 10))
+            cuda_ms(lambda: cuda_hs.hs_surface_fwd_plain(rf, dirs, S, co), 10),
+            [rf, dirs, win_k], rf.numel() * S * co)
     gb = normal(rng, B, N, co)
     args = (rf, dirs, win_k, gb, S, co)
     compare("hs_surface_bwd", label,
             list(zip(("drf", "dd"), cuda_hs.hs_surface_bwd(*args),
                      cuda_hs.hs_surface_bwd_plain(*args))),
             cuda_ms(lambda: cuda_hs.hs_surface_bwd(*args), 10),
-            cuda_ms(lambda: cuda_hs.hs_surface_bwd_plain(*args), 10))
+            cuda_ms(lambda: cuda_hs.hs_surface_bwd_plain(*args), 10),
+            [rf, dirs, win_k, gb], 9 * win_k.numel())  # theta, drf, dd at each winner
 
     # K11 / K13: conv_1 .. conv_4, w and b as column slices of the layer's matrix
     for layer, cin, co, n, k in [(1, 128, 128, N, 20), (2, 128, 256, N // 4, 20),
                                  (3, 256, 256, N // 4, 20), (4, 256, 512, N // 16, 8)]:
         label = f"conv_{layer} {cin}->{co} N={n} K={k}"
         verts = cloud_b(rng, B, n)
-        feat = torch.relu(normal(rng, B, n, cin))
-        idx = knn_indices_cuda(feat, k)
+        feat = torch.relu(normal(rng, B, n, cin)).to(op_dtype)
+        idx = knn_indices_cuda(feat, k, packed=fast)
         g = gather_neighbors(feat, idx)
-        rf = neighbor_directions_normalized(verts, idx)
+        rf = neighbor_directions_normalized(verts.to(op_dtype), idx)
         stdv = 1.0 / (co * (S + 1)) ** 0.5
         w_full = normal(rng, cin, (S + 1) * co, scale=stdv)
         b_full = normal(rng, (S + 1) * co, scale=stdv)
-        fargs = (g, rf, w_full[:, co:], b_full[co:], unit_dirs(rng, S * co), S, co)
+        fargs = (g, rf, w_full[:, co:], b_full[co:], unit_dirs(rng, S * co).to(op_dtype), S, co)
         out_k, win_k, tw_k, pw_k = cuda_hs.hs_support_fwd(*fargs)
         out_p, win_p, tw_p, pw_p = cuda_hs.hs_support_fwd_plain(*fargs)
         winners("hs_support_fwd", label, win_k, win_p, tw_k * pw_k, tw_p * pw_p)
         same = win_k == win_p
+        sc = S * co
         compare("hs_support_fwd", label,
                 [("out", out_k, out_p), ("twin", tw_k * same, tw_p * same),
                  ("pwin", pw_k * same, pw_p * same)],
                 cuda_ms(lambda: cuda_hs.hs_support_fwd(*fargs), 10),
-                cuda_ms(lambda: cuda_hs.hs_support_fwd_plain(*fargs), 10))
+                cuda_ms(lambda: cuda_hs.hs_support_fwd_plain(*fargs), 10),
+                [g, rf, fargs[2], fargs[3], fargs[4], win_k], (g.numel() + rf.numel()) * sc)
         gb = normal(rng, B, n, co)
         bargs = (g, rf, fargs[2], fargs[4], win_k, tw_k, pw_k, gb, S, co)
         compare("hs_support_bwd", label,
                 list(zip(("dg", "drf", "dw", "db", "dd"), cuda_hs.hs_support_bwd(*bargs),
                          cuda_hs.hs_support_bwd_plain(*bargs))),
                 cuda_ms(lambda: cuda_hs.hs_support_bwd(*bargs), 10),
-                cuda_ms(lambda: cuda_hs.hs_support_bwd_plain(*bargs), 10))
+                cuda_ms(lambda: cuda_hs.hs_support_bwd_plain(*bargs), 10),
+                [g, rf, fargs[2], fargs[4], win_k, tw_k, pw_k, gb],
+                win_k.numel() * (2 * cin + 6))  # dg, dW at each winner; drf, dd
     return rec
 
 
-def build_train_model(device):
+def build_train_model(device, dtype: str = "float32"):
     from hspose_tpu_torch.config import ModelConfig
     from hspose_tpu_torch.models.hspose import build_model
 
     torch.manual_seed(SEED)
-    return build_model(ModelConfig(), device=device, train_heads=True)
+    return build_model(ModelConfig(compute_dtype=dtype), device=device, train_heads=True)
 
 
 def grad_gates(got: dict, want: dict) -> str:
@@ -578,16 +657,57 @@ def grad_gates(got: dict, want: dict) -> str:
             f"{len(zero)} leaves zero up to rounding on both sides ({', '.join(zero)})")
 
 
-def phase_train(smi: str) -> dict:
-    """The train step at full width: launches, sanity, card against CPU,
-    steps/s.  Returns the training kernels' launches of the main run."""
-    from hspose_tpu_torch.config import HSPoseConfig
+def train_once(cfg, model, batch: dict, draws, device) -> tuple[dict, dict, dict]:
+    """One train forward and backward of ``model`` on the numpy ``batch``:
+    (loss terms with the total, BatchNorm running statistics, parameter
+    gradients), on the CPU."""
+    from hspose_tpu_torch.engine.train_step import to_device
+    from hspose_tpu_torch.models.hspose import train_forward
+
+    total, losses = train_forward(cfg, model, to_device(batch, device), draws=draws.to(device))
+    total.backward()
+    terms = {"total": total.item(),
+             **{f"{f}/{k}": v.item() for f, d in losses.items() for k, v in d.items()}}
+    stats = {n: b.detach().cpu() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    return terms, stats, {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def step_gaps(a: tuple, b: tuple) -> dict:
+    """How far two ``train_once`` results lie apart: the largest loss-term
+    difference as a share of the total loss, the largest BatchNorm-statistic
+    difference as a share of that buffer's largest value, and 1 - the cosine
+    of all parameter gradients as one vector."""
+    (ta, sa, ga), (tb, sb, gb) = a, b
+    loss = max(abs(ta[k] - v) for k, v in tb.items()) / abs(tb["total"])
+    bn = max(((sa[n] - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+             for n, v in sb.items())
+    g1, g2 = (torch.cat([g[n].double().ravel() for n in gb]) for g in (ga, gb))
+    cos = (g1 @ g2).item() / (g1.norm().item() * g2.norm().item())
+    return {"loss": loss, "bn": bn, "grad": 1.0 - cos}
+
+
+TRAIN_LAUNCHES = {
+    "float32": {"knn": 9, "hs_surface_fwd": 1, "hs_surface_bwd": 1, "hs_support_fwd": 4,
+                "hs_support_bwd": 4},
+    "bfloat16": {"knn_packed": 9, "hs_surface_fwd_bf16": 1, "hs_surface_bwd_bf16": 1,
+                 "hs_support_fwd_bf16": 4, "hs_support_bwd_bf16": 4},
+}
+
+
+def phase_train(smi: str, dtype: str = "float32") -> tuple[dict, float]:
+    """The train step of one tier at full width: launches, sanity, card
+    against CPU, steps/s.  Returns the kernels' launches of the main run and
+    the best steps/s."""
+    from hspose_tpu_torch.config import HSPoseConfig, ModelConfig
     from hspose_tpu_torch.engine.train_step import build_train_step, to_device
-    from hspose_tpu_torch.models.hspose import draw_train, train_forward
+    from hspose_tpu_torch.models.hspose import draw_train
     from hspose_tpu_torch.utils.synthetic import synthetic_train_batch
 
-    cfg = HSPoseConfig()
-    model = build_train_model(DEVICE)
+    fast = dtype == "bfloat16"
+    phase, tier = ("bf16-train", "bf16") if fast else ("train", "fp32")
+    cfg = HSPoseConfig(model=ModelConfig(compute_dtype=dtype))
+    model = build_train_model(DEVICE, dtype)
     step = build_train_step(cfg, model, torch.Generator(device=DEVICE).manual_seed(SEED))
     batch = to_device(synthetic_train_batch(TRAIN_B, N, seed=SEED), DEVICE)
     before = [p.detach().clone() for p in model.parameters()]
@@ -597,43 +717,57 @@ def phase_train(smi: str) -> dict:
     metrics = [step(batch) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     launches = read_counts(counts)
-    log("train", f"{TRAIN_STEPS} steps of ({TRAIN_B}, {N}, 3): launches {launches}")
-    check_counts(launches, {"knn": 9, "hs_surface_fwd": 1, "hs_surface_bwd": 1,
-                            "hs_support_fwd": 4, "hs_support_bwd": 4}, TRAIN_STEPS,
-                 "train step")
+    log(phase, f"{TRAIN_STEPS} steps of ({TRAIN_B}, {N}, 3): launches {launches}")
+    check_counts(launches, TRAIN_LAUNCHES[dtype], TRAIN_STEPS, "train step")
     for i, m in enumerate(metrics):
-        log("train", f"step {i}: total_loss {m['total_loss']:.6f}, skipped_nan "
-                     f"{m['skipped_nan']}, {len(m) - 2} loss terms")
+        log(phase, f"step {i}: total_loss {m['total_loss']:.6f}, skipped_nan "
+                   f"{m['skipped_nan']}, {len(m) - 2} loss terms")
         bad = [k for k, v in m.items() if not np.isfinite(v)]
         if bad or m["skipped_nan"]:
             raise AssertionError(f"step {i}: non-finite {bad}")
     moved = sum(int(not torch.equal(a, p.detach())) for a, p in zip(before, model.parameters()))
     change = max((a - p.detach()).abs().max().item() for a, p in zip(before, model.parameters()))
     # at the start of the warm-up the rate is lr * 1e-3, so small steps round away
-    log("train", f"{moved} of {len(before)} parameter tensors moved (largest change "
-                 f"{change:.3e}), optimizer count {step.optimizer.count}")
+    log(phase, f"{moved} of {len(before)} parameter tensors moved (largest change "
+               f"{change:.3e}), optimizer count {step.optimizer.count}")
     if moved == 0 or step.optimizer.count != TRAIN_STEPS:
         raise AssertionError("the train step did not update the model")
 
     # one train forward and backward on the card and on the CPU plain ops
-    cpu_model = build_train_model("cpu").train()
+    cpu_model = build_train_model("cpu", dtype).train()
     card_model = copy.deepcopy(cpu_model).to(DEVICE)
     small = synthetic_train_batch(4, N, seed=SEED + 5)
     draws = draw_train(torch.Generator().manual_seed(SEED + 6), 4, N)
-    results = []
-    for mdl, dev, dr in ((card_model, DEVICE, draws.to(DEVICE)), (cpu_model, "cpu", draws)):
-        total, losses = train_forward(cfg, mdl, to_device(small, dev), draws=dr)
-        total.backward()
-        results.append(({f"{f}/{k}": v.item() for f, d in losses.items() for k, v in d.items()},
-                        {n: p.grad.detach().cpu() for n, p in mdl.named_parameters()}))
-    (card_loss, card_grad), (cpu_loss, cpu_grad) = results
-    rel = {k: abs(card_loss[k] - v) / max(abs(v), 1e-12) for k, v in cpu_loss.items()}
-    log("train", "card against CPU, loss terms: worst rel diff "
-                 f"{max(rel.values()):.3e} ({max(rel, key=rel.get)})")
-    if not max(rel.values()) <= LOSS_REL:
-        raise AssertionError(f"losses disagree beyond {LOSS_REL}: "
-                             f"{ {k: v for k, v in rel.items() if v > LOSS_REL} }")
-    log("train", "card against CPU, parameter gradients: " + grad_gates(card_grad, cpu_grad))
+    card = train_once(cfg, copy.deepcopy(card_model), small, draws, DEVICE)
+    cpu = train_once(cfg, cpu_model, small, draws, "cpu")
+    if not fast:
+        (card_loss, _, card_grad), (cpu_loss, _, cpu_grad) = card, cpu
+        rel = {k: abs(card_loss[k] - v) / max(abs(v), 1e-12) for k, v in cpu_loss.items()}
+        log(phase, "card against CPU, loss terms: worst rel diff "
+                   f"{max(rel.values()):.3e} ({max(rel, key=rel.get)})")
+        if not max(rel.values()) <= LOSS_REL:
+            raise AssertionError(f"losses disagree beyond {LOSS_REL}: "
+                                 f"{ {k: v for k, v in rel.items() if v > LOSS_REL} }")
+        log(phase, "card against CPU, parameter gradients: " + grad_gates(card_grad, cpu_grad))
+    else:
+        # the bf16 step is chaotic (KNN, winner and max selections flip under
+        # bf16 rounding), so the card is held to its own spread: the same
+        # forward with the input cloud moved by SPREAD_EPS relative, both ways
+        z = np.random.default_rng(SEED + 7).standard_normal(small["pcl_in"].shape)
+        spread = {}
+        for sign in (1.0, -1.0):
+            moved_pc = (small["pcl_in"] * (1.0 + sign * SPREAD_EPS * z)).astype(np.float32)
+            gaps = step_gaps(train_once(cfg, copy.deepcopy(card_model),
+                                        dict(small, pcl_in=moved_pc), draws, DEVICE), card)
+            spread = {k: max(spread.get(k, 0.0), v) for k, v in gaps.items()}
+        gap = step_gaps(card, cpu)
+        log(phase, "card against CPU: " + ", ".join(f"{k} {v:.3e}" for k, v in gap.items())
+            + "; the card's own spread: " + ", ".join(f"{k} {v:.3e}" for k, v in spread.items())
+            + f"; bound {SPREAD_MULT} x spread")
+        bad = {k: v for k, v in gap.items() if not v <= SPREAD_MULT * spread[k]}
+        if bad:
+            raise AssertionError(f"card and CPU disagree beyond {SPREAD_MULT} x the card's "
+                                 f"spread: {bad}")
 
     # throughput
     for _ in range(2):
@@ -646,36 +780,60 @@ def phase_train(smi: str) -> dict:
             step(batch)
         torch.cuda.synchronize()
         rates.append(iters / (time.perf_counter() - t0))
-    log("train", f"{max(rates)} steps/s at B={TRAIN_B} fp32 (best of 3 windows of {iters} "
-                 f"steps: {rates}) on {smi}")
-    return launches
+    log(phase, f"{max(rates)} steps/s at B={TRAIN_B} {tier} (best of 3 windows of {iters} "
+               f"steps: {rates}) on {smi}")
+    return launches, max(rates)
 
 
+# kernel -> (source, the TPU kernel it replaces, the record and counter it
+# shares, when another kernel of the line ports the same function)
 SOURCES = {
-    "knn": ("hspose_tpu_torch/csrc/knn.cu", "hspose_tpu/ops/pallas_knn.py:163"),
+    "knn": ("hspose_tpu_torch/csrc/knn.cu", "hspose_tpu/ops/pallas_knn.py:163", None),
+    # K6, the lane-major layout of the same exact search (no caller passes tmaj=False)
+    "knn_lane_major": ("hspose_tpu_torch/csrc/knn.cu", "hspose_tpu/ops/pallas_knn.py:64",
+                       "knn"),
     "hs_surface": ("hspose_tpu_torch/csrc/hs_surface.cu",
-                   "hspose_tpu/ops/pallas_hs_fused.py:299"),
+                   "hspose_tpu/ops/pallas_hs_fused.py:299", None),
     "hs_support": ("hspose_tpu_torch/csrc/hs_support.cu",
-                   "hspose_tpu/ops/pallas_hs_fused.py:219"),
-    "orl_global": ("hspose_tpu_torch/csrc/orl.cu", "hspose_tpu/ops/pallas_hs_fused.py:358"),
-    # the bf16 tier: K1's packed-key branch (which also ports K7, :91), and the
-    # exact=False branches of K2-K4, the same sources instantiated for bf16
-    "knn_packed": ("hspose_tpu_torch/csrc/knn.cu", "hspose_tpu/ops/pallas_knn.py:213"),
+                   "hspose_tpu/ops/pallas_hs_fused.py:219", None),
+    "orl_global": ("hspose_tpu_torch/csrc/orl.cu", "hspose_tpu/ops/pallas_hs_fused.py:358",
+                   None),
+    # the bf16 tier: K1's packed-key branch, and the exact=False branches of
+    # K2-K4, the same sources instantiated for bf16
+    "knn_packed": ("hspose_tpu_torch/csrc/knn.cu", "hspose_tpu/ops/pallas_knn.py:213", None),
+    # K7, the lane-major layout of the same packed-key search
+    "knn_packed_lane_major": ("hspose_tpu_torch/csrc/knn.cu",
+                              "hspose_tpu/ops/pallas_knn.py:91", "knn_packed"),
     "hs_surface_bf16": ("hspose_tpu_torch/csrc/hs_surface.cu",
-                        "hspose_tpu/ops/pallas_hs_fused.py:299"),
+                        "hspose_tpu/ops/pallas_hs_fused.py:299", None),
     "hs_support_bf16": ("hspose_tpu_torch/csrc/hs_support.cu",
-                        "hspose_tpu/ops/pallas_hs_fused.py:219"),
+                        "hspose_tpu/ops/pallas_hs_fused.py:219", None),
     "orl_global_bf16": ("hspose_tpu_torch/csrc/orl.cu",
-                        "hspose_tpu/ops/pallas_hs_fused.py:358"),
-    "hs_support_fwd": ("hspose_tpu_torch/csrc/hs_support_train.cu",
-                       "hspose_tpu/ops/pallas_hs.py:151"),
-    "hs_surface_fwd": ("hspose_tpu_torch/csrc/hs_surface_train.cu",
-                       "hspose_tpu/ops/pallas_hs.py:215"),
-    "hs_support_bwd": ("hspose_tpu_torch/csrc/hs_support_train.cu",
-                       "hspose_tpu/ops/pallas_hs.py:336"),
-    "hs_surface_bwd": ("hspose_tpu_torch/csrc/hs_surface_train.cu",
-                       "hspose_tpu/ops/pallas_hs.py:410"),
+                        "hspose_tpu/ops/pallas_hs_fused.py:358", None),
+    # training: K11, K12, K13, K15, fp32 (exact=True) and bf16 (exact=False)
+    **{name + tag: (src, rep, None)
+       for tag in ("", "_bf16")
+       for name, src, rep in [
+           ("hs_support_fwd", "hspose_tpu_torch/csrc/hs_support_train.cu",
+            "hspose_tpu/ops/pallas_hs.py:151"),
+           ("hs_surface_fwd", "hspose_tpu_torch/csrc/hs_surface_train.cu",
+            "hspose_tpu/ops/pallas_hs.py:215"),
+           ("hs_support_bwd", "hspose_tpu_torch/csrc/hs_support_train.cu",
+            "hspose_tpu/ops/pallas_hs.py:336"),
+           ("hs_surface_bwd", "hspose_tpu_torch/csrc/hs_surface_train.cu",
+            "hspose_tpu/ops/pallas_hs.py:410")]},
 }
+
+
+def kernel_line(rec: dict, launches: dict) -> dict:
+    """The ``kernels`` JSON object: every kernel of SOURCES with its
+    launches on the main path and its measured numbers."""
+    kernels = []
+    for name, (src, rep, shares) in SOURCES.items():
+        r = {k: v for k, v in rec[shares or name].items() if not k.startswith("_")}
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        "launches": launches[shares or name], **r})
+    return {"kernels": kernels}
 
 
 def main() -> int:
@@ -693,13 +851,14 @@ def main() -> int:
     bf16_rate = phase_throughput(smi, "bfloat16")
     log("throughput", f"bf16 / fp32 at B={B}: {bf16_rate:.1f} / {fp32_rate:.1f} crops/s "
                       f"= {bf16_rate / fp32_rate:.3f}")
-    rec.update(phase_train_kernels())
-    train_launches = phase_train(smi)
-    launches.update({name: train_launches[name] for name in train_counters()})
-    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[name], **rec[name]}
-               for name, (src, rep) in SOURCES.items()]
-    print(json.dumps({"kernels": kernels}))
+    rates = {}
+    for dtype in ("float32", "bfloat16"):
+        rec.update(phase_train_kernels(dtype))
+        train_launches, rates[dtype] = phase_train(smi, dtype)
+        launches.update({name: train_launches[name] for name in TRAIN_LAUNCHES[dtype]})
+    log("train", f"bf16 / fp32 at B={TRAIN_B}: {rates['bfloat16']:.3f} / {rates['float32']:.3f} "
+                 f"steps/s = {rates['bfloat16'] / rates['float32']:.3f}")
+    print(json.dumps(kernel_line(rec, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace hs {
+
+// True for the bf16 tier's operand type.
+template <typename T>
+constexpr bool is_bf16 = std::is_same_v<T, __nv_bfloat16>;
 
 constexpr int SMEM_DEFAULT = 48 * 1024;
 
@@ -13,9 +19,22 @@ constexpr int SMEM_DEFAULT = 48 * 1024;
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
+// Store an fp32 value into fp32 storage, or round it (to nearest even) into bf16.
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // The value x takes as a bf16 operand (round to nearest even), as fp32.
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// x / S as the bf16 tier forms it before rounding to bf16 (FAST): XLA turns
+// a division by a constant into a product with its reciprocal rounded to
+// fp32, so the TPU kernels' gb / S is x * (1 / S), which can differ from a
+// true division by one fp32 ulp and so move the rounding.  fp32 divides.
+template <bool FAST>
+__device__ __forceinline__ float div_s(float x, int S) {
+  return FAST ? x * (1.f / S) : x / S;
 }
 
 // Stage the unit receptive-field directions of queries q0 .. q0 + tq - 1 into
@@ -75,7 +94,7 @@ __device__ inline void stage_rf(const float* __restrict__ verts, const int* __re
 // direction to bf16 (_w_parts).  With bf16 rfn and directions every product
 // of theta = r0 d0 + r1 d1 + r2 d2 is exact in fp32, so the compiler's fused
 // multiply-adds give the same sums as the plain version's ordered adds.
-template <bool FAST = false>
+template <bool FAST>
 __device__ inline void stage_dirs(const float* __restrict__ dirs, float* sd, int n) {
   for (int e = threadIdx.x; e < 3 * n; e += blockDim.x) sd[e] = FAST ? bf16_round(dirs[e]) : dirs[e];
 }

@@ -11,9 +11,18 @@
 //
 // Replaces: hspose_tpu/ops/pallas_hs.py::_support_kernel with want_win and
 // want_vals (K11) and ::_support_bwd_vals_kernel (K13), reached through
-// hs_support_reduce(..., bwd_store=True).  Plain versions:
+// hs_support_reduce(..., bwd_store=True), both branches: exact=True (fp32
+// operands) and exact=False (the bf16 train step: bf16 g, rf and dirs,
+// T = __nv_bfloat16, with W and b fp32).  Plain versions:
 // hspose_tpu_torch/ops/cuda_hs.py::hs_support_fwd_plain and
 // hs_support_bwd_plain.
+//
+// The bf16 branch makes the TPU kernel's one-pass roundings, and only those:
+// every operand of a product is rounded to bf16 (W when it is staged, gb*twin
+// and gb*pwin when they are staged), so each product of two operands is exact
+// in fp32 and the sums are fp32, as a bf16 tensor-core product with fp32
+// accumulation gives them; b is added in fp32 and db sums the unrounded
+// gb*twin.  dg and drf are rounded to bf16 once, after their sums.
 //
 // What bounds it on an H100: the forward's projection of every gathered row
 // is a dense fp32 product, B*N*K*Cin*S*Co multiply-adds (3.8e10 at conv_1,
@@ -23,7 +32,11 @@
 // and drf are sparse: B*N*S*Co*Cin multiply-adds (K times fewer than the
 // dense products of the TPU kernel), bound by the L2 reads that feed them:
 // a row of W^T per (query, column) for dg, a winning g row per (query,
-// column) for dW.
+// column) for dW.  The bf16 branch reads half the bytes of g, rf and dirs
+// but keeps the same CUDA-core multiply-adds on the widened operands, so the
+// same 1.0e11 fp32 operations bound it here; on the bf16 tensor cores
+// (wgmma, 989 TFLOP/s) the forward's product would be bound by its bytes
+// instead, which is the later, faster version this design leaves room for.
 //
 // Design.
 // * Forward: one block per (batch, TQ-query tile), TQ * Co/4 threads; thread
@@ -59,11 +72,11 @@ constexpr int RED_CH = 64;       // columns per block in the reduction kernel
 constexpr int RED_QC = 128;      // queries per block in the reduction kernel
 constexpr int RED_QS = 16;       // queries staged at once in the reduction kernel
 
-template <int KP>
+template <int KP, typename T>
 __global__ void __launch_bounds__(FWD_THREADS)
-support_fwd_kernel(const float* __restrict__ g, const float* __restrict__ rf,
+support_fwd_kernel(const T* __restrict__ g, const T* __restrict__ rf,
                    const float* __restrict__ w, int ldw, const float* __restrict__ bias,
-                   const float* __restrict__ dirs, float* __restrict__ out,
+                   const T* __restrict__ dirs, float* __restrict__ out,
                    int* __restrict__ win, float* __restrict__ twin, float* __restrict__ pwin,
                    int N, int K, int Cin, int S, int Co, int TQ) {
   extern __shared__ __align__(16) float smem[];
@@ -76,16 +89,27 @@ support_fwd_kernel(const float* __restrict__ g, const float* __restrict__ rf,
   const int t = threadIdx.x / CG, cg = threadIdx.x % CG;
 
   const int c4 = Cin / 4;
-  const float4* g4 = reinterpret_cast<const float4*>(g);
   for (int e = threadIdx.x; e < TQ * KP * c4; e += blockDim.x) {
     const int row = e / c4, tt = row / KP, k = row % KP;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (tt < tq && k < K) v = g4[(((size_t)b * N + q0 + tt) * K + k) * c4 + e % c4];
+    if (tt < tq && k < K) {
+      const size_t at = (((size_t)b * N + q0 + tt) * K + k) * c4 + e % c4;
+      if constexpr (hs::is_bf16<T>) {  // four bf16 values, widened exactly
+        const uint2 raw = reinterpret_cast<const uint2*>(g)[at];
+        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+        v = make_float4(lo.x, lo.y, hi.x, hi.y);
+      } else {
+        v = reinterpret_cast<const float4*>(g)[at];
+      }
+    }
     reinterpret_cast<float4*>(sg)[e] = v;
   }
   for (int e = threadIdx.x; e < TQ * KP * 3; e += blockDim.x) {
     const int row = e / 3, tt = row / KP, k = row % KP;
-    srf[e] = (tt < tq && k < K) ? rf[(((size_t)b * N + q0 + tt) * K + k) * 3 + e % 3] : 0.f;
+    srf[e] = (tt < tq && k < K)
+                 ? hs::load_f(rf + (((size_t)b * N + q0 + tt) * K + k) * 3 + e % 3)
+                 : 0.f;
   }
 
   const bool active = t < tq;
@@ -102,7 +126,8 @@ support_fwd_kernel(const float* __restrict__ g, const float* __restrict__ rf,
       __syncthreads();  // the previous slice is no longer read (and sg, srf are staged)
       for (int e = threadIdx.x; e < BK * Co; e += blockDim.x) {
         const int r = e / Co, c = e % Co;
-        sw[e] = k0 + r < Cin ? w[(size_t)(k0 + r) * ldw + s * Co + c] : 0.f;
+        const float v = k0 + r < Cin ? w[(size_t)(k0 + r) * ldw + s * Co + c] : 0.f;
+        sw[e] = hs::is_bf16<T> ? hs::bf16_round(v) : v;  // the one-pass product's W operand
       }
       __syncthreads();
       const int kmax = min(BK, Cin - k0);
@@ -126,7 +151,8 @@ support_fwd_kernel(const float* __restrict__ g, const float* __restrict__ rf,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = s * Co + cg * 4 + j;
-        const float d0 = dirs[col], d1 = dirs[SC + col], d2 = dirs[2 * SC + col];
+        const float d0 = hs::load_f(dirs + col), d1 = hs::load_f(dirs + SC + col),
+                    d2 = hs::load_f(dirs + 2 * SC + col);
         const float bb = bias[col];
         float m = 0.f, tw = 0.f, pw = 0.f;
         int kb = 0;
@@ -160,11 +186,14 @@ support_fwd_kernel(const float* __restrict__ g, const float* __restrict__ rf,
 
 // Stage, for the flattened (b, n) rows row0 .. row0 + nrows - 1 and columns
 // c0 .. c0 + nc - 1, the winner, gb*twin and the gated gb*pwin into (nq, width)
-// shared arrays; entries past nrows or nc are zero.
+// shared arrays; entries past nrows or nc are zero.  FAST (the bf16 tier)
+// rounds gb*twin and gb*pwin to bf16 as product operands and also stages the
+// unrounded gb*twin into sb, for db.
+template <bool FAST>
 __device__ inline void stage_winners(const int* __restrict__ win, const float* __restrict__ twin,
                                      const float* __restrict__ pwin, const float* __restrict__ gb,
-                                     int* sk, float* sv, float* su, size_t row0, int nq, int nrows,
-                                     int c0, int nc, int width, int SC, int S, int Co) {
+                                     int* sk, float* sv, float* sb, float* su, size_t row0, int nq,
+                                     int nrows, int c0, int nc, int width, int SC, int S, int Co) {
   for (int e = threadIdx.x; e < nq * width; e += blockDim.x) {
     const int t = e / width, j = e % width;
     int k = 0;
@@ -172,27 +201,35 @@ __device__ inline void stage_winners(const int* __restrict__ win, const float* _
     if (t < nrows && j < nc) {
       const size_t row = row0 + t;
       const size_t at = row * SC + c0 + j;
-      const float gs = gb[row * Co + (c0 + j) % Co] / S;
+      const float gs = hs::div_s<FAST>(gb[row * Co + (c0 + j) % Co], S);
       const float tw = twin[at];
       k = win[at];
       v = gs * tw;
       u = tw > 0.f ? gs * pwin[at] : 0.f;
     }
     sk[e] = k;
-    sv[e] = v;
-    su[e] = u;
+    if constexpr (FAST) {
+      sb[e] = v;
+      sv[e] = hs::bf16_round(v);
+      su[e] = hs::bf16_round(u);
+    } else {
+      sv[e] = v;
+      su[e] = u;
+    }
   }
 }
 
 // W (Cin, SC; row stride ldw) -> wt (SC, Cin), so that the rows kernel reads
-// one column of W as a contiguous row.
+// one column of W as a contiguous row; FAST rounds it to bf16 (dg's W operand).
+template <bool FAST>
 __global__ void transpose_kernel(const float* __restrict__ w, int ldw, float* __restrict__ wt,
                                  int Cin, int SC) {
   const size_t n = (size_t)Cin * SC;
   for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
        e += (size_t)gridDim.x * blockDim.x) {
     const int c = (int)(e / Cin), i = (int)(e % Cin);
-    wt[e] = w[(size_t)i * ldw + c];
+    const float v = w[(size_t)i * ldw + c];
+    wt[e] = FAST ? hs::bf16_round(v) : v;
   }
 }
 
@@ -201,12 +238,14 @@ __global__ void transpose_kernel(const float* __restrict__ w, int ldw, float* __
 // and keeps running bucket sizes), so dg[q, k, i] is a sum over k's bucket in
 // column order, held in a register by thread i: no shared-memory
 // read-modify-write and no atomics.  Threads k < K sum drf over the same
-// buckets.
+// buckets.  The bf16 tier rounds gb*twin and gb*pwin to bf16 (the products'
+// operands) and writes dg and drf rounded to bf16 once.
+template <typename T>
 __global__ void __launch_bounds__(ROWS_THREADS)
-support_bwd_rows_kernel(const float* __restrict__ wt, const float* __restrict__ dirs,
+support_bwd_rows_kernel(const float* __restrict__ wt, const T* __restrict__ dirs,
                         const int* __restrict__ win, const float* __restrict__ twin,
                         const float* __restrict__ pwin, const float* __restrict__ gb,
-                        float* __restrict__ dg, float* __restrict__ drf, int K, int Cin,
+                        T* __restrict__ dg, T* __restrict__ drf, int K, int Cin,
                         int S, int Co) {
   extern __shared__ __align__(16) float smem[];
   const int SC = S * Co;
@@ -221,11 +260,12 @@ support_bwd_rows_kernel(const float* __restrict__ wt, const float* __restrict__ 
 
   for (int c = threadIdx.x; c < SC; c += blockDim.x) {
     const size_t at = q * SC + c;
-    const float gs = gb[q * Co + c % Co] / S;
+    const float gs = hs::div_s<hs::is_bf16<T>>(gb[q * Co + c % Co], S);
     const float tw = twin[at];
+    const float v = gs * tw, u = tw > 0.f ? gs * pwin[at] : 0.f;
     sk[c] = win[at];
-    sv[c] = gs * tw;
-    su[c] = tw > 0.f ? gs * pwin[at] : 0.f;
+    sv[c] = hs::is_bf16<T> ? hs::bf16_round(v) : v;
+    su[c] = hs::is_bf16<T> ? hs::bf16_round(u) : u;
   }
   if (threadIdx.x < 32) scnt[threadIdx.x] = 0;
   __syncthreads();
@@ -259,7 +299,7 @@ support_bwd_rows_kernel(const float* __restrict__ wt, const float* __restrict__ 
     spair[soff[sk[c]] + srank[c]] = make_float2(__int_as_float(c), sv[c]);
   __syncthreads();
 
-  float* dgq = dg + q * K * Cin;
+  T* dgq = dg + q * K * Cin;
   for (int i = threadIdx.x; i < Cin; i += blockDim.x) {
     for (int k = 0; k < K; ++k) {
       float acc = 0.f;
@@ -269,7 +309,7 @@ support_bwd_rows_kernel(const float* __restrict__ wt, const float* __restrict__ 
         const float2 e = spair[p];
         acc = fmaf(e.y, wt[(size_t)__float_as_int(e.x) * Cin + i], acc);
       }
-      dgq[k * Cin + i] = acc;
+      hs::store_f(dgq + k * Cin + i, acc);
     }
   }
   if (threadIdx.x < K) {
@@ -278,26 +318,31 @@ support_bwd_rows_kernel(const float* __restrict__ wt, const float* __restrict__ 
     for (int p = soff[k]; p < soff[k + 1]; ++p) {
       const int c = __float_as_int(spair[p].x);
       const float u = su[c];
-      a0 += u * dirs[c];
-      a1 += u * dirs[SC + c];
-      a2 += u * dirs[2 * SC + c];
+      a0 += u * hs::load_f(dirs + c);
+      a1 += u * hs::load_f(dirs + SC + c);
+      a2 += u * hs::load_f(dirs + 2 * SC + c);
     }
-    float* r = drf + (q * K + k) * 3;
-    r[0] = a0;
-    r[1] = a1;
-    r[2] = a2;
+    T* r = drf + (q * K + k) * 3;
+    hs::store_f(r, a0);
+    hs::store_f(r + 1, a1);
+    hs::store_f(r + 2, a2);
   }
 }
 
+// The bf16 tier's dW and dd take the bf16-rounded gb*twin and gb*pwin, and db
+// the unrounded gb*twin.
+template <typename T>
 __global__ void __launch_bounds__(256)
-support_bwd_reduce_kernel(const float* __restrict__ g, const float* __restrict__ rf,
+support_bwd_reduce_kernel(const T* __restrict__ g, const T* __restrict__ rf,
                           const int* __restrict__ win, const float* __restrict__ twin,
                           const float* __restrict__ pwin, const float* __restrict__ gb,
                           float* __restrict__ partial, int rows, int K, int Cin, int S,
                           int Co) {
+  constexpr bool FAST = hs::is_bf16<T>;
   __shared__ int sk[RED_QS * RED_CH];
   __shared__ float sv[RED_QS * RED_CH];
   __shared__ float su[RED_QS * RED_CH];
+  __shared__ float sb[FAST ? RED_QS * RED_CH : 1];  // unrounded gb*twin, for db
   const int SC = S * Co;
   const int chunk = blockIdx.y, c0 = blockIdx.x * RED_CH;
   const int nc = min(RED_CH, SC - c0);
@@ -315,25 +360,26 @@ support_bwd_reduce_kernel(const float* __restrict__ g, const float* __restrict__
     for (int q0 = qa; q0 < qb; q0 += RED_QS) {
       const int nq = min(RED_QS, qb - q0);
       __syncthreads();
-      stage_winners(win, twin, pwin, gb, sk, sv, su, q0, RED_QS, nq, c0, nc, RED_CH, SC, S,
-                    Co);
+      stage_winners<FAST>(win, twin, pwin, gb, sk, sv, sb, su, q0, RED_QS, nq, c0, nc, RED_CH,
+                          SC, S, Co);
       __syncthreads();
       for (int t = 0; t < nq; ++t) {
         const size_t q = (size_t)q0 + t;
         if (i < Cin) {
-          const float* gq = g + q * K * Cin + i;
+          const T* gq = g + q * K * Cin + i;
 #pragma unroll
           for (int j = 0; j < RED_CH; ++j)
-            acc[j] = fmaf(sv[t * RED_CH + j], gq[(size_t)sk[t * RED_CH + j] * Cin], acc[j]);
+            acc[j] = fmaf(sv[t * RED_CH + j], hs::load_f(gq + (size_t)sk[t * RED_CH + j] * Cin),
+                          acc[j]);
         }
         if (extra) {
           const int j = threadIdx.x;
-          const float* r = rf + (q * K + sk[t * RED_CH + j]) * 3;
+          const T* r = rf + (q * K + sk[t * RED_CH + j]) * 3;
           const float u = su[t * RED_CH + j];
-          db += sv[t * RED_CH + j];
-          dd0 += u * r[0];
-          dd1 += u * r[1];
-          dd2 += u * r[2];
+          db += (FAST ? sb : sv)[t * RED_CH + j];
+          dd0 += u * hs::load_f(r);
+          dd1 += u * hs::load_f(r + 1);
+          dd2 += u * hs::load_f(r + 2);
         }
       }
     }
@@ -352,18 +398,64 @@ support_bwd_reduce_kernel(const float* __restrict__ g, const float* __restrict__
   }
 }
 
-template <int KP>
-cudaError_t launch_fwd(const float* g, const float* rf, const float* w, int ldw, const float* b,
-                       const float* dirs, float* out, int* win, float* twin, float* pwin, int B,
+template <int KP, typename T>
+cudaError_t launch_fwd(const void* g, const void* rf, const float* w, int ldw, const float* b,
+                       const void* dirs, float* out, int* win, float* twin, float* pwin, int B,
                        int N, int K, int Cin, int S, int Co, cudaStream_t stream) {
   const int TQ = FWD_THREADS / (Co / 4);
   const size_t smem = sizeof(float) * ((size_t)TQ * KP * Cin + BK * Co + (size_t)TQ * KP * 3);
-  cudaError_t err = hs::allow_smem(support_fwd_kernel<KP>, smem);
+  cudaError_t err = hs::allow_smem(support_fwd_kernel<KP, T>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + TQ - 1) / TQ, B);
-  support_fwd_kernel<KP><<<grid, TQ * (Co / 4), smem, stream>>>(
-      g, rf, w, ldw, b, dirs, out, win, twin, pwin, N, K, Cin, S, Co, TQ);
+  support_fwd_kernel<KP, T><<<grid, TQ * (Co / 4), smem, stream>>>(
+      static_cast<const T*>(g), static_cast<const T*>(rf), w, ldw, b,
+      static_cast<const T*>(dirs), out, win, twin, pwin, N, K, Cin, S, Co, TQ);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fwd_k(const void* g, const void* rf, const float* w, int ldw, const float* b,
+                         const void* dirs, float* out, int* win, float* twin, float* pwin, int B,
+                         int N, int K, int Cin, int S, int Co, cudaStream_t st) {
+  if (K <= 8)
+    return launch_fwd<8, T>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S, Co,
+                            st);
+  if (K <= 20)
+    return launch_fwd<20, T>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S, Co,
+                             st);
+  return launch_fwd<32, T>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S, Co,
+                           st);
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* g, const void* rf, const float* w, int ldw, const void* dirs,
+                       const int* win, const float* twin, const float* pwin, const float* gb,
+                       void* dg, void* drf, float* wt, float* partial, float* red, int B, int N,
+                       int K, int Cin, int S, int Co, cudaStream_t st) {
+  constexpr bool FAST = hs::is_bf16<T>;
+  const int SC = S * Co;
+  transpose_kernel<FAST><<<std::min((Cin * SC + 255) / 256, 4096), 256, 0, st>>>(w, ldw, wt, Cin,
+                                                                                SC);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(float) * 6 * (size_t)SC + sizeof(int) * 65;
+  err = hs::allow_smem(support_bwd_rows_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  support_bwd_rows_kernel<T><<<B * N, ROWS_THREADS, smem, st>>>(
+      wt, static_cast<const T*>(dirs), win, twin, pwin, gb, static_cast<T*>(dg),
+      static_cast<T*>(drf), K, Cin, S, Co);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int rows = B * N, parts = (rows + RED_QC - 1) / RED_QC;
+  const int threads = Cin >= 256 ? 256 : ((Cin + 31) / 32) * 32;
+  support_bwd_reduce_kernel<T><<<dim3((SC + RED_CH - 1) / RED_CH, parts),
+                                 std::max(threads, RED_CH), 0, st>>>(
+      static_cast<const T*>(g), static_cast<const T*>(rf), win, twin, pwin, gb, partial, rows, K,
+      Cin, S, Co);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return hs::sum_partials(partial, red, parts, (Cin + 4) * SC, st);
 }
 
 
@@ -385,52 +477,35 @@ extern "C" int hs_support_train_supported(int K, int Cin, int Co) {
 // (hs_support_bwd_parts(B * N), Cin + 4, S*Co).
 extern "C" int hs_support_bwd_parts(int rows) { return (rows + RED_QC - 1) / RED_QC; }
 
-// g (B, N, K, Cin), rf (B, N, K, 3), w (Cin, S*Co; row stride ldw), b (S*Co),
-// dirs (3, S*Co) -> out (B, N, Co), win (B, N, S*Co) int32, twin, pwin (B, N, S*Co).
-extern "C" int hs_support_fwd(const float* g, const float* rf, const float* w, int ldw,
-                              const float* b, const float* dirs, float* out, int* win,
+// g (B, N, K, Cin), rf (B, N, K, 3), dirs (3, S*Co), fp32 or (fast != 0) bf16;
+// w (Cin, S*Co; row stride ldw), b (S*Co) fp32 -> out (B, N, Co), win (B, N, S*Co)
+// int32, twin, pwin (B, N, S*Co), fp32.
+extern "C" int hs_support_fwd(const void* g, const void* rf, const float* w, int ldw,
+                              const float* b, const void* dirs, float* out, int* win,
                               float* twin, float* pwin, int B, int N, int K, int Cin, int S,
-                              int Co, void* stream) {
+                              int Co, int fast, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hs_support_train_supported(K, Cin, Co)) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (K <= 8)
-    err = launch_fwd<8>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S, Co, st);
-  else if (K <= 20)
-    err = launch_fwd<20>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S, Co, st);
-  else
-    err = launch_fwd<32>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S, Co, st);
-  return (int)err;
+  return (int)(fast ? launch_fwd_k<__nv_bfloat16>(g, rf, w, ldw, b, dirs, out, win, twin, pwin,
+                                                  B, N, K, Cin, S, Co, st)
+                    : launch_fwd_k<float>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K,
+                                          Cin, S, Co, st));
 }
 
-// g (B, N, K, Cin), rf (B, N, K, 3), w (Cin, S*Co; row stride ldw), dirs (3, S*Co),
-// win/twin/pwin (B, N, S*Co), gb (B, N, Co), scratch wt (S*Co, Cin) and partial
-// (hs_support_bwd_parts(B * N), Cin + 4, S*Co) -> dg (B, N, K, Cin), drf (B, N, K, 3),
-// red (Cin + 4, S*Co) = [dW; db; dd].
-extern "C" int hs_support_bwd(const float* g, const float* rf, const float* w, int ldw,
-                              const float* dirs, const int* win, const float* twin,
-                              const float* pwin, const float* gb, float* dg, float* drf,
+// g (B, N, K, Cin), rf (B, N, K, 3), dirs (3, S*Co), fp32 or (fast != 0) bf16;
+// w (Cin, S*Co; row stride ldw), win/twin/pwin (B, N, S*Co), gb (B, N, Co), scratch
+// wt (S*Co, Cin) and partial (hs_support_bwd_parts(B * N), Cin + 4, S*Co) -> dg
+// (B, N, K, Cin) and drf (B, N, K, 3) in g's type, red (Cin + 4, S*Co) = [dW; db; dd]
+// fp32.
+extern "C" int hs_support_bwd(const void* g, const void* rf, const float* w, int ldw,
+                              const void* dirs, const int* win, const float* twin,
+                              const float* pwin, const float* gb, void* dg, void* drf,
                               float* wt, float* partial, float* red, int B, int N, int K,
-                              int Cin, int S, int Co, void* stream) {
+                              int Cin, int S, int Co, int fast, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hs_support_train_supported(K, Cin, Co)) return (int)cudaErrorInvalidValue;
-  const int SC = S * Co;
-  transpose_kernel<<<std::min((Cin * SC + 255) / 256, 4096), 256, 0, st>>>(w, ldw, wt, Cin, SC);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * 6 * (size_t)SC + sizeof(int) * 65;
-  err = hs::allow_smem(support_bwd_rows_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  support_bwd_rows_kernel<<<B * N, ROWS_THREADS, smem, st>>>(wt, dirs, win, twin, pwin, gb, dg,
-                                                             drf, K, Cin, S, Co);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const int rows = B * N, parts = hs_support_bwd_parts(rows);
-  const int threads = Cin >= 256 ? 256 : ((Cin + 31) / 32) * 32;
-  support_bwd_reduce_kernel<<<dim3((SC + RED_CH - 1) / RED_CH, parts), std::max(threads, RED_CH), 0,
-                              st>>>(g, rf, win, twin, pwin, gb, partial, rows, K, Cin, S, Co);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)hs::sum_partials(partial, red, parts, (Cin + 4) * SC, st);
+  return (int)(fast ? launch_bwd<__nv_bfloat16>(g, rf, w, ldw, dirs, win, twin, pwin, gb, dg,
+                                                drf, wt, partial, red, B, N, K, Cin, S, Co, st)
+                    : launch_bwd<float>(g, rf, w, ldw, dirs, win, twin, pwin, gb, dg, drf, wt,
+                                        partial, red, B, N, K, Cin, S, Co, st));
 }

@@ -10,10 +10,13 @@ and five ORL branches.  A model built with ``train_heads`` also has the
 conv1d, recon and face heads; in train mode the forward returns
 (recon, face, feat) from them, in eval mode feat alone.
 
-``compute_dtype="bfloat16"`` serves in bf16 as the JAX package's fast tier
-does: bf16 features and one-hot between the layers, BatchNorm rounded to
-bf16, all nine searches by packed keys, the 1-NN upsample still exact in
-fp32 on the vertices.  Training in bf16 is not ported.
+``compute_dtype="bfloat16"`` serves and trains in bf16 as the JAX
+package's fast tier does: bf16 features and one-hot between the layers,
+BatchNorm rounded to bf16, all nine searches by packed keys, the 1-NN
+upsample still exact in fp32 on the vertices.  The train heads have no
+dtype in the JAX package, so flax promotes their bf16 input against the
+fp32 parameters: here they take it widened to fp32 and run in fp32, their
+BatchNorm too.
 """
 
 from __future__ import annotations
@@ -45,7 +48,11 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     gradients then carry), x is normalised as (x - mean) * (rsqrt(var + eps)
     * scale) + bias, and the running statistics move by the momentum with
     this *biased* variance (torch's own update takes the unbiased one, which
-    at the heads' B rows after the max-pool is B/(B-1) too large)."""
+    at the heads' B rows after the max-pool is B/(B-1) too large).
+
+    bf16 x in train mode is flax's BatchNorm(dtype=bf16) (flax
+    _compute_stats, _normalize): the statistics come from x widened to fp32,
+    y is formed in fp32 and rounded to bf16 once."""
     x2 = x.reshape(-1, x.shape[-1])
     if not bn.training and x.dtype == torch.bfloat16:
         # flax's BatchNorm(dtype=bf16) in eval mode (hspose_tpu/models/
@@ -56,14 +63,15 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
         return y.to(torch.bfloat16).reshape(x.shape)
     if not bn.training:
         return bn(x2).reshape(x.shape)
-    mean = x2.mean(0)
-    var = torch.clamp((x2 * x2).mean(0) - mean * mean, min=0.0)
-    y = (x2 - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+    xf = x2.float()
+    mean = xf.mean(0)
+    var = torch.clamp((xf * xf).mean(0) - mean * mean, min=0.0)
+    y = (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
         bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
-    return y.reshape(x.shape)
+    return y.to(x.dtype).reshape(x.shape)
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -92,6 +100,7 @@ class MLPHead(nn.Module):
         self.bn_out = _bn(out, device) if final_act else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()  # flax promotes a bf16 input against the fp32 parameters
         for i in range(self.n_hidden):
             x = torch.relu(batch_norm(getattr(self, f"bn_{i}"),
                                       getattr(self, f"dense_{i}")(x)))
@@ -131,9 +140,6 @@ class FaceRecon(nn.Module):
         eval mode and (recon (B, N, 3), face (B, N, 30), feat) in train mode."""
         cfg = self.cfg
         fast = self.dtype == torch.bfloat16
-        if fast and self.training:
-            raise NotImplementedError("bf16 training (the exact=False branches of the "
-                                      "training kernels) is not ported")
         # the relaxed-KNN tier serves only: training keeps gcn_n_num
         k = cfg.serve_k if cfg.serve_k > 0 and not self.training else cfg.gcn_n_num
         B, N, _ = vertices.shape
@@ -185,6 +191,6 @@ class FaceRecon(nn.Module):
         conv1d_out = self.conv1d_block(feat)
         recon = self.recon_head(conv1d_out)
         f_global = fm_4.amax(dim=1)  # (B, 512)
-        face_in = torch.cat([f_global[:, None, :].expand(B, N, f_global.shape[-1]),
-                             conv1d_out, vertices], dim=-1)  # 771
+        face_in = torch.cat([f_global[:, None, :].expand(B, N, f_global.shape[-1]).float(),
+                             conv1d_out, vertices], dim=-1)  # 771, fp32 as flax promotes it
         return recon, self.face_head(face_in), feat

@@ -2,9 +2,9 @@
 heads (1286 -> 1024 -> 256 | max over points | 256 -> 256 -> 4) and the
 translation/size head (1289 -> ... -> 6), channel-last.  In train mode each
 head applies dropout 0.2 after its third block, with an injected keep-mask
-when one is given.  With ``dtype=torch.bfloat16`` (the bf16 serving tier)
-the products and BatchNorm run in bf16 and the output is cast to fp32, as
-the JAX heads with ``dtype=bfloat16`` (hspose_tpu/models/heads.py:39-94)."""
+when one is given.  With ``dtype=torch.bfloat16`` (the bf16 tier) the
+products, BatchNorm and dropout run in bf16 and the output is cast to fp32,
+as the JAX heads with ``dtype=bfloat16`` (hspose_tpu/models/heads.py:39-94)."""
 
 from __future__ import annotations
 
@@ -54,7 +54,9 @@ class VecHead(nn.Module):
         if self.training:
             if keep is None:
                 keep = torch.rand(h.shape, device=h.device) < KEEP_PROB
-            h = torch.where(keep, h / KEEP_PROB, 0.0)
+            # flax divides by the keep probability in h's dtype: 0.8 is
+            # 0.80078125 in bf16 (and 0.8 again in fp32)
+            h = torch.where(keep, h / torch.tensor(KEEP_PROB, dtype=h.dtype).item(), 0.0)
         return dense(self.conv4, h, dt).float()
 
 

@@ -23,13 +23,25 @@ from hspose_tpu_torch.models.posenet import PoseNet9D, PoseNetOutput, PoseNetTra
 LossDicts = Dict[str, Dict[str, torch.Tensor]]
 
 
-def build_model(cfg: ModelConfig, device="cpu", train_heads: bool = False) -> PoseNet9D:
-    """PoseNet9D on ``device``, in eval mode; with ``train_heads`` it also
-    has the conv1d, recon and face heads that the train forward needs.
+def _card_unless_asked(device):
+    """The device an entry point runs on: the CUDA card unless the caller
+    names another; raises when it is the card and there is none."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card unless the caller "
+                           "asks for another, e.g. device='cpu'")
+    return device
+
+
+def build_model(cfg: ModelConfig, device=None, train_heads: bool = False) -> PoseNet9D:
+    """PoseNet9D on ``device`` (the CUDA card unless the caller names
+    another), in eval mode; with ``train_heads`` it also has the conv1d,
+    recon and face heads that the train forward needs.
 
     ``compute_dtype`` is ``"float32"`` (the reference semantics) or
-    ``"bfloat16"`` (the fast serving tier; parameters stay fp32 and are cast
-    at use, as flax's ``param_dtype``, so ``load_jax_params`` fills either).
+    ``"bfloat16"`` (the fast tier, serving and training; parameters stay
+    fp32 and are cast at use, as flax's ``param_dtype``, so
+    ``load_jax_params`` fills either).
     ``"f32x2"`` worked around the TPU compiler's lack of in-kernel fp32
     products and has no counterpart here.  The fp32 tier must not drift, so
     this turns TF32 off for matrix products and cuDNN process-wide: with
@@ -37,16 +49,21 @@ def build_model(cfg: ModelConfig, device="cpu", train_heads: bool = False) -> Po
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r}: only 'float32' and 'bfloat16' are ported")
+    device = _card_unless_asked(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return PoseNet9D(cfg, device=device, train_heads=train_heads).eval()
 
 
 def draw_pool_samples(n: int, generator: torch.Generator | None = None,
-                      device="cpu") -> list[torch.Tensor]:
+                      device=None) -> list[torch.Tensor]:
     """Kept-row indices of the two 4x pools of an n-point cloud: the first
     n // 4 entries of one permutation of n, then of n // 4.  One draw serves
-    the whole batch.  ``generator`` must live on ``device``."""
+    the whole batch.  The samples lie on ``device``, else on the
+    generator's device, else on the CUDA card."""
+    if device is None and generator is not None:
+        device = generator.device
+    device = _card_unless_asked(device)
     samples = []
     for _ in range(2):
         perm = torch.randperm(n, generator=generator, device=device)

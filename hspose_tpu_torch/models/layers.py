@@ -9,13 +9,17 @@ differentiable kernels of ``ops/cuda_hs.py`` on them, as the JAX layers' v3
 training branch does, and the ORL branch is the plain gather, max and mean.
 Either way a CUDA tensor takes the kernel and a CPU tensor its plain version.
 
-``dtype=torch.bfloat16`` is the bf16 serving tier: parameters stay fp32 and
-are cast at use, and the layers round where the JAX layers with
+``dtype=torch.bfloat16`` is the bf16 tier: parameters stay fp32 and are
+cast at use, and the layers round where the JAX layers with
 ``dtype=bfloat16`` do (hspose_tpu/models/layers.py:128-192, 235-343): the
 dense maps in bf16, the HS reductions through the kernels' bf16 variants
 into fp32, the centre projection in bf16 plus the fp32 bias, the ORL input
-and the concat in bf16, and the output rounded to bf16.  For fp32 every cast
-is the identity, so the fp32 tier runs the same operations as before.
+and the concat in bf16, and the output rounded to bf16.  In train mode the
+receptive-field directions are formed in bf16 arithmetic from the vertices
+rounded to bf16, the gathered features and the support directions are
+bf16, and W and b of the supports stay fp32 (layers.py:147-159, 265-285).
+For fp32 every cast is the identity, so the fp32 tier runs the same
+operations as before.
 """
 
 from __future__ import annotations
@@ -102,8 +106,8 @@ class HSLayerSurface(nn.Module):
         f_ste = dense(self.STE_layer, vertices, dt)
         dirs = _normalize_dirs(self.directions)
         if self.training:
-            rf = neighbor_directions_normalized(vertices, rf_idx)
-            feature = hs_surface_reduce(rf, dirs, self.support_num, self.kernel_num)
+            rf = neighbor_directions_normalized(vertices.to(dt), rf_idx)
+            feature = hs_surface_reduce(rf, dirs.to(dt), self.support_num, self.kernel_num)
         else:
             feature = hs_surface_fused(vertices, rf_idx, dirs, self.support_num,
                                        self.kernel_num, exact=dt == torch.float32)
@@ -138,10 +142,10 @@ class HSLayer(nn.Module):
         feature_center = feature_map @ self.weights[:, :co].to(dt) + self.bias[:co]
         dirs = _normalize_dirs(self.directions)
         if self.training:
-            rf = neighbor_directions_normalized(vertices, rf_idx)
+            rf = neighbor_directions_normalized(vertices.to(dt), rf_idx)
             g = gather_neighbors(feature_map, rf_idx)
             activation = hs_support_reduce(g, rf, self.weights[:, co:], self.bias[co:],
-                                           dirs, s, co)
+                                           dirs.to(dt), s, co)
         else:
             activation = hs_support_fused(feature_map, vertices, rf_idx,
                                           self.weights[:, co:], self.bias[co:], dirs, s, co)

@@ -45,17 +45,17 @@ SIGNATURES = {
     "hs_orl": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # N -> tiles of the ORL partial-sum scratch (no launch)
     "hs_orl_tiles": [_I],
-    # rf, dirs, out, win, B, N, K, S, Co, stream
-    "hs_surface_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # rf, dirs, win, gb, drf, partial, dd, B, N, K, S, Co, stream
-    "hs_surface_bwd": [_P] * 7 + [_I] * 5 + [_P],
+    # rf, dirs, out, win, B, N, K, S, Co, fast, stream
+    "hs_surface_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # rf, dirs, win, gb, drf, partial, dd, B, N, K, S, Co, fast, stream
+    "hs_surface_bwd": [_P] * 7 + [_I] * 6 + [_P],
     # B, N -> rows of the surface backward's partial-sum scratch (no launch)
     "hs_surface_bwd_parts": [_I, _I],
-    # g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S, Co, stream
-    "hs_support_fwd": [_P, _P, _P, _I] + [_P] * 6 + [_I] * 6 + [_P],
+    # g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S, Co, fast, stream
+    "hs_support_fwd": [_P, _P, _P, _I] + [_P] * 6 + [_I] * 7 + [_P],
     # g, rf, w, ldw, dirs, win, twin, pwin, gb, dg, drf, wt, partial, red,
-    # B, N, K, Cin, S, Co, stream
-    "hs_support_bwd": [_P, _P, _P, _I] + [_P] * 10 + [_I] * 6 + [_P],
+    # B, N, K, Cin, S, Co, fast, stream
+    "hs_support_bwd": [_P, _P, _P, _I] + [_P] * 10 + [_I] * 7 + [_P],
     # B * N -> rows of the support backward's partial-sum scratch (no launch)
     "hs_support_bwd_parts": [_I],
     # K, Cin, Co -> 0 when the training support kernels take these sizes (no launch)

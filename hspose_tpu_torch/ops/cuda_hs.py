@@ -19,7 +19,17 @@ the max (``win``) and, for the support reduction, theta and the projection
 there (``twin``, ``pwin``); the backwards route each cotangent to that k
 only.  ``torch.amax`` would split a gradient over ties instead.  The two
 ``autograd.Function``s, ``HSSurfaceReduce`` and ``HSSupportReduce``, pair
-each forward with its backward.  Inputs are fp32, ``win`` int32.
+each forward with its backward.  ``win`` is int32.
+
+Inputs are fp32, or, for the bf16 train step (the TPU kernels'
+``exact=False``), bf16 g, rf and dirs with W and b in fp32.  The bf16
+calls launch the same kernels instantiated for bf16 operands; their
+products round each operand to bf16 and sum in fp32, as the TPU's one-pass
+products do, and their plain versions make the same roundings.  Outputs,
+winner values, dW and db are fp32; dg, drf and dd come back in their
+inputs' dtype, as the JAX custom VJPs cast them (pallas_hs.py:612-613,
+:734).  Each wrapper counts fp32 launches in ``.launches`` and bf16 ones in
+``.bf16_launches``.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from hspose_tpu_torch.ops import _build
+from hspose_tpu_torch.ops.cuda_hs_fused import _bf16, _count, _theta_fast
 
 
 # --------------------------------------------------------------------------- #
@@ -45,14 +56,38 @@ def _onehot(win: torch.Tensor, K: int) -> torch.Tensor:
     return (ks == win[:, :, None, :].long()).to(torch.float32)
 
 
+def _theta(rf: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """relu(rf . d): (B, N, K, 3), (3, C) -> (B, N, K, C) fp32.  bf16 operands
+    (the bf16 tier) take ``_theta_fast``'s exact products in x, y, z order."""
+    if rf.dtype == torch.bfloat16:
+        return _theta_fast(rf.float(), d.float())
+    return torch.relu(rf @ d)
+
+
+def _operand(x: torch.Tensor, fast: bool) -> torch.Tensor:
+    """x as an operand of the bf16 tier's products (rounded to bf16, as
+    fp32), else x."""
+    return _bf16(x) if fast else x
+
+
+def _per_support(gb: torch.Tensor, support_num: int, fast: bool) -> torch.Tensor:
+    """gb / S.  The bf16 tier takes gb times 1/S rounded to fp32, as XLA
+    forms a division by a constant in the TPU kernels: the one-ulp
+    difference from a true division can move the rounding to bf16 that
+    follows (csrc/hs_common.cuh::div_s)."""
+    if fast:
+        return gb * (torch.tensor(1.0) / support_num).item()
+    return gb / support_num
+
+
 def hs_surface_fwd_plain(rf: torch.Tensor, dirs: torch.Tensor, support_num: int,
                          out_channel: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(mean_s max_k relu(rf . dir_s), win): rf (B, N, K, 3), dirs (3, S*Co)
-    -> (B, N, Co), int32 (B, N, S*Co)."""
+    """(mean_s max_k relu(rf . dir_s), win): rf (B, N, K, 3), dirs (3, S*Co),
+    fp32 or bf16 -> fp32 (B, N, Co), int32 (B, N, S*Co)."""
     total, wins = 0.0, []
     for s in range(support_num):
         d = dirs[:, s * out_channel:(s + 1) * out_channel]
-        m, w = _first_max(torch.relu(rf @ d))
+        m, w = _first_max(_theta(rf, d))
         total = total + m
         wins.append(w)
     return total / support_num, torch.cat(wins, -1).to(torch.int32)
@@ -62,19 +97,25 @@ def hs_surface_bwd_plain(rf: torch.Tensor, dirs: torch.Tensor, win: torch.Tensor
                          gb: torch.Tensor, support_num: int,
                          out_channel: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Cotangents (drf, dd) of ``hs_surface_fwd_plain`` for the output
-    cotangent gb (B, N, Co), routed to the recorded winners where theta > 0."""
+    cotangent gb (B, N, Co), routed to the recorded winners where theta > 0,
+    in the dtypes of rf and dirs.  bf16 inputs: the routed cotangent du is
+    rounded to bf16 for both products, as the TPU kernel's one-pass
+    products round it (pallas_hs.py:428-440, ``exact=False``)."""
     co, K = out_channel, rf.shape[2]
-    g = gb / support_num
-    drf = torch.zeros_like(rf)
-    dd = torch.zeros_like(dirs)
+    fast = rf.dtype == torch.bfloat16
+    rf32, d32 = rf.float(), dirs.float()
+    g = _per_support(gb, support_num, fast)
+    drf = torch.zeros(rf.shape, dtype=torch.float32, device=rf.device)
+    dd = torch.zeros(dirs.shape, dtype=torch.float32, device=rf.device)
     for s in range(support_num):
         cols = slice(s * co, (s + 1) * co)
-        d = dirs[:, cols]
-        theta = rf @ d  # (B, N, K, Co)
+        d = d32[:, cols]
+        theta = _theta(rf, dirs[:, cols])  # the gate theta > 0 is the same as before relu
         du = torch.where(theta > 0, _onehot(win[..., cols], K) * g[:, :, None, :], 0.0)
+        du = _operand(du, fast)
         drf = drf + du @ d.t()
-        dd[:, cols] = rf.reshape(-1, 3).t() @ du.reshape(-1, co)
-    return drf, dd
+        dd[:, cols] = rf32.reshape(-1, 3).t() @ du.reshape(-1, co)
+    return drf.to(rf.dtype), dd.to(dirs.dtype)
 
 
 def hs_support_fwd_plain(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor,
@@ -82,13 +123,18 @@ def hs_support_fwd_plain(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor,
                          out_channel: int):
     """(out, win, twin, pwin) of mean_s max_k relu(rf . dir_s) * (g @ W_s + b_s):
     g (B, N, K, Cin), rf (B, N, K, 3), w (Cin, S*Co), b (S*Co,), dirs (3, S*Co)
-    -> (B, N, Co), int32 (B, N, S*Co), (B, N, S*Co), (B, N, S*Co)."""
+    -> (B, N, Co), int32 (B, N, S*Co), (B, N, S*Co), (B, N, S*Co), fp32.
+
+    bf16 g, rf and dirs (with w and b fp32) are the bf16 tier: W is rounded
+    to bf16 in the product, which sums in fp32, and b is added in fp32
+    (pallas_hs.py:192-196, ``exact=False``)."""
     co = out_channel
+    fast = g.dtype == torch.bfloat16
     total, wins, twins, pwins = 0.0, [], [], []
     for s in range(support_num):
         cols = slice(s * co, (s + 1) * co)
-        theta = torch.relu(rf @ dirs[:, cols])
-        proj = g @ w[:, cols] + b[cols]
+        theta = _theta(rf, dirs[:, cols])
+        proj = g.float() @ _operand(w[:, cols], fast) + b[cols]
         m, win = _first_max(theta * proj)
         total = total + m
         wins.append(win)
@@ -104,26 +150,34 @@ def hs_support_bwd_plain(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor,
                          out_channel: int):
     """Cotangents (dg, drf, dw, db, dd) of ``hs_support_fwd_plain`` for the
     output cotangent gb (B, N, Co), from the stored winner values
-    (hspose_tpu/ops/pallas_hs.py:385-401)."""
+    (hspose_tpu/ops/pallas_hs.py:385-401), each in its input's dtype.
+
+    bf16 inputs: dpi and du are formed in fp32, then each product rounds
+    its operands to bf16 (dg = bf16(dpi) bf16(W)^T, drf = bf16(du) d^T,
+    dW = g^T bf16(dpi), dd = rf^T bf16(du)) and sums in fp32; db sums the
+    unrounded dpi."""
     co, (B, N, K, cin) = out_channel, g.shape
-    gs = gb / support_num
-    dg = torch.zeros_like(g)
-    drf = torch.zeros_like(rf)
-    dw = torch.zeros((cin, support_num * co), dtype=g.dtype, device=g.device)
-    db = torch.zeros(support_num * co, dtype=g.dtype, device=g.device)
-    dd = torch.zeros_like(dirs)
+    fast = g.dtype == torch.bfloat16
+    g32, rf32, d32 = g.float(), rf.float(), dirs.float()
+    gs = _per_support(gb, support_num, fast)
+    dg = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+    drf = torch.zeros(rf.shape, dtype=torch.float32, device=g.device)
+    dw = torch.zeros((cin, support_num * co), dtype=torch.float32, device=g.device)
+    db = torch.zeros(support_num * co, dtype=torch.float32, device=g.device)
+    dd = torch.zeros(dirs.shape, dtype=torch.float32, device=g.device)
     for s in range(support_num):
         cols = slice(s * co, (s + 1) * co)
         sel = _onehot(win[..., cols], K)
         tw, pw = twin[..., cols], pwin[..., cols]
         dpi = sel * (gs * tw)[:, :, None, :]
         du = sel * torch.where(tw > 0, gs * pw, 0.0)[:, :, None, :]
-        dg = dg + dpi @ w[:, cols].t()
-        drf = drf + du @ dirs[:, cols].t()
-        dw[:, cols] = g.reshape(-1, cin).t() @ dpi.reshape(-1, co)
+        dpi_op, du_op = _operand(dpi, fast), _operand(du, fast)
+        dg = dg + dpi_op @ _operand(w[:, cols], fast).t()
+        drf = drf + du_op @ d32[:, cols].t()
+        dw[:, cols] = g32.reshape(-1, cin).t() @ dpi_op.reshape(-1, co)
         db[cols] = dpi.sum((0, 1, 2))
-        dd[:, cols] = rf.reshape(-1, 3).t() @ du.reshape(-1, co)
-    return dg, drf, dw, db, dd
+        dd[:, cols] = rf32.reshape(-1, 3).t() @ du_op.reshape(-1, co)
+    return dg.to(g.dtype), drf.to(rf.dtype), dw, db, dd.to(dirs.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -134,18 +188,27 @@ def _empty(shape, like: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=like.device)
 
 
+def _tier(x: torch.Tensor) -> tuple[torch.dtype, int]:
+    """The operand dtype of a call (fp32, or bf16 for the bf16 tier) and the
+    ``fast`` flag the kernels take."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"expected fp32 or bf16 operands, got {x.dtype}")
+    return x.dtype, int(x.dtype == torch.bfloat16)
+
+
 def hs_surface_fwd(rf: torch.Tensor, dirs: torch.Tensor, support_num: int,
                    out_channel: int) -> tuple[torch.Tensor, torch.Tensor]:
     """K12: see ``hs_surface_fwd_plain``."""
     if _build.on_cpu(rf, dirs):
         return hs_surface_fwd_plain(rf, dirs, support_num, out_channel)
     S, co = support_num, out_channel
-    _build.check(rf, "rf", torch.float32, (None, None, None, 3))
+    dt, fast = _tier(rf)
+    _build.check(rf, "rf", dt, (None, None, None, 3))
     B, N, K, _ = rf.shape
-    _build.check(dirs, "dirs", torch.float32, (3, S * co))
+    _build.check(dirs, "dirs", dt, (3, S * co))
     out, win = _empty((B, N, co), rf), _empty((B, N, S * co), rf, torch.int32)
-    _build.launch("hs_surface_fwd", rf, dirs, out, win, B, N, K, S, co)
-    hs_surface_fwd.launches += 1
+    _build.launch("hs_surface_fwd", rf, dirs, out, win, B, N, K, S, co, fast)
+    _count(hs_surface_fwd, fast)
     return out, win
 
 
@@ -156,48 +219,50 @@ def hs_surface_bwd(rf: torch.Tensor, dirs: torch.Tensor, win: torch.Tensor,
     if _build.on_cpu(rf, dirs, win, gb):
         return hs_surface_bwd_plain(rf, dirs, win, gb, support_num, out_channel)
     S, co = support_num, out_channel
-    _build.check(rf, "rf", torch.float32, (None, None, None, 3))
+    dt, fast = _tier(rf)
+    _build.check(rf, "rf", dt, (None, None, None, 3))
     B, N, K, _ = rf.shape
-    _build.check(dirs, "dirs", torch.float32, (3, S * co))
+    _build.check(dirs, "dirs", dt, (3, S * co))
     _build.check(win, "win", torch.int32, (B, N, S * co))
     _build.check(gb, "gb", torch.float32, (B, N, co))
     parts = _build.load().hs_surface_bwd_parts(B, N)
     partial = _empty((parts, 3, S * co), rf)
-    drf, dd = _empty(rf.shape, rf), _empty((3, S * co), rf)
-    _build.launch("hs_surface_bwd", rf, dirs, win, gb, drf, partial, dd, B, N, K, S, co)
-    hs_surface_bwd.launches += 1
-    return drf, dd
+    drf, dd = _empty(rf.shape, rf, dt), _empty((3, S * co), rf)
+    _build.launch("hs_surface_bwd", rf, dirs, win, gb, drf, partial, dd, B, N, K, S, co, fast)
+    _count(hs_surface_bwd, fast)
+    return drf, dd.to(dt)
 
 
 def _check_support(g, rf, dirs, S, co):
-    _build.check(g, "g", torch.float32, (None, None, None, None))
+    dt, fast = _tier(g)
+    _build.check(g, "g", dt, (None, None, None, None))
     B, N, K, cin = g.shape
     if g.data_ptr() % 16:
         raise ValueError("g: expected a 16-byte aligned tensor")
     if _build.load().hs_support_train_supported(K, cin, co):
         raise ValueError(f"hs_support kernels do not take K={K}, Cin={cin}, Co={co} "
                          f"(K <= 32, Cin and Co multiples of 4, Co/4 dividing 256)")
-    _build.check(rf, "rf", torch.float32, (B, N, K, 3))
-    _build.check(dirs, "dirs", torch.float32, (3, S * co))
-    return B, N, K, cin
+    _build.check(rf, "rf", dt, (B, N, K, 3))
+    _build.check(dirs, "dirs", dt, (3, S * co))
+    return B, N, K, cin, dt, fast
 
 
 def hs_support_fwd(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    dirs: torch.Tensor, support_num: int, out_channel: int):
-    """K11: see ``hs_support_fwd_plain``.  ``w`` may be a column slice of the
-    layer's (Cin, (S+1)*Co) matrix."""
+    """K11: see ``hs_support_fwd_plain``.  ``w`` (fp32) may be a column slice
+    of the layer's (Cin, (S+1)*Co) matrix."""
     if _build.on_cpu(g, rf, w, b, dirs):
         return hs_support_fwd_plain(g, rf, w, b, dirs, support_num, out_channel)
     S, co = support_num, out_channel
-    B, N, K, cin = _check_support(g, rf, dirs, S, co)
+    B, N, K, cin, _, fast = _check_support(g, rf, dirs, S, co)
     _build.check_rows(w, "w", (cin, S * co))
     _build.check(b, "b", torch.float32, (S * co,))
     out = _empty((B, N, co), g)
     win = _empty((B, N, S * co), g, torch.int32)
     twin, pwin = _empty((B, N, S * co), g), _empty((B, N, S * co), g)
     _build.launch("hs_support_fwd", g, rf, w, w.stride(0), b, dirs, out, win, twin, pwin,
-                  B, N, K, cin, S, co)
-    hs_support_fwd.launches += 1
+                  B, N, K, cin, S, co, fast)
+    _count(hs_support_fwd, fast)
     return out, win, twin, pwin
 
 
@@ -210,7 +275,7 @@ def hs_support_bwd(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor,
         return hs_support_bwd_plain(g, rf, w, dirs, win, twin, pwin, gb, support_num,
                                     out_channel)
     S, co = support_num, out_channel
-    B, N, K, cin = _check_support(g, rf, dirs, S, co)
+    B, N, K, cin, dt, fast = _check_support(g, rf, dirs, S, co)
     _build.check_rows(w, "w", (cin, S * co))
     _build.check(win, "win", torch.int32, (B, N, S * co))
     _build.check(twin, "twin", torch.float32, (B, N, S * co))
@@ -220,17 +285,16 @@ def hs_support_bwd(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor,
     wt = _empty((S * co, cin), g)  # scratch: W transposed
     partial = _empty((parts, cin + 4, S * co), g)
     red = _empty((cin + 4, S * co), g)
-    dg, drf = _empty(g.shape, g), _empty(rf.shape, g)
+    dg, drf = _empty(g.shape, g, dt), _empty(rf.shape, g, dt)
     _build.launch("hs_support_bwd", g, rf, w, w.stride(0), dirs, win, twin, pwin, gb, dg,
-                  drf, wt, partial, red, B, N, K, cin, S, co)
-    hs_support_bwd.launches += 1
-    return dg, drf, red[:cin], red[cin], red[cin + 1:]
+                  drf, wt, partial, red, B, N, K, cin, S, co, fast)
+    _count(hs_support_bwd, fast)
+    return dg, drf, red[:cin], red[cin], red[cin + 1:].to(dt)
 
 
-hs_surface_fwd.launches = 0
-hs_surface_bwd.launches = 0
-hs_support_fwd.launches = 0
-hs_support_bwd.launches = 0
+for _wrapper in (hs_surface_fwd, hs_surface_bwd, hs_support_fwd, hs_support_bwd):
+    _wrapper.launches = 0  # fp32 launches
+    _wrapper.bf16_launches = 0
 
 
 # --------------------------------------------------------------------------- #

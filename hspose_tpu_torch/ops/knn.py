@@ -76,17 +76,55 @@ def nearest_index(target: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
     return torch.argmin(pairwise_sq_dist(target, source), dim=-1).to(torch.int32)
 
 
-def gather_neighbors(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Per-neighbour features: features (B, N, C), idx (B, M, K) -> (B, M, K, C)."""
+def _gather(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     batch = torch.arange(features.shape[0], device=features.device)[:, None, None]
     return features[batch, idx.long()]
+
+
+class _GatherBF16(torch.autograd.Function):
+    """The gather of bf16 features, whose cotangent is summed in fp32 and
+    rounded to bf16 once, as the TPU forms it (a one-hot product with fp32
+    accumulation, hspose_tpu/ops/knn.py:175-183).  Autograd's own backward
+    of the indexing adds into bf16, rounding after every add."""
+
+    @staticmethod
+    def forward(ctx, features, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = features.shape
+        return _gather(features, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        B, N, C = ctx.shape
+        rows = (idx.long() + N * torch.arange(B, device=idx.device)[:, None, None]).reshape(-1)
+        acc = torch.zeros((B * N, C), dtype=torch.float32, device=grad.device)
+        acc.index_add_(0, rows, grad.reshape(-1, C).float())
+        return acc.to(grad.dtype).reshape(B, N, C), None
+
+
+def gather_neighbors(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-neighbour features: features (B, N, C), idx (B, M, K) -> (B, M, K, C).
+    For bf16 features the cotangent is summed in fp32 (``_GatherBF16``)."""
+    if features.dtype == torch.bfloat16:
+        return _GatherBF16.apply(features, idx)
+    return _gather(features, idx)
 
 
 def neighbor_directions_normalized(vertices: torch.Tensor,
                                    idx: torch.Tensor) -> torch.Tensor:
     """Unit directions to each neighbour: (B, N, 3), (B, N, K) -> (B, N, K, 3).
 
-    The norm is clamped at 1e-12, so a duplicated point gives exactly 0."""
+    The norm is clamped at 1e-12, so a duplicated point gives exactly 0.
+    bf16 vertices (the bf16 train step) take the JAX package's bf16
+    arithmetic (hspose_tpu/ops/knn.py:224-230): the difference, the square
+    root and the division round to bf16; the squares and their sum are
+    fp32, rounded once (jnp.linalg.norm's upcast sum, into which XLA fuses
+    the squares: this matches the JAX function bit for bit on the CPU)."""
     direction = gather_neighbors(vertices, idx) - vertices[:, :, None, :]
-    norm = torch.linalg.vector_norm(direction, dim=-1, keepdim=True)
+    if direction.dtype == torch.bfloat16:
+        sq = direction.float().square().sum(-1, keepdim=True).to(torch.bfloat16)
+        norm = torch.sqrt(sq)
+    else:
+        norm = torch.linalg.vector_norm(direction, dim=-1, keepdim=True)
     return direction / torch.clamp(norm, min=1e-12)

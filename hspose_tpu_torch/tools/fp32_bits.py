@@ -1,0 +1,193 @@
+"""The fp32 tier's outputs and kernel times, for holding two trees of the
+port to the same bits on one CUDA card.
+
+    python hspose_tpu_torch/tools/fp32_bits.py --tree DIR --out FILE.pt
+    python hspose_tpu_torch/tools/fp32_bits.py --compare A.pt B.pt [C.pt ...]
+
+The first form imports ``hspose_tpu_torch`` from DIR (a checkout, such as a
+``git archive`` of another commit) and saves, from seeded inputs:
+
+* the output of every fp32 kernel at each shape of the B=24, N=1028 serving
+  forward (KNN, surface, support, ORL) and of the B=16 train step (K12, K15,
+  K11, K13), with each kernel's time (CUDA events, mean of 20 launches after
+  3, summed over the calls of one pass);
+* the fp32 serving forward's pose outputs at B=24, N=1028;
+* the total loss of three fp32 train steps at B=16, N=1028.
+
+The second form says, for every saved output, whether all the files hold
+the same bits, and prints the kernel times side by side.  Run the trees in
+turns in one call (parent, change, change, parent) so that run-to-run
+spread shows beside any difference.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+
+def _timed(times: dict, name: str, fn, iters: int = 20, warmup: int = 3):
+    import torch
+
+    out = fn()
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    times[name] = times.get(name, 0.0) + start.elapsed_time(end) / iters
+    return out
+
+
+def collect(tree: str) -> dict:
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import numpy as np
+    import torch
+
+    import hspose_tpu_torch
+    from hspose_tpu_torch.config import HSPoseConfig, ModelConfig
+    from hspose_tpu_torch.engine.train_step import build_train_step, to_device
+    from hspose_tpu_torch.models.hspose import build_model, draw_pool_samples, eval_forward
+    from hspose_tpu_torch.ops import cuda_hs, cuda_hs_fused as f
+    from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
+    from hspose_tpu_torch.ops.knn import gather_neighbors, neighbor_directions_normalized
+    from hspose_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    where = Path(hspose_tpu_torch.__file__).resolve()
+    if Path(tree).resolve() not in where.parents:
+        raise RuntimeError(f"imported {where}, not the tree {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, S, N = "cuda", 7, 1028
+    rng = np.random.default_rng(0)
+    out, times = {}, {}
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
+    def unit(n):
+        d = normal(3, n)
+        return d / d.norm(dim=0, keepdim=True)
+
+    with torch.no_grad():
+        # serving kernels, B=24
+        B = 24
+        clouds = {n: normal(B, n, 3, scale=0.2) for n in (N, N // 4, N // 16)}
+        for n, d, k in [(N, 3, 20), (N, 128, 20), (N, 3, 4), (N // 4, 3, 20), (N // 4, 128, 20),
+                        (N // 4, 256, 20), (N // 4, 3, 4), (N // 16, 3, 8), (N // 16, 256, 8)]:
+            pts = clouds[n] if d == 3 else normal(B, n, d)
+            out[f"knn {n} {d} {k}"] = _timed(times, "knn", lambda: knn_indices_cuda(pts, k))
+        idx = knn_indices_cuda(clouds[N], 20)
+        dirs = unit(S * 128)
+        out["hs_surface"] = _timed(times, "hs_surface",
+                                   lambda: f.hs_surface_fused(clouds[N], idx, dirs, S, 128))
+        for layer, cin, co, n, k in [(1, 128, 128, N, 20), (2, 128, 256, N // 4, 20),
+                                     (3, 256, 256, N // 4, 20), (4, 256, 512, N // 16, 8)]:
+            stdv = 1.0 / (co * (S + 1)) ** 0.5
+            w, b = normal(cin, (S + 1) * co, scale=stdv), normal((S + 1) * co, scale=stdv)
+            args = (normal(B, n, cin), clouds[n], knn_indices_cuda(clouds[n], k), w[:, co:],
+                    b[co:], unit(S * co), S, co)
+            out[f"hs_support conv_{layer}"] = _timed(times, "hs_support",
+                                                     lambda: f.hs_support_fused(*args))
+        for layer, c, n, k in [(0, 128, N, 20), (1, 128, N, 20), (2, 256, N // 4, 20),
+                               (3, 256, N // 4, 20), (4, 512, N // 16, 8)]:
+            feat, oidx = normal(B, n, c), knn_indices_cuda(clouds[n], k)
+            out[f"orl_global conv_{layer}"] = _timed(times, "orl_global",
+                                                     lambda: f.orl_global_fused(feat, oidx))
+
+        # training kernels, B=16, on the forwards' own residuals
+        B = 16
+        verts = normal(B, N, 3, scale=0.2)
+        rf = neighbor_directions_normalized(verts, knn_indices_cuda(verts, 20))
+        dirs = unit(S * 128)
+        o, win = _timed(times, "hs_surface_fwd", lambda: cuda_hs.hs_surface_fwd(rf, dirs, S, 128))
+        gb = normal(B, N, 128)
+        out["hs_surface_fwd"] = (o, win)
+        out["hs_surface_bwd"] = _timed(times, "hs_surface_bwd",
+                                       lambda: cuda_hs.hs_surface_bwd(rf, dirs, win, gb, S, 128))
+        for layer, cin, co, n, k in [(1, 128, 128, N, 20), (2, 128, 256, N // 4, 20),
+                                     (3, 256, 256, N // 4, 20), (4, 256, 512, N // 16, 8)]:
+            feat = torch.relu(normal(B, n, cin))
+            kidx = knn_indices_cuda(feat, k)
+            g = gather_neighbors(feat, kidx)
+            rf = neighbor_directions_normalized(normal(B, n, 3, scale=0.2), kidx)
+            stdv = 1.0 / (co * (S + 1)) ** 0.5
+            w, b = normal(cin, (S + 1) * co, scale=stdv), normal((S + 1) * co, scale=stdv)
+            d = unit(S * co)
+            fwd = _timed(times, "hs_support_fwd",
+                         lambda: cuda_hs.hs_support_fwd(g, rf, w[:, co:], b[co:], d, S, co))
+            gb = normal(B, n, co)
+            bargs = (g, rf, w[:, co:], d, *fwd[1:], gb, S, co)
+            out[f"hs_support_fwd conv_{layer}"] = fwd
+            out[f"hs_support_bwd conv_{layer}"] = _timed(
+                times, "hs_support_bwd", lambda: cuda_hs.hs_support_bwd(*bargs))
+
+        # the serving forward
+        torch.manual_seed(0)
+        model = build_model(ModelConfig(), device=dev)
+        pc = normal(24, N, 3, scale=0.2)
+        obj = torch.arange(24, device=dev) % 6
+        samples = draw_pool_samples(N, torch.Generator(device=dev).manual_seed(0), dev)
+        pose = eval_forward(model, pc, obj, pool_samples=samples)
+        out.update({f"serve {k}": v for k, v in zip(pose._fields, pose)})
+
+    # three train steps
+    torch.manual_seed(0)
+    model = build_model(ModelConfig(), device=dev, train_heads=True)
+    step = build_train_step(HSPoseConfig(), model, torch.Generator(device=dev).manual_seed(0))
+    batch = to_device(synthetic_train_batch(16, N, seed=0), dev)
+    out["train total_loss"] = torch.tensor([step(batch)["total_loss"] for _ in range(3)],
+                                           dtype=torch.float64)
+    flat = {}
+    for k, v in out.items():
+        for i, x in enumerate(v if isinstance(v, tuple) else (v,)):
+            flat[f"{k}[{i}]"] = x.detach().cpu()
+    return {"tree": tree, "outputs": flat, "times": times}
+
+
+def compare(paths: list[str]) -> int:
+    import torch
+
+    runs = [torch.load(p) for p in paths]
+    names = list(runs[0]["outputs"])
+    differ = [k for k in names
+              if not all(torch.equal(r["outputs"][k], runs[0]["outputs"][k]) for r in runs[1:])]
+    print(f"{len(names) - len(differ)} of {len(names)} outputs hold the same bits in "
+          f"{', '.join(paths)}")
+    for k in differ:
+        print(f"  differ: {k}, max abs "
+              + ", ".join(f"{(r['outputs'][k].double() - runs[0]['outputs'][k].double()).abs().max().item():.3e}"
+                          for r in runs[1:]))
+    print("kernel ms per pass: " + " | ".join(Path(p).stem for p in paths))
+    for name in runs[0]["times"]:
+        print(f"  {name}: " + " | ".join(f"{r['times'][name]:.4f}" for r in runs))
+    return 1 if differ else 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", help="checkout whose hspose_tpu_torch to run")
+    ap.add_argument("--out", help="where to save the outputs and times (.pt)")
+    ap.add_argument("--compare", nargs="+", help="saved files to compare")
+    args = ap.parse_args()
+    if args.compare:
+        return compare(args.compare)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("fp32_bits: no CUDA device", file=sys.stderr)
+        return 2
+    res = collect(args.tree)
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    torch.save(res, args.out)
+    print(f"{args.tree}: {len(res['outputs'])} outputs saved to {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -42,11 +42,13 @@ from hspose_tpu.ops.pallas_hs_fused import hs_support_fused as j_support
 from hspose_tpu.ops.pallas_hs_fused import hs_surface_fused as j_surface
 from hspose_tpu.ops.pallas_hs_fused import orl_global_fused as j_orl
 from hspose_tpu.ops.pallas_knn import knn_indices_pallas
-from hspose_tpu_torch.config import ModelConfig
+from hspose_tpu_torch.config import HSPoseConfig, ModelConfig
+from hspose_tpu_torch.engine.train_step import build_train_step, to_device
 from hspose_tpu_torch.models.hspose import build_model, draw_train, eval_forward
-from hspose_tpu_torch.ops import cuda_hs_fused, knn
+from hspose_tpu_torch.ops import cuda_hs, cuda_hs_fused, knn
 from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
 from hspose_tpu_torch.utils.convert import load_jax_params
+from hspose_tpu_torch.utils.synthetic import synthetic_train_batch
 
 torch.set_num_threads(2)  # the suite runs several workers on one host
 
@@ -120,6 +122,24 @@ def test_packed_knn_duplicates_and_ties(rng, D):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, k7)
     assert 40 in want[0, 40].tolist()  # point 40's column 0 is its twin 5
+
+
+@pytest.mark.parametrize("cloud,D", [("random", 3), ("random", 128), ("grid", 3)])
+def test_exact_knn_matches_k6(rng, cloud, D):
+    """K6, the lane-major layout of the exact search (``tmaj=False``), is the
+    function that ``knn.knn_indices`` and the ``knn`` kernel compute: equal
+    indices on the grid with duplicates, where every distance is exact and
+    ties go to the lowest index; near-ties elsewhere."""
+    if cloud == "grid":
+        pts = (rng.integers(-4, 5, size=(2, 150, D)) / 4.0).astype(np.float32)
+        pts[:, 100:110] = pts[:, 10:20]
+        pts[:, 5] = pts[:, 40]
+    else:
+        pts = rng.normal(scale=0.2, size=(2, 200, D)).astype(np.float32)
+    k6 = np.asarray(knn_indices_pallas(jnp.asarray(pts), 8, tmaj=False, interpret=True))
+    got = knn.knn_indices(t(pts), 8).numpy()
+    check_knn(got, k6, pts, exact_sums=cloud == "grid")
+    np.testing.assert_array_equal(knn_indices_cuda(t(pts), 8).numpy(), got)
 
 
 def test_packed_knn_above_2048_runs_the_exact_search(rng):
@@ -209,7 +229,7 @@ def models():
         for k, v in flat.items()})
     ported = []
     for dtype in ("bfloat16", "float32"):
-        model = build_model(ModelConfig(compute_dtype=dtype))
+        model = build_model(ModelConfig(compute_dtype=dtype), device="cpu")
         load_jax_params(model, params, stats)
         ported.append(model)
     return (jmodel, params, stats, *ported)
@@ -246,20 +266,29 @@ def test_bf16_eval_forward_matches_jax_and_fp32(models, monkeypatch, N):
 
 
 def test_bf16_forward_on_cpu_counts_no_launch_and_refuses_training(models, rng):
+    """On CPU tensors the bf16 serving forward and a bf16 train step take
+    the plain versions and count no launch; a model built without the train
+    heads refuses train mode."""
     *_, model, _ = models
     pts = t(rng.normal(scale=0.2, size=(2, 128, 3)).astype(np.float32))
     counts = [(knn_indices_cuda, "launches"), (knn_indices_cuda, "packed_launches")] + [
         (w, a) for w in (cuda_hs_fused.hs_surface_fused, cuda_hs_fused.hs_support_fused,
-                         cuda_hs_fused.orl_global_fused)
+                         cuda_hs_fused.orl_global_fused, cuda_hs.hs_surface_fwd,
+                         cuda_hs.hs_surface_bwd, cuda_hs.hs_support_fwd, cuda_hs.hs_support_bwd)
         for a in ("launches", "bf16_launches")]
     before = [getattr(w, a) for w, a in counts]
     out = eval_forward(model, pts, t([0, 3]), generator=torch.Generator().manual_seed(4))
-    assert [getattr(w, a) for w, a in counts] == before
     assert all(v.dtype == torch.float32 for v in out)
     draws = draw_train(torch.Generator().manual_seed(0), 2, 128)
     model.train()
     try:
-        with pytest.raises(NotImplementedError, match="bf16 training"):
+        with pytest.raises(RuntimeError, match="train heads"):
             model(pts, t([0, 3]), draws.pool_samples, draws.dropout_keep)
     finally:
         model.eval()
+    cfg = HSPoseConfig(model=ModelConfig(compute_dtype="bfloat16"))
+    trainer = build_model(cfg.model, device="cpu", train_heads=True)
+    step = build_train_step(cfg, trainer, torch.Generator().manual_seed(1))
+    metrics = step(to_device(synthetic_train_batch(2, 128, seed=5), "cpu"))
+    assert np.isfinite(metrics["total_loss"]) and step.optimizer.count == 1
+    assert [getattr(w, a) for w, a in counts] == before

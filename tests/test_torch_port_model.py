@@ -56,7 +56,7 @@ def models():
         k: (rng.uniform(0.5, 1.5, v.shape) if k[-1] == "var"
             else rng.normal(scale=0.1, size=v.shape)).astype(np.float32)
         for k, v in flat.items()})
-    model = build_model(ModelConfig())
+    model = build_model(ModelConfig(), device="cpu")
     load_jax_params(model, params, stats)
     return jmodel, params, stats, model
 
@@ -166,31 +166,45 @@ def test_forward_on_cpu_counts_no_launch_and_draws_pools(models, rng):
     assert [w.launches for w in wrappers] == before
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
-    s1, s2 = draw_pool_samples(1028, torch.Generator().manual_seed(0))
+    s1, s2 = draw_pool_samples(1028, torch.Generator().manual_seed(0), device="cpu")
     assert s1.shape == (257,) and s2.shape == (64,)
     assert len(set(s1.tolist())) == 257 and int(s2.max()) < 257
 
 
 def test_build_model_tiers():
     torch.backends.cuda.matmul.allow_tf32 = True
-    build_model(ModelConfig())
+    build_model(ModelConfig(), device="cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
-    model = build_model(ModelConfig(compute_dtype="bfloat16"))
+    model = build_model(ModelConfig(compute_dtype="bfloat16"), device="cpu")
     assert model.face_recon.dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in model.parameters())
     with pytest.raises(NotImplementedError):
-        build_model(ModelConfig(compute_dtype="f32x2"))
+        build_model(ModelConfig(compute_dtype="f32x2"), device="cpu")
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="shows the entry points on a machine "
+                                                      "without CUDA")
+def test_entry_points_run_on_the_card_unless_asked():
+    """With no device named, ``build_model`` and ``draw_pool_samples`` go to
+    the CUDA card: without one they raise instead of handing back CPU
+    tensors.  A generator names its own device."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(ModelConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        draw_pool_samples(1028)
+    samples = draw_pool_samples(1028, torch.Generator().manual_seed(0))
+    assert all(s.device.type == "cpu" for s in samples)
 
 
 def test_load_jax_params_is_strict(models):
     _, params, stats, _ = models
     extra = dict(params, stray={"kernel": np.zeros((2, 2), np.float32)})
     with pytest.raises(KeyError, match="stray"):
-        load_jax_params(build_model(ModelConfig()), extra, stats)
+        load_jax_params(build_model(ModelConfig(), device="cpu"), extra, stats)
     missing = {k: v for k, v in params.items() if k != "rot_red"}
     with pytest.raises(ValueError, match="rot_red"):
-        load_jax_params(build_model(ModelConfig()), missing, stats)
+        load_jax_params(build_model(ModelConfig(), device="cpu"), missing, stats)
 
 
 def test_port_imports_neither_jax_nor_hspose_tpu():

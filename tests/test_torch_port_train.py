@@ -91,7 +91,7 @@ def jax_model():
 
 
 def port_model(params, stats) -> torch.nn.Module:
-    model = build_model(ModelConfig(), train_heads=True)
+    model = build_model(ModelConfig(), device="cpu", train_heads=True)
     load_jax_params(model, params, stats)
     return model.train()
 
@@ -366,7 +366,7 @@ def test_serve_k_does_not_reach_training(monkeypatch):
         return real(x, k)
 
     monkeypatch.setattr(face_recon, "knn", spy)
-    model = build_model(ModelConfig(serve_k=8), train_heads=True)
+    model = build_model(ModelConfig(serve_k=8), device="cpu", train_heads=True)
     batch = to_device(train_batch(), "cpu")
     model.train()
     train_forward(HSPoseConfig(model=ModelConfig(serve_k=8)), model, batch,
@@ -398,6 +398,6 @@ def test_load_jax_params_round_trips_the_training_tree(jax_model):
                                            if k not in heads})
     eval_stats = dict(stats, face_recon={k: v for k, v in stats["face_recon"].items()
                                          if k not in heads})
-    load_jax_params(build_model(ModelConfig()), eval_params, eval_stats)
+    load_jax_params(build_model(ModelConfig(), device="cpu"), eval_params, eval_stats)
     with pytest.raises(KeyError, match="conv1d_block"):
-        load_jax_params(build_model(ModelConfig()), params, stats)
+        load_jax_params(build_model(ModelConfig(), device="cpu"), params, stats)
