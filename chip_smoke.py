@@ -57,7 +57,23 @@ not 0:
    losses, moved parameters; one bf16 train forward and backward at B=4 on
    the card against the CPU plain ops, gated by ``SPREAD_MULT`` times the
    card's own spread (the card against itself with the input cloud moved by
-   1e-6 relative), both printed; then bf16 steps/s beside the fp32 steps/s.
+   1e-6 relative), both printed; then bf16 steps/s beside the fp32 steps/s;
+12. v4 training kernels: K11 without winner values and K14 (``bwd_store=False``)
+   at the four HS layers' shapes of the B=16 step, the fused ops' forwards
+   with winners (K2, K3, K4) and their backwards (K9 at conv_0's shape, K8
+   at conv_2..conv_4's, K10 at their ORL branches') against their plain
+   versions, with phase 8's gates; K14 against K13 on the same inputs; the
+   forwards with winners against the serving kernels and every backward
+   against a second launch, bit for bit; then one autograd backward through
+   ``hs_surface_fused``, K9's carrier (no model path reaches K9), which must
+   launch one K2 with winners and one K9;
+13. v4 training slice: ``build_train_step`` on ``ModelConfig(bwd_store=False,
+   train_v4_small=True)`` takes 3 steps at (16, 1028); the counters must show
+   9 KNN, 1 + 1 K12/K15, 1 K11 without winner values + 1 K14, 3 K3 with
+   winners + 3 K8 and 3 K4 with winners + 3 K10 per step and nothing else
+   (no K13, no serving launch, no bf16 launch); finite losses, moved
+   parameters; one train forward and backward at B=4 on the card against
+   the CPU plain ops with phase 9's gates; then its steps/s beside phase 9's.
 
 Each kernel's ``bound_ms`` is the least time the card could take for its
 calls: per call the larger of the bytes it must move (each input read once,
@@ -65,7 +81,10 @@ each output written once) over 3.35 TB/s and its multiply-adds (2 operations
 each) over the peak rate of their operand type (67 TFLOP/s fp32 outside the
 tensor cores, 989 TFLOP/s bf16), summed over the calls of one pass;
 ``bound_by`` names the larger part.  No single PyTorch call computes any of
-these functions, so ``library_ms`` is null throughout.
+these functions (the backwards are winner-routed scatters), so
+``library_ms`` is null throughout.  ``launches`` is each kernel's count in
+the main run of its path: phases 4, 7, 9, 11 and 13, and for K2 with
+winners and K9 the autograd call of phase 12.
 
 The line before the last is one JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
@@ -333,7 +352,8 @@ def counters() -> dict:
             "knn_packed": (knn, "packed_launches"),
             "hs_surface_bf16": (f.hs_surface_fused, "bf16_launches"),
             "hs_support_bf16": (f.hs_support_fused, "bf16_launches"),
-            "orl_global_bf16": (f.orl_global_fused, "bf16_launches")}
+            "orl_global_bf16": (f.orl_global_fused, "bf16_launches"),
+            **{name: (getattr(f, name), "launches") for name in FUSED_TRAIN_KERNELS}}
 
 
 def reset_counts(counts: dict) -> None:
@@ -475,6 +495,9 @@ def phase_throughput(smi: str, dtype: str = "float32") -> float:
 
 
 TRAIN_KERNELS = ("hs_surface_fwd", "hs_surface_bwd", "hs_support_fwd", "hs_support_bwd")
+# the differentiable fused ops' kernels (ops/cuda_hs_fused.py)
+FUSED_TRAIN_KERNELS = ("hs_surface_fused_fwd", "hs_surface_fused_bwd", "hs_support_fused_fwd",
+                       "hs_support_fused_bwd", "orl_global_fused_fwd", "orl_global_fused_bwd")
 
 
 def train_counters() -> dict:
@@ -484,13 +507,51 @@ def train_counters() -> dict:
 
     fp32 = {name: (getattr(cuda_hs, name), "launches") for name in TRAIN_KERNELS}
     bf16 = {name + "_bf16": (getattr(cuda_hs, name), "bf16_launches") for name in TRAIN_KERNELS}
-    return {**fp32, **bf16}
+    return {**fp32, **bf16, "hs_support_fwd_novals": (cuda_hs.hs_support_fwd, "novals_launches"),
+            "hs_support_bwd_recompute": (cuda_hs.hs_support_bwd_recompute, "launches")}
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """The spacing of bf16 values at |x| (8 significant bits), as fp32."""
     e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
     return torch.exp2(e - 7)
+
+
+def compare_cotangents(phase: str, rec: dict, name: str, label: str, pairs, ms: float,
+                       pms: float, tensors, macs: float, op_dtype=torch.float32) -> None:
+    """pairs: (what, kernel tensor, plain tensor); fp32 ones within TOL_REL of
+    their largest plain value, bf16 ones also one bf16 ulp of each element
+    (the two fp32 sums differ in order, which can move the final rounding by
+    one ulp).  Logs and records the call under ``name``."""
+    torch.cuda.synchronize()
+    worst, parts = 0.0, []
+    for what, got, want in pairs:
+        scale = want.abs().max().item()
+        diff = (got.float() - want.float()).abs()
+        slack = bf16_ulp(want) if got.dtype == torch.bfloat16 else torch.zeros_like(diff)
+        err = diff.max().item()
+        over = (diff - slack).max().item()
+        parts.append(f"{what} {err:.3e} (bound {TOL_REL * scale:.3e}"
+                     + (" + 1 bf16 ulp" if got.dtype == torch.bfloat16 else "") + ")")
+        if not (over <= TOL_REL * scale and got.dtype == want.dtype):
+            raise AssertionError(f"{name} {label} {what}: error {err} ({over} beyond the "
+                                 f"ulp slack) > {TOL_REL} * {scale}, or {got.dtype} is "
+                                 f"not {want.dtype}")
+        worst = max(worst, err)
+    log(phase, f"{name} {label}: " + ", ".join(parts) + f"; {ms:.4f} ms (plain {pms:.4f} ms)")
+    record(rec, name, worst, ms, pms, bound(tensors + [got for _, got, _ in pairs], macs, op_dtype))
+
+
+def check_winners(phase: str, name: str, label: str, wk, wp, mk, mp) -> None:
+    """Winners agree on >= WIN_AGREE of entries; where not, the values at
+    the two winners (mk, mp) are fp32 near-ties."""
+    agree = (wk == wp).double().mean().item()
+    scale = mp.abs().max().item()
+    gap = (mk - mp)[wk != wp].abs().max().item() if agree < 1 else 0.0
+    log(phase, f"{name} {label}: winners agree {agree:.6f}, largest value gap where not "
+               f"{gap:.3e} (bound {TOL_REL * scale:.3e})")
+    if agree < WIN_AGREE or not gap <= TOL_REL * scale:
+        raise AssertionError(f"{name} {label}: winners agree {agree}, gap {gap}")
 
 
 def phase_train_kernels(dtype: str = "float32") -> dict:
@@ -512,39 +573,11 @@ def phase_train_kernels(dtype: str = "float32") -> dict:
     S, B = 7, TRAIN_B
 
     def compare(name, label, pairs, ms, pms, tensors, macs):
-        """pairs: (what, kernel tensor, plain tensor); fp32 ones within
-        TOL_REL of their largest plain value, bf16 ones also one bf16 ulp of
-        each element (the two fp32 sums differ in order, which can move the
-        final rounding by one ulp)."""
-        torch.cuda.synchronize()
-        worst, parts = 0.0, []
-        for what, got, want in pairs:
-            scale = want.abs().max().item()
-            diff = (got.float() - want.float()).abs()
-            slack = bf16_ulp(want) if got.dtype == torch.bfloat16 else torch.zeros_like(diff)
-            err = diff.max().item()
-            over = (diff - slack).max().item()
-            parts.append(f"{what} {err:.3e} (bound {TOL_REL * scale:.3e}"
-                         + (" + 1 bf16 ulp" if got.dtype == torch.bfloat16 else "") + ")")
-            if not (over <= TOL_REL * scale and got.dtype == want.dtype):
-                raise AssertionError(f"{name} {label} {what}: error {err} ({over} beyond the "
-                                     f"ulp slack) > {TOL_REL} * {scale}, or {got.dtype} is "
-                                     f"not {want.dtype}")
-            worst = max(worst, err)
-        log(phase, f"{name} {label}: " + ", ".join(parts) + f"; {ms:.4f} ms (plain {pms:.4f} ms)")
-        record(rec, name + tag, worst, ms, pms,
-               bound(tensors + [got for _, got, _ in pairs], macs, op_dtype))
+        compare_cotangents(phase, rec, name + tag, label, pairs, ms, pms, tensors, macs,
+                           op_dtype)
 
     def winners(name, label, wk, wp, mk, mp):
-        """Winners agree on >= WIN_AGREE of entries; where not, the values at
-        the two winners (mk, mp) are fp32 near-ties."""
-        agree = (wk == wp).double().mean().item()
-        scale = mp.abs().max().item()
-        gap = (mk - mp)[wk != wp].abs().max().item() if agree < 1 else 0.0
-        log(phase, f"{name} {label}: winners agree {agree:.6f}, largest value gap where not "
-                   f"{gap:.3e} (bound {TOL_REL * scale:.3e})")
-        if agree < WIN_AGREE or not gap <= TOL_REL * scale:
-            raise AssertionError(f"{name} {label}: winners agree {agree}, gap {gap}")
+        check_winners(phase, name + tag, label, wk, wp, mk, mp)
 
     # K12 / K15: conv_0
     verts = cloud_b(rng, B, N)
@@ -608,12 +641,207 @@ def phase_train_kernels(dtype: str = "float32") -> dict:
     return rec
 
 
-def build_train_model(device, dtype: str = "float32"):
-    from hspose_tpu_torch.config import ModelConfig
+def same_bits(name: str, label: str, first, second) -> None:
+    """Two launches on the same inputs must give the same bits."""
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} {label}: two launches on the same inputs differ")
+
+
+def phase_v4_kernels() -> tuple[dict, dict]:
+    """K11 without winner values and K14 at the four HS layers' shapes of
+    the B=16 step (bwd_store=False); the fused ops' winner-recording
+    forwards (K2-K4) and their backwards K9, K8 and K10 at conv_0's,
+    conv_2..conv_4's and their ORL branches' shapes (train_v4_small): each
+    against its plain version (forwards within TOL_REL of the largest value
+    and winners as in phase 8; backwards fed the kernel forward's residuals
+    on both sides, every cotangent within TOL_REL of its largest value),
+    K14 against K13 on the same inputs, two launches with the same bits;
+    then one autograd backward through ``hs_surface_fused`` (K9's carrier).
+    Returns the per-kernel records and the carrier's launches."""
+    from hspose_tpu_torch.ops import cuda_hs, cuda_hs_fused as f
+    from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
+    from hspose_tpu_torch.ops.knn import gather_neighbors, neighbor_directions_normalized
+
+    phase = "v4-train-kernels"
+    rng = np.random.default_rng(SEED + 8)
+    rec = {}
+    S, B = 7, TRAIN_B
+
+    def compare(*args):
+        compare_cotangents(phase, rec, *args)
+
+    def winners(*args):
+        check_winners(phase, *args)
+
+    def at_win(x, win):  # x (B, N, K, C) at each column's winner
+        return x.gather(2, win.long()[:, :, None]).squeeze(2)
+
+    # K11 without winner values, K14: the four HS layers (bwd_store=False alone)
+    for layer, cin, co, n, k in [(1, 128, 128, N, 20), (2, 128, 256, N // 4, 20),
+                                 (3, 256, 256, N // 4, 20), (4, 256, 512, N // 16, 8)]:
+        label = f"conv_{layer} {cin}->{co} N={n} K={k}"
+        feat = torch.relu(normal(rng, B, n, cin))
+        idx = knn_indices_cuda(feat, k)
+        g = gather_neighbors(feat, idx)
+        rf = neighbor_directions_normalized(cloud_b(rng, B, n), idx)
+        stdv = 1.0 / (co * (S + 1)) ** 0.5
+        w, b = normal(rng, cin, (S + 1) * co, scale=stdv), normal(rng, (S + 1) * co, scale=stdv)
+        fargs = (g, rf, w[:, co:], b[co:], unit_dirs(rng, S * co), S, co)
+        out_k, win_k = cuda_hs.hs_support_fwd(*fargs, store=False)
+        out_p, win_p = cuda_hs.hs_support_fwd_plain(*fargs)[:2]
+        stored = cuda_hs.hs_support_fwd(*fargs)
+        same_bits("hs_support_fwd_novals", label, (out_k, win_k), stored[:2])
+        theta_proj = [(torch.relu(rf @ fargs[4][:, sl]) * (g @ fargs[2][:, sl] + fargs[3][sl]))
+                      for sl in (slice(i * co, (i + 1) * co) for i in range(S))]
+        vk = torch.cat([at_win(x, win_k[..., i * co:(i + 1) * co])
+                        for i, x in enumerate(theta_proj)], -1)
+        vp = torch.cat([at_win(x, win_p[..., i * co:(i + 1) * co])
+                        for i, x in enumerate(theta_proj)], -1)
+        del theta_proj
+        winners("hs_support_fwd_novals", label, win_k, win_p, vk, vp)
+        compare("hs_support_fwd_novals", label, [("out", out_k, out_p)],
+                cuda_ms(lambda: cuda_hs.hs_support_fwd(*fargs, store=False), 10),
+                cuda_ms(lambda: cuda_hs.hs_support_fwd_plain(*fargs), 10),
+                [g, rf, fargs[2], fargs[3], fargs[4], win_k], (g.numel() + rf.numel()) * S * co)
+        gb = normal(rng, B, n, co)
+        bargs = (g, rf, fargs[2], fargs[3], fargs[4], win_k, gb, S, co)
+        got = cuda_hs.hs_support_bwd_recompute(*bargs)
+        same_bits("hs_support_bwd_recompute", label, got, cuda_hs.hs_support_bwd_recompute(*bargs))
+        k13 = cuda_hs.hs_support_bwd(g, rf, fargs[2], fargs[4], win_k, stored[2], stored[3], gb,
+                                     S, co)
+        torch.cuda.synchronize()
+        gap = max((a - c).abs().max().item() for a, c in zip(got, k13))
+        log(phase, f"hs_support_bwd_recompute {label}: against K13 on the forward's stored "
+                   f"values, max abs diff {gap:.3e}")
+        if not all((a - c).abs().max().item() <= TOL_REL * c.abs().max().item()
+                   for a, c in zip(got, k13)):
+            raise AssertionError(f"K14 and K13 disagree at {label}: {gap}")
+        compare("hs_support_bwd_recompute", label,
+                list(zip(("dg", "drf", "dw", "db", "dd"), got,
+                         cuda_hs.hs_support_bwd_recompute_plain(*bargs))),
+                cuda_ms(lambda: cuda_hs.hs_support_bwd_recompute(*bargs), 10),
+                cuda_ms(lambda: cuda_hs.hs_support_bwd_recompute_plain(*bargs), 10),
+                [g, rf, fargs[2], fargs[3], fargs[4], win_k, gb],
+                win_k.numel() * (3 * cin + 9))  # P at each winner; dg, dW; theta, drf, dd
+
+    # K2 with winners, K9: conv_0
+    label = f"conv_0 N={N} K=20 Co=128"
+    verts = cloud_b(rng, B, N)
+    idx = knn_indices_cuda(verts, 20)
+    dirs = unit_dirs(rng, S * 128)
+    fargs = (verts, idx, dirs, S, 128)
+    (out_k, win_k), (out_p, win_p) = f.hs_surface_fused_fwd(*fargs), f.hs_surface_fused_fwd_plain(*fargs)
+    theta = torch.relu(neighbor_directions_normalized(verts, idx) @ dirs)
+    winners("hs_surface_fused_fwd", label, win_k, win_p, at_win(theta, win_k), at_win(theta, win_p))
+    del theta
+    with torch.no_grad():
+        serving = f.hs_surface_fused(*fargs)
+    same_bits("hs_surface_fused_fwd", label + " (against the serving kernel)", (out_k,), (serving,))
+    compare("hs_surface_fused_fwd", label, [("out", out_k, out_p)],
+            cuda_ms(lambda: f.hs_surface_fused_fwd(*fargs), 10),
+            cuda_ms(lambda: f.hs_surface_fused_fwd_plain(*fargs), 10),
+            [verts, idx, dirs, win_k], 3 * idx.numel() * S * 128)
+    gb = normal(rng, B, N, 128)
+    bargs = (verts, idx, dirs, win_k, gb, S, 128)
+    got = f.hs_surface_fused_bwd(*bargs)
+    same_bits("hs_surface_fused_bwd", label, got, f.hs_surface_fused_bwd(*bargs))
+    compare("hs_surface_fused_bwd", label,
+            list(zip(("dverts", "dd"), got, f.hs_surface_fused_bwd_plain(*bargs))),
+            cuda_ms(lambda: f.hs_surface_fused_bwd(*bargs), 10),
+            cuda_ms(lambda: f.hs_surface_fused_bwd_plain(*bargs), 10),
+            [verts, idx, dirs, win_k, gb], 9 * win_k.numel())  # theta, drfn, dd at each winner
+
+    # K3 with winners, K8: conv_2 .. conv_4 (train_v4_small)
+    for layer, cin, co, n, k in [(2, 128, 256, N // 4, 20), (3, 256, 256, N // 4, 20),
+                                 (4, 256, 512, N // 16, 8)]:
+        label = f"conv_{layer} {cin}->{co} N={n} K={k}"
+        feat = torch.relu(normal(rng, B, n, cin))
+        stdv = 1.0 / (co * (S + 1)) ** 0.5
+        w, b = normal(rng, cin, (S + 1) * co, scale=stdv), normal(rng, (S + 1) * co, scale=stdv)
+        verts, idx = cloud_b(rng, B, n), knn_indices_cuda(feat, k)
+        fargs = (feat, verts, idx, w[:, co:], b[co:], unit_dirs(rng, S * co), S, co)
+        (out_k, win_k, proj_k), (out_p, win_p, proj_p) = (f.hs_support_fused_fwd(*fargs),
+                                                          f.hs_support_fused_fwd_plain(*fargs))
+        rfn = neighbor_directions_normalized(verts, idx)
+        prod = [torch.relu(rfn @ fargs[5][:, i * co:(i + 1) * co])
+                * gather_neighbors(proj_p[..., i * co:(i + 1) * co], idx) for i in range(S)]
+        winners("hs_support_fused_fwd", label, win_k, win_p,
+                torch.cat([at_win(x, win_k[..., i * co:(i + 1) * co]) for i, x in enumerate(prod)], -1),
+                torch.cat([at_win(x, win_p[..., i * co:(i + 1) * co]) for i, x in enumerate(prod)], -1))
+        del prod
+        with torch.no_grad():
+            serving = f.hs_support_fused(*fargs)
+        same_bits("hs_support_fused_fwd", label + " (against the serving kernel)", (out_k,),
+                  (serving,))
+        compare("hs_support_fused_fwd", label, [("out", out_k, out_p), ("proj", proj_k, proj_p)],
+                cuda_ms(lambda: f.hs_support_fused_fwd(*fargs), 10),
+                cuda_ms(lambda: f.hs_support_fused_fwd_plain(*fargs), 10),
+                list(fargs[:6]) + [win_k], B * n * cin * S * co + 3 * idx.numel() * S * co)
+        gb = normal(rng, B, n, co)
+        bargs = (feat, verts, idx, fargs[3], fargs[5], win_k, proj_k, gb, S, co)
+        got = f.hs_support_fused_bwd(*bargs)
+        same_bits("hs_support_fused_bwd", label, got, f.hs_support_fused_bwd(*bargs))
+        compare("hs_support_fused_bwd", label,
+                list(zip(("dfeat", "dverts", "dw", "db", "dd"), got,
+                         f.hs_support_fused_bwd_plain(*bargs))),
+                cuda_ms(lambda: f.hs_support_fused_bwd(*bargs), 10),
+                cuda_ms(lambda: f.hs_support_fused_bwd_plain(*bargs), 10),
+                [feat, verts, idx, fargs[3], fargs[5], win_k, proj_k, gb],
+                2 * B * n * cin * S * co + 9 * win_k.numel())  # dfeat, dW; theta, drfn, dd
+
+    # K4 with winners, K10: the ORL branches of conv_2 .. conv_4
+    for layer, c, n, k in [(2, 256, N // 4, 20), (3, 256, N // 4, 20), (4, 512, N // 16, 8)]:
+        label = f"conv_{layer} C={c} N={n} K={k}"
+        feat, idx = normal(rng, B, n, c), knn_indices_cuda(cloud_b(rng, B, n), k)
+        (out_k, win_k), (out_p, win_p) = (f.orl_global_fused_fwd(feat, idx),
+                                          f.orl_global_fused_fwd_plain(feat, idx))
+        rows = gather_neighbors(feat, idx)
+        winners("orl_global_fused_fwd", label, win_k, win_p, at_win(rows, win_k),
+                at_win(rows, win_p))
+        with torch.no_grad():
+            serving = f.orl_global_fused(feat, idx)
+        same_bits("orl_global_fused_fwd", label + " (against the serving kernel)", (out_k,),
+                  (serving,))
+        compare("orl_global_fused_fwd", label, [("out", out_k, out_p)],
+                cuda_ms(lambda: f.orl_global_fused_fwd(feat, idx), 10),
+                cuda_ms(lambda: f.orl_global_fused_fwd_plain(feat, idx), 10),
+                [feat, idx, win_k], 0)
+        gb = normal(rng, B, 1, c)
+        got = f.orl_global_fused_bwd(idx, win_k, gb)
+        same_bits("orl_global_fused_bwd", label, (got,), (f.orl_global_fused_bwd(idx, win_k, gb),))
+        compare("orl_global_fused_bwd", label,
+                [("dfeat", got, f.orl_global_fused_bwd_plain(idx, win_k, gb))],
+                cuda_ms(lambda: f.orl_global_fused_bwd(idx, win_k, gb), 10),
+                cuda_ms(lambda: f.orl_global_fused_bwd_plain(idx, win_k, gb), 10),
+                [idx, win_k, gb], 0)
+
+    # K9's carrier: one autograd backward through hs_surface_fused
+    counts = {name: counters()[name] for name in ("hs_surface", "hs_surface_fused_fwd",
+                                                    "hs_surface_fused_bwd")}
+    verts = cloud_b(rng, B, N).requires_grad_(True)
+    idx = knn_indices_cuda(verts.detach(), 20)
+    dirs = unit_dirs(rng, S * 128).requires_grad_(True)
+    gb = normal(rng, B, N, 128)
+    reset_counts(counts)
+    (f.hs_surface_fused(verts, idx, dirs, S, 128) * gb).sum().backward()
+    torch.cuda.synchronize()
+    carrier = read_counts(counts)
+    log(phase, f"autograd through hs_surface_fused at conv_0's shape: launches {carrier}")
+    check_counts(carrier, {"hs_surface_fused_fwd": 1, "hs_surface_fused_bwd": 1}, 1, "backward")
+    want = f.hs_surface_fused_bwd(verts.detach(), idx, dirs.detach(),
+                                  f.hs_surface_fused_fwd(verts.detach(), idx, dirs.detach(), S,
+                                                         128)[1], gb, S, 128)
+    same_bits("hs_surface_fused autograd", "conv_0", (verts.grad, dirs.grad), want)
+    return rec, carrier
+
+
+def build_train_model(device, cfg):
     from hspose_tpu_torch.models.hspose import build_model
 
     torch.manual_seed(SEED)
-    return build_model(ModelConfig(compute_dtype=dtype), device=device, train_heads=True)
+    return build_model(cfg, device=device, train_heads=True)
 
 
 def grad_gates(got: dict, want: dict) -> str:
@@ -687,27 +915,43 @@ def step_gaps(a: tuple, b: tuple) -> dict:
     return {"loss": loss, "bn": bn, "grad": 1.0 - cos}
 
 
+# per train step, in each training configuration: the default fp32 and bf16
+# steps, and the fp32 step with bwd_store=False and train_v4_small=True ("v4":
+# conv_1 on K11 without winner values and K14, conv_2 .. conv_4 and their ORL
+# branches on the fused ops' K3/K8 and K4/K10)
 TRAIN_LAUNCHES = {
     "float32": {"knn": 9, "hs_surface_fwd": 1, "hs_surface_bwd": 1, "hs_support_fwd": 4,
                 "hs_support_bwd": 4},
     "bfloat16": {"knn_packed": 9, "hs_surface_fwd_bf16": 1, "hs_surface_bwd_bf16": 1,
                  "hs_support_fwd_bf16": 4, "hs_support_bwd_bf16": 4},
+    "v4": {"knn": 9, "hs_surface_fwd": 1, "hs_surface_bwd": 1, "hs_support_fwd_novals": 1,
+           "hs_support_bwd_recompute": 1, "hs_support_fused_fwd": 3, "hs_support_fused_bwd": 3,
+           "orl_global_fused_fwd": 3, "orl_global_fused_bwd": 3},
 }
 
 
-def phase_train(smi: str, dtype: str = "float32") -> tuple[dict, float]:
-    """The train step of one tier at full width: launches, sanity, card
-    against CPU, steps/s.  Returns the kernels' launches of the main run and
-    the best steps/s."""
-    from hspose_tpu_torch.config import HSPoseConfig, ModelConfig
+def train_config(tier: str):
+    from hspose_tpu_torch.config import ModelConfig
+
+    if tier == "v4":
+        return ModelConfig(bwd_store=False, train_v4_small=True)
+    return ModelConfig(compute_dtype=tier)
+
+
+def phase_train(smi: str, tier: str = "float32") -> tuple[dict, float]:
+    """The train step of one configuration of ``TRAIN_LAUNCHES`` at full
+    width: launches, sanity, card against CPU, steps/s.  Returns the
+    kernels' launches of the main run and the best steps/s."""
+    from hspose_tpu_torch.config import HSPoseConfig
     from hspose_tpu_torch.engine.train_step import build_train_step, to_device
     from hspose_tpu_torch.models.hspose import draw_train
     from hspose_tpu_torch.utils.synthetic import synthetic_train_batch
 
-    fast = dtype == "bfloat16"
-    phase, tier = ("bf16-train", "bf16") if fast else ("train", "fp32")
-    cfg = HSPoseConfig(model=ModelConfig(compute_dtype=dtype))
-    model = build_train_model(DEVICE, dtype)
+    fast = tier == "bfloat16"
+    phase, name = {"float32": ("train", "fp32"), "bfloat16": ("bf16-train", "bf16"),
+                   "v4": ("v4-train", "fp32 bwd_store=False train_v4_small=True")}[tier]
+    cfg = HSPoseConfig(model=train_config(tier))
+    model = build_train_model(DEVICE, cfg.model)
     step = build_train_step(cfg, model, torch.Generator(device=DEVICE).manual_seed(SEED))
     batch = to_device(synthetic_train_batch(TRAIN_B, N, seed=SEED), DEVICE)
     before = [p.detach().clone() for p in model.parameters()]
@@ -718,7 +962,7 @@ def phase_train(smi: str, dtype: str = "float32") -> tuple[dict, float]:
     torch.cuda.synchronize()
     launches = read_counts(counts)
     log(phase, f"{TRAIN_STEPS} steps of ({TRAIN_B}, {N}, 3): launches {launches}")
-    check_counts(launches, TRAIN_LAUNCHES[dtype], TRAIN_STEPS, "train step")
+    check_counts(launches, TRAIN_LAUNCHES[tier], TRAIN_STEPS, "train step")
     for i, m in enumerate(metrics):
         log(phase, f"step {i}: total_loss {m['total_loss']:.6f}, skipped_nan "
                    f"{m['skipped_nan']}, {len(m) - 2} loss terms")
@@ -734,7 +978,7 @@ def phase_train(smi: str, dtype: str = "float32") -> tuple[dict, float]:
         raise AssertionError("the train step did not update the model")
 
     # one train forward and backward on the card and on the CPU plain ops
-    cpu_model = build_train_model("cpu", dtype).train()
+    cpu_model = build_train_model("cpu", cfg.model).train()
     card_model = copy.deepcopy(cpu_model).to(DEVICE)
     small = synthetic_train_batch(4, N, seed=SEED + 5)
     draws = draw_train(torch.Generator().manual_seed(SEED + 6), 4, N)
@@ -780,7 +1024,7 @@ def phase_train(smi: str, dtype: str = "float32") -> tuple[dict, float]:
             step(batch)
         torch.cuda.synchronize()
         rates.append(iters / (time.perf_counter() - t0))
-    log(phase, f"{max(rates)} steps/s at B={TRAIN_B} {tier} (best of 3 windows of {iters} "
+    log(phase, f"{max(rates)} steps/s at B={TRAIN_B} {name} (best of 3 windows of {iters} "
                f"steps: {rates}) on {smi}")
     return launches, max(rates)
 
@@ -822,6 +1066,20 @@ SOURCES = {
             "hspose_tpu/ops/pallas_hs.py:336"),
            ("hs_surface_bwd", "hspose_tpu_torch/csrc/hs_surface_train.cu",
             "hspose_tpu/ops/pallas_hs.py:410")]},
+    # bwd_store=False: K11 without winner values, K14 (fp32)
+    "hs_support_fwd_novals": ("hspose_tpu_torch/csrc/hs_support_train.cu",
+                              "hspose_tpu/ops/pallas_hs.py:151", None),
+    "hs_support_bwd_recompute": ("hspose_tpu_torch/csrc/hs_support_train.cu",
+                                 "hspose_tpu/ops/pallas_hs.py:240", None),
+    # the fused ops' VJPs (fp32): K2-K4 with want_win, K9, K8, K10
+    **{name: (src, "hspose_tpu/ops/pallas_hs_fused.py:" + line, None)
+       for name, src, line in [
+           ("hs_surface_fused_fwd", "hspose_tpu_torch/csrc/hs_surface.cu", "299"),
+           ("hs_surface_fused_bwd", "hspose_tpu_torch/csrc/hs_surface.cu", "493"),
+           ("hs_support_fused_fwd", "hspose_tpu_torch/csrc/hs_support.cu", "219"),
+           ("hs_support_fused_bwd", "hspose_tpu_torch/csrc/hs_support.cu", "420"),
+           ("orl_global_fused_fwd", "hspose_tpu_torch/csrc/orl.cu", "358"),
+           ("orl_global_fused_bwd", "hspose_tpu_torch/csrc/orl.cu", "544")]},
 }
 
 
@@ -830,6 +1088,8 @@ def kernel_line(rec: dict, launches: dict) -> dict:
     launches on the main path and its measured numbers."""
     kernels = []
     for name, (src, rep, shares) in SOURCES.items():
+        if not launches[shares or name] > 0:
+            raise AssertionError(f"{name}: no launch in the main run of its path")
         r = {k: v for k, v in rec[shares or name].items() if not k.startswith("_")}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches[shares or name], **r})
@@ -858,6 +1118,16 @@ def main() -> int:
         launches.update({name: train_launches[name] for name in TRAIN_LAUNCHES[dtype]})
     log("train", f"bf16 / fp32 at B={TRAIN_B}: {rates['bfloat16']:.3f} / {rates['float32']:.3f} "
                  f"steps/s = {rates['bfloat16'] / rates['float32']:.3f}")
+    v4_rec, carrier = phase_v4_kernels()
+    rec.update(v4_rec)
+    train_launches, rates["v4"] = phase_train(smi, "v4")
+    launches.update({name: train_launches[name] for name in TRAIN_LAUNCHES["v4"]})
+    # K2 with winners and K9 run on no model path: their launches are the carrier's
+    launches.update({name: carrier[name] for name in ("hs_surface_fused_fwd",
+                                                      "hs_surface_fused_bwd")})
+    log("v4-train", f"bwd_store=False train_v4_small=True / default fp32 at B={TRAIN_B}: "
+                    f"{rates['v4']:.3f} / {rates['float32']:.3f} steps/s = "
+                    f"{rates['v4'] / rates['float32']:.3f}")
     print(json.dumps(kernel_line(rec, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

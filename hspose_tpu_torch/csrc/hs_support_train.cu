@@ -58,6 +58,20 @@
 //   registers; 64 threads also carry db and dd.  Each block writes a row of
 //   partial sums and a second launch adds the partials in chunk order, so
 //   dW, db and dd are the same from run to run.
+//
+// bwd_store=False (fp32 only): the forward without STORE writes win but not
+// twin/pwin (K11's no-values launch), and the recompute backward
+// (hs_support_bwd_recompute, K14) replaces hspose_tpu/ops/pallas_hs.py::
+// _support_bwd_kernel (:240, exact=True): recompute_kernel forms, per (query,
+// column), theta and P = g[q, win] . W[:, col] + b[col] at the recorded winner
+// with the forward's arithmetic (fmaf over Cin in order, then + b; theta by
+// the same expression), into scratch twin/pwin, and the stored-values
+// backward's kernels above route the cotangents from them.  So K14 gives K13's
+// cotangents from the same inputs.  Plain version: hspose_tpu_torch/ops/
+// cuda_hs.py::hs_support_bwd_recompute_plain.  What bounds it: besides K13's
+// work, B*N*S*Co*Cin fp32 multiply-adds for the recomputed P (K times fewer
+// than the forward's), fed by a W column per thread from L2 and g rows staged
+// in shared memory for RC_TQ queries at a time.
 
 #include <algorithm>
 
@@ -71,8 +85,11 @@ constexpr int ROWS_THREADS = 128;
 constexpr int RED_CH = 64;       // columns per block in the reduction kernel
 constexpr int RED_QC = 128;      // queries per block in the reduction kernel
 constexpr int RED_QS = 16;       // queries staged at once in the reduction kernel
+constexpr int RC_TQ = 16;        // queries per block in the recompute kernel
+constexpr int RC_CH = 16;        // input channels staged at once in the recompute kernel
+constexpr int RC_THREADS = 128;  // columns per block in the recompute kernel
 
-template <int KP, typename T>
+template <int KP, typename T, bool STORE>
 __global__ void __launch_bounds__(FWD_THREADS)
 support_fwd_kernel(const T* __restrict__ g, const T* __restrict__ rf,
                    const float* __restrict__ w, int ldw, const float* __restrict__ bias,
@@ -172,8 +189,10 @@ support_fwd_kernel(const T* __restrict__ g, const T* __restrict__ rf,
           }
         }
         win[qrow * SC + col] = kb;
-        twin[qrow * SC + col] = tw;
-        pwin[qrow * SC + col] = pw;
+        if constexpr (STORE) {
+          twin[qrow * SC + col] = tw;
+          pwin[qrow * SC + col] = pw;
+        }
         oacc[j] += m;
       }
     }
@@ -398,33 +417,84 @@ support_bwd_reduce_kernel(const T* __restrict__ g, const T* __restrict__ rf,
   }
 }
 
-template <int KP, typename T>
+// twin, pwin (rows, S*Co) at the recorded winners, with the forward's
+// arithmetic: P = fmaf over i in order of g[q, k, i] * W[i, col], then + b[col];
+// theta = relu(rf[q, k] . d[:, col]) by support_fwd_kernel's expression.
+// Block: RC_THREADS columns (grid.x) of RC_TQ queries (grid.y); the queries'
+// g rows are staged RC_CH channels at a time.
+__global__ void __launch_bounds__(RC_THREADS)
+recompute_kernel(const float* __restrict__ g, const float* __restrict__ rf,
+                 const float* __restrict__ w, int ldw, const float* __restrict__ bias,
+                 const float* __restrict__ dirs, const int* __restrict__ win,
+                 float* __restrict__ twin, float* __restrict__ pwin, int rows, int K, int Cin,
+                 int S, int Co) {
+  extern __shared__ float sg[];  // (RC_TQ, K, RC_CH)
+  const int SC = S * Co;
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  const int q0 = blockIdx.y * RC_TQ, tq = min(RC_TQ, rows - q0);
+  int kk[RC_TQ];
+  float acc[RC_TQ];
+#pragma unroll
+  for (int t = 0; t < RC_TQ; ++t) {
+    kk[t] = (col < SC && t < tq) ? win[(size_t)(q0 + t) * SC + col] : 0;
+    acc[t] = 0.f;
+  }
+  for (int i0 = 0; i0 < Cin; i0 += RC_CH) {
+    const int nch = min(RC_CH, Cin - i0);
+    __syncthreads();  // the previous slice is no longer read
+    for (int e = threadIdx.x; e < RC_TQ * K * RC_CH; e += blockDim.x) {
+      const int t = e / (K * RC_CH), k = (e / RC_CH) % K, i = e % RC_CH;
+      sg[e] = (t < tq && i < nch) ? g[((size_t)(q0 + t) * K + k) * Cin + i0 + i] : 0.f;
+    }
+    __syncthreads();
+    if (col < SC) {
+      for (int i = 0; i < nch; ++i) {
+        const float wv = w[(size_t)(i0 + i) * ldw + col];
+#pragma unroll
+        for (int t = 0; t < RC_TQ; ++t)
+          acc[t] = fmaf(sg[(t * K + kk[t]) * RC_CH + i], wv, acc[t]);
+      }
+    }
+  }
+  if (col >= SC) return;
+  const float d0 = dirs[col], d1 = dirs[SC + col], d2 = dirs[2 * SC + col];
+  const float bb = bias[col];
+  for (int t = 0; t < tq; ++t) {
+    const size_t at = (size_t)(q0 + t) * SC + col;
+    const float* r = rf + ((size_t)(q0 + t) * K + kk[t]) * 3;
+    const float th = fmaxf(r[0] * d0 + r[1] * d1 + r[2] * d2, 0.f);
+    twin[at] = th;
+    pwin[at] = acc[t] + bb;
+  }
+}
+
+template <int KP, typename T, bool STORE>
 cudaError_t launch_fwd(const void* g, const void* rf, const float* w, int ldw, const float* b,
                        const void* dirs, float* out, int* win, float* twin, float* pwin, int B,
                        int N, int K, int Cin, int S, int Co, cudaStream_t stream) {
   const int TQ = FWD_THREADS / (Co / 4);
   const size_t smem = sizeof(float) * ((size_t)TQ * KP * Cin + BK * Co + (size_t)TQ * KP * 3);
-  cudaError_t err = hs::allow_smem(support_fwd_kernel<KP, T>, smem);
+  cudaError_t err = hs::allow_smem(support_fwd_kernel<KP, T, STORE>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + TQ - 1) / TQ, B);
-  support_fwd_kernel<KP, T><<<grid, TQ * (Co / 4), smem, stream>>>(
+  support_fwd_kernel<KP, T, STORE><<<grid, TQ * (Co / 4), smem, stream>>>(
       static_cast<const T*>(g), static_cast<const T*>(rf), w, ldw, b,
       static_cast<const T*>(dirs), out, win, twin, pwin, N, K, Cin, S, Co, TQ);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool STORE = true>
 cudaError_t launch_fwd_k(const void* g, const void* rf, const float* w, int ldw, const float* b,
                          const void* dirs, float* out, int* win, float* twin, float* pwin, int B,
                          int N, int K, int Cin, int S, int Co, cudaStream_t st) {
   if (K <= 8)
-    return launch_fwd<8, T>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S, Co,
-                            st);
+    return launch_fwd<8, T, STORE>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S,
+                                   Co, st);
   if (K <= 20)
-    return launch_fwd<20, T>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S, Co,
-                             st);
-  return launch_fwd<32, T>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S, Co,
-                           st);
+    return launch_fwd<20, T, STORE>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin,
+                                    S, Co, st);
+  return launch_fwd<32, T, STORE>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S,
+                                  Co, st);
 }
 
 template <typename T>
@@ -490,6 +560,37 @@ extern "C" int hs_support_fwd(const void* g, const void* rf, const float* w, int
                                                   B, N, K, Cin, S, Co, st)
                     : launch_fwd_k<float>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K,
                                           Cin, S, Co, st));
+}
+
+// bwd_store=False: as hs_support_fwd with fp32 operands, writing out and win only.
+extern "C" int hs_support_fwd_win(const float* g, const float* rf, const float* w, int ldw,
+                                  const float* b, const float* dirs, float* out, int* win, int B,
+                                  int N, int K, int Cin, int S, int Co, void* stream) {
+  if (hs_support_train_supported(K, Cin, Co)) return (int)cudaErrorInvalidValue;
+  return (int)launch_fwd_k<float, false>(g, rf, w, ldw, b, dirs, out, win, nullptr, nullptr, B,
+                                         N, K, Cin, S, Co, static_cast<cudaStream_t>(stream));
+}
+
+// K14: g (B, N, K, Cin), rf (B, N, K, 3), w (Cin, S*Co; row stride ldw), b (S*Co),
+// dirs (3, S*Co), win (B, N, S*Co), gb (B, N, Co), all fp32; scratch twin, pwin
+// (B, N, S*Co), wt (S*Co, Cin) and partial (hs_support_bwd_parts(B * N), Cin + 4, S*Co)
+// -> dg, drf and red = [dW; db; dd] as hs_support_bwd.
+extern "C" int hs_support_bwd_recompute(const float* g, const float* rf, const float* w, int ldw,
+                                        const float* b, const float* dirs, const int* win,
+                                        const float* gb, float* twin, float* pwin, float* dg,
+                                        float* drf, float* wt, float* partial, float* red, int B,
+                                        int N, int K, int Cin, int S, int Co, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hs_support_train_supported(K, Cin, Co)) return (int)cudaErrorInvalidValue;
+  const int SC = S * Co, rows = B * N;
+  const size_t smem = sizeof(float) * (size_t)RC_TQ * K * RC_CH;
+  recompute_kernel<<<dim3((SC + RC_THREADS - 1) / RC_THREADS, (rows + RC_TQ - 1) / RC_TQ),
+                     RC_THREADS, smem, st>>>(g, rf, w, ldw, b, dirs, win, twin, pwin, rows, K,
+                                             Cin, S, Co);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_bwd<float>(g, rf, w, ldw, dirs, win, twin, pwin, gb, dg, drf, wt, partial,
+                                red, B, N, K, Cin, S, Co, st);
 }
 
 // g (B, N, K, Cin), rf (B, N, K, 3), dirs (3, S*Co), fp32 or (fast != 0) bf16;

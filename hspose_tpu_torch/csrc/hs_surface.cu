@@ -19,18 +19,35 @@
 // FAST is the bf16 tier (exact=False of the same TPU kernel): the staged
 // directions and rf rows are rounded as hs_common.cuh says, the rest is
 // unchanged; accumulation and output stay fp32.
+//
+// WIN is the forward of the differentiable fp32 op (want_win=True of the same
+// TPU kernel, pallas_hs_fused.py:318-330): it also records, per (point,
+// support column), the first k that reaches the max of relu(theta) (a strict
+// > from -FLT_MAX), for the backward.  The serving instantiations (WIN false)
+// are compiled from the same lines as before.
+//
+// The backward (K9, hs_surface_fused_bwd below) replaces
+// hspose_tpu/ops/pallas_hs_fused.py::_surface_bwd_kernel (exact=True): dverts
+// and dd from win and the output cotangent, through the shared pieces of
+// hs_fused_bwd.cuh.  Plain versions: hspose_tpu_torch/ops/cuda_hs_fused.py::
+// hs_surface_fused_fwd_plain and hs_surface_fused_bwd_plain.  What bounds it:
+// it reads the (B, N, S*Co) winners and cotangents a few times and does about
+// 10 operations per (point, column); the scatter to source rows follows the
+// inverse neighbour lists, with no atomics.
 
-#include "hs_common.cuh"
+#include <cfloat>
+
+#include "hs_fused_bwd.cuh"
 
 namespace {
 
 constexpr int TQ = 16;
 constexpr int THREADS = 128;
 
-template <bool FAST>
+template <bool FAST, bool WIN>
 __global__ void __launch_bounds__(THREADS)
 surface_kernel(const float* __restrict__ verts, const int* __restrict__ idx,
-               const float* __restrict__ dirs, float* __restrict__ out,
+               const float* __restrict__ dirs, float* __restrict__ out, int* __restrict__ win,
                int N, int K, int S, int Co) {
   extern __shared__ float smem[];
   const int SC = S * Co;
@@ -48,26 +65,42 @@ surface_kernel(const float* __restrict__ verts, const int* __restrict__ idx,
       float total = 0.f;
       for (int s = 0; s < S; ++s) {
         const float d0 = sd[s * Co + c], d1 = sd[SC + s * Co + c], d2 = sd[2 * SC + s * Co + c];
-        float m = 0.f;  // every relu term is >= 0, so the max may start at 0
-        for (int j = 0; j < K; ++j) {
-          const float* r = srf + (t * K + j) * 3;
-          m = fmaxf(m, r[0] * d0 + r[1] * d1 + r[2] * d2);
+        if constexpr (WIN) {
+          float m = -FLT_MAX;
+          int kb = 0;
+          for (int j = 0; j < K; ++j) {
+            const float* r = srf + (t * K + j) * 3;
+            const float v = fmaxf(r[0] * d0 + r[1] * d1 + r[2] * d2, 0.f);
+            if (v > m) {
+              m = v;
+              kb = j;
+            }
+          }
+          win[((size_t)b * N + q0 + t) * SC + s * Co + c] = kb;
+          total += m;
+        } else {
+          float m = 0.f;  // every relu term is >= 0, so the max may start at 0
+          for (int j = 0; j < K; ++j) {
+            const float* r = srf + (t * K + j) * 3;
+            m = fmaxf(m, r[0] * d0 + r[1] * d1 + r[2] * d2);
+          }
+          total += m;
         }
-        total += m;
       }
       out[((size_t)b * N + q0 + t) * Co + c] = total / S;
     }
   }
 }
 
-template <bool FAST>
-int launch(const float* verts, const int* idx, const float* dirs, float* out, int B, int N,
-           int K, int S, int Co, cudaStream_t stream) {
+template <bool FAST, bool WIN = false>
+int launch(const float* verts, const int* idx, const float* dirs, float* out, int* win, int B,
+           int N, int K, int S, int Co, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (3 * (size_t)S * Co + (size_t)TQ * K * 3);
-  cudaError_t err = hs::allow_smem(surface_kernel<FAST>, smem);
+  cudaError_t err = hs::allow_smem(surface_kernel<FAST, WIN>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + TQ - 1) / TQ, B);
-  surface_kernel<FAST><<<grid, THREADS, smem, stream>>>(verts, idx, dirs, out, N, K, S, Co);
+  surface_kernel<FAST, WIN><<<grid, THREADS, smem, stream>>>(verts, idx, dirs, out, win, N, K, S,
+                                                             Co);
   return (int)cudaGetLastError();
 }
 
@@ -78,6 +111,33 @@ int launch(const float* verts, const int* idx, const float* dirs, float* out, in
 extern "C" int hs_surface(const float* verts, const int* idx, const float* dirs, float* out,
                           int B, int N, int K, int S, int Co, int fast, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fast ? launch<true>(verts, idx, dirs, out, B, N, K, S, Co, s)
-              : launch<false>(verts, idx, dirs, out, B, N, K, S, Co, s);
+  return fast ? launch<true>(verts, idx, dirs, out, nullptr, B, N, K, S, Co, s)
+              : launch<false>(verts, idx, dirs, out, nullptr, B, N, K, S, Co, s);
 }
+
+// The forward of the differentiable fp32 op: as hs_surface, and win (B, N, S*Co)
+// int32, the first k reaching each column's max.
+extern "C" int hs_surface_win(const float* verts, const int* idx, const float* dirs, float* out,
+                              int* win, int B, int N, int K, int S, int Co, void* stream) {
+  if (hsb::supported(N, K)) return (int)cudaErrorInvalidValue;
+  return launch<false, true>(verts, idx, dirs, out, win, B, N, K, S, Co,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// K9: verts (B, N, 3), idx (B, N, K), dirs (3, S*Co), win (B, N, S*Co), gb (B, N, Co)
+// -> dverts (B, N, 3) and red (3, S*Co) = dd.  Scratch: rowptr (B, N + 1), ent
+// (B, N*K) int32; dz (B, N, S*Co), drf (B, N, K, 3), dvq (B, N, 3), partial
+// (hs_fused_bwd_parts(B, N), 3, S*Co) fp32.
+extern "C" int hs_surface_fused_bwd(const float* verts, const int* idx, const float* dirs,
+                                    const int* win, const float* gb, int* rowptr, int* ent,
+                                    float* dz, float* drf, float* dvq, float* partial,
+                                    float* dverts, float* red, int B, int N, int K, int S, int Co,
+                                    void* stream) {
+  if (hsb::supported(N, K)) return (int)cudaErrorInvalidValue;
+  return (int)hsb::fused_bwd<false>(verts, idx, dirs, win, gb, nullptr, rowptr, ent, dz, nullptr,
+                                    drf, dvq, partial, red, nullptr, dverts, B, N, K, S, Co,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// Rows of the fused backwards' dd (and db) partial-sum scratch.
+extern "C" int hs_fused_bwd_parts(int B, int N) { return hsb::parts(B, N); }

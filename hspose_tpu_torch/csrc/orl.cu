@@ -20,20 +20,33 @@
 // launch on bf16 features, which halves the bytes read; the maxima are bf16
 // values and every sum stays fp32, as the TPU kernel's exact one-hot gather
 // of bf16 rows with fp32 accumulation.
+//
+// The differentiable fp32 op: hs_orl_win is the first launch with WIN, which
+// also records, per (point, channel), the first k reaching the max (a strict
+// > from -FLT_MAX, pallas_hs_fused.py:381-389); the serving instantiations
+// (WIN false) are compiled from the same lines as before.  Its backward K10,
+// hs_orl_bwd, replaces hspose_tpu/ops/pallas_hs_fused.py::_orl_bwd_kernel
+// (exact=True): dfeat[b, r, c] = gb[b, c] / N times the number of (point, k)
+// whose neighbour k is row r and whose channel c was won by that k.  The
+// count follows r's inverse neighbour list (hs_fused_bwd.cuh), so no atomics
+// and no order enter.  Plain versions: hspose_tpu_torch/ops/cuda_hs_fused.py::
+// orl_global_fused_fwd_plain and orl_global_fused_bwd_plain.  What bounds it:
+// it reads each (point, channel) winner once per neighbour list entry, from
+// L2, and writes (B, N, C).
 
 #include <cfloat>
 
-#include "hs_common.cuh"
+#include "hs_fused_bwd.cuh"
 
 namespace {
 
 constexpr int TQ = 32;
 constexpr int THREADS = 128;
 
-template <typename T>
+template <typename T, bool WIN>
 __global__ void __launch_bounds__(THREADS)
 orl_partial_kernel(const T* __restrict__ feat, const int* __restrict__ idx,
-                   float* __restrict__ partial, int N, int K, int C) {
+                   float* __restrict__ partial, int* __restrict__ win, int N, int K, int C) {
   extern __shared__ int sidx[];  // (TQ, K)
   const int b = blockIdx.y, tile = blockIdx.x, q0 = tile * TQ;
   const int tq = min(TQ, N - q0);
@@ -46,7 +59,19 @@ orl_partial_kernel(const T* __restrict__ feat, const int* __restrict__ idx,
     float sum = 0.f;
     for (int t = 0; t < tq; ++t) {
       float m = -FLT_MAX;
-      for (int j = 0; j < K; ++j) m = fmaxf(m, hs::load_f(Fb + (size_t)sidx[t * K + j] * C + c));
+      if constexpr (WIN) {
+        int kb = 0;
+        for (int j = 0; j < K; ++j) {
+          const float v = hs::load_f(Fb + (size_t)sidx[t * K + j] * C + c);
+          if (v > m) {
+            m = v;
+            kb = j;
+          }
+        }
+        win[((size_t)b * N + q0 + t) * C + c] = kb;
+      } else {
+        for (int j = 0; j < K; ++j) m = fmaxf(m, hs::load_f(Fb + (size_t)sidx[t * K + j] * C + c));
+      }
       sum += m;
     }
     partial[((size_t)b * gridDim.x + tile) * C + c] = sum;
@@ -64,16 +89,39 @@ orl_finish_kernel(const float* __restrict__ partial, float* __restrict__ out, in
   }
 }
 
-template <typename T>
-int launch(const T* feat, const int* idx, float* partial, float* out, int B, int N, int K, int C,
-           cudaStream_t s) {
+template <typename T, bool WIN = false>
+int launch(const T* feat, const int* idx, float* partial, float* out, int* win, int B, int N,
+           int K, int C, cudaStream_t s) {
   const int tiles = (N + TQ - 1) / TQ;
   const size_t smem = sizeof(int) * (size_t)TQ * K;
-  orl_partial_kernel<T><<<dim3(tiles, B), THREADS, smem, s>>>(feat, idx, partial, N, K, C);
+  orl_partial_kernel<T, WIN><<<dim3(tiles, B), THREADS, smem, s>>>(feat, idx, partial, win, N, K,
+                                                                   C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   orl_finish_kernel<<<B, THREADS, 0, s>>>(partial, out, tiles, N, C);
   return (int)cudaGetLastError();
+}
+
+// One block per source row r of batch b (grid.x = B * N), threads over channels:
+// dfeat[b, r, c] = gb[b, c] / N times the count of r's inverse-list entries
+// (q, k) with win[b, q, c] == k.
+__global__ void __launch_bounds__(THREADS)
+orl_bwd_kernel(const int* __restrict__ rowptr, const int* __restrict__ ent,
+               const int* __restrict__ win, const float* __restrict__ gb,
+               float* __restrict__ dfeat, int N, int K, int C) {
+  const size_t row = blockIdx.x;
+  const int b = (int)(row / N), r = (int)(row % N);
+  const int* rp = rowptr + (size_t)b * (N + 1);
+  const int* eb = ent + (size_t)b * N * K;
+  const int lo = rp[r], hi = rp[r + 1];
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    int cnt = 0;
+    for (int p = lo; p < hi; ++p) {
+      const int e = eb[p];
+      cnt += win[((size_t)b * N + e / K) * C + c] == e % K;
+    }
+    dfeat[row * C + c] = (float)cnt * (gb[(size_t)b * C + c] / N);
+  }
 }
 
 }  // namespace
@@ -86,6 +134,29 @@ extern "C" int hs_orl_tiles(int N) { return (N + TQ - 1) / TQ; }
 extern "C" int hs_orl(const void* feat, int fast, const int* idx, float* partial, float* out,
                       int B, int N, int K, int C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fast ? launch(static_cast<const __nv_bfloat16*>(feat), idx, partial, out, B, N, K, C, s)
-              : launch(static_cast<const float*>(feat), idx, partial, out, B, N, K, C, s);
+  return fast ? launch(static_cast<const __nv_bfloat16*>(feat), idx, partial, out, nullptr, B, N,
+                       K, C, s)
+              : launch(static_cast<const float*>(feat), idx, partial, out, nullptr, B, N, K, C,
+                       s);
+}
+
+// The forward of the differentiable fp32 op: as hs_orl on fp32 features, and win
+// (B, N, C) int32, the first k reaching each channel's max.
+extern "C" int hs_orl_win(const float* feat, const int* idx, float* partial, float* out, int* win,
+                          int B, int N, int K, int C, void* stream) {
+  if (hsb::supported(N, K)) return (int)cudaErrorInvalidValue;
+  return launch<float, true>(feat, idx, partial, out, win, B, N, K, C,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// K10: idx (B, N, K), win (B, N, C), gb (B, C) the cotangent of out -> dfeat (B, N, C).
+// Scratch: rowptr (B, N + 1), ent (B, N*K) int32.
+extern "C" int hs_orl_bwd(const int* idx, const int* win, const float* gb, int* rowptr, int* ent,
+                          float* dfeat, int B, int N, int K, int C, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hsb::supported(N, K)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = hsb::inverse_index(idx, rowptr, ent, B, N, K, s);
+  if (err != cudaSuccess) return (int)err;
+  orl_bwd_kernel<<<B * N, THREADS, 0, s>>>(rowptr, ent, win, gb, dfeat, N, K, C);
+  return (int)cudaGetLastError();
 }

@@ -17,6 +17,11 @@ upsample still exact in fp32 on the vertices.  The train heads have no
 dtype in the JAX package, so flax promotes their bf16 input against the
 fp32 parameters: here they take it widened to fp32 and run in fp32, their
 BatchNorm too.
+
+``bwd_store`` and ``train_v4_small`` reach conv_1 .. conv_4, as
+hspose_tpu/models/face_recon.py:146-202 passes them; their non-default
+values are fp32 only (the bf16 branches of K8-K10 and K14 are not ported)
+and raise with ``compute_dtype="bfloat16"``.
 """
 
 from __future__ import annotations
@@ -115,15 +120,22 @@ class FaceRecon(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
+        if self.dtype == torch.bfloat16 and (not cfg.bwd_store or cfg.train_v4_small):
+            raise NotImplementedError(
+                "bwd_store=False and train_v4_small=True are fp32 only: their bf16 training "
+                "needs the exact=False branches of K8, K9, K10 and K14, the next slice of the "
+                "port (ROADMAP Queue 2)")
         s, dt = cfg.gcn_sup_num, self.dtype
+        hs = functools.partial(HSLayer, device=device, dtype=dt, bwd_store=cfg.bwd_store,
+                               train_v4_small=cfg.train_v4_small)
         self.conv_0 = HSLayerSurface(128, s, device=device, dtype=dt)
-        self.conv_1 = HSLayer(128, 128, s, device=device, dtype=dt)
+        self.conv_1 = hs(128, 128, s)
         self.bn1 = _bn(128, device)
-        self.conv_2 = HSLayer(128, 256, s, device=device, dtype=dt)
+        self.conv_2 = hs(128, 256, s)
         self.bn2 = _bn(256, device)
-        self.conv_3 = HSLayer(256, 256, s, device=device, dtype=dt)
+        self.conv_3 = hs(256, 256, s)
         self.bn3 = _bn(256, device)
-        self.conv_4 = HSLayer(256, 512, s, device=device, dtype=dt)
+        self.conv_4 = hs(256, 512, s)
         self.train_heads = train_heads
         if train_heads:
             feat_c = FEAT_C + cfg.obj_c

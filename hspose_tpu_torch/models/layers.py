@@ -6,7 +6,11 @@ package.  In eval mode the layers run the serving kernels of
 ``ops/cuda_hs_fused.py``; in train mode (``self.training``) they gather the
 receptive-field directions and neighbour features with autograd and run the
 differentiable kernels of ``ops/cuda_hs.py`` on them, as the JAX layers' v3
-training branch does, and the ORL branch is the plain gather, max and mean.
+training branch does (``bwd_store`` picks the support backward), and the ORL
+branch is the plain gather, max and mean.  An ``HSLayer`` with
+``train_v4_small`` at N <= 512 trains through the differentiable fused ops
+of ``ops/cuda_hs_fused.py`` instead, its ORL branch too, as the JAX layers'
+v4 training route does (hspose_tpu/models/layers.py:76-82, 246-264).
 Either way a CUDA tensor takes the kernel and a CPU tensor its plain version.
 
 ``dtype=torch.bfloat16`` is the bf16 tier: parameters stay fp32 and are
@@ -60,13 +64,15 @@ def _normalize_dirs(directions: torch.Tensor) -> torch.Tensor:
     return directions / torch.clamp(norm, min=1e-12)
 
 
-def orl_global(feature: torch.Tensor, orl_idx: torch.Tensor,
-               train: bool = False) -> torch.Tensor:
+def orl_global(feature: torch.Tensor, orl_idx: torch.Tensor, train: bool = False,
+               train_v4_small: bool = False) -> torch.Tensor:
     """Outlier-robust global feature: (B, N, C), vertex-KNN (B, N, K) ->
     (B, 1, C) = mean over points of the max over each point's neighbours.
     Training takes the plain gather, max and mean with autograd (the max
-    splits a gradient over ties, as the JAX package's does)."""
-    if train:
+    splits a gradient over ties, as the JAX package's does), unless
+    ``train_v4_small`` at N <= 512 sends it through the differentiable fused
+    op, whose backward routes each tie to the first k."""
+    if train and not (train_v4_small and feature.shape[1] <= 512):
         return orl_global_plain(feature, orl_idx)
     return orl_global_fused(feature, orl_idx)
 
@@ -75,13 +81,13 @@ def _with_global(feature: torch.Tensor, f_global: torch.Tensor) -> torch.Tensor:
     return torch.cat([feature, f_global.expand(-1, feature.shape[1], -1)], dim=-1)
 
 
-def _finish(layer, feature: torch.Tensor, orl_idx: torch.Tensor,
-            f_ste: torch.Tensor) -> torch.Tensor:
+def _finish(layer, feature: torch.Tensor, orl_idx: torch.Tensor, f_ste: torch.Tensor,
+            train_v4_small: bool = False) -> torch.Tensor:
     """The common tail of both HS layers (gcn3d.py:109-113, 183-187): the
     ORL branch on the layer's dtype, conv2 over [feature | global] plus the
     fp32 feature, plus the shortcut, rounded to the layer's dtype."""
     dt = layer.dtype
-    f_global = orl_global(feature.to(dt), orl_idx, layer.training).to(dt)
+    f_global = orl_global(feature.to(dt), orl_idx, layer.training, train_v4_small).to(dt)
     feature = dense(layer.conv2, _with_global(feature.to(dt), f_global), dt) + feature
     return (feature + f_ste).to(dt)
 
@@ -118,14 +124,17 @@ class HSLayer(nn.Module):
     """General hybrid-scope layer.  ``weights`` is (Cin, (S+1)*Co): the first
     Co columns are the centre projection, support s channel c sits at column
     Co + s*Co + c.  Receptive fields (``rf_idx``) come from feature space,
-    the directions and the ORL branch from the vertices."""
+    the directions and the ORL branch from the vertices.  ``bwd_store`` and
+    ``train_v4_small`` choose the training route (module docstring)."""
 
     def __init__(self, in_channel: int, out_channel: int, support_num: int,
-                 device=None, dtype: torch.dtype = torch.float32):
+                 device=None, dtype: torch.dtype = torch.float32, bwd_store: bool = True,
+                 train_v4_small: bool = False):
         super().__init__()
         self.in_channel, self.out_channel = in_channel, out_channel
         self.support_num = support_num
         self.dtype = dtype
+        self.bwd_store, self.train_v4_small = bwd_store, train_v4_small
         s, co = support_num, out_channel
         stdv = 1.0 / (co * (s + 1)) ** 0.5
         self.weights = _uniform((in_channel, (s + 1) * co), stdv, device)
@@ -141,15 +150,16 @@ class HSLayer(nn.Module):
         f_ste = dense(self.STE_layer, feature_map, dt)
         feature_center = feature_map @ self.weights[:, :co].to(dt) + self.bias[:co]
         dirs = _normalize_dirs(self.directions)
-        if self.training:
+        v4 = self.train_v4_small and vertices.shape[1] <= 512
+        if self.training and not v4:
             rf = neighbor_directions_normalized(vertices.to(dt), rf_idx)
             g = gather_neighbors(feature_map, rf_idx)
             activation = hs_support_reduce(g, rf, self.weights[:, co:], self.bias[co:],
-                                           dirs.to(dt), s, co)
+                                           dirs.to(dt), s, co, store=self.bwd_store)
         else:
             activation = hs_support_fused(feature_map, vertices, rf_idx,
                                           self.weights[:, co:], self.bias[co:], dirs, s, co)
-        return _finish(self, feature_center + activation, orl_idx, f_ste)
+        return _finish(self, feature_center + activation, orl_idx, f_ste, self.train_v4_small)
 
 
 def pool_layer(vertices: torch.Tensor, feature_map: torch.Tensor,

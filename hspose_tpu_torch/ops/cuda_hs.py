@@ -2,24 +2,29 @@
 CUDA kernels.
 
 Counterpart of ``hspose_tpu/ops/pallas_hs.py``: ``hs_surface_reduce`` and
-``hs_support_reduce(..., bwd_store=True)``, the v3 contract on pre-gathered
-rows, with the TPU-only arguments (``tq``, ``exact``, ``kmajor``,
-``theta_mxu``, ``bwd_exact``, ``interpret``) gone.  Layouts are (B, N, K, .).
+``hs_support_reduce(..., bwd_store=True or False)``, the v3 contract on
+pre-gathered rows, with the TPU-only arguments (``tq``, ``exact``,
+``kmajor``, ``theta_mxu``, ``bwd_exact``, ``interpret``) gone.  Layouts are
+(B, N, K, .).
 
-Four kernels, each behind a wrapper that runs its plain version (in this
+Five kernels, each behind a wrapper that runs its plain version (in this
 module) on CPU tensors and launches the kernel on CUDA tensors or raises:
 
 * ``hs_surface_fwd`` (K12) and ``hs_surface_bwd`` (K15) ->
   ``csrc/hs_surface_train.cu``;
-* ``hs_support_fwd`` (K11) and ``hs_support_bwd`` (K13) ->
-  ``csrc/hs_support_train.cu``.
+* ``hs_support_fwd`` (K11), ``hs_support_bwd`` (K13) and
+  ``hs_support_bwd_recompute`` (K14) -> ``csrc/hs_support_train.cu``.
 
 The forwards record, per (point, output column), the first k that reaches
-the max (``win``) and, for the support reduction, theta and the projection
-there (``twin``, ``pwin``); the backwards route each cotangent to that k
-only.  ``torch.amax`` would split a gradient over ties instead.  The two
-``autograd.Function``s, ``HSSurfaceReduce`` and ``HSSupportReduce``, pair
-each forward with its backward.  ``win`` is int32.
+the max (``win``) and, for the support reduction with ``store`` (the JAX
+package's ``bwd_store=True``, its default), theta and the projection there
+(``twin``, ``pwin``); the backwards route each cotangent to that k only.
+``torch.amax`` would split a gradient over ties instead.  Without ``store``
+the forward writes ``win`` only and K14 recomputes theta and the projection
+at the winner, with the forward's arithmetic, before routing as K13 does;
+that branch is fp32 only.  The two ``autograd.Function``s,
+``HSSurfaceReduce`` and ``HSSupportReduce``, pair each forward with its
+backward.  ``win`` is int32.
 
 Inputs are fp32, or, for the bf16 train step (the TPU kernels'
 ``exact=False``), bf16 g, rf and dirs with W and b in fp32.  The bf16
@@ -29,7 +34,8 @@ products do, and their plain versions make the same roundings.  Outputs,
 winner values, dW and db are fp32; dg, drf and dd come back in their
 inputs' dtype, as the JAX custom VJPs cast them (pallas_hs.py:612-613,
 :734).  Each wrapper counts fp32 launches in ``.launches`` and bf16 ones in
-``.bf16_launches``.
+``.bf16_launches``; ``hs_support_fwd`` counts its launches without
+``store`` in ``.novals_launches``.
 """
 
 from __future__ import annotations
@@ -37,24 +43,19 @@ from __future__ import annotations
 import torch
 
 from hspose_tpu_torch.ops import _build
-from hspose_tpu_torch.ops.cuda_hs_fused import _bf16, _count, _theta_fast
+from hspose_tpu_torch.ops.cuda_hs_fused import (
+    _bf16,
+    _count,
+    _empty,
+    _first_max,
+    _onehot,
+    _theta_fast,
+)
 
 
 # --------------------------------------------------------------------------- #
 # plain versions
 # --------------------------------------------------------------------------- #
-
-def _first_max(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Max over dim 2 of (B, N, K, C) and the first k that reaches it."""
-    win = torch.argmax(x, dim=2)  # the first maximal index
-    return x.gather(2, win[:, :, None]).squeeze(2), win
-
-
-def _onehot(win: torch.Tensor, K: int) -> torch.Tensor:
-    """(B, N, C) winners -> (B, N, K, C) float one-hot over k."""
-    ks = torch.arange(K, device=win.device)[:, None]
-    return (ks == win[:, :, None, :].long()).to(torch.float32)
-
 
 def _theta(rf: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """relu(rf . d): (B, N, K, 3), (3, C) -> (B, N, K, C) fp32.  bf16 operands
@@ -180,13 +181,28 @@ def hs_support_bwd_plain(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor,
     return dg.to(g.dtype), drf.to(rf.dtype), dw, db, dd.to(dirs.dtype)
 
 
+def hs_support_bwd_recompute_plain(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor,
+                                   b: torch.Tensor, dirs: torch.Tensor, win: torch.Tensor,
+                                   gb: torch.Tensor, support_num: int, out_channel: int):
+    """Cotangents (dg, drf, dw, db, dd) of ``hs_support_fwd_plain`` without
+    stored winner values (pallas_hs.py:289-327, fp32): theta and the
+    projection are recomputed as the forward forms them and taken at the
+    recorded winners, then routed as ``hs_support_bwd_plain`` routes them:
+    dpi = [k == win] gb/S * theta, du = [k == win][theta > 0] gb/S * P."""
+    co = out_channel
+    twin, pwin = [], []
+    for s in range(support_num):
+        cols = slice(s * co, (s + 1) * co)
+        at = win[..., cols].long()[:, :, None]
+        twin.append(_theta(rf, dirs[:, cols]).gather(2, at).squeeze(2))
+        pwin.append((g @ w[:, cols] + b[cols]).gather(2, at).squeeze(2))
+    return hs_support_bwd_plain(g, rf, w, dirs, win, torch.cat(twin, -1), torch.cat(pwin, -1),
+                                gb, support_num, out_channel)
+
+
 # --------------------------------------------------------------------------- #
 # kernel wrappers
 # --------------------------------------------------------------------------- #
-
-def _empty(shape, like: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    return torch.empty(shape, dtype=dtype, device=like.device)
-
 
 def _tier(x: torch.Tensor) -> tuple[torch.dtype, int]:
     """The operand dtype of a call (fp32, or bf16 for the bf16 tier) and the
@@ -247,18 +263,33 @@ def _check_support(g, rf, dirs, S, co):
     return B, N, K, cin, dt, fast
 
 
+def _refuse_bf16_recompute(g: torch.Tensor) -> None:
+    if g.dtype == torch.bfloat16:
+        raise NotImplementedError("bwd_store=False in bf16 needs the exact=False branch of K14, "
+                                  "which is queued: the recompute backward is fp32 only")
+
+
 def hs_support_fwd(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                   dirs: torch.Tensor, support_num: int, out_channel: int):
+                   dirs: torch.Tensor, support_num: int, out_channel: int, store: bool = True):
     """K11: see ``hs_support_fwd_plain``.  ``w`` (fp32) may be a column slice
-    of the layer's (Cin, (S+1)*Co) matrix."""
+    of the layer's (Cin, (S+1)*Co) matrix.  Without ``store`` (fp32 only) it
+    returns (out, win) and writes no winner values."""
+    if not store:
+        _refuse_bf16_recompute(g)
     if _build.on_cpu(g, rf, w, b, dirs):
-        return hs_support_fwd_plain(g, rf, w, b, dirs, support_num, out_channel)
+        res = hs_support_fwd_plain(g, rf, w, b, dirs, support_num, out_channel)
+        return res if store else res[:2]
     S, co = support_num, out_channel
     B, N, K, cin, _, fast = _check_support(g, rf, dirs, S, co)
     _build.check_rows(w, "w", (cin, S * co))
     _build.check(b, "b", torch.float32, (S * co,))
     out = _empty((B, N, co), g)
     win = _empty((B, N, S * co), g, torch.int32)
+    if not store:
+        _build.launch("hs_support_fwd_win", g, rf, w, w.stride(0), b, dirs, out, win,
+                      B, N, K, cin, S, co)
+        hs_support_fwd.novals_launches += 1
+        return out, win
     twin, pwin = _empty((B, N, S * co), g), _empty((B, N, S * co), g)
     _build.launch("hs_support_fwd", g, rf, w, w.stride(0), b, dirs, out, win, twin, pwin,
                   B, N, K, cin, S, co, fast)
@@ -292,9 +323,37 @@ def hs_support_bwd(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor,
     return dg, drf, red[:cin], red[cin], red[cin + 1:].to(dt)
 
 
+def hs_support_bwd_recompute(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor,
+                             b: torch.Tensor, dirs: torch.Tensor, win: torch.Tensor,
+                             gb: torch.Tensor, support_num: int, out_channel: int):
+    """K14: see ``hs_support_bwd_recompute_plain`` (fp32)."""
+    _refuse_bf16_recompute(g)
+    if _build.on_cpu(g, rf, w, b, dirs, win, gb):
+        return hs_support_bwd_recompute_plain(g, rf, w, b, dirs, win, gb, support_num,
+                                              out_channel)
+    S, co = support_num, out_channel
+    B, N, K, cin, _, _ = _check_support(g, rf, dirs, S, co)
+    _build.check_rows(w, "w", (cin, S * co))
+    _build.check(b, "b", torch.float32, (S * co,))
+    _build.check(win, "win", torch.int32, (B, N, S * co))
+    _build.check(gb, "gb", torch.float32, (B, N, co))
+    parts = _build.load().hs_support_bwd_parts(B * N)
+    twin, pwin = _empty((B, N, S * co), g), _empty((B, N, S * co), g)  # scratch
+    wt = _empty((S * co, cin), g)  # scratch: W transposed
+    partial = _empty((parts, cin + 4, S * co), g)
+    red = _empty((cin + 4, S * co), g)
+    dg, drf = _empty(g.shape, g), _empty(rf.shape, g)
+    _build.launch("hs_support_bwd_recompute", g, rf, w, w.stride(0), b, dirs, win, gb, twin,
+                  pwin, dg, drf, wt, partial, red, B, N, K, cin, S, co)
+    hs_support_bwd_recompute.launches += 1
+    return dg, drf, red[:cin], red[cin], red[cin + 1:]
+
+
 for _wrapper in (hs_surface_fwd, hs_surface_bwd, hs_support_fwd, hs_support_bwd):
     _wrapper.launches = 0  # fp32 launches
     _wrapper.bf16_launches = 0
+hs_support_fwd.novals_launches = 0  # fp32 launches without store
+hs_support_bwd_recompute.launches = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -321,20 +380,27 @@ class HSSurfaceReduce(torch.autograd.Function):
 
 class HSSupportReduce(torch.autograd.Function):
     """mean_s max_k relu(rf . dir_s) * (g @ W_s + b_s) on pre-gathered rows g,
-    differentiable in g, rf, w, b and dirs."""
+    differentiable in g, rf, w, b and dirs.  ``store`` keeps the winner
+    values for K13; without it K14 recomputes them."""
 
     @staticmethod
-    def forward(ctx, g, rf, w, b, dirs, support_num: int, out_channel: int):
-        out, win, twin, pwin = hs_support_fwd(g, rf, w, b, dirs, support_num, out_channel)
-        ctx.save_for_backward(g, rf, w, dirs, win, twin, pwin)
+    def forward(ctx, g, rf, w, b, dirs, support_num: int, out_channel: int, store: bool = True):
+        if store:
+            out, win, twin, pwin = hs_support_fwd(g, rf, w, b, dirs, support_num, out_channel)
+            ctx.save_for_backward(g, rf, w, dirs, win, twin, pwin)
+        else:
+            out, win = hs_support_fwd(g, rf, w, b, dirs, support_num, out_channel, store=False)
+            ctx.save_for_backward(g, rf, w, b, dirs, win)
         ctx.sizes = (support_num, out_channel)
+        ctx.store = store
         return out
 
     @staticmethod
     def backward(ctx, gout):
-        grads = hs_support_bwd(*ctx.saved_tensors, gout.contiguous(), *ctx.sizes)
+        bwd = hs_support_bwd if ctx.store else hs_support_bwd_recompute
+        grads = bwd(*ctx.saved_tensors, gout.contiguous(), *ctx.sizes)
         return tuple(gr if need else None
-                     for gr, need in zip(grads, ctx.needs_input_grad)) + (None, None)
+                     for gr, need in zip(grads, ctx.needs_input_grad)) + (None, None, None)
 
 
 def hs_surface_reduce(rf: torch.Tensor, dirs: torch.Tensor, support_num: int,
@@ -344,7 +410,9 @@ def hs_surface_reduce(rf: torch.Tensor, dirs: torch.Tensor, support_num: int,
 
 
 def hs_support_reduce(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                      dirs: torch.Tensor, support_num: int, out_channel: int) -> torch.Tensor:
+                      dirs: torch.Tensor, support_num: int, out_channel: int,
+                      store: bool = True) -> torch.Tensor:
     """g (B, N, K, Cin), rf (B, N, K, 3), w (Cin, S*Co), b (S*Co,),
-    dirs (3, S*Co) -> (B, N, Co), differentiable."""
-    return HSSupportReduce.apply(g, rf, w, b, dirs, support_num, out_channel)
+    dirs (3, S*Co) -> (B, N, Co), differentiable; ``store`` is the JAX
+    package's ``bwd_store``."""
+    return HSSupportReduce.apply(g, rf, w, b, dirs, support_num, out_channel, store)

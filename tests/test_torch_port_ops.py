@@ -328,18 +328,20 @@ def test_surface_function_returns_no_rf_grad_unless_asked(rng):
 
 @pytest.mark.parametrize("name", ["hs_surface_fused", "hs_support_fused", "orl_global_fused"])
 def test_serving_wrappers_refuse_inputs_that_require_grad(rng, name):
-    """The serving kernels have no backward: with grad on, an input that
-    requires grad raises on either device instead of returning a result cut
-    from the graph; under no_grad the same call runs."""
+    """The bf16 tier of the serving ops has no backward (the exact=False
+    branches of K8-K10 are not ported): with grad on, an input that requires
+    grad raises on either device instead of returning a result cut from the
+    graph; under no_grad the same call runs.  (The fp32 tier is
+    differentiable: tests/test_torch_port_train_v4.py.)"""
     N, K, cin, s, co = 30, 4, 8, 2, 4
     verts = t(rng.normal(size=(1, N, 3)).astype(np.float32))
     idx = knn.knn_indices(verts, K)
-    feat = t(rng.normal(size=(1, N, cin)).astype(np.float32))
+    feat = t(rng.normal(size=(1, N, cin)).astype(np.float32)).to(torch.bfloat16)
     w = t(rng.normal(size=(cin, s * co)).astype(np.float32))
     b = t(np.zeros(s * co, np.float32))
     d = t(_unit_dirs(rng, s * co))
     fn = getattr(cuda_hs_fused, name)
-    args, leaf = {"hs_surface_fused": ((verts, idx, d, s, co), d),
+    args, leaf = {"hs_surface_fused": ((verts, idx, d, s, co, False), d),
                   "hs_support_fused": ((feat, verts, idx, w, b, d, s, co), feat),
                   "orl_global_fused": ((feat, idx), feat)}[name]
     leaf.requires_grad_(True)
