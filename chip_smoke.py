@@ -73,7 +73,26 @@ not 0:
    winners + 3 K8 and 3 K4 with winners + 3 K10 per step and nothing else
    (no K13, no serving launch, no bf16 launch); finite losses, moved
    parameters; one train forward and backward at B=4 on the card against
-   the CPU plain ops with phase 9's gates; then its steps/s beside phase 9's.
+   the CPU plain ops with phase 9's gates; then its steps/s beside phase 9's;
+14. bf16 v4 training kernels: phase 12 on the bf16 instantiations (bf16
+   features, rf and directions as the bf16 step forms them): K11 without
+   winner values and K14 at conv_1..conv_4, K14 bit for bit against K13
+   bf16; K2/K3/K4 with winners bit for bit against the bf16 serving
+   kernels; K9 at conv_0's shape, K8 at conv_2..conv_4's and K10 at their
+   ORL branches' against their plain versions with phase 10's gates; every
+   backward twice, bit for bit; one autograd backward through a bf16
+   ``hs_surface_fused`` (K9's carrier);
+15. bf16 v4 training slice: phase 13 on ``ModelConfig(compute_dtype=
+   "bfloat16", bwd_store=False, train_v4_small=True)``: 9 packed KNN, 1 + 1
+   K12/K15 bf16, 1 K11 bf16 without winner values + 1 K14 bf16, 3 + 3
+   K3/K8 bf16 and 3 + 3 K4/K10 bf16 per step and nothing else; finite
+   losses, moved parameters; card against CPU within ``SPREAD_MULT`` times
+   the card's own spread, as phase 11; steps/s beside phase 11's;
+16. each training flag alone, in both tiers: one train forward and backward
+   at (16, 1028) with its exact launch counts (``bwd_store=False``: 4 K11
+   without winner values + 4 K14, no K13; ``train_v4_small=True``: 1 K11 +
+   1 K13 at conv_1 and 3 + 3 K3/K8 and K4/K10), finite losses and
+   gradients.
 
 Each kernel's ``bound_ms`` is the least time the card could take for its
 calls: per call the larger of the bytes it must move (each input read once,
@@ -83,8 +102,8 @@ tensor cores, 989 TFLOP/s bf16), summed over the calls of one pass;
 ``bound_by`` names the larger part.  No single PyTorch call computes any of
 these functions (the backwards are winner-routed scatters), so
 ``library_ms`` is null throughout.  ``launches`` is each kernel's count in
-the main run of its path: phases 4, 7, 9, 11 and 13, and for K2 with
-winners and K9 the autograd call of phase 12.
+the main run of its path: phases 4, 7, 9, 11, 13 and 15, and for K2 with
+winners and K9 the autograd call of phases 12 and 14.
 
 The line before the last is one JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
@@ -353,7 +372,8 @@ def counters() -> dict:
             "hs_surface_bf16": (f.hs_surface_fused, "bf16_launches"),
             "hs_support_bf16": (f.hs_support_fused, "bf16_launches"),
             "orl_global_bf16": (f.orl_global_fused, "bf16_launches"),
-            **{name: (getattr(f, name), "launches") for name in FUSED_TRAIN_KERNELS}}
+            **{name: (getattr(f, name), "launches") for name in FUSED_TRAIN_KERNELS},
+            **{name + "_bf16": (getattr(f, name), "bf16_launches") for name in FUSED_TRAIN_KERNELS}}
 
 
 def reset_counts(counts: dict) -> None:
@@ -508,7 +528,9 @@ def train_counters() -> dict:
     fp32 = {name: (getattr(cuda_hs, name), "launches") for name in TRAIN_KERNELS}
     bf16 = {name + "_bf16": (getattr(cuda_hs, name), "bf16_launches") for name in TRAIN_KERNELS}
     return {**fp32, **bf16, "hs_support_fwd_novals": (cuda_hs.hs_support_fwd, "novals_launches"),
-            "hs_support_bwd_recompute": (cuda_hs.hs_support_bwd_recompute, "launches")}
+            "hs_support_fwd_novals_bf16": (cuda_hs.hs_support_fwd, "novals_bf16_launches"),
+            "hs_support_bwd_recompute": (cuda_hs.hs_support_bwd_recompute, "launches"),
+            "hs_support_bwd_recompute_bf16": (cuda_hs.hs_support_bwd_recompute, "bf16_launches")}
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -649,51 +671,70 @@ def same_bits(name: str, label: str, first, second) -> None:
             raise AssertionError(f"{name} {label}: two launches on the same inputs differ")
 
 
-def phase_v4_kernels() -> tuple[dict, dict]:
+def phase_v4_kernels(dtype: str = "float32") -> tuple[dict, dict]:
     """K11 without winner values and K14 at the four HS layers' shapes of
     the B=16 step (bwd_store=False); the fused ops' winner-recording
     forwards (K2-K4) and their backwards K9, K8 and K10 at conv_0's,
     conv_2..conv_4's and their ORL branches' shapes (train_v4_small): each
     against its plain version (forwards within TOL_REL of the largest value
     and winners as in phase 8; backwards fed the kernel forward's residuals
-    on both sides, every cotangent within TOL_REL of its largest value),
-    K14 against K13 on the same inputs, two launches with the same bits;
-    then one autograd backward through ``hs_surface_fused`` (K9's carrier).
-    Returns the per-kernel records and the carrier's launches."""
+    on both sides, fp32 cotangents within TOL_REL of their largest value,
+    bf16 ones within one bf16 ulp of each element more), K14 against K13 on
+    the same inputs bit for bit, the forwards with winners against the
+    serving kernels bit for bit, two launches with the same bits; then one
+    autograd backward through ``hs_surface_fused`` (K9's carrier).  fp32
+    (phase 12) or the bf16 instantiations (phase 14: bf16 features, rf and
+    directions as the bf16 step forms them, W, b and the fused ops'
+    vertices and directions fp32).  Returns the per-kernel records and the
+    carrier's launches."""
     from hspose_tpu_torch.ops import cuda_hs, cuda_hs_fused as f
     from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
     from hspose_tpu_torch.ops.knn import gather_neighbors, neighbor_directions_normalized
 
-    phase = "v4-train-kernels"
-    rng = np.random.default_rng(SEED + 8)
+    fast = dtype == "bfloat16"
+    phase, tag = ("bf16-v4-train-kernels", "_bf16") if fast else ("v4-train-kernels", "")
+    op = torch.bfloat16 if fast else torch.float32
+    rng = np.random.default_rng(SEED + (9 if fast else 8))
     rec = {}
     S, B = 7, TRAIN_B
 
-    def compare(*args):
-        compare_cotangents(phase, rec, *args)
+    def compare(name, *args):
+        compare_cotangents(phase, rec, name + tag, *args, op_dtype=op)
 
-    def winners(*args):
-        check_winners(phase, *args)
+    def winners(name, *args):
+        check_winners(phase, name + tag, *args)
+
+    def bits(name, *args):
+        same_bits(name + tag, *args)
 
     def at_win(x, win):  # x (B, N, K, C) at each column's winner
         return x.gather(2, win.long()[:, :, None]).squeeze(2)
+
+    def fused_theta(verts, idx, d):  # relu(rfn . d) of the fused ops, (B, N, K, C)
+        if fast:
+            return f._theta_fast(f._rf_fast(verts, idx), f._bf16(d))
+        return torch.relu(neighbor_directions_normalized(verts, idx) @ d)
+
+    def knn(pts, k):
+        return knn_indices_cuda(pts, k, packed=fast)
 
     # K11 without winner values, K14: the four HS layers (bwd_store=False alone)
     for layer, cin, co, n, k in [(1, 128, 128, N, 20), (2, 128, 256, N // 4, 20),
                                  (3, 256, 256, N // 4, 20), (4, 256, 512, N // 16, 8)]:
         label = f"conv_{layer} {cin}->{co} N={n} K={k}"
-        feat = torch.relu(normal(rng, B, n, cin))
-        idx = knn_indices_cuda(feat, k)
+        feat = torch.relu(normal(rng, B, n, cin)).to(op)
+        idx = knn(feat, k)
         g = gather_neighbors(feat, idx)
-        rf = neighbor_directions_normalized(cloud_b(rng, B, n), idx)
+        rf = neighbor_directions_normalized(cloud_b(rng, B, n).to(op), idx)
         stdv = 1.0 / (co * (S + 1)) ** 0.5
         w, b = normal(rng, cin, (S + 1) * co, scale=stdv), normal(rng, (S + 1) * co, scale=stdv)
-        fargs = (g, rf, w[:, co:], b[co:], unit_dirs(rng, S * co), S, co)
+        fargs = (g, rf, w[:, co:], b[co:], unit_dirs(rng, S * co).to(op), S, co)
         out_k, win_k = cuda_hs.hs_support_fwd(*fargs, store=False)
         out_p, win_p = cuda_hs.hs_support_fwd_plain(*fargs)[:2]
         stored = cuda_hs.hs_support_fwd(*fargs)
-        same_bits("hs_support_fwd_novals", label, (out_k, win_k), stored[:2])
-        theta_proj = [(torch.relu(rf @ fargs[4][:, sl]) * (g @ fargs[2][:, sl] + fargs[3][sl]))
+        bits("hs_support_fwd_novals", label, (out_k, win_k), stored[:2])
+        theta_proj = [cuda_hs._theta(rf, fargs[4][:, sl])
+                      * (g.float() @ cuda_hs._operand(fargs[2][:, sl], fast) + fargs[3][sl])
                       for sl in (slice(i * co, (i + 1) * co) for i in range(S))]
         vk = torch.cat([at_win(x, win_k[..., i * co:(i + 1) * co])
                         for i, x in enumerate(theta_proj)], -1)
@@ -708,16 +749,13 @@ def phase_v4_kernels() -> tuple[dict, dict]:
         gb = normal(rng, B, n, co)
         bargs = (g, rf, fargs[2], fargs[3], fargs[4], win_k, gb, S, co)
         got = cuda_hs.hs_support_bwd_recompute(*bargs)
-        same_bits("hs_support_bwd_recompute", label, got, cuda_hs.hs_support_bwd_recompute(*bargs))
+        bits("hs_support_bwd_recompute", label, got, cuda_hs.hs_support_bwd_recompute(*bargs))
         k13 = cuda_hs.hs_support_bwd(g, rf, fargs[2], fargs[4], win_k, stored[2], stored[3], gb,
                                      S, co)
-        torch.cuda.synchronize()
-        gap = max((a - c).abs().max().item() for a, c in zip(got, k13))
-        log(phase, f"hs_support_bwd_recompute {label}: against K13 on the forward's stored "
-                   f"values, max abs diff {gap:.3e}")
-        if not all((a - c).abs().max().item() <= TOL_REL * c.abs().max().item()
-                   for a, c in zip(got, k13)):
-            raise AssertionError(f"K14 and K13 disagree at {label}: {gap}")
+        bits("hs_support_bwd_recompute", label + " (against K13 on the forward's stored values)",
+             got, k13)
+        log(phase, f"hs_support_bwd_recompute{tag} {label}: K13's bits on the forward's stored "
+                   f"values")
         compare("hs_support_bwd_recompute", label,
                 list(zip(("dg", "drf", "dw", "db", "dd"), got,
                          cuda_hs.hs_support_bwd_recompute_plain(*bargs))),
@@ -729,52 +767,53 @@ def phase_v4_kernels() -> tuple[dict, dict]:
     # K2 with winners, K9: conv_0
     label = f"conv_0 N={N} K=20 Co=128"
     verts = cloud_b(rng, B, N)
-    idx = knn_indices_cuda(verts, 20)
+    idx = knn(verts, 20)
     dirs = unit_dirs(rng, S * 128)
     fargs = (verts, idx, dirs, S, 128)
-    (out_k, win_k), (out_p, win_p) = f.hs_surface_fused_fwd(*fargs), f.hs_surface_fused_fwd_plain(*fargs)
-    theta = torch.relu(neighbor_directions_normalized(verts, idx) @ dirs)
+    (out_k, win_k), (out_p, win_p) = (f.hs_surface_fused_fwd(*fargs, exact=not fast),
+                                      f.hs_surface_fused_fwd_plain(*fargs, exact=not fast))
+    theta = fused_theta(verts, idx, dirs)
     winners("hs_surface_fused_fwd", label, win_k, win_p, at_win(theta, win_k), at_win(theta, win_p))
     del theta
     with torch.no_grad():
-        serving = f.hs_surface_fused(*fargs)
-    same_bits("hs_surface_fused_fwd", label + " (against the serving kernel)", (out_k,), (serving,))
+        serving = f.hs_surface_fused(*fargs, exact=not fast)
+    bits("hs_surface_fused_fwd", label + " (against the serving kernel)", (out_k,), (serving,))
     compare("hs_surface_fused_fwd", label, [("out", out_k, out_p)],
-            cuda_ms(lambda: f.hs_surface_fused_fwd(*fargs), 10),
-            cuda_ms(lambda: f.hs_surface_fused_fwd_plain(*fargs), 10),
+            cuda_ms(lambda: f.hs_surface_fused_fwd(*fargs, exact=not fast), 10),
+            cuda_ms(lambda: f.hs_surface_fused_fwd_plain(*fargs, exact=not fast), 10),
             [verts, idx, dirs, win_k], 3 * idx.numel() * S * 128)
     gb = normal(rng, B, N, 128)
     bargs = (verts, idx, dirs, win_k, gb, S, 128)
-    got = f.hs_surface_fused_bwd(*bargs)
-    same_bits("hs_surface_fused_bwd", label, got, f.hs_surface_fused_bwd(*bargs))
+    got = f.hs_surface_fused_bwd(*bargs, exact=not fast)
+    bits("hs_surface_fused_bwd", label, got, f.hs_surface_fused_bwd(*bargs, exact=not fast))
     compare("hs_surface_fused_bwd", label,
-            list(zip(("dverts", "dd"), got, f.hs_surface_fused_bwd_plain(*bargs))),
-            cuda_ms(lambda: f.hs_surface_fused_bwd(*bargs), 10),
-            cuda_ms(lambda: f.hs_surface_fused_bwd_plain(*bargs), 10),
+            list(zip(("dverts", "dd"), got, f.hs_surface_fused_bwd_plain(*bargs, exact=not fast))),
+            cuda_ms(lambda: f.hs_surface_fused_bwd(*bargs, exact=not fast), 10),
+            cuda_ms(lambda: f.hs_surface_fused_bwd_plain(*bargs, exact=not fast), 10),
             [verts, idx, dirs, win_k, gb], 9 * win_k.numel())  # theta, drfn, dd at each winner
 
     # K3 with winners, K8: conv_2 .. conv_4 (train_v4_small)
     for layer, cin, co, n, k in [(2, 128, 256, N // 4, 20), (3, 256, 256, N // 4, 20),
                                  (4, 256, 512, N // 16, 8)]:
         label = f"conv_{layer} {cin}->{co} N={n} K={k}"
-        feat = torch.relu(normal(rng, B, n, cin))
+        feat = torch.relu(normal(rng, B, n, cin)).to(op)
         stdv = 1.0 / (co * (S + 1)) ** 0.5
         w, b = normal(rng, cin, (S + 1) * co, scale=stdv), normal(rng, (S + 1) * co, scale=stdv)
-        verts, idx = cloud_b(rng, B, n), knn_indices_cuda(feat, k)
+        verts, idx = cloud_b(rng, B, n), knn(feat, k)
         fargs = (feat, verts, idx, w[:, co:], b[co:], unit_dirs(rng, S * co), S, co)
         (out_k, win_k, proj_k), (out_p, win_p, proj_p) = (f.hs_support_fused_fwd(*fargs),
                                                           f.hs_support_fused_fwd_plain(*fargs))
-        rfn = neighbor_directions_normalized(verts, idx)
-        prod = [torch.relu(rfn @ fargs[5][:, i * co:(i + 1) * co])
+        theta = fused_theta(verts, idx, fargs[5])
+        prod = [theta[..., i * co:(i + 1) * co]
                 * gather_neighbors(proj_p[..., i * co:(i + 1) * co], idx) for i in range(S)]
+        del theta
         winners("hs_support_fused_fwd", label, win_k, win_p,
                 torch.cat([at_win(x, win_k[..., i * co:(i + 1) * co]) for i, x in enumerate(prod)], -1),
                 torch.cat([at_win(x, win_p[..., i * co:(i + 1) * co]) for i, x in enumerate(prod)], -1))
         del prod
         with torch.no_grad():
             serving = f.hs_support_fused(*fargs)
-        same_bits("hs_support_fused_fwd", label + " (against the serving kernel)", (out_k,),
-                  (serving,))
+        bits("hs_support_fused_fwd", label + " (against the serving kernel)", (out_k,), (serving,))
         compare("hs_support_fused_fwd", label, [("out", out_k, out_p), ("proj", proj_k, proj_p)],
                 cuda_ms(lambda: f.hs_support_fused_fwd(*fargs), 10),
                 cuda_ms(lambda: f.hs_support_fused_fwd_plain(*fargs), 10),
@@ -782,7 +821,7 @@ def phase_v4_kernels() -> tuple[dict, dict]:
         gb = normal(rng, B, n, co)
         bargs = (feat, verts, idx, fargs[3], fargs[5], win_k, proj_k, gb, S, co)
         got = f.hs_support_fused_bwd(*bargs)
-        same_bits("hs_support_fused_bwd", label, got, f.hs_support_fused_bwd(*bargs))
+        bits("hs_support_fused_bwd", label, got, f.hs_support_fused_bwd(*bargs))
         compare("hs_support_fused_bwd", label,
                 list(zip(("dfeat", "dverts", "dw", "db", "dd"), got,
                          f.hs_support_fused_bwd_plain(*bargs))),
@@ -794,46 +833,46 @@ def phase_v4_kernels() -> tuple[dict, dict]:
     # K4 with winners, K10: the ORL branches of conv_2 .. conv_4
     for layer, c, n, k in [(2, 256, N // 4, 20), (3, 256, N // 4, 20), (4, 512, N // 16, 8)]:
         label = f"conv_{layer} C={c} N={n} K={k}"
-        feat, idx = normal(rng, B, n, c), knn_indices_cuda(cloud_b(rng, B, n), k)
+        feat, idx = normal(rng, B, n, c).to(op), knn(cloud_b(rng, B, n), k)
         (out_k, win_k), (out_p, win_p) = (f.orl_global_fused_fwd(feat, idx),
                                           f.orl_global_fused_fwd_plain(feat, idx))
-        rows = gather_neighbors(feat, idx)
+        rows = gather_neighbors(feat, idx).float()
         winners("orl_global_fused_fwd", label, win_k, win_p, at_win(rows, win_k),
                 at_win(rows, win_p))
         with torch.no_grad():
             serving = f.orl_global_fused(feat, idx)
-        same_bits("orl_global_fused_fwd", label + " (against the serving kernel)", (out_k,),
-                  (serving,))
+        bits("orl_global_fused_fwd", label + " (against the serving kernel)", (out_k,), (serving,))
         compare("orl_global_fused_fwd", label, [("out", out_k, out_p)],
                 cuda_ms(lambda: f.orl_global_fused_fwd(feat, idx), 10),
                 cuda_ms(lambda: f.orl_global_fused_fwd_plain(feat, idx), 10),
                 [feat, idx, win_k], 0)
         gb = normal(rng, B, 1, c)
-        got = f.orl_global_fused_bwd(idx, win_k, gb)
-        same_bits("orl_global_fused_bwd", label, (got,), (f.orl_global_fused_bwd(idx, win_k, gb),))
+        got = f.orl_global_fused_bwd(idx, win_k, gb, op)
+        bits("orl_global_fused_bwd", label, (got,), (f.orl_global_fused_bwd(idx, win_k, gb, op),))
         compare("orl_global_fused_bwd", label,
-                [("dfeat", got, f.orl_global_fused_bwd_plain(idx, win_k, gb))],
-                cuda_ms(lambda: f.orl_global_fused_bwd(idx, win_k, gb), 10),
-                cuda_ms(lambda: f.orl_global_fused_bwd_plain(idx, win_k, gb), 10),
+                [("dfeat", got, f.orl_global_fused_bwd_plain(idx, win_k, gb, op))],
+                cuda_ms(lambda: f.orl_global_fused_bwd(idx, win_k, gb, op), 10),
+                cuda_ms(lambda: f.orl_global_fused_bwd_plain(idx, win_k, gb, op), 10),
                 [idx, win_k, gb], 0)
 
     # K9's carrier: one autograd backward through hs_surface_fused
-    counts = {name: counters()[name] for name in ("hs_surface", "hs_surface_fused_fwd",
-                                                    "hs_surface_fused_bwd")}
+    names = [name + tag for name in ("hs_surface", "hs_surface_fused_fwd", "hs_surface_fused_bwd")]
+    counts = {name: counters()[name] for name in names}
     verts = cloud_b(rng, B, N).requires_grad_(True)
-    idx = knn_indices_cuda(verts.detach(), 20)
+    idx = knn(verts.detach(), 20)
     dirs = unit_dirs(rng, S * 128).requires_grad_(True)
     gb = normal(rng, B, N, 128)
     reset_counts(counts)
-    (f.hs_surface_fused(verts, idx, dirs, S, 128) * gb).sum().backward()
+    (f.hs_surface_fused(verts, idx, dirs, S, 128, exact=not fast) * gb).sum().backward()
     torch.cuda.synchronize()
     carrier = read_counts(counts)
     log(phase, f"autograd through hs_surface_fused at conv_0's shape: launches {carrier}")
-    check_counts(carrier, {"hs_surface_fused_fwd": 1, "hs_surface_fused_bwd": 1}, 1, "backward")
-    want = f.hs_surface_fused_bwd(verts.detach(), idx, dirs.detach(),
-                                  f.hs_surface_fused_fwd(verts.detach(), idx, dirs.detach(), S,
-                                                         128)[1], gb, S, 128)
-    same_bits("hs_surface_fused autograd", "conv_0", (verts.grad, dirs.grad), want)
+    check_counts(carrier, {names[1]: 1, names[2]: 1}, 1, "backward")
+    vd, dd = verts.detach(), dirs.detach()
+    want = f.hs_surface_fused_bwd(vd, idx, dd, f.hs_surface_fused_fwd(vd, idx, dd, S, 128,
+                                                                      exact=not fast)[1],
+                                  gb, S, 128, exact=not fast)
+    bits("hs_surface_fused autograd", "conv_0", (verts.grad, dirs.grad), want)
     return rec, carrier
 
 
@@ -915,27 +954,45 @@ def step_gaps(a: tuple, b: tuple) -> dict:
     return {"loss": loss, "bn": bn, "grad": 1.0 - cos}
 
 
+def _flag_launches(tag: str, knn: str, store: bool, v4: bool) -> dict:
+    """Launches per train step of one tier (``tag`` "" or "_bf16") under the
+    two training flags: conv_0 on K12/K15; conv_1 .. conv_4 on K11/K13
+    (``store``) or K11 without winner values and K14, except that with
+    ``v4`` conv_2 .. conv_4 and their ORL branches take the fused ops'
+    K3/K8 and K4/K10."""
+    support = ({"hs_support_fwd": 1, "hs_support_bwd": 1} if store else
+               {"hs_support_fwd_novals": 1, "hs_support_bwd_recompute": 1})
+    layers = 1 if v4 else 4
+    out = {knn: 9, "hs_surface_fwd" + tag: 1, "hs_surface_bwd" + tag: 1,
+           **{name + tag: n * layers for name, n in support.items()}}
+    if v4:
+        out.update({name + tag: 3 for name in ("hs_support_fused_fwd", "hs_support_fused_bwd",
+                                              "orl_global_fused_fwd", "orl_global_fused_bwd")})
+    return out
+
+
 # per train step, in each training configuration: the default fp32 and bf16
-# steps, and the fp32 step with bwd_store=False and train_v4_small=True ("v4":
-# conv_1 on K11 without winner values and K14, conv_2 .. conv_4 and their ORL
-# branches on the fused ops' K3/K8 and K4/K10)
-TRAIN_LAUNCHES = {
-    "float32": {"knn": 9, "hs_surface_fwd": 1, "hs_surface_bwd": 1, "hs_support_fwd": 4,
-                "hs_support_bwd": 4},
-    "bfloat16": {"knn_packed": 9, "hs_surface_fwd_bf16": 1, "hs_surface_bwd_bf16": 1,
-                 "hs_support_fwd_bf16": 4, "hs_support_bwd_bf16": 4},
-    "v4": {"knn": 9, "hs_surface_fwd": 1, "hs_surface_bwd": 1, "hs_support_fwd_novals": 1,
-           "hs_support_bwd_recompute": 1, "hs_support_fused_fwd": 3, "hs_support_fused_bwd": 3,
-           "orl_global_fused_fwd": 3, "orl_global_fused_bwd": 3},
+# steps, and in each tier the step with bwd_store=False and train_v4_small=True
+# ("v4", "bf16v4": conv_1 on K11 without winner values and K14, conv_2 ..
+# conv_4 and their ORL branches on the fused ops' K3/K8 and K4/K10) and with
+# each flag alone ("recompute", "v4only" and their bf16 twins)
+TRAIN_TIERS = {  # tier -> (compute_dtype, bwd_store, train_v4_small)
+    "float32": ("float32", True, False), "bfloat16": ("bfloat16", True, False),
+    "v4": ("float32", False, True), "bf16v4": ("bfloat16", False, True),
+    "recompute": ("float32", False, False), "bf16recompute": ("bfloat16", False, False),
+    "v4only": ("float32", True, True), "bf16v4only": ("bfloat16", True, True),
 }
+TRAIN_LAUNCHES = {
+    tier: _flag_launches("_bf16" if dt == "bfloat16" else "",
+                         "knn_packed" if dt == "bfloat16" else "knn", store, v4)
+    for tier, (dt, store, v4) in TRAIN_TIERS.items()}
 
 
 def train_config(tier: str):
     from hspose_tpu_torch.config import ModelConfig
 
-    if tier == "v4":
-        return ModelConfig(bwd_store=False, train_v4_small=True)
-    return ModelConfig(compute_dtype=tier)
+    dt, store, v4 = TRAIN_TIERS[tier]
+    return ModelConfig(compute_dtype=dt, bwd_store=store, train_v4_small=v4)
 
 
 def phase_train(smi: str, tier: str = "float32") -> tuple[dict, float]:
@@ -947,9 +1004,10 @@ def phase_train(smi: str, tier: str = "float32") -> tuple[dict, float]:
     from hspose_tpu_torch.models.hspose import draw_train
     from hspose_tpu_torch.utils.synthetic import synthetic_train_batch
 
-    fast = tier == "bfloat16"
+    fast = TRAIN_TIERS[tier][0] == "bfloat16"
     phase, name = {"float32": ("train", "fp32"), "bfloat16": ("bf16-train", "bf16"),
-                   "v4": ("v4-train", "fp32 bwd_store=False train_v4_small=True")}[tier]
+                   "v4": ("v4-train", "fp32 bwd_store=False train_v4_small=True"),
+                   "bf16v4": ("bf16-v4-train", "bf16 bwd_store=False train_v4_small=True")}[tier]
     cfg = HSPoseConfig(model=train_config(tier))
     model = build_train_model(DEVICE, cfg.model)
     step = build_train_step(cfg, model, torch.Generator(device=DEVICE).manual_seed(SEED))
@@ -1029,6 +1087,35 @@ def phase_train(smi: str, tier: str = "float32") -> tuple[dict, float]:
     return launches, max(rates)
 
 
+def phase_train_flags(tiers=("recompute", "v4only", "bf16recompute", "bf16v4only")) -> None:
+    """Each training flag alone, in both tiers: one train forward and
+    backward at (16, 1028) on the card, its launch counts exactly
+    ``TRAIN_LAUNCHES[tier]``, finite losses and gradients; no throughput."""
+    from hspose_tpu_torch.config import HSPoseConfig
+    from hspose_tpu_torch.models.hspose import draw_train
+    from hspose_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    batch = synthetic_train_batch(TRAIN_B, N, seed=SEED)
+    for tier in tiers:
+        cfg = HSPoseConfig(model=train_config(tier))
+        model = build_train_model(DEVICE, cfg.model).train()
+        draws = draw_train(torch.Generator().manual_seed(SEED + 6), TRAIN_B, N)
+        counts = {**counters(), **train_counters()}
+        reset_counts(counts)
+        terms, _, grads = train_once(cfg, model, batch, draws, DEVICE)
+        torch.cuda.synchronize()
+        launches = read_counts(counts)
+        log("train-flags", f"{tier} {cfg.model.compute_dtype} bwd_store={cfg.model.bwd_store} "
+                           f"train_v4_small={cfg.model.train_v4_small}: one train forward and "
+                           f"backward of ({TRAIN_B}, {N}, 3), total_loss {terms['total']:.6f}, "
+                           f"launches { {k: v for k, v in launches.items() if v} }")
+        check_counts(launches, TRAIN_LAUNCHES[tier], 1, f"{tier} train step")
+        bad = [k for k, v in terms.items() if not np.isfinite(v)]
+        bad += [k for k, g in grads.items() if not torch.isfinite(g).all()]
+        if bad:
+            raise AssertionError(f"{tier}: non-finite {bad}")
+
+
 # kernel -> (source, the TPU kernel it replaces, the record and counter it
 # shares, when another kernel of the line ports the same function)
 SOURCES = {
@@ -1080,6 +1167,20 @@ SOURCES = {
            ("hs_support_fused_bwd", "hspose_tpu_torch/csrc/hs_support.cu", "420"),
            ("orl_global_fused_fwd", "hspose_tpu_torch/csrc/orl.cu", "358"),
            ("orl_global_fused_bwd", "hspose_tpu_torch/csrc/orl.cu", "544")]},
+    # bf16 training under the flags (exact=False): K11 without winner values,
+    # K14, and the fused ops' K2-K4 with want_win, K9, K8, K10
+    "hs_support_fwd_novals_bf16": ("hspose_tpu_torch/csrc/hs_support_train.cu",
+                                   "hspose_tpu/ops/pallas_hs.py:151", None),
+    "hs_support_bwd_recompute_bf16": ("hspose_tpu_torch/csrc/hs_support_train.cu",
+                                      "hspose_tpu/ops/pallas_hs.py:240", None),
+    **{name + "_bf16": (src, "hspose_tpu/ops/pallas_hs_fused.py:" + line, None)
+       for name, src, line in [
+           ("hs_surface_fused_fwd", "hspose_tpu_torch/csrc/hs_surface.cu", "299"),
+           ("hs_surface_fused_bwd", "hspose_tpu_torch/csrc/hs_surface.cu", "493"),
+           ("hs_support_fused_fwd", "hspose_tpu_torch/csrc/hs_support.cu", "219"),
+           ("hs_support_fused_bwd", "hspose_tpu_torch/csrc/hs_support.cu", "420"),
+           ("orl_global_fused_fwd", "hspose_tpu_torch/csrc/orl.cu", "358"),
+           ("orl_global_fused_bwd", "hspose_tpu_torch/csrc/orl.cu", "544")]},
 }
 
 
@@ -1118,16 +1219,19 @@ def main() -> int:
         launches.update({name: train_launches[name] for name in TRAIN_LAUNCHES[dtype]})
     log("train", f"bf16 / fp32 at B={TRAIN_B}: {rates['bfloat16']:.3f} / {rates['float32']:.3f} "
                  f"steps/s = {rates['bfloat16'] / rates['float32']:.3f}")
-    v4_rec, carrier = phase_v4_kernels()
-    rec.update(v4_rec)
-    train_launches, rates["v4"] = phase_train(smi, "v4")
-    launches.update({name: train_launches[name] for name in TRAIN_LAUNCHES["v4"]})
-    # K2 with winners and K9 run on no model path: their launches are the carrier's
-    launches.update({name: carrier[name] for name in ("hs_surface_fused_fwd",
-                                                      "hs_surface_fused_bwd")})
-    log("v4-train", f"bwd_store=False train_v4_small=True / default fp32 at B={TRAIN_B}: "
-                    f"{rates['v4']:.3f} / {rates['float32']:.3f} steps/s = "
-                    f"{rates['v4'] / rates['float32']:.3f}")
+    for dtype, tier, default in (("float32", "v4", "float32"), ("bfloat16", "bf16v4", "bfloat16")):
+        v4_rec, carrier = phase_v4_kernels(dtype)
+        rec.update(v4_rec)
+        train_launches, rates[tier] = phase_train(smi, tier)
+        launches.update({name: train_launches[name] for name in TRAIN_LAUNCHES[tier]})
+        # K2 with winners and K9 run on no model path: their launches are the carrier's
+        tag = "_bf16" if dtype == "bfloat16" else ""
+        launches.update({name + tag: carrier[name + tag]
+                         for name in ("hs_surface_fused_fwd", "hs_surface_fused_bwd")})
+        log(tier + "-train", f"bwd_store=False train_v4_small=True / default {dtype} at "
+                             f"B={TRAIN_B}: {rates[tier]:.3f} / {rates[default]:.3f} steps/s = "
+                             f"{rates[tier] / rates[default]:.3f}")
+    phase_train_flags()
     print(json.dumps(kernel_line(rec, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,8 +4,8 @@ Defaults are copied from ``hspose_tpu/config.py`` (``ModelConfig``,
 ``DataConfig.num_points``, ``AugConfig``, ``LossConfig``, ``OptimConfig`` and
 the ``TrainConfig`` fields the train step reads), leaving out the fields that
 neither package reads.  ``compute_dtype`` is ``"float32"`` or ``"bfloat16"``;
-``"f32x2"`` raises where the model is built, and so do ``bwd_store=False``
-or ``train_v4_small=True`` with ``"bfloat16"``.
+``"f32x2"`` raises where the model is built, and so does a ``gcn_n_num`` or
+``serve_k`` above 31 (``MAX_K``, the most the KNN kernel keeps).
 """
 
 from __future__ import annotations
@@ -26,11 +26,11 @@ class ModelConfig:
     # pooled-resolution rules min(k, n//8) still apply; training keeps gcn_n_num
     serve_k: int = 0
     num_points: int = 1028  # points per crop
-    # training only, fp32 only (bf16 raises where the model is built): the
-    # support reductions keep the winner's theta and projection for the
-    # backward (True, K13) or recompute them there (False, K14)
+    # training only, both tiers: the support reductions keep the winner's
+    # theta and projection for the backward (True, K13) or recompute them
+    # there (False, K14)
     bwd_store: bool = True
-    # training only, fp32 only: the HS layers at N <= 512 (conv_2 .. conv_4)
+    # training only, both tiers: the HS layers at N <= 512 (conv_2 .. conv_4)
     # and their ORL branches train through the fused ops' backwards (K8, K10)
     train_v4_small: bool = False
 
@@ -103,7 +103,9 @@ class TrainConfig:
     batch_size: int = 16
     total_epoch: int = 150
     train_steps: int = 1500
-    accumulate: int = 1
+    accumulate: int = 1  # micro-batches per optimizer step (optax.MultiSteps)
+    # per-family finite flags in the step's metrics (``finite/<family>``)
+    debug_nan: bool = False
 
 
 @dataclass(frozen=True)

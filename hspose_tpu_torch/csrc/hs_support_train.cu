@@ -59,16 +59,17 @@
 //   partial sums and a second launch adds the partials in chunk order, so
 //   dW, db and dd are the same from run to run.
 //
-// bwd_store=False (fp32 only): the forward without STORE writes win but not
+// bwd_store=False, both tiers: the forward without STORE writes win but not
 // twin/pwin (K11's no-values launch), and the recompute backward
 // (hs_support_bwd_recompute, K14) replaces hspose_tpu/ops/pallas_hs.py::
-// _support_bwd_kernel (:240, exact=True): recompute_kernel forms, per (query,
-// column), theta and P = g[q, win] . W[:, col] + b[col] at the recorded winner
-// with the forward's arithmetic (fmaf over Cin in order, then + b; theta by
-// the same expression), into scratch twin/pwin, and the stored-values
-// backward's kernels above route the cotangents from them.  So K14 gives K13's
-// cotangents from the same inputs.  Plain version: hspose_tpu_torch/ops/
-// cuda_hs.py::hs_support_bwd_recompute_plain.  What bounds it: besides K13's
+// _support_bwd_kernel (:240, exact=True and exact=False): recompute_kernel<T>
+// forms, per (query, column), theta and P = g[q, win] . W[:, col] + b[col] at
+// the recorded winner with the forward's arithmetic (fmaf over Cin in order,
+// W rounded to bf16 in the bf16 tier, then + b; theta by the same
+// expression), into scratch twin/pwin, and the stored-values backward's
+// kernels above route the cotangents from them.  So K14 gives K13's
+// cotangents, bit for bit, from the same inputs.  Plain version:
+// hspose_tpu_torch/ops/cuda_hs.py::hs_support_bwd_recompute_plain.  What bounds it: besides K13's
 // work, B*N*S*Co*Cin fp32 multiply-adds for the recomputed P (K times fewer
 // than the forward's), fed by a W column per thread from L2 and g rows staged
 // in shared memory for RC_TQ queries at a time.
@@ -238,23 +239,8 @@ __device__ inline void stage_winners(const int* __restrict__ win, const float* _
   }
 }
 
-// W (Cin, SC; row stride ldw) -> wt (SC, Cin), so that the rows kernel reads
-// one column of W as a contiguous row; FAST rounds it to bf16 (dg's W operand).
-template <bool FAST>
-__global__ void transpose_kernel(const float* __restrict__ w, int ldw, float* __restrict__ wt,
-                                 int Cin, int SC) {
-  const size_t n = (size_t)Cin * SC;
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const int c = (int)(e / Cin), i = (int)(e % Cin);
-    const float v = w[(size_t)i * ldw + c];
-    wt[e] = FAST ? hs::bf16_round(v) : v;
-  }
-}
-
 // One block per query row q.  The row's S*Co columns are bucketed by their
-// winning k, stably (a warp ranks each 32-column slice with __match_any_sync
-// and keeps running bucket sizes), so dg[q, k, i] is a sum over k's bucket in
+// winning k, stably (hs::bucket_by_winner), so dg[q, k, i] is a sum over k's bucket in
 // column order, held in a register by thread i: no shared-memory
 // read-modify-write and no atomics.  Threads k < K sum drf over the same
 // buckets.  The bf16 tier rounds gb*twin and gb*pwin to bf16 (the products'
@@ -286,33 +272,8 @@ support_bwd_rows_kernel(const float* __restrict__ wt, const T* __restrict__ dirs
     sv[c] = hs::is_bf16<T> ? hs::bf16_round(v) : v;
     su[c] = hs::is_bf16<T> ? hs::bf16_round(u) : u;
   }
-  if (threadIdx.x < 32) scnt[threadIdx.x] = 0;
   __syncthreads();
-
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    for (int c0 = 0; c0 < SC; c0 += 32) {
-      const int c = c0 + lane;
-      const bool valid = c < SC;
-      const int k = valid ? sk[c] : -1;
-      const unsigned grp = __match_any_sync(0xffffffffu, k);
-      const int r = __popc(grp & ((1u << lane) - 1u));  // lanes before this one in its bucket
-      const int base = valid ? scnt[k] : 0;
-      __syncwarp();
-      if (valid) {
-        srank[c] = base + r;
-        if (r == 0) scnt[k] = base + __popc(grp);
-      }
-      __syncwarp();
-    }
-    int incl = scnt[lane];
-    for (int d = 1; d < 32; d *= 2) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += v;
-    }
-    soff[lane + 1] = incl;
-    if (lane == 0) soff[0] = 0;
-  }
+  hs::bucket_by_winner(sk, srank, scnt, soff, SC);
   __syncthreads();
   for (int c = threadIdx.x; c < SC; c += blockDim.x)
     spair[soff[sk[c]] + srank[c]] = make_float2(__int_as_float(c), sv[c]);
@@ -419,13 +380,16 @@ support_bwd_reduce_kernel(const T* __restrict__ g, const T* __restrict__ rf,
 
 // twin, pwin (rows, S*Co) at the recorded winners, with the forward's
 // arithmetic: P = fmaf over i in order of g[q, k, i] * W[i, col], then + b[col];
-// theta = relu(rf[q, k] . d[:, col]) by support_fwd_kernel's expression.
+// theta = relu(rf[q, k] . d[:, col]) by support_fwd_kernel's expression.  The
+// bf16 tier (T = __nv_bfloat16) rounds W to bf16 as the forward stages it,
+// so each product is exact and P has the forward's bits.
 // Block: RC_THREADS columns (grid.x) of RC_TQ queries (grid.y); the queries'
 // g rows are staged RC_CH channels at a time.
+template <typename T>
 __global__ void __launch_bounds__(RC_THREADS)
-recompute_kernel(const float* __restrict__ g, const float* __restrict__ rf,
+recompute_kernel(const T* __restrict__ g, const T* __restrict__ rf,
                  const float* __restrict__ w, int ldw, const float* __restrict__ bias,
-                 const float* __restrict__ dirs, const int* __restrict__ win,
+                 const T* __restrict__ dirs, const int* __restrict__ win,
                  float* __restrict__ twin, float* __restrict__ pwin, int rows, int K, int Cin,
                  int S, int Co) {
   extern __shared__ float sg[];  // (RC_TQ, K, RC_CH)
@@ -444,12 +408,14 @@ recompute_kernel(const float* __restrict__ g, const float* __restrict__ rf,
     __syncthreads();  // the previous slice is no longer read
     for (int e = threadIdx.x; e < RC_TQ * K * RC_CH; e += blockDim.x) {
       const int t = e / (K * RC_CH), k = (e / RC_CH) % K, i = e % RC_CH;
-      sg[e] = (t < tq && i < nch) ? g[((size_t)(q0 + t) * K + k) * Cin + i0 + i] : 0.f;
+      sg[e] = (t < tq && i < nch) ? hs::load_f(g + ((size_t)(q0 + t) * K + k) * Cin + i0 + i)
+                                  : 0.f;
     }
     __syncthreads();
     if (col < SC) {
       for (int i = 0; i < nch; ++i) {
-        const float wv = w[(size_t)(i0 + i) * ldw + col];
+        const float wr = w[(size_t)(i0 + i) * ldw + col];
+        const float wv = hs::is_bf16<T> ? hs::bf16_round(wr) : wr;
 #pragma unroll
         for (int t = 0; t < RC_TQ; ++t)
           acc[t] = fmaf(sg[(t * K + kk[t]) * RC_CH + i], wv, acc[t]);
@@ -457,11 +423,13 @@ recompute_kernel(const float* __restrict__ g, const float* __restrict__ rf,
     }
   }
   if (col >= SC) return;
-  const float d0 = dirs[col], d1 = dirs[SC + col], d2 = dirs[2 * SC + col];
+  const float d0 = hs::load_f(dirs + col), d1 = hs::load_f(dirs + SC + col),
+              d2 = hs::load_f(dirs + 2 * SC + col);
   const float bb = bias[col];
   for (int t = 0; t < tq; ++t) {
     const size_t at = (size_t)(q0 + t) * SC + col;
-    const float* r = rf + ((size_t)(q0 + t) * K + kk[t]) * 3;
+    const T* rq = rf + ((size_t)(q0 + t) * K + kk[t]) * 3;
+    const float r[3] = {hs::load_f(rq), hs::load_f(rq + 1), hs::load_f(rq + 2)};
     const float th = fmaxf(r[0] * d0 + r[1] * d1 + r[2] * d2, 0.f);
     twin[at] = th;
     pwin[at] = acc[t] + bb;
@@ -504,9 +472,9 @@ cudaError_t launch_bwd(const void* g, const void* rf, const float* w, int ldw, c
                        int K, int Cin, int S, int Co, cudaStream_t st) {
   constexpr bool FAST = hs::is_bf16<T>;
   const int SC = S * Co;
-  transpose_kernel<FAST><<<std::min((Cin * SC + 255) / 256, 4096), 256, 0, st>>>(w, ldw, wt, Cin,
-                                                                                SC);
-  cudaError_t err = cudaGetLastError();
+  // W^T, so that the rows kernel reads one column of W as a contiguous row;
+  // the bf16 tier rounds it (dg's W operand)
+  cudaError_t err = hs::transpose_w<FAST>(w, ldw, wt, Cin, SC, st);
   if (err != cudaSuccess) return err;
   const size_t smem = sizeof(float) * 6 * (size_t)SC + sizeof(int) * 65;
   err = hs::allow_smem(support_bwd_rows_kernel<T>, smem);
@@ -562,35 +530,54 @@ extern "C" int hs_support_fwd(const void* g, const void* rf, const float* w, int
                                           Cin, S, Co, st));
 }
 
-// bwd_store=False: as hs_support_fwd with fp32 operands, writing out and win only.
-extern "C" int hs_support_fwd_win(const float* g, const float* rf, const float* w, int ldw,
-                                  const float* b, const float* dirs, float* out, int* win, int B,
-                                  int N, int K, int Cin, int S, int Co, void* stream) {
-  if (hs_support_train_supported(K, Cin, Co)) return (int)cudaErrorInvalidValue;
-  return (int)launch_fwd_k<float, false>(g, rf, w, ldw, b, dirs, out, win, nullptr, nullptr, B,
-                                         N, K, Cin, S, Co, static_cast<cudaStream_t>(stream));
-}
-
-// K14: g (B, N, K, Cin), rf (B, N, K, 3), w (Cin, S*Co; row stride ldw), b (S*Co),
-// dirs (3, S*Co), win (B, N, S*Co), gb (B, N, Co), all fp32; scratch twin, pwin
-// (B, N, S*Co), wt (S*Co, Cin) and partial (hs_support_bwd_parts(B * N), Cin + 4, S*Co)
-// -> dg, drf and red = [dW; db; dd] as hs_support_bwd.
-extern "C" int hs_support_bwd_recompute(const float* g, const float* rf, const float* w, int ldw,
-                                        const float* b, const float* dirs, const int* win,
-                                        const float* gb, float* twin, float* pwin, float* dg,
-                                        float* drf, float* wt, float* partial, float* red, int B,
-                                        int N, int K, int Cin, int S, int Co, void* stream) {
+// bwd_store=False: as hs_support_fwd, writing out and win only.
+extern "C" int hs_support_fwd_win(const void* g, const void* rf, const float* w, int ldw,
+                                  const float* b, const void* dirs, float* out, int* win, int B,
+                                  int N, int K, int Cin, int S, int Co, int fast, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hs_support_train_supported(K, Cin, Co)) return (int)cudaErrorInvalidValue;
+  return (int)(fast ? launch_fwd_k<__nv_bfloat16, false>(g, rf, w, ldw, b, dirs, out, win,
+                                                         nullptr, nullptr, B, N, K, Cin, S, Co,
+                                                         st)
+                    : launch_fwd_k<float, false>(g, rf, w, ldw, b, dirs, out, win, nullptr,
+                                                 nullptr, B, N, K, Cin, S, Co, st));
+}
+
+template <typename T>
+cudaError_t launch_recompute(const void* g, const void* rf, const float* w, int ldw,
+                             const float* b, const void* dirs, const int* win, const float* gb,
+                             float* twin, float* pwin, void* dg, void* drf, float* wt,
+                             float* partial, float* red, int B, int N, int K, int Cin, int S,
+                             int Co, cudaStream_t st) {
   const int SC = S * Co, rows = B * N;
   const size_t smem = sizeof(float) * (size_t)RC_TQ * K * RC_CH;
-  recompute_kernel<<<dim3((SC + RC_THREADS - 1) / RC_THREADS, (rows + RC_TQ - 1) / RC_TQ),
-                     RC_THREADS, smem, st>>>(g, rf, w, ldw, b, dirs, win, twin, pwin, rows, K,
-                                             Cin, S, Co);
+  recompute_kernel<T><<<dim3((SC + RC_THREADS - 1) / RC_THREADS, (rows + RC_TQ - 1) / RC_TQ),
+                        RC_THREADS, smem, st>>>(
+      static_cast<const T*>(g), static_cast<const T*>(rf), w, ldw, b,
+      static_cast<const T*>(dirs), win, twin, pwin, rows, K, Cin, S, Co);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_bwd<float>(g, rf, w, ldw, dirs, win, twin, pwin, gb, dg, drf, wt, partial,
-                                red, B, N, K, Cin, S, Co, st);
+  if (err != cudaSuccess) return err;
+  return launch_bwd<T>(g, rf, w, ldw, dirs, win, twin, pwin, gb, dg, drf, wt, partial, red, B, N,
+                       K, Cin, S, Co, st);
+}
+
+// K14: g (B, N, K, Cin), rf (B, N, K, 3), dirs (3, S*Co), fp32 or (fast != 0) bf16;
+// w (Cin, S*Co; row stride ldw), b (S*Co), win (B, N, S*Co), gb (B, N, Co); scratch
+// twin, pwin (B, N, S*Co), wt (S*Co, Cin) and partial (hs_support_bwd_parts(B * N),
+// Cin + 4, S*Co) -> dg, drf (in g's type) and red = [dW; db; dd] as hs_support_bwd.
+extern "C" int hs_support_bwd_recompute(const void* g, const void* rf, const float* w, int ldw,
+                                        const float* b, const void* dirs, const int* win,
+                                        const float* gb, float* twin, float* pwin, void* dg,
+                                        void* drf, float* wt, float* partial, float* red, int B,
+                                        int N, int K, int Cin, int S, int Co, int fast,
+                                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hs_support_train_supported(K, Cin, Co)) return (int)cudaErrorInvalidValue;
+  return (int)(fast ? launch_recompute<__nv_bfloat16>(g, rf, w, ldw, b, dirs, win, gb, twin,
+                                                      pwin, dg, drf, wt, partial, red, B, N, K,
+                                                      Cin, S, Co, st)
+                    : launch_recompute<float>(g, rf, w, ldw, b, dirs, win, gb, twin, pwin, dg,
+                                              drf, wt, partial, red, B, N, K, Cin, S, Co, st));
 }
 
 // g (B, N, K, Cin), rf (B, N, K, 3), dirs (3, S*Co), fp32 or (fast != 0) bf16;

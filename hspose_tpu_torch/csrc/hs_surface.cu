@@ -20,14 +20,15 @@
 // directions and rf rows are rounded as hs_common.cuh says, the rest is
 // unchanged; accumulation and output stay fp32.
 //
-// WIN is the forward of the differentiable fp32 op (want_win=True of the same
+// WIN is the forward of the differentiable op, either tier (want_win=True of the same
 // TPU kernel, pallas_hs_fused.py:318-330): it also records, per (point,
 // support column), the first k that reaches the max of relu(theta) (a strict
 // > from -FLT_MAX), for the backward.  The serving instantiations (WIN false)
 // are compiled from the same lines as before.
 //
 // The backward (K9, hs_surface_fused_bwd below) replaces
-// hspose_tpu/ops/pallas_hs_fused.py::_surface_bwd_kernel (exact=True): dverts
+// hspose_tpu/ops/pallas_hs_fused.py::_surface_bwd_kernel (exact=True, and
+// exact=False with fast != 0, the FAST pieces of hs_fused_bwd.cuh): dverts
 // and dd from win and the output cotangent, through the shared pieces of
 // hs_fused_bwd.cuh.  Plain versions: hspose_tpu_torch/ops/cuda_hs_fused.py::
 // hs_surface_fused_fwd_plain and hs_surface_fused_bwd_plain.  What bounds it:
@@ -115,28 +116,34 @@ extern "C" int hs_surface(const float* verts, const int* idx, const float* dirs,
               : launch<false>(verts, idx, dirs, out, nullptr, B, N, K, S, Co, s);
 }
 
-// The forward of the differentiable fp32 op: as hs_surface, and win (B, N, S*Co)
+// The forward of the differentiable op: as hs_surface, and win (B, N, S*Co)
 // int32, the first k reaching each column's max.
 extern "C" int hs_surface_win(const float* verts, const int* idx, const float* dirs, float* out,
-                              int* win, int B, int N, int K, int S, int Co, void* stream) {
+                              int* win, int B, int N, int K, int S, int Co, int fast,
+                              void* stream) {
   if (hsb::supported(N, K)) return (int)cudaErrorInvalidValue;
-  return launch<false, true>(verts, idx, dirs, out, win, B, N, K, S, Co,
-                             static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return fast ? launch<true, true>(verts, idx, dirs, out, win, B, N, K, S, Co, s)
+              : launch<false, true>(verts, idx, dirs, out, win, B, N, K, S, Co, s);
 }
 
 // K9: verts (B, N, 3), idx (B, N, K), dirs (3, S*Co), win (B, N, S*Co), gb (B, N, Co)
-// -> dverts (B, N, 3) and red (3, S*Co) = dd.  Scratch: rowptr (B, N + 1), ent
-// (B, N*K) int32; dz (B, N, S*Co), drf (B, N, K, 3), dvq (B, N, 3), partial
-// (hs_fused_bwd_parts(B, N), 3, S*Co) fp32.
+// -> dverts (B, N, 3) and red (3, S*Co) = dd; fast != 0 runs the bf16 tier.  Scratch:
+// rowptr (B, N + 1), ent (B, N*K) int32; dz (B, N, S*Co), drf (B, N, K, 3), dvq
+// (B, N, 3), partial (hs_fused_bwd_parts(B, N), 3, S*Co) fp32.
 extern "C" int hs_surface_fused_bwd(const float* verts, const int* idx, const float* dirs,
                                     const int* win, const float* gb, int* rowptr, int* ent,
                                     float* dz, float* drf, float* dvq, float* partial,
                                     float* dverts, float* red, int B, int N, int K, int S, int Co,
-                                    void* stream) {
+                                    int fast, void* stream) {
   if (hsb::supported(N, K)) return (int)cudaErrorInvalidValue;
-  return (int)hsb::fused_bwd<false>(verts, idx, dirs, win, gb, nullptr, rowptr, ent, dz, nullptr,
-                                    drf, dvq, partial, red, nullptr, dverts, B, N, K, S, Co,
-                                    static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(fast ? hsb::fused_bwd<false, true>(verts, idx, dirs, win, gb, nullptr, rowptr, ent,
+                                                  dz, nullptr, drf, dvq, partial, red, nullptr,
+                                                  dverts, B, N, K, S, Co, s)
+                    : hsb::fused_bwd<false, false>(verts, idx, dirs, win, gb, nullptr, rowptr,
+                                                   ent, dz, nullptr, drf, dvq, partial, red,
+                                                   nullptr, dverts, B, N, K, S, Co, s));
 }
 
 // Rows of the fused backwards' dd (and db) partial-sum scratch.

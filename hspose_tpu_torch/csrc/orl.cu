@@ -21,12 +21,13 @@
 // values and every sum stays fp32, as the TPU kernel's exact one-hot gather
 // of bf16 rows with fp32 accumulation.
 //
-// The differentiable fp32 op: hs_orl_win is the first launch with WIN, which
-// also records, per (point, channel), the first k reaching the max (a strict
-// > from -FLT_MAX, pallas_hs_fused.py:381-389); the serving instantiations
-// (WIN false) are compiled from the same lines as before.  Its backward K10,
-// hs_orl_bwd, replaces hspose_tpu/ops/pallas_hs_fused.py::_orl_bwd_kernel
-// (exact=True): dfeat[b, r, c] = gb[b, c] / N times the number of (point, k)
+// The differentiable op, either tier: hs_orl_win is the first launch with WIN,
+// which also records, per (point, channel), the first k reaching the max (a
+// strict > from -FLT_MAX, pallas_hs_fused.py:381-389); the serving
+// instantiations (WIN false) are compiled from the same lines as before.  Its
+// backward K10, hs_orl_bwd, replaces hspose_tpu/ops/pallas_hs_fused.py::
+// _orl_bwd_kernel (exact=True, and exact=False in bf16 with each entry's
+// gb * (1/N) rounded to bf16): dfeat[b, r, c] = gb[b, c] / N times the number of (point, k)
 // whose neighbour k is row r and whose channel c was won by that k.  The
 // count follows r's inverse neighbour list (hs_fused_bwd.cuh), so no atomics
 // and no order enter.  Plain versions: hspose_tpu_torch/ops/cuda_hs_fused.py::
@@ -104,11 +105,14 @@ int launch(const T* feat, const int* idx, float* partial, float* out, int* win, 
 
 // One block per source row r of batch b (grid.x = B * N), threads over channels:
 // dfeat[b, r, c] = gb[b, c] / N times the count of r's inverse-list entries
-// (q, k) with win[b, q, c] == k.
+// (q, k) with win[b, q, c] == k.  The bf16 tier (T = __nv_bfloat16) takes each
+// entry's gb * (1/N) rounded to bf16 (_scatter_rows' operand): the count times
+// it is exact in fp32, and dfeat is that rounded to bf16.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 orl_bwd_kernel(const int* __restrict__ rowptr, const int* __restrict__ ent,
                const int* __restrict__ win, const float* __restrict__ gb,
-               float* __restrict__ dfeat, int N, int K, int C) {
+               T* __restrict__ dfeat, int N, int K, int C) {
   const size_t row = blockIdx.x;
   const int b = (int)(row / N), r = (int)(row % N);
   const int* rp = rowptr + (size_t)b * (N + 1);
@@ -120,7 +124,10 @@ orl_bwd_kernel(const int* __restrict__ rowptr, const int* __restrict__ ent,
       const int e = eb[p];
       cnt += win[((size_t)b * N + e / K) * C + c] == e % K;
     }
-    dfeat[row * C + c] = (float)cnt * (gb[(size_t)b * C + c] / N);
+    if constexpr (hs::is_bf16<T>)
+      hs::store_f(dfeat + row * C + c, (float)cnt * hs::bf16_round(gb[(size_t)b * C + c] * (1.f / N)));
+    else
+      dfeat[row * C + c] = (float)cnt * (gb[(size_t)b * C + c] / N);
   }
 }
 
@@ -140,23 +147,31 @@ extern "C" int hs_orl(const void* feat, int fast, const int* idx, float* partial
                        s);
 }
 
-// The forward of the differentiable fp32 op: as hs_orl on fp32 features, and win
-// (B, N, C) int32, the first k reaching each channel's max.
-extern "C" int hs_orl_win(const float* feat, const int* idx, float* partial, float* out, int* win,
-                          int B, int N, int K, int C, void* stream) {
+// The forward of the differentiable op: as hs_orl, and win (B, N, C) int32, the
+// first k reaching each channel's max.
+extern "C" int hs_orl_win(const void* feat, int fast, const int* idx, float* partial, float* out,
+                          int* win, int B, int N, int K, int C, void* stream) {
   if (hsb::supported(N, K)) return (int)cudaErrorInvalidValue;
-  return launch<float, true>(feat, idx, partial, out, win, B, N, K, C,
-                             static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return fast ? launch<__nv_bfloat16, true>(static_cast<const __nv_bfloat16*>(feat), idx, partial,
+                                            out, win, B, N, K, C, s)
+              : launch<float, true>(static_cast<const float*>(feat), idx, partial, out, win, B, N,
+                                    K, C, s);
 }
 
-// K10: idx (B, N, K), win (B, N, C), gb (B, C) the cotangent of out -> dfeat (B, N, C).
-// Scratch: rowptr (B, N + 1), ent (B, N*K) int32.
+// K10: idx (B, N, K), win (B, N, C), gb (B, C) the cotangent of out -> dfeat (B, N, C),
+// fp32 or (fast != 0) bf16.  Scratch: rowptr (B, N + 1), ent (B, N*K) int32.
 extern "C" int hs_orl_bwd(const int* idx, const int* win, const float* gb, int* rowptr, int* ent,
-                          float* dfeat, int B, int N, int K, int C, void* stream) {
+                          void* dfeat, int B, int N, int K, int C, int fast, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hsb::supported(N, K)) return (int)cudaErrorInvalidValue;
   cudaError_t err = hsb::inverse_index(idx, rowptr, ent, B, N, K, s);
   if (err != cudaSuccess) return (int)err;
-  orl_bwd_kernel<<<B * N, THREADS, 0, s>>>(rowptr, ent, win, gb, dfeat, N, K, C);
+  if (fast)
+    orl_bwd_kernel<<<B * N, THREADS, 0, s>>>(rowptr, ent, win, gb,
+                                             static_cast<__nv_bfloat16*>(dfeat), N, K, C);
+  else
+    orl_bwd_kernel<<<B * N, THREADS, 0, s>>>(rowptr, ent, win, gb, static_cast<float*>(dfeat), N,
+                                             K, C);
   return (int)cudaGetLastError();
 }

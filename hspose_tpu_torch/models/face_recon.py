@@ -19,9 +19,7 @@ fp32 parameters: here they take it widened to fp32 and run in fp32, their
 BatchNorm too.
 
 ``bwd_store`` and ``train_v4_small`` reach conv_1 .. conv_4, as
-hspose_tpu/models/face_recon.py:146-202 passes them; their non-default
-values are fp32 only (the bf16 branches of K8-K10 and K14 are not ported)
-and raise with ``compute_dtype="bfloat16"``.
+hspose_tpu/models/face_recon.py:146-202 passes them, in both tiers.
 """
 
 from __future__ import annotations
@@ -120,11 +118,6 @@ class FaceRecon(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
-        if self.dtype == torch.bfloat16 and (not cfg.bwd_store or cfg.train_v4_small):
-            raise NotImplementedError(
-                "bwd_store=False and train_v4_small=True are fp32 only: their bf16 training "
-                "needs the exact=False branches of K8, K9, K10 and K14, the next slice of the "
-                "port (ROADMAP Queue 2)")
         s, dt = cfg.gcn_sup_num, self.dtype
         hs = functools.partial(HSLayer, device=device, dtype=dt, bwd_store=cfg.bwd_store,
                                train_v4_small=cfg.train_v4_small)

@@ -19,6 +19,7 @@ from hspose_tpu_torch.losses import (
 )
 from hspose_tpu_torch.models.heads import KEEP_PROB
 from hspose_tpu_torch.models.posenet import PoseNet9D, PoseNetOutput, PoseNetTrainOutput
+from hspose_tpu_torch.ops.cuda_knn import MAX_K
 
 LossDicts = Dict[str, Dict[str, torch.Tensor]]
 
@@ -45,10 +46,18 @@ def build_model(cfg: ModelConfig, device=None, train_heads: bool = False) -> Pos
     ``"f32x2"`` worked around the TPU compiler's lack of in-kernel fp32
     products and has no counterpart here.  The fp32 tier must not drift, so
     this turns TF32 off for matrix products and cuDNN process-wide: with
-    TF32 on, KNN order and pose geometry drift."""
+    TF32 on, KNN order and pose geometry drift.
+
+    ``gcn_n_num`` and ``serve_k`` above ``MAX_K`` = 31 raise a ValueError
+    here, on any device: the KNN kernel keeps at most 32 = k + 1 entries per
+    query, and the port's entry points serve the card."""
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r}: only 'float32' and 'bfloat16' are ported")
+    for name in ("gcn_n_num", "serve_k"):
+        if getattr(cfg, name) > MAX_K:
+            raise ValueError(f"{name}={getattr(cfg, name)}: the port's KNN kernel takes "
+                             f"k <= MAX_K = {MAX_K}")
     device = _card_unless_asked(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -11,7 +11,8 @@ branch is the plain gather, max and mean.  An ``HSLayer`` with
 ``train_v4_small`` at N <= 512 trains through the differentiable fused ops
 of ``ops/cuda_hs_fused.py`` instead, its ORL branch too, as the JAX layers'
 v4 training route does (hspose_tpu/models/layers.py:76-82, 246-264).
-Either way a CUDA tensor takes the kernel and a CPU tensor its plain version.
+Either way a CUDA tensor takes the kernel and a CPU tensor its plain version,
+in both tiers.
 
 ``dtype=torch.bfloat16`` is the bf16 tier: parameters stay fp32 and are
 cast at use, and the layers round where the JAX layers with
@@ -157,8 +158,11 @@ class HSLayer(nn.Module):
             activation = hs_support_reduce(g, rf, self.weights[:, co:], self.bias[co:],
                                            dirs.to(dt), s, co, store=self.bwd_store)
         else:
+            # the JAX layer passes the directions rounded to its dtype and widened
+            # (layers.py:240, :262), so in training their cotangent rounds too
             activation = hs_support_fused(feature_map, vertices, rf_idx,
-                                          self.weights[:, co:], self.bias[co:], dirs, s, co)
+                                          self.weights[:, co:], self.bias[co:],
+                                          dirs.to(dt).float() if self.training else dirs, s, co)
         return _finish(self, feature_center + activation, orl_idx, f_ste, self.train_v4_small)
 
 

@@ -60,30 +60,31 @@ SIGNATURES = {
     "hs_support_bwd_parts": [_I],
     # K, Cin, Co -> 0 when the training support kernels take these sizes (no launch)
     "hs_support_train_supported": [_I, _I, _I],
-    # bwd_store=False: g, rf, w, ldw, b, dirs, out, win, B, N, K, Cin, S, Co, stream
-    "hs_support_fwd_win": [_P, _P, _P, _I] + [_P] * 4 + [_I] * 6 + [_P],
+    # bwd_store=False: g, rf, w, ldw, b, dirs, out, win, B, N, K, Cin, S, Co, fast, stream
+    "hs_support_fwd_win": [_P, _P, _P, _I] + [_P] * 4 + [_I] * 7 + [_P],
     # g, rf, w, ldw, b, dirs, win, gb, twin, pwin, dg, drf, wt, partial, red,
-    # B, N, K, Cin, S, Co, stream
-    "hs_support_bwd_recompute": [_P, _P, _P, _I] + [_P] * 11 + [_I] * 6 + [_P],
+    # B, N, K, Cin, S, Co, fast, stream
+    "hs_support_bwd_recompute": [_P, _P, _P, _I] + [_P] * 11 + [_I] * 7 + [_P],
     # the differentiable fused ops: forwards with winners and their backwards
-    # verts, idx, dirs, out, win, B, N, K, S, Co, stream
-    "hs_surface_win": [_P] * 5 + [_I] * 5 + [_P],
+    # verts, idx, dirs, out, win, B, N, K, S, Co, fast, stream
+    "hs_surface_win": [_P] * 5 + [_I] * 6 + [_P],
     # verts, idx, dirs, win, gb, rowptr, ent, dz, drf, dvq, partial, dverts, red,
-    # B, N, K, S, Co, stream
-    "hs_surface_fused_bwd": [_P] * 13 + [_I] * 5 + [_P],
+    # B, N, K, S, Co, fast, stream
+    "hs_surface_fused_bwd": [_P] * 13 + [_I] * 6 + [_P],
     # B, N -> rows of the fused backwards' dd (and db) partial-sum scratch (no launch)
     "hs_fused_bwd_parts": [_I, _I],
-    # proj, verts, idx, dirs, out, win, B, N, K, S, Co, stream
-    "hs_support_reduce_win": [_P] * 6 + [_I] * 5 + [_P],
+    # proj, verts, idx, dirs, out, win, B, N, K, S, Co, fast, stream
+    "hs_support_reduce_win": [_P] * 6 + [_I] * 6 + [_P],
     # B * N -> slices of the support backward's dW partial-sum scratch (no launch)
     "hs_support_fused_dw_parts": [_I],
     # feat, w, ldw, verts, idx, dirs, win, proj, gb, rowptr, ent, dz, dproj, dproj_src,
-    # drf, dvq, partial, dw_partial, dfeat, dverts, dw, red, B, N, K, Cin, S, Co, stream
-    "hs_support_fused_bwd": [_P, _P, _I] + [_P] * 19 + [_I] * 6 + [_P],
-    # feat, idx, partial, out, win, B, N, K, C, stream
-    "hs_orl_win": [_P] * 5 + [_I] * 4 + [_P],
-    # idx, win, gb, rowptr, ent, dfeat, B, N, K, C, stream
-    "hs_orl_bwd": [_P] * 6 + [_I] * 4 + [_P],
+    # drf, dvq, partial, dw_partial, dg, wt, dfeat, dverts, dw, red, B, N, K, Cin, S, Co,
+    # fast, stream
+    "hs_support_fused_bwd": [_P, _P, _I] + [_P] * 21 + [_I] * 7 + [_P],
+    # feat, fast, idx, partial, out, win, B, N, K, C, stream
+    "hs_orl_win": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
+    # idx, win, gb, rowptr, ent, dfeat, B, N, K, C, fast, stream
+    "hs_orl_bwd": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

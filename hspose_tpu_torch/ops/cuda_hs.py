@@ -21,8 +21,8 @@ package's ``bwd_store=True``, its default), theta and the projection there
 (``twin``, ``pwin``); the backwards route each cotangent to that k only.
 ``torch.amax`` would split a gradient over ties instead.  Without ``store``
 the forward writes ``win`` only and K14 recomputes theta and the projection
-at the winner, with the forward's arithmetic, before routing as K13 does;
-that branch is fp32 only.  The two ``autograd.Function``s,
+at the winner, with the forward's arithmetic, before routing as K13 does,
+in both tiers.  The two ``autograd.Function``s,
 ``HSSurfaceReduce`` and ``HSSupportReduce``, pair each forward with its
 backward.  ``win`` is int32.
 
@@ -35,7 +35,7 @@ winner values, dW and db are fp32; dg, drf and dd come back in their
 inputs' dtype, as the JAX custom VJPs cast them (pallas_hs.py:612-613,
 :734).  Each wrapper counts fp32 launches in ``.launches`` and bf16 ones in
 ``.bf16_launches``; ``hs_support_fwd`` counts its launches without
-``store`` in ``.novals_launches``.
+``store`` in ``.novals_launches`` and ``.novals_bf16_launches``.
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ from hspose_tpu_torch.ops.cuda_hs_fused import (
     _empty,
     _first_max,
     _onehot,
+    _per_support,
     _theta_fast,
 )
 
@@ -69,16 +70,6 @@ def _operand(x: torch.Tensor, fast: bool) -> torch.Tensor:
     """x as an operand of the bf16 tier's products (rounded to bf16, as
     fp32), else x."""
     return _bf16(x) if fast else x
-
-
-def _per_support(gb: torch.Tensor, support_num: int, fast: bool) -> torch.Tensor:
-    """gb / S.  The bf16 tier takes gb times 1/S rounded to fp32, as XLA
-    forms a division by a constant in the TPU kernels: the one-ulp
-    difference from a true division can move the rounding to bf16 that
-    follows (csrc/hs_common.cuh::div_s)."""
-    if fast:
-        return gb * (torch.tensor(1.0) / support_num).item()
-    return gb / support_num
 
 
 def hs_surface_fwd_plain(rf: torch.Tensor, dirs: torch.Tensor, support_num: int,
@@ -185,17 +176,18 @@ def hs_support_bwd_recompute_plain(g: torch.Tensor, rf: torch.Tensor, w: torch.T
                                    b: torch.Tensor, dirs: torch.Tensor, win: torch.Tensor,
                                    gb: torch.Tensor, support_num: int, out_channel: int):
     """Cotangents (dg, drf, dw, db, dd) of ``hs_support_fwd_plain`` without
-    stored winner values (pallas_hs.py:289-327, fp32): theta and the
-    projection are recomputed as the forward forms them and taken at the
-    recorded winners, then routed as ``hs_support_bwd_plain`` routes them:
-    dpi = [k == win] gb/S * theta, du = [k == win][theta > 0] gb/S * P."""
-    co = out_channel
+    stored winner values (pallas_hs.py:289-327): theta and the projection
+    are recomputed as the forward forms them (in the bf16 tier with its
+    roundings) and taken at the recorded winners, then routed as
+    ``hs_support_bwd_plain`` routes them: dpi = [k == win] gb/S * theta,
+    du = [k == win][theta > 0] gb/S * P."""
+    co, fast = out_channel, g.dtype == torch.bfloat16
     twin, pwin = [], []
     for s in range(support_num):
         cols = slice(s * co, (s + 1) * co)
         at = win[..., cols].long()[:, :, None]
         twin.append(_theta(rf, dirs[:, cols]).gather(2, at).squeeze(2))
-        pwin.append((g @ w[:, cols] + b[cols]).gather(2, at).squeeze(2))
+        pwin.append((g.float() @ _operand(w[:, cols], fast) + b[cols]).gather(2, at).squeeze(2))
     return hs_support_bwd_plain(g, rf, w, dirs, win, torch.cat(twin, -1), torch.cat(pwin, -1),
                                 gb, support_num, out_channel)
 
@@ -263,19 +255,11 @@ def _check_support(g, rf, dirs, S, co):
     return B, N, K, cin, dt, fast
 
 
-def _refuse_bf16_recompute(g: torch.Tensor) -> None:
-    if g.dtype == torch.bfloat16:
-        raise NotImplementedError("bwd_store=False in bf16 needs the exact=False branch of K14, "
-                                  "which is queued: the recompute backward is fp32 only")
-
-
 def hs_support_fwd(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    dirs: torch.Tensor, support_num: int, out_channel: int, store: bool = True):
     """K11: see ``hs_support_fwd_plain``.  ``w`` (fp32) may be a column slice
-    of the layer's (Cin, (S+1)*Co) matrix.  Without ``store`` (fp32 only) it
-    returns (out, win) and writes no winner values."""
-    if not store:
-        _refuse_bf16_recompute(g)
+    of the layer's (Cin, (S+1)*Co) matrix.  Without ``store`` it returns
+    (out, win) and writes no winner values."""
     if _build.on_cpu(g, rf, w, b, dirs):
         res = hs_support_fwd_plain(g, rf, w, b, dirs, support_num, out_channel)
         return res if store else res[:2]
@@ -287,8 +271,11 @@ def hs_support_fwd(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor, b: torch.
     win = _empty((B, N, S * co), g, torch.int32)
     if not store:
         _build.launch("hs_support_fwd_win", g, rf, w, w.stride(0), b, dirs, out, win,
-                      B, N, K, cin, S, co)
-        hs_support_fwd.novals_launches += 1
+                      B, N, K, cin, S, co, fast)
+        if fast:
+            hs_support_fwd.novals_bf16_launches += 1
+        else:
+            hs_support_fwd.novals_launches += 1
         return out, win
     twin, pwin = _empty((B, N, S * co), g), _empty((B, N, S * co), g)
     _build.launch("hs_support_fwd", g, rf, w, w.stride(0), b, dirs, out, win, twin, pwin,
@@ -326,13 +313,12 @@ def hs_support_bwd(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor,
 def hs_support_bwd_recompute(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor,
                              b: torch.Tensor, dirs: torch.Tensor, win: torch.Tensor,
                              gb: torch.Tensor, support_num: int, out_channel: int):
-    """K14: see ``hs_support_bwd_recompute_plain`` (fp32)."""
-    _refuse_bf16_recompute(g)
+    """K14: see ``hs_support_bwd_recompute_plain``."""
     if _build.on_cpu(g, rf, w, b, dirs, win, gb):
         return hs_support_bwd_recompute_plain(g, rf, w, b, dirs, win, gb, support_num,
                                               out_channel)
     S, co = support_num, out_channel
-    B, N, K, cin, _, _ = _check_support(g, rf, dirs, S, co)
+    B, N, K, cin, dt, fast = _check_support(g, rf, dirs, S, co)
     _build.check_rows(w, "w", (cin, S * co))
     _build.check(b, "b", torch.float32, (S * co,))
     _build.check(win, "win", torch.int32, (B, N, S * co))
@@ -342,18 +328,19 @@ def hs_support_bwd_recompute(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor,
     wt = _empty((S * co, cin), g)  # scratch: W transposed
     partial = _empty((parts, cin + 4, S * co), g)
     red = _empty((cin + 4, S * co), g)
-    dg, drf = _empty(g.shape, g), _empty(rf.shape, g)
+    dg, drf = _empty(g.shape, g, dt), _empty(rf.shape, g, dt)
     _build.launch("hs_support_bwd_recompute", g, rf, w, w.stride(0), b, dirs, win, gb, twin,
-                  pwin, dg, drf, wt, partial, red, B, N, K, cin, S, co)
-    hs_support_bwd_recompute.launches += 1
-    return dg, drf, red[:cin], red[cin], red[cin + 1:]
+                  pwin, dg, drf, wt, partial, red, B, N, K, cin, S, co, fast)
+    _count(hs_support_bwd_recompute, fast)
+    return dg, drf, red[:cin], red[cin], red[cin + 1:].to(dt)
 
 
-for _wrapper in (hs_surface_fwd, hs_surface_bwd, hs_support_fwd, hs_support_bwd):
+for _wrapper in (hs_surface_fwd, hs_surface_bwd, hs_support_fwd, hs_support_bwd,
+                 hs_support_bwd_recompute):
     _wrapper.launches = 0  # fp32 launches
     _wrapper.bf16_launches = 0
-hs_support_fwd.novals_launches = 0  # fp32 launches without store
-hs_support_bwd_recompute.launches = 0
+hs_support_fwd.novals_launches = 0  # launches without store
+hs_support_fwd.novals_bf16_launches = 0
 
 
 # --------------------------------------------------------------------------- #

@@ -21,11 +21,11 @@ fp32 launches in ``.launches`` and bf16 ones in ``.bf16_launches``.
 
 Under ``torch.no_grad()``, or when no floating input requires grad, the
 three ops launch the serving kernels above and nothing else.  A call that
-needs a backward is fp32 only and goes through an autograd Function, as the
-JAX ops' custom VJPs (pallas_hs_fused.py:893-977): a forward that also
-records, per (point, column), the first k reaching the max (``win``), then a
-backward that routes each cotangent to that k only.  Three more kernels
-each, behind wrappers with plain versions here:
+needs a backward goes through an autograd Function, as the JAX ops' custom
+VJPs (pallas_hs_fused.py:893-977): a forward that also records, per (point,
+column), the first k reaching the max (``win``), then a backward that
+routes each cotangent to that k only.  Three more kernels each, behind
+wrappers with plain versions here:
 
 * ``hs_surface_fused_fwd`` (K2 with winners) and ``hs_surface_fused_bwd``
   (K9: dverts, dd) -> ``csrc/hs_surface.cu``;
@@ -35,11 +35,16 @@ each, behind wrappers with plain versions here:
 * ``orl_global_fused_fwd`` (K4 with winners) and ``orl_global_fused_bwd``
   (K10: dfeat) -> ``csrc/orl.cu``.
 
-Their counters are ``.launches`` on each of the six.  The bf16 tier has no
-backward yet (the ``exact=False`` branches of K8-K10): with grad on, a bf16
-call whose input requires grad raises, on either device, rather than return
-a result cut from the graph.  The training path on pre-gathered rows goes
-through ``ops/cuda_hs.py``.
+Both tiers take this route.  In the bf16 tier (``exact=False`` of the same
+TPU kernels) the backwards round where the TPU kernels' one-pass products
+round (pallas_hs_fused.py:123-197): dz and each (query, k) row of dproj,
+dg and drf are rounded to bf16 as product operands or before the
+source-row sum, the query-centre term of dverts and db stay fp32, gb / S
+and gb / N are gb times the fp32 reciprocal, and dfeat comes back in bf16
+(the VJP's cast to the feature dtype); dverts, dW, db and dd are fp32.
+Their counters are ``.launches`` (fp32) and ``.bf16_launches`` on each of
+the six.  The training path on pre-gathered rows goes through
+``ops/cuda_hs.py``.
 """
 
 from __future__ import annotations
@@ -55,25 +60,39 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def _rf_fast(vertices: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Unit receptive-field directions of the bf16 tier, (B, N, K, 3): xyz
-    rounded to bf16 (pallas_hs_fused.py::_xyz_parts), rf = v[idx] - v,
-    rf * (1 / max(sqrt((x^2 + y^2) + z^2), 1e-12)) in fp32, each operation
-    correctly rounded in this order (``_rf_chain``), and the result rounded
-    to bf16 for theta (``_theta_relu``).  The kernels stage the same values
-    (csrc/hs_common.cuh::stage_rf)."""
+def _rf_chain_fast(vertices: torch.Tensor, idx: torch.Tensor):
+    """rf = v[idx] - v (B, N, K, 3) on xyz rounded to bf16
+    (pallas_hs_fused.py::_xyz_parts), its norm sqrt((x^2 + y^2) + z^2)
+    (B, N, K, 1) and rf * (1 / max(norm, 1e-12)), in fp32, each operation
+    correctly rounded in this order (``_rf_chain``)."""
     xyz = _bf16(vertices)
     rf = gather_neighbors(xyz, idx) - xyz[:, :, None, :]
     x, y, z = rf.unbind(-1)
-    norm = torch.sqrt((x * x + y * y) + z * z)
-    inv = torch.reciprocal(torch.clamp(norm, min=1e-12))
-    return _bf16(rf * inv[..., None])
+    norm = torch.sqrt((x * x + y * y) + z * z)[..., None]
+    return rf, norm, rf * torch.reciprocal(torch.clamp(norm, min=1e-12))
+
+
+def _rf_fast(vertices: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Unit receptive-field directions of the bf16 tier, (B, N, K, 3):
+    ``_rf_chain_fast``'s, rounded to bf16 for theta (``_theta_relu``).  The
+    kernels stage the same values (csrc/hs_common.cuh::stage_rf)."""
+    return _bf16(_rf_chain_fast(vertices, idx)[2])
 
 
 def _theta_fast(rfn: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """relu(rfn . d) of the bf16 tier, rfn (..., 3) and d (3, C) holding bf16
     values: every product is exact in fp32, added in the order x, y, z."""
     return torch.relu((rfn[..., 0:1] * d[0] + rfn[..., 1:2] * d[1]) + rfn[..., 2:3] * d[2])
+
+
+def _per_support(gb: torch.Tensor, support_num: int, fast: bool) -> torch.Tensor:
+    """gb / S.  The bf16 tier takes gb times 1/S rounded to fp32, as XLA
+    forms a division by a constant in the TPU kernels: the one-ulp
+    difference from a true division can move the rounding to bf16 that
+    follows (csrc/hs_common.cuh::div_s)."""
+    if fast:
+        return gb * (torch.tensor(1.0) / support_num).item()
+    return gb / support_num
 
 
 def hs_surface_plain(vertices: torch.Tensor, idx: torch.Tensor, dirs: torch.Tensor,
@@ -140,12 +159,6 @@ def _needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def _refuse_grad(name: str) -> None:
-    raise RuntimeError(f"{name}: the bf16 tier has no backward yet (the exact=False branches "
-                       f"of K8-K10 are queued): call it under torch.no_grad(), or train "
-                       f"through ops/cuda_hs.py")
-
-
 def _check_idx(idx: torch.Tensor, B: int, N: int) -> int:
     _build.check(idx, "idx", torch.int32, (B, N, None))
     return idx.shape[2]
@@ -162,11 +175,9 @@ def hs_surface_fused(vertices: torch.Tensor, idx: torch.Tensor, dirs: torch.Tens
                      support_num: int, out_channel: int, exact: bool = True) -> torch.Tensor:
     """HS surface reduction (conv_0); see ``hs_surface_plain``.  ``exact=False``
     is the bf16 tier; inputs stay fp32 either way.  Differentiable in
-    vertices and dirs (fp32)."""
+    vertices and dirs."""
     if _needs_grad(vertices, dirs):
-        if not exact:
-            _refuse_grad("hs_surface_fused")
-        return HSSurfaceFused.apply(vertices, idx, dirs, support_num, out_channel)
+        return HSSurfaceFused.apply(vertices, idx, dirs, support_num, out_channel, exact)
     if _build.on_cpu(vertices, idx, dirs):
         return hs_surface_plain(vertices, idx, dirs, support_num, out_channel, exact)
     S, co = support_num, out_channel
@@ -188,12 +199,9 @@ def hs_support_fused(feature_map: torch.Tensor, vertices: torch.Tensor,
     bf16 ``feature_map`` runs the bf16 tier; the other inputs stay fp32.
 
     ``weights`` may be a column slice of a wider matrix (rows need not be
-    adjacent, but each row must be).  Differentiable in every float input
-    (fp32)."""
+    adjacent, but each row must be).  Differentiable in every float input."""
     tensors = (feature_map, vertices, idx, weights, bias, dirs)
     if _needs_grad(feature_map, vertices, weights, bias, dirs):
-        if feature_map.dtype == torch.bfloat16:
-            _refuse_grad("hs_support_fused")
         return HSSupportFused.apply(*tensors, support_num, out_channel)
     if _build.on_cpu(*tensors):
         return hs_support_plain(*tensors, support_num, out_channel)
@@ -220,10 +228,8 @@ def hs_support_fused(feature_map: torch.Tensor, vertices: torch.Tensor,
 def orl_global_fused(feature: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """ORL global branch; see ``orl_global_plain``.  bf16 ``feature`` runs
     the bf16 tier; the output is fp32 either way.  Differentiable in
-    ``feature`` (fp32)."""
+    ``feature``."""
     if _needs_grad(feature):
-        if feature.dtype == torch.bfloat16:
-            _refuse_grad("orl_global_fused")
         return ORLGlobalFused.apply(feature, idx)
     if _build.on_cpu(feature, idx):
         return orl_global_plain(feature, idx)
@@ -246,7 +252,7 @@ for _wrapper in (hs_surface_fused, hs_support_fused, orl_global_fused):
 
 
 # --------------------------------------------------------------------------- #
-# the differentiable fp32 ops: plain versions
+# the differentiable ops: plain versions
 # --------------------------------------------------------------------------- #
 
 def _rf_chain(vertices: torch.Tensor, idx: torch.Tensor):
@@ -275,31 +281,92 @@ def _scatter_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         1, src, x.reshape(B, N * K, C))
 
 
-def _dverts(drf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def _dverts(drf: torch.Tensor, idx: torch.Tensor, fast: bool = False) -> torch.Tensor:
     """dverts: the source rows' scatter of drf plus the query-centre term
-    -sum_k drf (pallas_hs_fused.py:487-490, :734)."""
-    return _scatter_rows(drf, idx) - drf.sum(2)
+    -sum_k drf (pallas_hs_fused.py:487-490, :734).  The bf16 tier scatters
+    each row of drf rounded to bf16 (``_scatter_rows``' one-pass product)
+    and sums the centre term unrounded."""
+    return _scatter_rows(_bf16(drf) if fast else drf, idx) - drf.sum(2)
 
 
 def hs_surface_fused_fwd_plain(vertices: torch.Tensor, idx: torch.Tensor, dirs: torch.Tensor,
-                               support_num: int, out_channel: int):
+                               support_num: int, out_channel: int, exact: bool = True):
     """(``hs_surface_plain``'s output, win): win (B, N, S*Co) int32 holds the
-    first k reaching each column's max of relu(theta)."""
-    rf = neighbor_directions_normalized(vertices, idx)
+    first k reaching each column's max of relu(theta).  ``exact=False``:
+    the bf16 tier's roundings."""
+    if exact:
+        rf = neighbor_directions_normalized(vertices, idx)
+    else:
+        rf, dirs = _rf_fast(vertices, idx), _bf16(dirs)
     total, wins = 0.0, []
     for s in range(support_num):
-        m, w = _first_max(torch.relu(rf @ dirs[:, s * out_channel:(s + 1) * out_channel]))
+        d = dirs[:, s * out_channel:(s + 1) * out_channel]
+        m, w = _first_max(torch.relu(rf @ d) if exact else _theta_fast(rf, d))
         total = total + m
         wins.append(w)
     return total / support_num, torch.cat(wins, -1).to(torch.int32)
 
 
+def _rf_grad_fast(rf: torch.Tensor, norm: torch.Tensor, drfn: torch.Tensor) -> torch.Tensor:
+    """``_rf_grad`` of the bf16 tier, each fp32 operation in a fixed order
+    that the kernel repeats (csrc/hs_fused_bwd.cuh::rf_grad_kernel): each
+    row of drf is rounded to bf16 before its source-row sum, so both sides
+    must hold the same fp32 row."""
+    inv = torch.reciprocal(torch.clamp(norm, min=1e-12))
+    x, y, z = rf.unbind(-1)
+    a, b, c = drfn.unbind(-1)
+    s = (a * x + b * y) + c * z
+    h = torch.where(norm[..., 0] >= 1e-12, s * inv[..., 0] * inv[..., 0] * inv[..., 0], 0.0)
+    return drfn * inv - rf * h[..., None]
+
+
+def _fused_bwd_fast(vertices: torch.Tensor, idx: torch.Tensor, dirs: torch.Tensor,
+                    win: torch.Tensor, gb: torch.Tensor, support_num: int, out_channel: int,
+                    proj: torch.Tensor | None = None):
+    """The bf16 tier's (``exact=False``) backward of the surface reduction,
+    or of the support reduction given its projection ``proj``
+    (pallas_hs_fused.py:463-490, :524-541): theta at the winner as the
+    forward forms it, dz = [theta > 0] gs (times P at the winner's source
+    row for the support), gs = gb * (1/S).  dz is rounded to bf16 as the
+    operand of dd = bf16(rfn)^T dz and of drfn = dz bf16(d)^T (``_mm_g``,
+    ``_mm_gp``); the rf chain stays fp32 on the bf16 xyz.  drfn sums its
+    exact products in fp64 and is rounded to fp32 once, so that it does not
+    depend on the order of the sum (the kernel sums in another).  Returns
+    (dverts, dd, dproj): dproj = gs theta at the winner (B, N, K, S*Co),
+    zero elsewhere, fp32 and unrounded (support only, else None)."""
+    co, K = out_channel, idx.shape[2]
+    rf, norm, rfn = _rf_chain_fast(vertices, idx)
+    rfn, dirs = _bf16(rfn), _bf16(dirs)
+    gs = _per_support(gb, support_num, True)
+    drfn = torch.zeros(rf.shape, dtype=torch.float64, device=rf.device)
+    dd = torch.zeros_like(dirs)
+    dproj = None if proj is None else torch.zeros(idx.shape + (dirs.shape[1],),
+                                                  dtype=torch.float32, device=rf.device)
+    for s in range(support_num):
+        cols = slice(s * co, (s + 1) * co)
+        d = dirs[:, cols]
+        theta = _theta_fast(rfn, d)
+        dprod = _onehot(win[..., cols], K) * gs[:, :, None, :]
+        if proj is None:
+            dz = torch.where(theta > 0, dprod, 0.0)
+        else:
+            dz = torch.where(theta > 0, dprod * gather_neighbors(proj[..., cols], idx), 0.0)
+            dproj[..., cols] = dprod * theta
+        dz = _bf16(dz)
+        drfn = drfn + dz.double() @ d.double().t()
+        dd[:, cols] = rfn.reshape(-1, 3).t() @ dz.reshape(-1, co)
+    return _dverts(_rf_grad_fast(rf, norm, drfn.float()), idx, True), dd, dproj
+
+
 def hs_surface_fused_bwd_plain(vertices: torch.Tensor, idx: torch.Tensor, dirs: torch.Tensor,
                                win: torch.Tensor, gb: torch.Tensor, support_num: int,
-                               out_channel: int):
+                               out_channel: int, exact: bool = True):
     """Cotangents (dverts, dd) of ``hs_surface_fused_fwd_plain`` for the
     output cotangent gb (B, N, Co): gb / S routed to each column's winner
-    where theta > 0 (pallas_hs_fused.py:524-541)."""
+    where theta > 0 (pallas_hs_fused.py:524-541).  ``exact=False``: the
+    bf16 tier (``_fused_bwd_fast``); both stay fp32."""
+    if not exact:
+        return _fused_bwd_fast(vertices, idx, dirs, win, gb, support_num, out_channel)[:2]
     co, K = out_channel, idx.shape[2]
     rf, norm, rfn = _rf_chain(vertices, idx)
     gs = gb / support_num
@@ -320,13 +387,19 @@ def hs_support_fused_fwd_plain(feature_map: torch.Tensor, vertices: torch.Tensor
                                dirs: torch.Tensor, support_num: int, out_channel: int):
     """(``hs_support_plain``'s output, win, proj): win (B, N, S*Co) int32 holds
     the first k reaching each column's max of theta * P, proj = feat @ W + b
-    (B, N, S*Co) is the backward's residual."""
-    rf = neighbor_directions_normalized(vertices, idx)
-    proj = feature_map @ weights + bias
+    (B, N, S*Co) fp32 is the backward's residual.  bf16 ``feature_map``: the
+    bf16 tier's roundings, as ``hs_support_plain``."""
+    exact = feature_map.dtype != torch.bfloat16
+    if exact:
+        rf = neighbor_directions_normalized(vertices, idx)
+        proj = feature_map @ weights + bias
+    else:
+        rf, dirs = _rf_fast(vertices, idx), _bf16(dirs)
+        proj = feature_map.float() @ _bf16(weights) + bias
     total, wins = 0.0, []
     for s in range(support_num):
         cols = slice(s * out_channel, (s + 1) * out_channel)
-        theta = torch.relu(rf @ dirs[:, cols])
+        theta = torch.relu(rf @ dirs[:, cols]) if exact else _theta_fast(rf, dirs[:, cols])
         m, w = _first_max(theta * gather_neighbors(proj[..., cols], idx))
         total = total + m
         wins.append(w)
@@ -342,7 +415,11 @@ def hs_support_fused_bwd_plain(feature_map: torch.Tensor, vertices: torch.Tensor
     each column's winner, dproj = gb/S * theta goes to the projection of the
     source row and dz = gb/S * P (where theta > 0) to rf and the directions;
     dfeat = dproj_src W^T, dW = feat^T dproj_src and db = sum dproj_src
-    from dproj scattered to its source rows."""
+    from dproj scattered to its source rows.  bf16 ``feature_map``: the bf16
+    tier (``_support_fused_bwd_fast``), dfeat bf16, the rest fp32."""
+    if feature_map.dtype == torch.bfloat16:
+        return _support_fused_bwd_fast(feature_map, vertices, idx, weights, dirs, win, proj, gb,
+                                       support_num, out_channel)
     co, (B, N, K), cin = out_channel, idx.shape, feature_map.shape[2]
     rf, norm, rfn = _rf_chain(vertices, idx)
     gs = gb / support_num
@@ -363,26 +440,55 @@ def hs_support_fused_bwd_plain(feature_map: torch.Tensor, vertices: torch.Tensor
     return dfeat, _dverts(_rf_grad(rf, norm, drfn), idx), dw, dproj_src.sum((0, 1)), dd
 
 
+def _support_fused_bwd_fast(feature_map, vertices, idx, weights, dirs, win, proj, gb,
+                            support_num: int, out_channel: int):
+    """``hs_support_fused_bwd_plain`` of the bf16 tier (``exact=False``,
+    pallas_hs_fused.py:463-490): dverts and dd from ``_fused_bwd_fast``; db
+    sums dproj unrounded; per (query, k) row, dg = bf16(dproj) bf16(W)^T is
+    rounded to bf16 before the source-row sum (``_mm_gp``,
+    ``_scatter_rows``), and dfeat is that sum rounded to bf16 (the VJP's
+    cast to the feature dtype); dW = g^T bf16(dproj), taken as feat^T times
+    the source-row sum of bf16(dproj) (the same products).  The row dg sums
+    its exact products in fp64 and rounds to fp32, then to bf16, so that the
+    row's rounding does not depend on the order of the sum."""
+    B, N, K = idx.shape
+    dverts, dd, dproj = _fused_bwd_fast(vertices, idx, dirs, win, gb, support_num, out_channel,
+                                        proj)
+    dproj_op = _bf16(dproj)
+    dg = _bf16((dproj_op.double() @ _bf16(weights).double().t()).float())  # (B, N, K, Cin)
+    dfeat = _scatter_rows(dg, idx).to(torch.bfloat16)
+    dproj_src = _scatter_rows(dproj_op, idx)
+    cin = feature_map.shape[2]
+    dw = feature_map.float().reshape(-1, cin).t() @ dproj_src.reshape(B * N, -1)
+    return dfeat, dverts, dw, dproj.sum((0, 1, 2)), dd
+
+
 def orl_global_fused_fwd_plain(feature: torch.Tensor, idx: torch.Tensor):
     """(``orl_global_plain``'s output, win): win (B, N, C) int32 holds the
-    first k reaching each channel's max."""
+    first k reaching each channel's max (for bf16 features the maxima are
+    bf16 values, the mean fp32)."""
     m, win = _first_max(gather_neighbors(feature, idx))
-    return m.mean(dim=1, keepdim=True), win.to(torch.int32)
+    return m.float().mean(dim=1, keepdim=True), win.to(torch.int32)
 
 
-def orl_global_fused_bwd_plain(idx: torch.Tensor, win: torch.Tensor,
-                               gb: torch.Tensor) -> torch.Tensor:
+def orl_global_fused_bwd_plain(idx: torch.Tensor, win: torch.Tensor, gb: torch.Tensor,
+                               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """dfeat (B, N, C) of ``orl_global_fused_fwd_plain`` for the output
     cotangent gb (B, 1, C): gb / N at each (point, channel)'s winning
-    neighbour, counted per source row (pallas_hs_fused.py:557-570)."""
+    neighbour, counted per source row (pallas_hs_fused.py:557-570).
+    ``dtype`` bf16 is the bf16 tier: each entry's gb * (1/N) is rounded to
+    bf16 before the source-row sum (``_scatter_rows``), and the sum, exact
+    in fp32, is rounded to bf16."""
     B, N, K = idx.shape
     C = win.shape[-1]
     counts = _scatter_rows(torch.stack([(win == k).float() for k in range(K)], 2), idx)
+    if dtype == torch.bfloat16:
+        return (counts * _bf16(_per_support(gb.reshape(B, 1, C), N, True))).to(dtype)
     return counts * (gb.reshape(B, 1, C) / N)
 
 
 # --------------------------------------------------------------------------- #
-# the differentiable fp32 ops: kernel wrappers and autograd
+# the differentiable ops: kernel wrappers and autograd
 # --------------------------------------------------------------------------- #
 
 def _empty(shape, like: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -407,24 +513,25 @@ def _inverse_lists(idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def hs_surface_fused_fwd(vertices: torch.Tensor, idx: torch.Tensor, dirs: torch.Tensor,
-                         support_num: int, out_channel: int):
+                         support_num: int, out_channel: int, exact: bool = True):
     """K2 with winners: see ``hs_surface_fused_fwd_plain``."""
     if _build.on_cpu(vertices, idx, dirs):
-        return hs_surface_fused_fwd_plain(vertices, idx, dirs, support_num, out_channel)
+        return hs_surface_fused_fwd_plain(vertices, idx, dirs, support_num, out_channel, exact)
     S, co = support_num, out_channel
     B, N, K = _check_fused(vertices, idx, dirs, S, co)
     out, win = _empty((B, N, co), vertices), _empty((B, N, S * co), vertices, torch.int32)
-    _build.launch("hs_surface_win", vertices, idx, dirs, out, win, B, N, K, S, co)
-    hs_surface_fused_fwd.launches += 1
+    _build.launch("hs_surface_win", vertices, idx, dirs, out, win, B, N, K, S, co, int(not exact))
+    _count(hs_surface_fused_fwd, not exact)
     return out, win
 
 
 def hs_surface_fused_bwd(vertices: torch.Tensor, idx: torch.Tensor, dirs: torch.Tensor,
                          win: torch.Tensor, gb: torch.Tensor, support_num: int,
-                         out_channel: int):
+                         out_channel: int, exact: bool = True):
     """K9: see ``hs_surface_fused_bwd_plain``."""
     if _build.on_cpu(vertices, idx, dirs, win, gb):
-        return hs_surface_fused_bwd_plain(vertices, idx, dirs, win, gb, support_num, out_channel)
+        return hs_surface_fused_bwd_plain(vertices, idx, dirs, win, gb, support_num, out_channel,
+                                          exact)
     S, co = support_num, out_channel
     B, N, K = _check_fused(vertices, idx, dirs, S, co)
     _build.check(win, "win", torch.int32, (B, N, S * co))
@@ -435,9 +542,17 @@ def hs_surface_fused_bwd(vertices: torch.Tensor, idx: torch.Tensor, dirs: torch.
     _build.launch("hs_surface_fused_bwd", vertices, idx, dirs, win, gb, rowptr, ent,
                   _empty((B, N, S * co), vertices), _empty((B, N, K, 3), vertices),
                   _empty((B, N, 3), vertices), _empty((parts, 3, S * co), vertices), dverts, red,
-                  B, N, K, S, co)
-    hs_surface_fused_bwd.launches += 1
+                  B, N, K, S, co, int(not exact))
+    _count(hs_surface_fused_bwd, not exact)
     return dverts, red
+
+
+def _check_feat(feature_map: torch.Tensor, B: int, N: int) -> bool:
+    """Check fp32 or bf16 features (B, N, Cin); True for bf16 (the bf16 tier)."""
+    fast = feature_map.dtype == torch.bfloat16
+    _build.check(feature_map, "feature_map", torch.bfloat16 if fast else torch.float32,
+                 (B, N, None))
+    return fast
 
 
 def hs_support_fused_fwd(feature_map: torch.Tensor, vertices: torch.Tensor, idx: torch.Tensor,
@@ -449,16 +564,17 @@ def hs_support_fused_fwd(feature_map: torch.Tensor, vertices: torch.Tensor, idx:
         return hs_support_fused_fwd_plain(*tensors, support_num, out_channel)
     S, co = support_num, out_channel
     B, N, K = _check_fused(vertices, idx, dirs, S, co)
-    _build.check(feature_map, "feature_map", torch.float32, (B, N, None))
+    fast = _check_feat(feature_map, B, N)
     cin = feature_map.shape[2]
     _build.check_rows(weights, "weights", (cin, S * co))
     _build.check(bias, "bias", torch.float32, (S * co,))
     proj, out = _empty((B, N, S * co), vertices), _empty((B, N, co), vertices)
     win = _empty((B, N, S * co), vertices, torch.int32)
-    _build.launch("hs_support_project", feature_map, 0, weights, weights.stride(0), bias, proj,
-                  B * N, cin, S * co)
-    _build.launch("hs_support_reduce_win", proj, vertices, idx, dirs, out, win, B, N, K, S, co)
-    hs_support_fused_fwd.launches += 1
+    _build.launch("hs_support_project", feature_map, int(fast), weights, weights.stride(0), bias,
+                  proj, B * N, cin, S * co)
+    _build.launch("hs_support_reduce_win", proj, vertices, idx, dirs, out, win, B, N, K, S, co,
+                  int(fast))
+    _count(hs_support_fused_fwd, fast)
     return out, win, proj
 
 
@@ -472,7 +588,7 @@ def hs_support_fused_bwd(feature_map: torch.Tensor, vertices: torch.Tensor, idx:
         return hs_support_fused_bwd_plain(*tensors, support_num, out_channel)
     S, co = support_num, out_channel
     B, N, K = _check_fused(vertices, idx, dirs, S, co)
-    _build.check(feature_map, "feature_map", torch.float32, (B, N, None))
+    fast = _check_feat(feature_map, B, N)
     cin, sc = feature_map.shape[2], S * co
     _build.check_rows(weights, "weights", (cin, sc))
     _build.check(win, "win", torch.int32, (B, N, sc))
@@ -480,15 +596,19 @@ def hs_support_fused_bwd(feature_map: torch.Tensor, vertices: torch.Tensor, idx:
     _build.check(gb, "gb", torch.float32, (B, N, co))
     lib = _build.load()
     rowptr, ent = _inverse_lists(idx)
-    dfeat, dverts = _empty((B, N, cin), vertices), _empty((B, N, 3), vertices)
+    dfeat, dverts = _empty((B, N, cin), vertices, feature_map.dtype), _empty((B, N, 3), vertices)
     dw, red = _empty((cin, sc), vertices), _empty((4, sc), vertices)
+    # the bf16 tier's per-(query, k) rows of dfeat and bf16 W^T (scratch)
+    dg, wt = ((_empty((B, N, K, cin), vertices, torch.bfloat16),
+               _empty((sc, cin), vertices, torch.bfloat16)) if fast else (None, None))
     _build.launch("hs_support_fused_bwd", feature_map, weights, weights.stride(0), vertices, idx,
                   dirs, win, proj, gb, rowptr, ent, *(_empty((B, N, sc), vertices) for _ in "zps"),
                   _empty((B, N, K, 3), vertices), _empty((B, N, 3), vertices),
                   _empty((lib.hs_fused_bwd_parts(B, N), 4, sc), vertices),
                   _empty((lib.hs_support_fused_dw_parts(B * N), cin, sc), vertices),
-                  dfeat, dverts, dw, red, B, N, K, cin, S, co)
-    hs_support_fused_bwd.launches += 1
+                  0 if dg is None else dg, 0 if wt is None else wt,
+                  dfeat, dverts, dw, red, B, N, K, cin, S, co, int(fast))
+    _count(hs_support_fused_bwd, fast)
     return dfeat, dverts, dw, red[3], red[:3]
 
 
@@ -496,47 +616,52 @@ def orl_global_fused_fwd(feature: torch.Tensor, idx: torch.Tensor):
     """K4 with winners: see ``orl_global_fused_fwd_plain``."""
     if _build.on_cpu(feature, idx):
         return orl_global_fused_fwd_plain(feature, idx)
-    _build.check(feature, "feature", torch.float32, (None, None, None))
+    fast = feature.dtype == torch.bfloat16
+    _build.check(feature, "feature", torch.bfloat16 if fast else torch.float32,
+                 (None, None, None))
     B, N, C = feature.shape
     K = _check_idx(idx, B, N)
     if K > 32:
         raise ValueError(f"the fused backwards take K <= 32, got K={K}")
     partial = _empty((B, _build.load().hs_orl_tiles(N), C), feature)
     out, win = _empty((B, 1, C), feature), _empty((B, N, C), feature, torch.int32)
-    _build.launch("hs_orl_win", feature, idx, partial, out, win, B, N, K, C)
-    orl_global_fused_fwd.launches += 1
+    _build.launch("hs_orl_win", feature, int(fast), idx, partial, out, win, B, N, K, C)
+    _count(orl_global_fused_fwd, fast)
     return out, win
 
 
-def orl_global_fused_bwd(idx: torch.Tensor, win: torch.Tensor, gb: torch.Tensor) -> torch.Tensor:
-    """K10: see ``orl_global_fused_bwd_plain``."""
+def orl_global_fused_bwd(idx: torch.Tensor, win: torch.Tensor, gb: torch.Tensor,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K10: see ``orl_global_fused_bwd_plain``; ``dtype`` is the features'."""
     if _build.on_cpu(idx, win, gb):
-        return orl_global_fused_bwd_plain(idx, win, gb)
+        return orl_global_fused_bwd_plain(idx, win, gb, dtype)
     B, N, K = idx.shape
     _build.check(idx, "idx", torch.int32, (B, N, K))
     _build.check(win, "win", torch.int32, (B, N, None))
     C = win.shape[2]
     _build.check(gb, "gb", torch.float32, (B, 1, C))
+    fast = dtype == torch.bfloat16
     rowptr, ent = _inverse_lists(idx)
-    dfeat = _empty((B, N, C), win)
-    _build.launch("hs_orl_bwd", idx, win, gb, rowptr, ent, dfeat, B, N, K, C)
-    orl_global_fused_bwd.launches += 1
+    dfeat = _empty((B, N, C), win, dtype)
+    _build.launch("hs_orl_bwd", idx, win, gb, rowptr, ent, dfeat, B, N, K, C, int(fast))
+    _count(orl_global_fused_bwd, fast)
     return dfeat
 
 
 for _wrapper in (hs_surface_fused_fwd, hs_surface_fused_bwd, hs_support_fused_fwd,
                  hs_support_fused_bwd, orl_global_fused_fwd, orl_global_fused_bwd):
     _wrapper.launches = 0
+    _wrapper.bf16_launches = 0
 
 
 class HSSurfaceFused(torch.autograd.Function):
-    """``hs_surface_fused`` differentiable in vertices and dirs (fp32)."""
+    """``hs_surface_fused`` differentiable in vertices and dirs."""
 
     @staticmethod
-    def forward(ctx, vertices, idx, dirs, support_num: int, out_channel: int):
-        out, win = hs_surface_fused_fwd(vertices, idx, dirs, support_num, out_channel)
+    def forward(ctx, vertices, idx, dirs, support_num: int, out_channel: int, exact: bool = True):
+        out, win = hs_surface_fused_fwd(vertices, idx, dirs, support_num, out_channel, exact)
         ctx.save_for_backward(vertices, idx, dirs, win)
-        ctx.sizes = (support_num, out_channel)
+        ctx.sizes = (support_num, out_channel, exact)
         return out
 
     @staticmethod
@@ -545,12 +670,12 @@ class HSSurfaceFused(torch.autograd.Function):
         dverts, dd = hs_surface_fused_bwd(vertices, idx, dirs, win, gout.contiguous(),
                                           *ctx.sizes)
         need = ctx.needs_input_grad
-        return dverts if need[0] else None, None, dd if need[2] else None, None, None
+        return dverts if need[0] else None, None, dd if need[2] else None, None, None, None
 
 
 class HSSupportFused(torch.autograd.Function):
     """``hs_support_fused`` differentiable in feature_map, vertices, weights,
-    bias and dirs (fp32)."""
+    bias and dirs; dfeat in the features' dtype."""
 
     @staticmethod
     def forward(ctx, feature_map, vertices, idx, weights, bias, dirs, support_num: int,
@@ -570,16 +695,17 @@ class HSSupportFused(torch.autograd.Function):
 
 
 class ORLGlobalFused(torch.autograd.Function):
-    """``orl_global_fused`` differentiable in feature (fp32)."""
+    """``orl_global_fused`` differentiable in feature; dfeat in its dtype."""
 
     @staticmethod
     def forward(ctx, feature, idx):
         out, win = orl_global_fused_fwd(feature, idx)
         ctx.save_for_backward(idx, win)
+        ctx.dtype = feature.dtype
         return out
 
     @staticmethod
     def backward(ctx, gout):
         idx, win = ctx.saved_tensors
-        dfeat = orl_global_fused_bwd(idx, win, gout.contiguous())
+        dfeat = orl_global_fused_bwd(idx, win, gout.contiguous(), ctx.dtype)
         return dfeat if ctx.needs_input_grad[0] else None, None

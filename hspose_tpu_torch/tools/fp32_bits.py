@@ -9,7 +9,9 @@ The first form imports ``hspose_tpu_torch`` from DIR (a checkout, such as a
 
 * the output of every fp32 kernel at each shape of the B=24, N=1028 serving
   forward (KNN, surface, support, ORL) and of the B=16 train step (K12, K15,
-  K11, K13), with each kernel's time (CUDA events, mean of 20 launches after
+  K11, K13; K11 without winner values and K14; the fused ops' forwards with
+  winners and their backwards K9, K8, K10 at conv_0's and conv_2..conv_4's
+  shapes), with each kernel's time (CUDA events, mean of 20 launches after
   3, summed over the calls of one pass);
 * the fp32 serving forward's pose outputs at B=24, N=1028;
 * the total loss of three fp32 train steps at B=16, N=1028.
@@ -126,6 +128,42 @@ def collect(tree: str) -> dict:
             out[f"hs_support_fwd conv_{layer}"] = fwd
             out[f"hs_support_bwd conv_{layer}"] = _timed(
                 times, "hs_support_bwd", lambda: cuda_hs.hs_support_bwd(*bargs))
+            # bwd_store=False: K11 without winner values, K14 on its winners
+            novals = _timed(times, "hs_support_fwd_novals", lambda: cuda_hs.hs_support_fwd(
+                g, rf, w[:, co:], b[co:], d, S, co, store=False))
+            out[f"hs_support_fwd_novals conv_{layer}"] = novals
+            out[f"hs_support_bwd_recompute conv_{layer}"] = _timed(
+                times, "hs_support_bwd_recompute", lambda: cuda_hs.hs_support_bwd_recompute(
+                    g, rf, w[:, co:], b[co:], d, novals[1], gb, S, co))
+
+        # train_v4_small: the fused ops' forwards with winners and backwards K9, K8, K10
+        verts = normal(B, N, 3, scale=0.2)
+        vidx, dirs, gb = knn_indices_cuda(verts, 20), unit(S * 128), normal(B, N, 128)
+        o, win = _timed(times, "hs_surface_fused_fwd",
+                        lambda: f.hs_surface_fused_fwd(verts, vidx, dirs, S, 128))
+        out["hs_surface_fused_fwd"] = (o, win)
+        out["hs_surface_fused_bwd"] = _timed(
+            times, "hs_surface_fused_bwd",
+            lambda: f.hs_surface_fused_bwd(verts, vidx, dirs, win, gb, S, 128))
+        for layer, cin, co, n, k in [(2, 128, 256, N // 4, 20), (3, 256, 256, N // 4, 20),
+                                     (4, 256, 512, N // 16, 8)]:
+            feat, verts = torch.relu(normal(B, n, cin)), normal(B, n, 3, scale=0.2)
+            kidx = knn_indices_cuda(feat, k)
+            stdv = 1.0 / (co * (S + 1)) ** 0.5
+            w, b = normal(cin, (S + 1) * co, scale=stdv), normal((S + 1) * co, scale=stdv)
+            d, gb = unit(S * co), normal(B, n, co)
+            fwd = _timed(times, "hs_support_fused_fwd", lambda: f.hs_support_fused_fwd(
+                feat, verts, kidx, w[:, co:], b[co:], d, S, co))
+            out[f"hs_support_fused_fwd conv_{layer}"] = fwd
+            out[f"hs_support_fused_bwd conv_{layer}"] = _timed(
+                times, "hs_support_fused_bwd", lambda: f.hs_support_fused_bwd(
+                    feat, verts, kidx, w[:, co:], d, fwd[1], fwd[2], gb, S, co))
+            ofeat, oidx, ogb = normal(B, n, co), knn_indices_cuda(verts, k), normal(B, 1, co)
+            ofwd = _timed(times, "orl_global_fused_fwd",
+                          lambda: f.orl_global_fused_fwd(ofeat, oidx))
+            out[f"orl_global_fused_fwd conv_{layer}"] = ofwd
+            out[f"orl_global_fused_bwd conv_{layer}"] = _timed(
+                times, "orl_global_fused_bwd", lambda: f.orl_global_fused_bwd(oidx, ofwd[1], ogb))
 
         # the serving forward
         torch.manual_seed(0)

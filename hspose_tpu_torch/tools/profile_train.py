@@ -1,9 +1,9 @@
 """Where a train step's time goes on one CUDA card, per tier.
 
-    python hspose_tpu_torch/tools/profile_train.py [--tiers float32 bfloat16 v4] [--out FILE.json]
+    python hspose_tpu_torch/tools/profile_train.py [--tiers float32 bfloat16 v4 bf16v4] [--out FILE.json]
 
-A tier is a ``compute_dtype``, or ``v4``: fp32 with ``bwd_store=False`` and
-``train_v4_small=True``.  For each tier: ``build_train_step`` at B=16, N=1028 with seeded random
+A tier is a ``compute_dtype``, or ``v4`` / ``bf16v4``: fp32 / bf16 with
+``bwd_store=False`` and ``train_v4_small=True``.  For each tier: ``build_train_step`` at B=16, N=1028 with seeded random
 weights and 3 warm-up steps; then every tier is timed without the profiler
 (best of 3 windows of 5 steps, the tiers in turn), and only then is each
 profiled over 5 steps (CPU and CUDA activities): launches after a profiler
@@ -39,8 +39,9 @@ def prepare(dtype: str):
     from hspose_tpu_torch.models.hspose import build_model
     from hspose_tpu_torch.utils.synthetic import synthetic_train_batch
 
-    cfg = HSPoseConfig(model=ModelConfig(bwd_store=False, train_v4_small=True) if dtype == "v4"
-                       else ModelConfig(compute_dtype=dtype))
+    flags = {"v4": ("float32", False, True), "bf16v4": ("bfloat16", False, True)}
+    dt, store, v4 = flags.get(dtype, (dtype, True, False))
+    cfg = HSPoseConfig(model=ModelConfig(compute_dtype=dt, bwd_store=store, train_v4_small=v4))
     torch.manual_seed(0)
     model = build_model(cfg.model, device="cuda", train_heads=True)
     step = build_train_step(cfg, model, torch.Generator(device="cuda").manual_seed(0))

@@ -327,12 +327,13 @@ def test_surface_function_returns_no_rf_grad_unless_asked(rng):
 
 
 @pytest.mark.parametrize("name", ["hs_surface_fused", "hs_support_fused", "orl_global_fused"])
-def test_serving_wrappers_refuse_inputs_that_require_grad(rng, name):
-    """The bf16 tier of the serving ops has no backward (the exact=False
-    branches of K8-K10 are not ported): with grad on, an input that requires
-    grad raises on either device instead of returning a result cut from the
-    graph; under no_grad the same call runs.  (The fp32 tier is
-    differentiable: tests/test_torch_port_train_v4.py.)"""
+def test_serving_wrappers_refuse_inputs_that_require_grad(rng, monkeypatch, name):
+    """Once refused, a bf16 call of the serving ops with grad on now takes
+    the autograd route (the exact=False branches of K2-K4 with winners and
+    K8-K10): on the CPU it returns finite grads in the input's dtype, one
+    winner-recording forward and one backward; under no_grad the same call
+    serves, through neither, with the same output.
+    (tests/test_torch_port_train_v4_bf16.py holds both to the JAX package.)"""
     N, K, cin, s, co = 30, 4, 8, 2, 4
     verts = t(rng.normal(size=(1, N, 3)).astype(np.float32))
     idx = knn.knn_indices(verts, K)
@@ -344,8 +345,19 @@ def test_serving_wrappers_refuse_inputs_that_require_grad(rng, name):
     args, leaf = {"hs_surface_fused": ((verts, idx, d, s, co, False), d),
                   "hs_support_fused": ((feat, verts, idx, w, b, d, s, co), feat),
                   "orl_global_fused": ((feat, idx), feat)}[name]
+    calls = []
+    for part in ("fwd", "bwd"):
+        real = getattr(cuda_hs_fused, f"{name}_{part}")
+        monkeypatch.setattr(cuda_hs_fused, f"{name}_{part}",
+                            lambda *a, _real=real, _part=part, **kw: calls.append(_part)
+                            or _real(*a, **kw))
     leaf.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        fn(*args)
+    out = fn(*args)
+    out.sum().backward()
+    assert calls == ["fwd", "bwd"]
+    assert leaf.grad.dtype == leaf.dtype and torch.isfinite(leaf.grad.float()).all()
+    calls.clear()
     with torch.no_grad():
-        assert torch.isfinite(fn(*args)).all()
+        served = fn(*args)
+    assert calls == [] and torch.isfinite(served).all()
+    assert torch.equal(served, out.detach())

@@ -350,8 +350,16 @@ def _terms(total, losses):
 
 
 def test_bf16_train_step_lies_within_the_jax_spread(kernel_route, monkeypatch):
+    check_bf16_step_within_jax_spread(monkeypatch)
+
+
+def check_bf16_step_within_jax_spread(monkeypatch, **flags):
+    """The port's bf16 train forward and backward against the JAX step's own
+    spread (module docstring), on the kernel route; ``flags``
+    (``bwd_store``, ``train_v4_small``) go to both packages' model config,
+    the port's fp32 step included."""
     cfg = default_config()
-    jcfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+    jcfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="bfloat16", **flags))
     jmodel = j_build_model(jcfg)
     rng = np.random.default_rng(11)
     variables = jax.jit(lambda rngs, pts, obj: jmodel.init(rngs, pts, obj, True))(
@@ -385,7 +393,7 @@ def test_bf16_train_step_lies_within_the_jax_spread(kernel_route, monkeypatch):
                 {k: np.asarray(v, np.float64) for k, v in _flat(grads).items()})
 
     def port_run(dtype):
-        tier = ModelConfig(compute_dtype=dtype)
+        tier = ModelConfig(compute_dtype=dtype, **flags)
         model = build_model(tier, device="cpu", train_heads=True)
         load_jax_params(model, params, stats)
         model.train()

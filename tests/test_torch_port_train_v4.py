@@ -158,15 +158,31 @@ def test_support_recompute_backward_matches_pallas_and_k13(rng, dup):
 
 
 def test_recompute_route_is_fp32_only(rng):
-    g, rf, w, b, d, _ = _support_inputs(rng, 1, 10, 4, 8, 2, 4, False)
+    """Once fp32 only, the recompute route takes the bf16 tier too: a bf16
+    ``store=False`` call returns finite cotangents in its operands' dtypes,
+    and a bf16 model with either flag or both builds and takes a train
+    forward and backward on the CPU (tests/test_torch_port_train_v4_bf16.py
+    holds them to the JAX package)."""
+    g, rf, w, b, d, cot = _support_inputs(rng, 1, 10, 4, 8, 2, 4, False)
     ts = [t(a) for a in (g, rf, w, b, d)]
     for i in (0, 1, 4):
         ts[i] = ts[i].to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="K14"):
-        cuda_hs.hs_support_reduce(*ts, 2, 4, store=False)
-    for kw in ({"bwd_store": False}, {"train_v4_small": True}):
-        with pytest.raises(NotImplementedError, match="exact=False"):
-            build_model(ModelConfig(compute_dtype="bfloat16", **kw), device="cpu")
+    for x in ts:
+        x.requires_grad_(True)
+    (cuda_hs.hs_support_reduce(*ts, 2, 4, store=False) * t(cot)).sum().backward()
+    assert [x.grad.dtype for x in ts] == [x.dtype for x in ts]
+    assert all(torch.isfinite(x.grad.float()).all() for x in ts)
+    batch = to_device(synthetic_train_batch(2, N, seed=2), "cpu")
+    for kw in ({"bwd_store": False}, {"train_v4_small": True},
+               {"bwd_store": False, "train_v4_small": True}):
+        cfg = ModelConfig(compute_dtype="bfloat16", **kw)
+        torch.manual_seed(0)
+        model = build_model(cfg, device="cpu", train_heads=True).train()
+        total, _ = train_forward(HSPoseConfig(model=cfg), model, batch,
+                                 draws=draw_train(torch.Generator().manual_seed(0), 2, N))
+        total.backward()
+        assert torch.isfinite(total)
+        assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
 
 
 # --------------------------------------------------------------------------- #
