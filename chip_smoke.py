@@ -92,18 +92,43 @@ not 0:
    at (16, 1028) with its exact launch counts (``bwd_store=False``: 4 K11
    without winner values + 4 K14, no K13; ``train_v4_small=True``: 1 K11 +
    1 K13 at conv_1 and 3 + 3 K3/K8 and K4/K10), finite losses and
-   gradients.
+   gradients;
+17. chamfer kernels: K16 (minimum), K17 (minimum and argmin) and K18 (the
+   gradient for one cloud) against their plain versions at the recon tier's
+   shape (24, 1028) x (24, 1028), at (24, 1028) x (24, 700) and on a cloud
+   with duplicated points: distances within 1e-5 of the largest distance or
+   squared norm of a query point (the scale of the expansion's rounding,
+   all there is where the clouds coincide), argmins
+   equal on >= 99.9% and within 1e-6 in exact distance where not, gradients
+   within 1e-4 of the largest, K18 twice bit for bit; then one autograd
+   call of ``chamfer_distance`` (2 K17, 2 K18);
+18. eval harness: ``batched_pose_inference`` on in-memory records (3
+   batches of 24 crops of 1028 points; no PNG, cv2 or matplotlib) in fp32,
+   bf16, and fp32 with ``eval.recon`` on a model with the train heads:
+   exact launch counts per batch (recon: 2 K16, no K17/K18), the fp32 poses
+   bit for bit those of ``eval_forward`` + ``generate_RT`` on the same crops
+   and pool samples, chamfer and EMD finite and positive, then
+   ``compute_degree_cm_mAP``; crops/s over 20 batches beside the forward
+   alone's (phases 5 and 7), and the recon tier's chamfer and EMD ms per
+   batch;
+19. K5: the exact KNN above N = 2048 (the JAX package's streamed kernel)
+   against its plain version at N = 2056 and 4096 (xyz k=20 and k=4,
+   features k=20 in fp32 and bf16), with times, and one fp32 harness batch
+   at ``data.num_points=2056``: 3 streamed and 6 other KNN launches.
 
 Each kernel's ``bound_ms`` is the least time the card could take for its
 calls: per call the larger of the bytes it must move (each input read once,
 each output written once) over 3.35 TB/s and its multiply-adds (2 operations
 each) over the peak rate of their operand type (67 TFLOP/s fp32 outside the
 tensor cores, 989 TFLOP/s bf16), summed over the calls of one pass;
-``bound_by`` names the larger part.  No single PyTorch call computes any of
-these functions (the backwards are winner-routed scatters), so
-``library_ms`` is null throughout.  ``launches`` is each kernel's count in
-the main run of its path: phases 4, 7, 9, 11, 13 and 15, and for K2 with
-winners and K9 the autograd call of phases 12 and 14.
+``bound_by`` names the larger part.  K16's and K17's ``library_ms`` is
+``torch.cdist(a, b).pow(2).min(-1)`` over both directions, a reference the
+port never calls; no single PyTorch call computes the other functions (the
+backwards are winner- or argmin-routed scatters), so theirs is null.
+``launches`` is each kernel's count in the main run of its path: phases 4,
+7, 9, 11, 13 and 15, for K2 with winners and K9 the autograd call of phases
+12 and 14, for K16 the recon harness run, for K17 and K18 the autograd call
+of phase 17, and for K5 the N = 2056 harness batch.
 
 The line before the last is one JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
@@ -362,10 +387,15 @@ def build_seeded_model(device, dtype: str = "float32"):
 
 def counters() -> dict:
     """Kernel name -> (wrapper, attribute holding its launch count)."""
+    from hspose_tpu_torch.ops import chamfer as ch
     from hspose_tpu_torch.ops import cuda_hs_fused as f
     from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda as knn
 
-    return {"knn": (knn, "launches"), "hs_surface": (f.hs_surface_fused, "launches"),
+    return {"knn": (knn, "launches"), "knn_streamed": (knn, "streamed_launches"),
+            "chamfer_min": (ch.chamfer_min_cuda, "launches"),
+            "chamfer_min_argmin": (ch.chamfer_min_argmin_cuda, "launches"),
+            "chamfer_grad": (ch.chamfer_grad_cuda, "launches"),
+            "hs_surface": (f.hs_surface_fused, "launches"),
             "hs_support": (f.hs_support_fused, "launches"),
             "orl_global": (f.orl_global_fused, "launches"),
             "knn_packed": (knn, "packed_launches"),
@@ -1115,6 +1145,330 @@ def phase_train_flags(tiers=("recompute", "v4only", "bf16recompute", "bf16v4only
         if bad:
             raise AssertionError(f"{tier}: non-finite {bad}")
 
+# K16/K17 distances: max |kernel - plain| <= CHAMFER_REL * the largest plain
+# distance or squared norm of a query point (|a|^2 + |b|^2 - 2 a.b rounds
+# relative to the norms, and where the clouds coincide that is all there is)
+CHAMFER_REL = 1e-5
+ARGMIN_AGREE = 0.999  # K17: share of argmins equal to the plain version's
+ARGMIN_GAP = 1e-6  # K17: where they differ, the exact distances at the two indices
+HARNESS_BATCHES = 3  # the gated run
+# the timed run: the harness leaves its first batch out of the time and
+# fetches a batch after submitting the next, so over 3 batches it times the
+# third and the tail of the second only
+HARNESS_RATE_BATCHES = 20
+N_LARGE = 2056  # the smallest padded N > 2048 at which the JAX package streams (K5)
+
+
+def chamfer_clouds(rng, m: int, duplicates: bool = False):
+    """Two (B, N, 3) / (B, m, 3) clouds; with ``duplicates`` b holds points of
+    a, each twice or more (exact zero distances and ties)."""
+    a = cloud(rng, N)
+    if not duplicates:
+        return a, (cloud(rng, m) + 0.05).contiguous()
+    pick = torch.from_numpy(rng.integers(0, N // 2, (B, m))).to(DEVICE)
+    return a, torch.gather(a, 1, pick[..., None].expand(B, m, 3)).contiguous()
+
+
+def library_min_ms(a, b) -> float:
+    """One PyTorch expression for a direction's minimum and argmin, timed."""
+    return cuda_ms(lambda: torch.cdist(a, b).pow(2).min(-1))
+
+
+def phase_chamfer() -> tuple[dict, dict]:
+    """K16, K17 and K18 against their plain versions at the recon tier's
+    shape (B, N) x (B, N), at (B, N) x (B, 700) and on a cloud with
+    duplicated points: distances within CHAMFER_REL of the largest distance
+    or query norm, argmins
+    equal on >= ARGMIN_AGREE and within ARGMIN_GAP in exact distance where
+    not, gradients within TOL_REL of the largest, K18 twice bit for bit.
+    Records the recon shape's two directions per kernel, with the time of
+    ``torch.cdist(a, b).pow(2).min(-1)`` as K16's and K17's library call.
+    Then one autograd call of ``chamfer_distance``, K17's and K18's carrier
+    (the harness runs K16 only): returns (records, its launches)."""
+    from hspose_tpu_torch.ops import chamfer as ch
+
+    phase = "chamfer"
+    rng = np.random.default_rng(SEED + 7)
+    rec = {}
+    for label, m, dup in (("recon", N, False), ("uneven", 700, False), ("duplicates", N, True)):
+        a, b = chamfer_clouds(rng, m, dup)
+        mains = label == "recon"
+        args = {}
+        for x, y, what in ((a, b, "a->b"), (b, a, "b->a")):
+            d16 = ch.chamfer_min_cuda(x, y)
+            d17, i17 = ch.chamfer_min_argmin_cuda(x, y)
+            want_d, want_i = ch.chamfer_min_argmin(x, y)
+            torch.cuda.synchronize()
+            scale = max(want_d.abs().max().item(), (x * x).sum(-1).max().item())
+            errs = [(d - want_d).abs().max().item() for d in (d16, d17)]
+            exact = ((x.double()[:, :, None] - y.double()[:, None]) ** 2).sum(-1)
+            agree = (i17 == want_i).double().mean().item()
+            at = [exact.gather(2, i.long()[..., None]) for i in (i17, want_i)]
+            gap = (at[0] - at[1]).abs().max().item()
+            log(phase, f"{label} ({B}, {x.shape[1]}) -> ({B}, {y.shape[1]}) {what}: K16 max abs "
+                       f"err {errs[0]:.3e}, K17 {errs[1]:.3e} (bound {CHAMFER_REL * scale:.3e}); "
+                       f"argmin agreement {agree:.6f}, largest exact-distance gap {gap:.3e}")
+            if max(errs) > CHAMFER_REL * scale or agree < ARGMIN_AGREE or gap > ARGMIN_GAP:
+                raise AssertionError(f"chamfer {label} {what}: errors {errs}, agreement {agree}, "
+                                     f"gap {gap}")
+            args[what] = (d17, i17)
+            if mains:
+                macs = B * x.shape[1] * y.shape[1] * 3  # the inner product of each pair
+                lib = library_min_ms(x, y)
+                record(rec, "chamfer_min", errs[0], cuda_ms(lambda: ch.chamfer_min_cuda(x, y)),
+                       cuda_ms(lambda: ch.chamfer_min(x, y)),
+                       bound([x, y, d16], macs, torch.float32))
+                record(rec, "chamfer_min_argmin", errs[1],
+                       cuda_ms(lambda: ch.chamfer_min_argmin_cuda(x, y)),
+                       cuda_ms(lambda: ch.chamfer_min_argmin(x, y)),
+                       bound([x, y, d17, i17], macs, torch.float32))
+                for name in ("chamfer_min", "chamfer_min_argmin"):
+                    rec[name]["library_ms"] = (rec[name]["library_ms"] or 0.0) + lib
+        ia, ib = args["a->b"][1], args["b->a"][1]
+        gda, gdb = normal(rng, B, N), normal(rng, B, m)
+        for x, y, ix, iy, gx, gy, what in ((a, b, ia, ib, gda, gdb, "ga"),
+                                           (b, a, ib, ia, gdb, gda, "gb")):
+            got = ch.chamfer_grad_cuda(x, y, ix, iy, gx, gy)
+            again = ch.chamfer_grad_cuda(x, y, ix, iy, gx, gy)
+            want = ch.chamfer_grad(x, y, ix, iy, gx, gy)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"chamfer_grad {label} {what}: two launches differ")
+            ms = cuda_ms(lambda: ch.chamfer_grad_cuda(x, y, ix, iy, gx, gy)) if mains else 0.0
+            pms = cuda_ms(lambda: ch.chamfer_grad(x, y, ix, iy, gx, gy)) if mains else 0.0
+            compare_cotangents(phase, rec if mains else {}, "chamfer_grad", f"{label} {what} "
+                               "(twice, same bits)", [(what, got, want)], ms, pms,
+                               [x, y, ix, iy, gx, gy], 0)
+
+    # the differentiable call: K17 twice, then K18 once per cloud
+    a, b = chamfer_clouds(rng, N)
+    counts = counters()
+    reset_counts(counts)
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    da, db = ch.chamfer_distance(a, b)
+    gda, gdb = normal(rng, B, N), normal(rng, B, N)
+    torch.autograd.backward((da, db), (gda, gdb))
+    torch.cuda.synchronize()
+    launches = read_counts(counts)
+    check_counts(launches, {"chamfer_min_argmin": 2, "chamfer_grad": 2}, 1, "autograd call")
+    with torch.no_grad():
+        _, ia = ch.chamfer_min_argmin(a, b)
+        _, ib = ch.chamfer_min_argmin(b, a)
+        want = ch.chamfer_grad(a.detach(), b.detach(), ia, ib, gda, gdb)
+    err = (a.grad - want).abs().max().item()
+    log(phase, f"autograd chamfer_distance ({B}, {N}) x ({B}, {N}): launches "
+               f"{ {k: v for k, v in launches.items() if v} }, ga against the plain VJP {err:.3e} "
+               f"(bound {TOL_REL * want.abs().max().item():.3e})")
+    if not err <= TOL_REL * want.abs().max().item():
+        raise AssertionError(f"autograd chamfer_distance: ga error {err}")
+    return rec, launches
+
+
+def harness_records(rng, n_pts: int, batches: int) -> list:
+    """In-memory eval records: ``batches`` * B crops of n_pts points, four
+    detections per image, with categories, symmetry, mean shapes and gt."""
+    from hspose_tpu_torch.geometry.symmetry import CAT_NAMES, mean_shape_mm, sym_info
+
+    records = []
+    for _ in range(batches * B // 4):
+        cat = rng.integers(0, 6, 4)
+        gt_RTs = np.tile(np.eye(4), (4, 1, 1))
+        gt_RTs[:, :3, :3] = np.linalg.qr(rng.normal(size=(4, 3, 3)))[0]
+        gt_RTs[:, :3, 3] = rng.normal(scale=0.1, size=(4, 3)) + [0.0, 0.0, 0.7]
+        pcl = (rng.normal(scale=0.05, size=(4, n_pts, 3)) + gt_RTs[:, None, :3, 3])
+        data = {"cat_id_0base": cat.astype(np.int32),
+                "sym_info": np.stack([sym_info(CAT_NAMES[c]) for c in cat]).astype(np.float32),
+                "mean_shape": np.stack([mean_shape_mm(CAT_NAMES[c]) for c in cat]) / 1000.0,
+                "pcl_in": pcl.astype(np.float32)}
+        det = {"pred_class_ids": cat + 1, "pred_scores": rng.uniform(0.5, 1.0, 4)}
+        gts = {"gt_class_ids": cat + 1, "gt_RTs": gt_RTs,
+               "gt_scales": rng.uniform(0.05, 0.3, (4, 3)), "gt_handle_visibility": np.ones(4)}
+        records.append((data, det, gts))
+    return records
+
+
+def harness_config(dtype: str = "float32", recon: bool = False, n_pts: int = N):
+    from hspose_tpu_torch.config import DataConfig, EvalConfig, HSPoseConfig, ModelConfig
+
+    return HSPoseConfig(data=DataConfig(num_points=n_pts), model=ModelConfig(compute_dtype=dtype),
+                        eval=EvalConfig(eval_batch=B, recon=recon))
+
+
+def run_harness(cfg, model, records, seed: int):
+    """``batched_pose_inference`` with every counter set to 0 just before:
+    (pred_results, crops/s, launches)."""
+    from hspose_tpu_torch.evaluation.evaluate import batched_pose_inference
+
+    counts = counters()
+    reset_counts(counts)
+    preds, rate = batched_pose_inference(cfg, model, copy.deepcopy(records), seed)
+    torch.cuda.synchronize()
+    return preds, rate, read_counts(counts)
+
+
+def phase_harness(smi: str, rates: dict) -> dict:
+    """The eval harness on in-memory records, HARNESS_BATCHES batches of
+    (B, N): fp32, bf16, and fp32 with ``eval.recon`` on a model with the
+    train heads (the same backbone and pose-head weights).  Gates: exact
+    launch counts per batch (with recon, K16 twice and no K17/K18); the fp32
+    poses bit for bit those of ``eval_forward`` + ``generate_RT`` on the same
+    crops and pool samples, and the recon run's poses those of the fp32 run;
+    chamfer and EMD finite and positive; then ``compute_degree_cm_mAP``.
+    Prints the harness's crops/s over HARNESS_RATE_BATCHES batches beside
+    the forward alone's (``rates``) and the recon tier's chamfer and EMD ms
+    per batch.  Returns the recon
+    run's launches."""
+    from hspose_tpu_torch.evaluation.evaluate import report_lines
+    from hspose_tpu_torch.evaluation.metrics import compute_degree_cm_mAP
+    from hspose_tpu_torch.geometry.rotations import generate_RT
+    from hspose_tpu_torch.geometry.symmetry import SYNSET_NAMES
+    from hspose_tpu_torch.models.hspose import draw_pool_samples, eval_forward
+    from hspose_tpu_torch.ops.chamfer import chamfer_distance
+    from hspose_tpu_torch.ops.emd import emd_distance
+
+    phase, seed = "harness", SEED + 8
+    records = harness_records(np.random.default_rng(SEED + 9), N, HARNESS_BATCHES)
+    rate_records = harness_records(np.random.default_rng(SEED + 12), N, HARNESS_RATE_BATCHES)
+    model = build_seeded_model(DEVICE)
+    preds = {}
+    for tier, dtype, recon in (("fp32", "float32", False), ("bf16", "bfloat16", False),
+                               ("fp32 recon", "float32", True)):
+        cfg = harness_config(dtype, recon)
+        if recon:
+            m = build_train_model(DEVICE, cfg.model).eval()
+            missing = m.load_state_dict(model.state_dict(), strict=False).missing_keys
+            if any(".".join(k.split(".")[:2]) not in ("face_recon.conv1d_block",
+                                                      "face_recon.recon_head",
+                                                      "face_recon.face_head") for k in missing):
+                raise AssertionError(f"the recon model lacks backbone weights: {missing}")
+        else:
+            m = model if dtype == "float32" else build_seeded_model(DEVICE, dtype)
+        run_harness(cfg, m, records, seed)  # warm: the first call of each tier builds caches
+        preds[tier], _, launches = run_harness(cfg, m, records, seed)
+        per_batch = dict(SERVE_LAUNCHES[dtype], **({"chamfer_min": 2} if recon else {}))
+        log(phase, f"{tier}: {HARNESS_BATCHES} batches of ({B}, {N}, 3), launches "
+                   f"{ {k: v for k, v in launches.items() if v} }")
+        check_counts(launches, per_batch, HARNESS_BATCHES, f"{tier} harness batch")
+        _, rate, _ = run_harness(cfg, m, rate_records, seed)
+        log(phase, f"{tier}: {rate} crops/s over {HARNESS_RATE_BATCHES} batches of ({B}, {N}, 3) "
+                   f"(forward alone {rates[dtype]:.1f} crops/s) on {smi}")
+        if recon:
+            recon_launches = launches
+
+    def flat(results, key):
+        return np.concatenate([r[key] for r in results])
+
+    # the fp32 harness against the forward alone, on the same crops and samples
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    crops = np.concatenate([d["pcl_in"] for d, _, _ in records])
+    obj = np.concatenate([d["cat_id_0base"] for d, _, _ in records])
+    sym = np.concatenate([d["sym_info"] for d, _, _ in records])
+    mean = np.concatenate([d["mean_shape"] for d, _, _ in records]).astype(np.float32)
+    RTs, scales = [], []
+    for i in range(HARNESS_BATCHES):
+        rows = slice(i * B, (i + 1) * B)
+        pc = torch.from_numpy(crops[rows]).to(DEVICE)
+        out = eval_forward(model, pc, torch.from_numpy(obj[rows]).to(DEVICE),
+                           pool_samples=draw_pool_samples(N, gen, DEVICE))
+        RTs.append(generate_RT(out.p_green_R, out.p_red_R, out.f_green_R, out.f_red_R,
+                               out.pred_T, torch.from_numpy(sym[rows]).to(DEVICE)).cpu())
+        scales.append((out.pred_s + torch.from_numpy(mean[rows]).to(DEVICE)).cpu())
+    same = {"fp32 RT": np.array_equal(flat(preds["fp32"], "pred_RTs"), torch.cat(RTs).double()),
+            "fp32 scales": np.array_equal(flat(preds["fp32"], "pred_scales"),
+                                          torch.cat(scales).double()),
+            "recon RT": np.array_equal(flat(preds["fp32 recon"], "pred_RTs"),
+                                       flat(preds["fp32"], "pred_RTs"))}
+    dev = np.abs(flat(preds["bf16"], "pred_RTs") - flat(preds["fp32"], "pred_RTs")).max()
+    cmf = flat(preds["fp32 recon"], "chamfer_dis_cass")
+    emd = flat(preds["fp32 recon"], "emd_dis_cass")
+    log(phase, f"bit for bit against eval_forward + generate_RT: {same}; bf16 against fp32 "
+               f"poses max abs {dev:.3e}; chamfer {cmf.min():.4e} .. {cmf.max():.4e}, EMD "
+               f"{emd.min():.4e} .. {emd.max():.4e}")
+    if not all(same.values()):
+        raise AssertionError(f"the harness's poses are not the forward's: {same}")
+    if not (np.isfinite(cmf).all() and np.isfinite(emd).all() and (cmf > 0).all()
+            and (emd > 0).all()):
+        raise AssertionError("chamfer or EMD not finite and positive")
+
+    grids = (list(range(0, 61)), [i / 2 for i in range(21)], [i / 100 for i in range(101)])
+    iou_aps, pose_aps = compute_degree_cm_mAP(preds["fp32"], SYNSET_NAMES, None, *grids,
+                                              iou_pose_thres=0.1, use_matches_for_pose=True,
+                                              plot_figure=False)
+    log(phase, "fp32 mean table (random weights): " + "; ".join(
+        report_lines(iou_aps, pose_aps, grids[0] + [360], grids[1] + [100], grids[2])[1:]))
+
+    # the recon tier's cost per batch, on the recon model's cloud for batch 0
+    m = build_train_model(DEVICE, harness_config(recon=True).model).eval()
+    pc = torch.from_numpy(crops[:B]).to(DEVICE)
+    out = eval_forward(m, pc, torch.from_numpy(obj[:B]).to(DEVICE),
+                       generator=torch.Generator(device=DEVICE).manual_seed(seed), with_heads=True)
+    recon = out.recon.float()
+    cfg = harness_config(recon=True)
+    with torch.no_grad():
+        cmf_ms = cuda_ms(lambda: chamfer_distance(recon, pc))
+        emd_ms = cuda_ms(lambda: emd_distance(recon, pc, cfg.eval.emd_epsilon, cfg.eval.emd_iters),
+                         iters=5, warmup=1)
+    log(phase, f"recon tier per batch of ({B}, {N}): chamfer {cmf_ms:.4f} ms (K16 twice), "
+               f"Sinkhorn EMD {emd_ms:.3f} ms ({cfg.eval.emd_iters} sweeps) on {smi}")
+    return recon_launches
+
+
+def phase_k5(smi: str) -> tuple[dict, dict]:
+    """K5, the JAX package's streamed KNN above padded N = 2048, covered by
+    the exact kernel: the three full-N searches of a forward (xyz k=20,
+    features k=20, xyz k=4) at N = 2056 and 4096 against the plain version,
+    and the feature search on bf16 points, which the wrapper widens to
+    fp32; then one fp32 harness batch at ``data.num_points=2056`` with its
+    exact launch counts.  Records the N = 2056 forward's three searches;
+    returns (records, the batch's launches)."""
+    from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
+    from hspose_tpu_torch.ops.knn import gather_neighbors, knn_indices
+
+    phase = "k5"
+    rng = np.random.default_rng(SEED + 10)
+    rec = {}
+    for n in (N_LARGE, 4096):
+        for d, k, dtype in ((3, 20, torch.float32), (128, 20, torch.float32), (3, 4, torch.float32),
+                            (128, 20, torch.bfloat16)):
+            pts = cloud(rng, n) if d == 3 else normal(rng, B, n, d).to(dtype)
+            got = knn_indices_cuda(pts, k, packed=dtype == torch.bfloat16)
+            want = knn_indices(pts.float(), k)
+            torch.cuda.synchronize()
+            agree = (got[..., :, None] == want[..., None, :]).any(-1).double().mean().item()
+            p64 = pts.double()
+
+            def sorted_d(idx):
+                diff = gather_neighbors(p64, idx) - p64[:, :, None]
+                return (diff * diff).sum(-1).sort(-1).values
+
+            dg, dw = sorted_d(got), sorted_d(want)
+            err = (dg - dw).abs().max().item()
+            rel = ((dg - dw).abs() / dw.clamp_min(1e-30)).max().item()
+            ms = cuda_ms(lambda: knn_indices_cuda(pts, k, packed=dtype == torch.bfloat16), iters=5)
+            pms = cuda_ms(lambda: knn_indices(pts.float(), k), iters=3, warmup=1)
+            log(phase, f"exact KNN N={n} D={d} {dtype} k={k}: agreement {agree:.6f}, max rel "
+                       f"distance gap {rel:.3e}, {ms:.4f} ms (plain {pms:.4f} ms) on {smi}")
+            if agree < KNN_AGREE or rel > KNN_TIE_REL:
+                raise AssertionError(f"exact KNN N={n} D={d} k={k}: agreement {agree}, gap {rel}")
+            if n == N_LARGE and dtype == torch.float32:
+                record(rec, "knn_streamed", err, ms, pms,
+                       bound([pts, got], B * n * n * d, torch.float32))
+
+    cfg = harness_config(n_pts=N_LARGE)
+    records = harness_records(np.random.default_rng(SEED + 11), N_LARGE, 1)
+    model = build_seeded_model(DEVICE)
+    run_harness(cfg, model, records, SEED)  # warm
+    preds, _, launches = run_harness(cfg, model, records, SEED)
+    log(phase, f"one fp32 harness batch of ({B}, {N_LARGE}, 3): launches "
+               f"{ {k: v for k, v in launches.items() if v} }")
+    check_counts(launches, {"knn": 6, "knn_streamed": 3, "hs_surface": 1, "hs_support": 4,
+                            "orl_global": 5}, 1, f"N={N_LARGE} harness batch")
+    RT = np.concatenate([r["pred_RTs"] for r in preds])
+    if not np.isfinite(RT).all():
+        raise AssertionError(f"N={N_LARGE}: poses not finite")
+    return rec, launches
+
 
 # kernel -> (source, the TPU kernel it replaces, the record and counter it
 # shares, when another kernel of the line ports the same function)
@@ -1181,6 +1535,13 @@ SOURCES = {
            ("hs_support_fused_bwd", "hspose_tpu_torch/csrc/hs_support.cu", "420"),
            ("orl_global_fused_fwd", "hspose_tpu_torch/csrc/orl.cu", "358"),
            ("orl_global_fused_bwd", "hspose_tpu_torch/csrc/orl.cu", "544")]},
+    # the recon tier: K16, K17, K18
+    "chamfer_min": ("hspose_tpu_torch/csrc/chamfer.cu", "hspose_tpu/ops/chamfer.py:85", None),
+    "chamfer_min_argmin": ("hspose_tpu_torch/csrc/chamfer.cu", "hspose_tpu/ops/chamfer.py:167",
+                           None),
+    "chamfer_grad": ("hspose_tpu_torch/csrc/chamfer.cu", "hspose_tpu/ops/chamfer.py:216", None),
+    # K5, the streamed search above padded N = 2048: the exact kernel
+    "knn_streamed": ("hspose_tpu_torch/csrc/knn.cu", "hspose_tpu/ops/pallas_knn.py:119", None),
 }
 
 
@@ -1232,6 +1593,15 @@ def main() -> int:
                              f"B={TRAIN_B}: {rates[tier]:.3f} / {rates[default]:.3f} steps/s = "
                              f"{rates[tier] / rates[default]:.3f}")
     phase_train_flags()
+    chamfer_rec, carrier = phase_chamfer()
+    rec.update(chamfer_rec)
+    # K17 and K18 run on no harness path: their launches are the autograd call's
+    launches.update({name: carrier[name] for name in ("chamfer_min_argmin", "chamfer_grad")})
+    launches["chamfer_min"] = phase_harness(smi, {"float32": fp32_rate,
+                                                  "bfloat16": bf16_rate})["chamfer_min"]
+    k5_rec, k5_launches = phase_k5(smi)
+    rec.update(k5_rec)
+    launches["knn_streamed"] = k5_launches["knn_streamed"]
     print(json.dumps(kernel_line(rec, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,11 @@ by ``ops/_build.py``:
 * the fp32 train step, ``engine/train_step.py::build_train_step``: the
   augmentation, the train forward with its heads, four loss families and
   Ranger, with the HS training kernels forward and backward
-  (``ops/cuda_hs.py``) and the KNN kernel.
+  (``ops/cuda_hs.py``) and the KNN kernel;
+* both in the bf16 tier too, and the ``bwd_store=False`` /
+  ``train_v4_small=True`` training routes (``ops/cuda_hs_fused.py``);
+* the eval harness, ``evaluation/evaluate.py``, with reference ``.pth``
+  loading and the recon-metric tier (``ops/chamfer.py``, ``ops/emd.py``).
 """
 
 from hspose_tpu_torch.config import ModelConfig

@@ -1,18 +1,40 @@
 """Configuration of the port: only the fields its slices read.
 
-Defaults are copied from ``hspose_tpu/config.py`` (``ModelConfig``,
-``DataConfig.num_points``, ``AugConfig``, ``LossConfig``, ``OptimConfig`` and
-the ``TrainConfig`` fields the train step reads), leaving out the fields that
+Defaults are copied from ``hspose_tpu/config.py`` (``ModelConfig``, the
+``DataConfig`` and ``EvalConfig`` fields the eval harness reads,
+``AugConfig``, ``LossConfig``, ``OptimConfig``, the ``TrainConfig`` fields
+the train step and the harness read, and ``ParallelConfig``'s axis sizes,
+which the one-device harness refuses above 1), leaving out the fields that
 neither package reads.  ``compute_dtype`` is ``"float32"`` or ``"bfloat16"``;
 ``"f32x2"`` raises where the model is built, and so does a ``gcn_n_num`` or
 ``serve_k`` above 31 (``MAX_K``, the most the KNN kernel keeps).
+``parse_overrides`` reads the CLI's ``section.key=value`` arguments as the
+JAX package's does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Dataset paths and the host input pipeline of the eval harness."""
+
+    dataset: str = "Real"  # 'CAMERA', 'Real', or 'CAMERA+Real'
+    dataset_dir: str = "./data/NOCS"
+    detection_dir: str = "./data/segmentation_results"
+    per_obj: str = ""
+    img_size: int = 256  # cropped square ROI resolution
+    num_points: int = 1028  # points per crop
+    # -1 sizes the loader's thread pool from the host's cores
+    # (data/dataset.py::resolve_num_workers)
+    num_workers: int = -1
+    # fused C++ decode + crop (native/preproc.cpp), bit-exact against the cv2
+    # path, which it falls back to when the library cannot build or load
+    native_preproc: bool = True
 
 
 @dataclass(frozen=True)
@@ -25,7 +47,6 @@ class ModelConfig:
     # relaxed-KNN serving tier: overrides k at inference (0 = gcn_n_num); the
     # pooled-resolution rules min(k, n//8) still apply; training keeps gcn_n_num
     serve_k: int = 0
-    num_points: int = 1028  # points per crop
     # training only, both tiers: the support reductions keep the winner's
     # theta and projection for the backward (True, K13) or recompute them
     # there (False, K14)
@@ -106,15 +127,93 @@ class TrainConfig:
     accumulate: int = 1  # micro-batches per optimizer step (optax.MultiSteps)
     # per-family finite flags in the step's metrics (``finite/<family>``)
     debug_nan: bool = False
+    model_save: str = "output/models"  # the harness's outputs and log go here
+    resume_model: str = ""  # the weights the harness loads (a reference .pth)
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    eval_seed: int = -1  # -1: the time; seeds the point sampling and the pooling
+    eval_inference_only: bool = False
+    eval_batch: int = 24  # detection crops per padded batch, across images
+    # 'host' only: back-projection and sampling per crop on the host
+    sample_mode: str = "host"
+    # per-detection chamfer and Sinkhorn-EMD between the recon head's cloud
+    # and the observed points (needs the train heads in the weights)
+    recon: bool = False
+    emd_epsilon: float = 0.005
+    emd_iters: int = 200
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Device mesh axes; the port's harness runs on one device."""
+
+    dp: int = -1  # -1: every device on the data axis, here one
+    mp: int = 1
+    sp: int = 1
 
 
 @dataclass(frozen=True)
 class HSPoseConfig:
+    data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     aug: AugConfig = field(default_factory=AugConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
     def replace(self, **kw) -> "HSPoseConfig":
         return dataclasses.replace(self, **kw)
+
+
+def _apply_dotted(cfg: HSPoseConfig, dotted: str, value: str) -> HSPoseConfig:
+    """Apply one 'section.key=value' override, typed by the field's default."""
+    section_name, _, key = dotted.partition(".")
+    if not key:
+        raise ValueError(f"override '{dotted}' must look like section.key")
+    section = getattr(cfg, section_name)
+    old = getattr(section, key)
+    if isinstance(old, bool):
+        new = value.lower() in ("1", "true", "yes")
+    elif isinstance(old, int):
+        new = int(value)
+    elif isinstance(old, float):
+        new = float(value)
+    elif isinstance(old, tuple):
+        new = tuple(type(old[0])(v) for v in value.split(","))
+    else:
+        new = value
+    return dataclasses.replace(cfg, **{section_name: dataclasses.replace(section, **{key: new})})
+
+
+def format_help(cfg: Optional[HSPoseConfig] = None) -> str:
+    """Every section.key with its type and default."""
+    cfg = cfg or HSPoseConfig()
+    lines = ["Overrides take the form section.key=value (a leading -- is allowed).", ""]
+    for f in dataclasses.fields(cfg):
+        section = getattr(cfg, f.name)
+        lines.append(f"[{f.name}]")
+        for sf in dataclasses.fields(section):
+            default = getattr(section, sf.name)
+            lines.append(f"  {f.name}.{sf.name}={default!r}  ({type(default).__name__})")
+        lines.append("")
+    return "\n".join(lines)
+
+
+def parse_overrides(argv, cfg: Optional[HSPoseConfig] = None) -> HSPoseConfig:
+    """Parse CLI arguments ``section.key=value`` (or ``--section.key=value``);
+    ``--help`` / ``-h`` prints every field and exits."""
+    cfg = cfg or HSPoseConfig()
+    for arg in argv:
+        arg = arg.lstrip("-")
+        if arg in ("help", "h"):
+            print(format_help(cfg))
+            raise SystemExit(0)
+        if "=" not in arg:
+            raise ValueError(f"unrecognized argument '{arg}' (expected section.key=value)")
+        dotted, _, value = arg.partition("=")
+        cfg = _apply_dotted(cfg, dotted, value)
+    return cfg

@@ -48,29 +48,30 @@ constexpr int TQ = 8;          // queries per block of route_kernel
 constexpr int THREADS = 128;
 constexpr int RED_QC = 64;     // queries per chunk of dd_partial_kernel
 
-// rowptr (B, N + 1), ent (B, N * K): the entries e = q * K + k with
-// idx[b, q, k] == r are ent[b, rowptr[b, r] .. rowptr[b, r + 1] - 1], in
-// increasing e.  One block per batch; smem N ints.
+// idx (B, E) with values in [0, R) -> rowptr (B, R + 1), ent (B, E): the
+// entries e with idx[b, e] == r are ent[b, rowptr[b, r] .. rowptr[b, r + 1] - 1],
+// in increasing e.  For a neighbour table (B, N, K), R = N and E = N * K with
+// e = q * K + k.  One block per batch; smem R ints.
 static __global__ void inverse_index_kernel(const int* __restrict__ idx, int* __restrict__ rowptr,
-                                            int* __restrict__ ent, int N, int K) {
+                                            int* __restrict__ ent, int R, int E) {
   extern __shared__ int cnt[];  // counts, then the next free place of each row's list
-  const int b = blockIdx.x, E = N * K;
+  const int b = blockIdx.x;
   const int* ib = idx + (size_t)b * E;
-  int* rp = rowptr + (size_t)b * (N + 1);
+  int* rp = rowptr + (size_t)b * (R + 1);
   int* eb = ent + (size_t)b * E;
-  for (int r = threadIdx.x; r < N; r += blockDim.x) cnt[r] = 0;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) cnt[r] = 0;
   __syncthreads();
   for (int e = threadIdx.x; e < E; e += blockDim.x) atomicAdd(&cnt[ib[e]], 1);  // integer counts
   __syncthreads();
   if (threadIdx.x == 0) {
     int run = 0;
-    for (int r = 0; r < N; ++r) {
+    for (int r = 0; r < R; ++r) {
       const int c = cnt[r];
       rp[r] = run;
       cnt[r] = run;
       run += c;
     }
-    rp[N] = run;
+    rp[R] = run;
   }
   __syncthreads();
   if (threadIdx.x < 32) {
@@ -92,12 +93,12 @@ static __global__ void inverse_index_kernel(const int* __restrict__ idx, int* __
   }
 }
 
-static inline cudaError_t inverse_index(const int* idx, int* rowptr, int* ent, int B, int N, int K,
+static inline cudaError_t inverse_index(const int* idx, int* rowptr, int* ent, int B, int R, int E,
                                         cudaStream_t st) {
-  const size_t smem = sizeof(int) * (size_t)N;
+  const size_t smem = sizeof(int) * (size_t)R;
   cudaError_t err = hs::allow_smem(inverse_index_kernel, smem);
   if (err != cudaSuccess) return err;
-  inverse_index_kernel<<<B, 256, smem, st>>>(idx, rowptr, ent, N, K);
+  inverse_index_kernel<<<B, 256, smem, st>>>(idx, rowptr, ent, R, E);
   return cudaGetLastError();
 }
 
@@ -351,7 +352,7 @@ cudaError_t fused_bwd(const float* verts, const int* idx, const float* dirs, con
                       float* dproj_src, float* dverts, int B, int N, int K, int S, int Co,
                       cudaStream_t st) {
   const int SC = S * Co;
-  cudaError_t err = inverse_index(idx, rowptr, ent, B, N, K, st);
+  cudaError_t err = inverse_index(idx, rowptr, ent, B, N, N * K, st);
   if (err == cudaSuccess)
     err = route<SUPPORT, FAST>(verts, idx, dirs, win, gb, proj, dz, dproj, B, N, K, S, Co, st);
   if (err == cudaSuccess) {

@@ -165,7 +165,7 @@ extern "C" int hs_orl_bwd(const int* idx, const int* win, const float* gb, int* 
                           void* dfeat, int B, int N, int K, int C, int fast, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hsb::supported(N, K)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = hsb::inverse_index(idx, rowptr, ent, B, N, K, s);
+  cudaError_t err = hsb::inverse_index(idx, rowptr, ent, B, N, N * K, s);
   if (err != cudaSuccess) return (int)err;
   if (fast)
     orl_bwd_kernel<<<B * N, THREADS, 0, s>>>(rowptr, ent, win, gb,

@@ -1,1 +1,2 @@
-"""Batched augmentation of the train step (counterpart of ``hspose_tpu/data``)."""
+"""The train step's batched augmentation and the eval harness's host input
+pipeline (counterpart of ``hspose_tpu/data``)."""

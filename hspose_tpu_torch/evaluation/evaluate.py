@@ -1,0 +1,338 @@
+"""Batched evaluation harness and CLI (counterpart of
+``hspose_tpu/evaluation/evaluate.py``).
+
+    python -m hspose_tpu_torch.evaluation.evaluate data.dataset_dir=... \\
+        train.resume_model=<checkpoint.pth> eval.eval_seed=1677483078
+
+Detection crops are batched across images into fixed-size batches of
+``eval.eval_batch``, a short batch padded with copies of its crop 0, and go
+through ``eval_forward`` and ``generate_RT`` on one device: the CUDA card,
+unless a function is given ``device="cpu"`` (the tests) or the CLI runs
+with ``HSPOSE_PLATFORM=cpu``, the variable the JAX CLI reads to pick its
+platform.  A batch's results are fetched only after the next batch has been
+submitted.  A cached ``pred_result.pkl`` is reused; then the NOCS
+degree/cm mAP table is computed on thresholds 0-60 deg x 1 / 0-10 cm x 0.5 /
+IoU 0-1 x 0.01.  ``eval.recon`` also measures, per detection, the chamfer
+distance (``ops/chamfer.py``, K16 under no_grad) and the Sinkhorn EMD
+(``ops/emd.py``) between the recon head's cloud and the observed points.
+
+The pooling samples come from a ``torch.Generator`` seeded from the eval
+seed, one draw per batch, or are given by the caller (``pool_samples``, the
+same for every batch; the tests pass the JAX package's).  Not ported:
+``parallel.dp/mp/sp > 1`` (multi-GPU, ROADMAP Queue 1 item 6) and
+``eval.sample_mode=device`` (Queue 1 item 4) raise.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import os
+import pickle
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from hspose_tpu_torch.config import HSPoseConfig, parse_overrides
+from hspose_tpu_torch.geometry.symmetry import SYNSET_NAMES
+from hspose_tpu_torch.utils.logging import setup_logger
+
+
+def check_one_device(cfg: HSPoseConfig) -> None:
+    """Raise on the settings the one-device, host-sampled harness does not run."""
+    p = cfg.parallel
+    if max(p.dp, p.mp, p.sp) > 1:
+        raise NotImplementedError(
+            f"parallel.dp={p.dp}, mp={p.mp}, sp={p.sp}: the port's harness runs on one "
+            "device; multi-GPU is ROADMAP Queue 1 item 6")
+    if cfg.eval.sample_mode != "host":
+        raise NotImplementedError(
+            f"eval.sample_mode={cfg.eval.sample_mode!r}: the port samples on the host; "
+            "device sampling is ROADMAP Queue 1 item 4")
+
+
+def _build_forward(cfg: HSPoseConfig, model, generator: Optional[torch.Generator],
+                   pool_samples: Optional[Sequence[torch.Tensor]]):
+    """One padded batch on the model's device -> (RT, scales[, chamfer, emd])."""
+    from hspose_tpu_torch.geometry.rotations import generate_RT
+    from hspose_tpu_torch.models.hspose import draw_pool_samples, eval_forward
+    from hspose_tpu_torch.ops.chamfer import chamfer_distance
+    from hspose_tpu_torch.ops.emd import emd_distance
+
+    with_recon = cfg.eval.recon
+
+    @torch.no_grad()
+    def forward(pc, obj_id, sym, mean_shape):
+        samples = (pool_samples if pool_samples is not None
+                   else draw_pool_samples(pc.shape[1], generator, pc.device))
+        out = eval_forward(model, pc, obj_id, pool_samples=samples, with_heads=with_recon)
+        RT = generate_RT(out.p_green_R, out.p_red_R, out.f_green_R, out.f_red_R,
+                         out.pred_T, sym)
+        outs = (RT, out.pred_s + mean_shape)
+        if with_recon:
+            # per-instance chamfer + Sinkhorn-EMD between the reconstructed
+            # cloud and the observed points (the eval_recon producers)
+            recon = out.recon.float()
+            da, db = chamfer_distance(recon, pc)
+            emd = emd_distance(recon, pc, epsilon=cfg.eval.emd_epsilon,
+                               iters=cfg.eval.emd_iters)
+            outs += (da.mean(-1) + db.mean(-1), emd)
+        return outs
+
+    return forward
+
+
+def batched_pose_inference(cfg: HSPoseConfig, model, image_records, seed: int,
+                           pool_samples: Optional[Sequence[torch.Tensor]] = None):
+    """Run the posenet over all detection crops in fixed-size padded batches
+    on the model's device.
+
+    image_records: iterable of (data_dict, detection_dict, gts) from
+    ``PoseEvalDataset`` (a generator streams them).  Fills each
+    detection_dict with 'pred_RTs' and 'pred_scales' (with ``eval.recon``
+    also 'chamfer_dis_cass' and 'emd_dis_cass'), and the gt_* fields the
+    mAP stage needs; returns (pred_results, crops_per_second), the first
+    batch left out of the timing."""
+    check_one_device(cfg)
+    B = cfg.eval.eval_batch
+    device = next(model.parameters()).device
+    records = iter(image_records)
+    try:
+        first = next(records)
+    except StopIteration:
+        return [], 0.0
+    if "pcl_in" not in first[0]:
+        raise NotImplementedError("records without host-sampled 'pcl_in': device sampling "
+                                  "is ROADMAP Queue 1 item 4")
+    generator = (torch.Generator(device=device).manual_seed(seed) if pool_samples is None
+                 else None)
+    forward_fn = _build_forward(cfg, model, generator, pool_samples)
+
+    state = {"t_start": None, "timed_from": 0, "fetched": 0}
+    # per-record output holders; records complete in order
+    pred_results: List[Dict] = []
+    crops: List = []
+    ids: List = []
+    syms: List = []
+    means: List = []
+    owners: List = []
+    in_flight = None  # (outputs on the device, owners, n_valid)
+
+    def ingest(rec):
+        data, detection_dict, gts = rec
+        rec_idx = len(pred_results)
+        n = len(data["cat_id_0base"])
+        for k in ["gt_class_ids", "gt_RTs", "gt_scales", "gt_handle_visibility"]:
+            if k not in detection_dict and k in gts:
+                detection_dict[k] = gts[k]
+        detection_dict["pred_RTs"] = np.zeros((n, 4, 4))
+        detection_dict["pred_scales"] = np.zeros((n, 3))
+        if cfg.eval.recon:
+            detection_dict["chamfer_dis_cass"] = np.zeros(n)
+            detection_dict["emd_dis_cass"] = np.zeros(n)
+        pred_results.append(detection_dict)
+        for j in range(n):
+            crops.append(data["pcl_in"][j])
+            ids.append(data["cat_id_0base"][j])
+            syms.append(data["sym_info"][j])
+            means.append(data["mean_shape"][j])
+            owners.append((rec_idx, j))
+
+    def land(flight):
+        outs, flight_owners, n_valid = flight
+        RT, sc, *recon = (o.cpu().numpy() for o in outs)  # the synchronisation point
+        for i, (rec_idx, j) in enumerate(flight_owners[:n_valid]):
+            pred_results[rec_idx]["pred_RTs"][j] = RT[i]
+            pred_results[rec_idx]["pred_scales"][j] = sc[i]
+            if recon:
+                pred_results[rec_idx]["chamfer_dis_cass"][j] = recon[0][i]
+                pred_results[rec_idx]["emd_dis_cass"][j] = recon[1][i]
+        state["fetched"] += n_valid
+        if state["t_start"] is None:
+            # the first batch (kernel builds, allocator warm-up) is not timed
+            state["t_start"] = time.time()
+            state["timed_from"] = state["fetched"]
+
+    def to_device(rows, dtype):
+        return torch.from_numpy(np.stack(rows).astype(dtype)).to(device)
+
+    def submit(n_valid):
+        nonlocal in_flight
+        pad = B - n_valid
+        outs = forward_fn(to_device(crops[:n_valid] + [crops[0]] * pad, np.float32),
+                          to_device(ids[:n_valid] + [ids[0]] * pad, np.int32),
+                          to_device(syms[:n_valid] + [syms[0]] * pad, np.float32),
+                          to_device(means[:n_valid] + [means[0]] * pad, np.float32))
+        flight_owners = owners[:n_valid]
+        del crops[:n_valid], ids[:n_valid], syms[:n_valid], means[:n_valid], owners[:n_valid]
+        prev, in_flight = in_flight, (outs, flight_owners, n_valid)
+        if prev is not None:
+            land(prev)
+
+    ingest(first)
+    for rec in records:
+        ingest(rec)
+        while len(ids) >= B:
+            submit(B)
+    while ids:
+        submit(min(B, len(ids)))
+    if in_flight is not None:
+        land(in_flight)
+
+    elapsed = (time.time() - state["t_start"]) if state["t_start"] else 0.0
+    timed = state["fetched"] - state["timed_from"]
+    crops_per_sec = timed / elapsed if timed > 0 and elapsed > 0 else 0.0
+    return pred_results, crops_per_sec
+
+
+def iter_eval_images(cfg: HSPoseConfig, seed: int, num_workers: int = 8,
+                     limit: Optional[int] = None, window: int = 32):
+    """Stream eval image records with a bounded look-ahead window: a thread
+    pool keeps at most ``window`` images in flight.  Image i samples its
+    points from ``SeedSequence([seed, i])``, as the JAX harness does."""
+    from collections import deque
+
+    from hspose_tpu_torch.evaluation.eval_dataset import PoseEvalDataset
+
+    ds = PoseEvalDataset(cfg.data, mode="test")
+    n = len(ds) if limit is None else min(limit, len(ds))
+
+    def load(i):
+        return ds.get_image(i, np.random.default_rng(np.random.SeedSequence([seed, i])))
+
+    with ThreadPoolExecutor(max_workers=max(num_workers, 1)) as ex:
+        futs = deque()
+        nxt = 0
+        while nxt < n or futs:
+            while nxt < n and len(futs) < window:
+                futs.append(ex.submit(load, nxt))
+                nxt += 1
+            rec = futs.popleft().result()
+            if rec is not None:
+                yield rec
+
+
+def load_eval_images(cfg: HSPoseConfig, seed: int, num_workers: int = 8,
+                     limit: Optional[int] = None):
+    """Materialized list variant of :func:`iter_eval_images` (tests/tools)."""
+    return list(iter_eval_images(cfg, seed, num_workers, limit))
+
+
+def report_lines(iou_aps, pose_aps, degree_thres_list, shift_thres_list,
+                 iou_thres_list, idx: int = -1) -> List[str]:
+    """The README-style metric table (reference evaluation/evaluate.py:143-207)."""
+    d05 = degree_thres_list.index(5)
+    d10 = degree_thres_list.index(10)
+    s02 = shift_thres_list.index(2)
+    s05 = shift_thres_list.index(5)
+    s10 = shift_thres_list.index(10)
+    return [
+        "mAP:",
+        "3D IoU at 25: {:.1f}".format(iou_aps[idx, iou_thres_list.index(0.25)] * 100),
+        "3D IoU at 50: {:.1f}".format(iou_aps[idx, iou_thres_list.index(0.5)] * 100),
+        "3D IoU at 75: {:.1f}".format(iou_aps[idx, iou_thres_list.index(0.75)] * 100),
+        "5 degree, 2cm: {:.1f}".format(pose_aps[idx, d05, s02] * 100),
+        "5 degree, 5cm: {:.1f}".format(pose_aps[idx, d05, s05] * 100),
+        "10 degree, 2cm: {:.1f}".format(pose_aps[idx, d10, s02] * 100),
+        "10 degree, 5cm: {:.1f}".format(pose_aps[idx, d10, s05] * 100),
+        "10 degree, 10cm: {:.1f}".format(pose_aps[idx, d10, s10] * 100),
+        "5 degree: {:.1f}".format(pose_aps[idx, d05, -1] * 100),
+        "10 degree: {:.1f}".format(pose_aps[idx, d10, -1] * 100),
+        "2cm: {:.1f}".format(pose_aps[idx, -1, s02] * 100),
+        "5cm: {:.1f}".format(pose_aps[idx, -1, s05] * 100),
+        "10cm: {:.1f}".format(pose_aps[idx, -1, s10] * 100),
+    ]
+
+
+def evaluate(cfg: HSPoseConfig, device=None,
+             pool_samples: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, float]:
+    """Weights (``train.resume_model``) -> predictions -> the mAP table, on
+    ``device`` (the CUDA card unless the caller names another).  The AP
+    curves are plotted where matplotlib is installed."""
+    from hspose_tpu_torch.evaluation.metrics import compute_degree_cm_mAP
+
+    check_one_device(cfg)
+    seed = cfg.eval.eval_seed if cfg.eval.eval_seed != -1 else int(time.time())
+    model_name = os.path.basename(cfg.train.resume_model).split(".")[0] or "model"
+    output_path = os.path.join(cfg.train.model_save, f"eval_result_{model_name}")
+    os.makedirs(output_path, exist_ok=True)
+    logger = setup_logger("eval_log", os.path.join(cfg.train.model_save, "log_eval.txt"))
+
+    pred_path = os.path.join(output_path, "pred_result.pkl")
+    crops_per_sec = 0.0
+    if os.path.exists(pred_path):
+        with open(pred_path, "rb") as f:
+            pred_results = pickle.load(f)
+    else:
+        from hspose_tpu_torch.data.dataset import resolve_num_workers
+        from hspose_tpu_torch.models.hspose import build_model
+        from hspose_tpu_torch.utils.params_io import load_params
+
+        model = build_model(cfg.model, device=device, train_heads=cfg.eval.recon)
+        load_params(model, cfg.train.resume_model)
+        logger.info("streaming eval images through batched inference...")
+        pred_results, crops_per_sec = batched_pose_inference(
+            cfg, model, iter_eval_images(cfg, seed, resolve_num_workers(cfg.data.num_workers)),
+            seed, pool_samples)
+        logger.info(f"{len(pred_results)} images evaluated")
+        with open(pred_path, "wb") as f:
+            pickle.dump(pred_results, f)
+        logger.info(f"inference throughput: {crops_per_sec:.1f} crops/s")
+
+    if cfg.eval.eval_inference_only:
+        return {"crops_per_sec": crops_per_sec}
+
+    degree_thres_list = list(range(0, 61, 1))
+    shift_thres_list = [i / 2 for i in range(21)]
+    iou_thres_list = [i / 100 for i in range(101)]
+
+    plot = importlib.util.find_spec("matplotlib") is not None
+    if not plot:
+        logger.info("matplotlib is not installed: the AP curves are not plotted")
+    iou_aps, pose_aps = compute_degree_cm_mAP(
+        pred_results, SYNSET_NAMES, output_path, degree_thres_list,
+        shift_thres_list, iou_thres_list, iou_pose_thres=0.1,
+        use_matches_for_pose=True, plot_figure=plot, eval_recon=cfg.eval.recon)
+    if cfg.eval.recon:
+        from hspose_tpu_torch.evaluation.metrics import aggregate_recon_metrics
+
+        recon_stats = aggregate_recon_metrics(pred_results, SYNSET_NAMES)
+        logger.info("recon metrics (eval_recon): %s", recon_stats)
+
+    full_deg = degree_thres_list + [360]
+    full_shift = shift_thres_list + [100]
+    idx = (SYNSET_NAMES.index(cfg.data.per_obj)
+           if cfg.data.per_obj in SYNSET_NAMES else -1)
+    logger.info("Evaluation Seed: {}".format(seed))
+    for line in report_lines(iou_aps, pose_aps, full_deg, full_shift, iou_thres_list, idx):
+        logger.info(line)
+    if idx == -1:
+        for cls_id in range(1, len(SYNSET_NAMES)):
+            logger.info(f"category {SYNSET_NAMES[cls_id]}")
+            for line in report_lines(iou_aps, pose_aps, full_deg, full_shift,
+                                     iou_thres_list, cls_id):
+                logger.info(line)
+
+    return {
+        "IoU25": iou_aps[-1, iou_thres_list.index(0.25)] * 100,
+        "IoU50": iou_aps[-1, iou_thres_list.index(0.5)] * 100,
+        "IoU75": iou_aps[-1, iou_thres_list.index(0.75)] * 100,
+        "5d2cm": pose_aps[-1, full_deg.index(5), full_shift.index(2)] * 100,
+        "5d5cm": pose_aps[-1, full_deg.index(5), full_shift.index(5)] * 100,
+        "10d2cm": pose_aps[-1, full_deg.index(10), full_shift.index(2)] * 100,
+        "10d5cm": pose_aps[-1, full_deg.index(10), full_shift.index(5)] * 100,
+        "10d10cm": pose_aps[-1, full_deg.index(10), full_shift.index(10)] * 100,
+        "crops_per_sec": crops_per_sec,
+    }
+
+
+def main(argv=None):
+    cfg = parse_overrides(sys.argv[1:] if argv is None else argv)
+    evaluate(cfg, device="cpu" if os.environ.get("HSPOSE_PLATFORM") == "cpu" else None)
+
+
+if __name__ == "__main__":
+    main()

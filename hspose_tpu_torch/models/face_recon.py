@@ -8,7 +8,9 @@ per-point feature
 Per forward: nine KNN searches, one surface and four support reductions,
 and five ORL branches.  A model built with ``train_heads`` also has the
 conv1d, recon and face heads; in train mode the forward returns
-(recon, face, feat) from them, in eval mode feat alone.
+(recon, face, feat) from them, in eval mode feat alone, or with
+``with_heads`` the three from the heads in eval mode (running BatchNorm
+statistics), the recon metrics' producer.
 
 ``compute_dtype="bfloat16"`` serves and trains in bf16 as the JAX
 package's fast tier does: bf16 features and one-hot between the layers,
@@ -139,10 +141,11 @@ class FaceRecon(nn.Module):
                                      device=device)
 
     def forward(self, vertices: torch.Tensor, cat_id: torch.Tensor,
-                pool_samples: Sequence[torch.Tensor]):
+                pool_samples: Sequence[torch.Tensor], with_heads: bool = False):
         """vertices (B, N, 3) centred points; cat_id (B,) 0-based; pool_samples
         the kept-row indices of the two pools.  Returns feat (B, N, 1286) in
-        eval mode and (recon (B, N, 3), face (B, N, 30), feat) in train mode."""
+        eval mode and (recon (B, N, 3), face (B, N, 30), feat) in train mode,
+        or in eval mode with ``with_heads``."""
         cfg = self.cfg
         fast = self.dtype == torch.bfloat16
         # the relaxed-KNN tier serves only: training keeps gcn_n_num
@@ -187,11 +190,11 @@ class FaceRecon(nn.Module):
         fm_4_up = gather_neighbors(fm_4, up_2)[:, :, 0]
         one_hot_tiled = one_hot[:, None, :].expand(B, N, cfg.obj_c)
         feat = torch.cat([fm_0, fm_1, fm_2_up, fm_3_up, fm_4_up, one_hot_tiled], dim=-1)
-        if not self.training:
+        if not (self.training or with_heads):
             return feat
         if not self.train_heads:
-            raise RuntimeError("train mode needs the train heads: build_model(..., "
-                               "train_heads=True)")
+            raise RuntimeError("train mode and with_heads need the train heads: "
+                               "build_model(..., train_heads=True)")
 
         conv1d_out = self.conv1d_block(feat)
         recon = self.recon_head(conv1d_out)

@@ -84,15 +84,20 @@ def draw_pool_samples(n: int, generator: torch.Generator | None = None,
 @torch.no_grad()
 def eval_forward(model: PoseNet9D, pc: torch.Tensor, obj_id: torch.Tensor,
                  generator: torch.Generator | None = None,
-                 pool_samples: Sequence[torch.Tensor] | None = None) -> PoseNetOutput:
+                 pool_samples: Sequence[torch.Tensor] | None = None,
+                 with_heads: bool = False) -> PoseNetOutput | PoseNetTrainOutput:
     """Inference forward: pc (B, N, 3) float32, obj_id (B,) 0-based.
 
     The pooling permutations are drawn from ``generator`` unless
     ``pool_samples`` gives the kept rows (the counterpart of the JAX
-    ``pool_key``; tests pass the same samples to both packages)."""
+    ``pool_key``; tests pass the same samples to both packages).
+    ``with_heads`` also runs the conv1d, recon and face heads in eval mode
+    and returns a ``PoseNetTrainOutput`` whose ``recon`` is the world-frame
+    cloud, as the JAX ``eval_forward(..., with_heads=True)``; the model
+    needs ``build_model(..., train_heads=True)``."""
     if pool_samples is None:
         pool_samples = draw_pool_samples(pc.shape[1], generator, pc.device)
-    return model(pc, obj_id, pool_samples)
+    return model(pc, obj_id, pool_samples, with_heads=with_heads)
 
 
 class TrainDraws(NamedTuple):

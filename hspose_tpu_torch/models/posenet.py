@@ -1,8 +1,9 @@
 """PoseNet9D (counterpart of ``hspose_tpu/models/posenet.py``): points are
 centred, go through the backbone, and the rotation and translation/size heads
-read the per-point features.  In train mode the recon cloud is moved back by
-the centre and the 30-d face tensor splits into unit normals (18), distances
-(6) and sigmoid confidences (6)."""
+read the per-point features.  In train mode, and in eval mode with
+``with_heads``, the recon cloud is moved back by the centre and the 30-d face
+tensor splits into unit normals (18), distances (6) and sigmoid confidences
+(6)."""
 
 from __future__ import annotations
 
@@ -50,15 +51,18 @@ class PoseNet9D(nn.Module):
 
     def forward(self, points: torch.Tensor, obj_id: torch.Tensor,
                 pool_samples: Sequence[torch.Tensor],
-                dropout_keep: Sequence[torch.Tensor] | None = None):
-        """PoseNetOutput in eval mode, PoseNetTrainOutput in train mode.
-        ``dropout_keep``: the keep-masks of rot_green, rot_red and ts (train
-        mode; drawn when None)."""
+                dropout_keep: Sequence[torch.Tensor] | None = None,
+                with_heads: bool = False):
+        """PoseNetOutput in eval mode, PoseNetTrainOutput in train mode or
+        with ``with_heads`` (the heads then run in eval mode: running
+        BatchNorm statistics, no dropout).  ``dropout_keep``: the keep-masks
+        of rot_green, rot_red and ts (train mode; drawn when None)."""
         keep = dropout_keep if dropout_keep is not None else (None, None, None)
         center = points.mean(dim=1, keepdim=True)
         centred = points - center
-        if self.training:
-            recon, face, feat = self.face_recon(centred, obj_id, pool_samples)
+        heads = self.training or with_heads
+        if heads:
+            recon, face, feat = self.face_recon(centred, obj_id, pool_samples, with_heads)
         else:
             feat = self.face_recon(centred, obj_id, pool_samples)
 
@@ -76,7 +80,7 @@ class PoseNet9D(nn.Module):
         # (hspose_tpu/models/posenet.py:82-83)
         T, s = self.ts(feat, centred.to(feat.dtype), keep[2])
         pose = (p_green_R, p_red_R, f_green_R, f_red_R, T + center[:, 0, :], s)
-        if not self.training:
+        if not heads:
             return PoseNetOutput(*pose)
         B, N = points.shape[:2]
         face_normal = face[..., :18].reshape(B, N, 6, 3)

@@ -85,6 +85,12 @@ SIGNATURES = {
     "hs_orl_win": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
     # idx, win, gb, rowptr, ent, dfeat, B, N, K, C, fast, stream
     "hs_orl_bwd": [_P] * 6 + [_I] * 5 + [_P],
+    # chamfer: a, b, dist, B, N, M, stream
+    "hs_chamfer_min": [_P] * 3 + [_I] * 3 + [_P],
+    # a, b, dist, arg, B, N, M, stream
+    "hs_chamfer_min_argmin": [_P] * 4 + [_I] * 3 + [_P],
+    # a, b, ia, ib, gda, gdb, rowptr, ent, ga, B, N, M, stream
+    "hs_chamfer_grad": [_P] * 9 + [_I] * 3 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -5,7 +5,10 @@ exact search of the fp32 tier and the packed-key search of the bf16 tier
 (``fast=True``).  On a CPU tensor the wrapper runs the plain version,
 ``ops/knn.py::knn_indices`` or ``knn_indices_packed``; on a CUDA tensor it
 launches the kernel or raises.  ``knn_indices_cuda.launches`` counts exact
-launches and ``knn_indices_cuda.packed_launches`` packed ones.
+launches at N <= 2048, ``.streamed_launches`` exact launches above (the
+JAX package's streamed kernel K5, ``_knn_kernel_streamed``, which the exact
+kernel's design covers: source tiles stream through shared memory with a
+running sorted list per query), and ``.packed_launches`` packed ones.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ def knn_indices_cuda(points: torch.Tensor, k: int, packed: bool = False) -> torc
     fp32 or bf16 points, ordered by packed keys (``knn_indices_packed``).
     Above N = 2048 the index does not fit the key, and the JAX package then
     runs the exact search (pallas_knn.py:347-348); so does this wrapper, on
-    the points widened to fp32, counted as an exact launch."""
+    the points widened to fp32, counted in ``.streamed_launches``."""
     if packed:
         if points.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"points: expected fp32 or bf16, got {points.dtype}")
@@ -46,9 +49,13 @@ def knn_indices_cuda(points: torch.Tensor, k: int, packed: bool = False) -> torc
         knn_indices_cuda.packed_launches += 1
         return out
     _build.launch("hs_knn", points, out, B, N, D, k + 1)
-    knn_indices_cuda.launches += 1
+    if N > PACKED_MAX_N:
+        knn_indices_cuda.streamed_launches += 1
+    else:
+        knn_indices_cuda.launches += 1
     return out
 
 
 knn_indices_cuda.launches = 0
+knn_indices_cuda.streamed_launches = 0
 knn_indices_cuda.packed_launches = 0

@@ -12,7 +12,8 @@ mapping is mechanical:
 The training tree (``init(..., train=True)``) also holds the train-only
 heads (``face_recon.conv1d_block``, ``recon_head``, ``face_head``); it loads
 into a model built with ``train_heads=True``.  The eval tree loads into a
-model built without them.
+model built without them.  ``flax_variables`` is the inverse: the model's
+own values as those two trees.
 """
 
 from __future__ import annotations
@@ -82,3 +83,31 @@ def load_jax_params(model: nn.Module, params: Mapping, batch_stats: Mapping) -> 
                    if n not in filled and not n.endswith("num_batches_tracked"))
     if unset:
         raise ValueError(f"port parameters left unset: {unset}")
+
+
+def flax_variables(model: nn.Module) -> tuple[dict, dict]:
+    """(params, batch_stats): the model's values as the flax trees that
+    ``load_jax_params`` reads, numpy fp32; Linear weights come out as
+    (in, out) kernels."""
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree, path, value):
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = value.detach().float().cpu().numpy()
+
+    for name, module in model.named_modules():
+        path = tuple(name.split(".")) if name else ()
+        for leaf, value in module.named_parameters(recurse=False):
+            if isinstance(module, nn.Linear) and leaf == "weight":
+                put(params, path + ("kernel",), value.T)
+            elif isinstance(module, nn.BatchNorm1d) and leaf == "weight":
+                put(params, path + ("scale",), value)
+            else:
+                put(params, path + (leaf,), value)
+        if isinstance(module, nn.BatchNorm1d):
+            put(stats, path + ("mean",), module.running_mean)
+            put(stats, path + ("var",), module.running_var)
+    return params, stats
