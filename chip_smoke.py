@@ -8,10 +8,15 @@ not 0:
 
 1. environment: card name and power limit, torch / CUDA / nvcc versions,
    whether triton imports; TF32 off for matrix products and cuDNN;
-2. build: the kernels of ``hspose_tpu_torch/csrc`` with nvcc (sm_90a);
+2. build: the kernels of ``hspose_tpu_torch/csrc`` with nvcc (sm_90a), and
+   the registers, shared memory and spills ptxas reports for K1's and K3's
+   kernels (``PTXAS_KERNELS``);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at every shape the B=24, N=1028 forward gives it, with kernel and plain
-   times from CUDA events;
+   times from CUDA events; K1's nine searches are also kept one by one
+   (``searches``), and K3's two launches are timed apart (``parts``: the
+   projection with its bound and a library product as yardstick, the
+   reduction with its bound);
 4. slice: ``PoseNet9D`` at full width with seeded random weights serves a few
    (24, 1028, 3) requests through ``eval_forward`` and ``generate_RT``; the
    launch counters must show 9 KNN, 1 surface, 4 support and 5 ORL launches
@@ -23,7 +28,8 @@ not 0:
    kernels against their plain versions on the card at every shape the
    B=24 bf16 forward gives them (KNN: >= 99.9% of the neighbours shared and
    swapped neighbours within 2^-10 relative distance; the reductions within
-   1e-4 of the largest value), with kernel and plain times;
+   1e-4 of the largest value), with kernel and plain times, the nine
+   searches and K3's parts kept as in phase 3;
 7. bf16 slice: the same model built with ``compute_dtype="bfloat16"``
    serves the same requests; the launch counters must show 9 packed-key
    KNN, no exact KNN, 1 surface, 4 support and 5 ORL bf16 launches and no
@@ -124,7 +130,10 @@ tensor cores, 989 TFLOP/s bf16), summed over the calls of one pass;
 ``bound_by`` names the larger part.  K16's and K17's ``library_ms`` is
 ``torch.cdist(a, b).pow(2).min(-1)`` over both directions, a reference the
 port never calls; no single PyTorch call computes the other functions (the
-backwards are winner- or argmin-routed scatters), so theirs is null.
+backwards are winner- or argmin-routed scatters), so theirs is null.  K3's
+projection alone has one: ``parts.project.library_ms`` is ``torch.addmm(b,
+feat, W)`` in fp32 with TF32 off, ``torch.matmul`` on bf16 operands in the
+bf16 tier, neither called by the port.
 ``launches`` is each kernel's count in the main run of its path: phases 4,
 7, 9, 11, 13 and 15, for K2 with winners and K9 the autograd call of phases
 12 and 14, for K16 the recon harness run, for K17 and K18 the autograd call
@@ -139,6 +148,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -212,15 +222,50 @@ def phase_env() -> str:
     return smi
 
 
+# kernels whose registers, shared memory and spills phase 2 prints: K1's and
+# K3's, and by the same names K8's GEMM (project_kernel) and K13's
+# support_bwd_reduce_kernel
+PTXAS_KERNELS = ("knn_kernel", "project_f32_kernel", "project_bf16_kernel", "project_kernel",
+                 "reduce_kernel")
+
+
+def ptxas_report(text: str, names=PTXAS_KERNELS) -> list[str]:
+    """One line per compiled instantiation of the kernels in ``names`` from
+    ptxas' -v output: registers, shared memory, spill stores and loads."""
+    rows, fn, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn and any(n in fn for n in names):
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((fn, int(m.group(1)), int(smem.group(1)) if smem else 0, *spill))
+            fn, spill = None, (0, 0)
+    try:  # demangle where binutils is installed
+        names_out = run(["c++filt", *[r[0] for r in rows]]).splitlines() if rows else []
+    except (OSError, subprocess.CalledProcessError):
+        names_out = [r[0] for r in rows]
+    return [f"{name}: {regs} registers, {smem} bytes static smem, spill stores {st} B, "
+            f"loads {ld} B" for name, (_, regs, smem, st, ld) in zip(names_out, rows)]
+
+
 def phase_build() -> None:
     from hspose_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.load()
     how = ("built" if _build.build_seconds is not None else "found cached")
+    report = _build.library_path().with_suffix(".log")
     log("build", f"{how} {_build.library_path().name} in "
                  f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s; "
-                 f"ptxas report in {_build.library_path().with_suffix('.log').name})")
+                 f"ptxas report in {report.name})")
+    if report.exists():
+        for line in ptxas_report(report.read_text()):
+            log("build", "ptxas " + line)
 
 
 def cloud(rng, n: int) -> torch.Tensor:
@@ -316,8 +361,10 @@ def phase_kernels(dtype: str = "float32") -> dict:
         if agree < KNN_AGREE or rel > knn_gap:
             raise AssertionError(f"{knn_name} N={n} D={d} k={k} disagrees with its plain "
                                  f"version: agreement {agree}, distance gap {rel}")
-        record(rec, knn_name, err, ms, pms,
-               bound([pts, got], B * n * n * d, torch.float32 if d == 3 else pts.dtype))
+        bnd = bound([pts, got], B * n * n * d, torch.float32 if d == 3 else pts.dtype)
+        record(rec, knn_name, err, ms, pms, bnd)
+        rec[knn_name].setdefault("searches", []).append(
+            {"N": n, "D": d, "k": k, "ms": ms, "plain_ms": pms, "bound_ms": bnd[0]})
 
     op_dtype = torch.bfloat16 if fast else torch.float32
 
@@ -350,11 +397,13 @@ def phase_kernels(dtype: str = "float32") -> dict:
         b_full = normal(rng, (S + 1) * co, scale=stdv)
         args = (features(n, cin), clouds[n], knn_cuda(clouds[n], k),
                 w_full[:, co:], b_full[co:], unit_dirs(rng, S * co), S, co)
-        close("hs_support" + tag, f"conv_{layer} {cin}->{co} N={n} K={k}",
+        label = f"conv_{layer} {cin}->{co} N={n} K={k}"
+        close("hs_support" + tag, label,
               hs_support_fused(*args), hs_support_plain(*args),
               cuda_ms(lambda: hs_support_fused(*args)),
               cuda_ms(lambda: hs_support_plain(*args)),
               list(args[:6]), B * n * cin * S * co + 3 * args[2].numel() * S * co)
+        support_parts(phase, rec["hs_support" + tag], label, args, fast)
 
     # the ORL branch of each layer
     for layer, c, n, k in [(0, 128, N, 20), (1, 128, N, 20), (2, 256, n1, 20),
@@ -366,6 +415,42 @@ def phase_kernels(dtype: str = "float32") -> dict:
               cuda_ms(lambda: orl_global_plain(feat, idx)),
               [feat, idx], 0)
     return rec
+
+
+def support_parts(phase: str, r: dict, label: str, args, fast: bool) -> None:
+    """K3's two launches timed apart and summed over the forward into
+    r["parts"]: the projection (with its bound and, as a yardstick the port
+    never calls, one library product: ``torch.addmm`` in fp32 with TF32 off,
+    ``torch.matmul`` on bf16 operands) and the reduction (with its bound)."""
+    from hspose_tpu_torch.ops import _build
+    from hspose_tpu_torch.ops.cuda_hs_fused import _support_project
+
+    feat, verts, idx, w, b, dirs, S, co = args
+    Bn, n, cin = feat.shape
+    proj = _support_project(feat, w, b, S, co, fast)
+    out = torch.empty((Bn, n, co), dtype=torch.float32, device=DEVICE)
+    feat2d = feat.reshape(-1, cin)
+    if fast:
+        w16 = w.to(torch.bfloat16)
+        library = lambda: torch.matmul(feat2d, w16)  # noqa: E731
+    else:
+        library = lambda: torch.addmm(b, feat2d, w)  # noqa: E731
+    p_ms = cuda_ms(lambda: _support_project(feat, w, b, S, co, fast))
+    r_ms = cuda_ms(lambda: _build.launch("hs_support_reduce", proj, verts, idx, dirs, out, Bn, n,
+                                         idx.shape[2], S, co, int(fast)))
+    l_ms = cuda_ms(library)
+    p_bound = bound([feat, w, b, proj], Bn * n * cin * S * co,
+                    torch.bfloat16 if fast else torch.float32)
+    r_bound = bound([proj, verts, idx, dirs, out], 3 * idx.numel() * S * co, torch.float32)
+    log(phase, f"  {label}: projection {p_ms:.4f} ms (bound {p_bound[0]:.4f} "
+               f"{p_bound[1]}, library {l_ms:.4f}), reduction {r_ms:.4f} ms (bound "
+               f"{r_bound[0]:.4f} {r_bound[1]})")
+    parts = r.setdefault("parts", {"project": {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0},
+                                   "reduce": {"ms": 0.0, "bound_ms": 0.0}})
+    for part, ms, bnd in (("project", p_ms, p_bound), ("reduce", r_ms, r_bound)):
+        parts[part]["ms"] += ms
+        parts[part]["bound_ms"] += bnd[0]
+    parts["project"]["library_ms"] += l_ms
 
 
 def build_seeded_model(device, dtype: str = "float32"):

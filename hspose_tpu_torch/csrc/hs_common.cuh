@@ -41,7 +41,9 @@ __device__ __forceinline__ float div_s(float x, int S) {
 // shared memory: srf[(t * K + j) * 3 + d] = normalize(v[idx[q, j]] - v[q])[d],
 // with the norm clamped at 1e-12 so a duplicated point gives exactly 0
 // (hspose_tpu/ops/knn.py::neighbor_directions_normalized).  When sidx is not
-// null it also receives the neighbour indices.  Rows past N are zero.
+// null it also receives the neighbour indices.  Rows past N are zero.  PACK4
+// writes four floats per entry instead, srf[e * 4 + 3] holding the bits of the
+// neighbour index, so that one 16-byte read returns both.
 //
 // FAST is the bf16 tier (hspose_tpu/ops/pallas_hs_fused.py, exact=False):
 // xyz rounded to bf16 (_xyz_parts), rf = v - c, norm = sqrt((r0^2 + r1^2) +
@@ -52,7 +54,7 @@ __device__ __forceinline__ float div_s(float x, int S) {
 // sum), in the order of the plain version
 // (ops/cuda_hs_fused.py::_rf_fast); centre and neighbour round alike, so a
 // duplicated point still gives exactly 0.
-template <bool FAST = false>
+template <bool FAST = false, bool PACK4 = false>
 __device__ inline void stage_rf(const float* __restrict__ verts, const int* __restrict__ idx,
                                 float* srf, int* sidx, int b, int q0, int tq, int N, int K) {
   for (int e = threadIdx.x; e < tq * K; e += blockDim.x) {
@@ -83,10 +85,14 @@ __device__ inline void stage_rf(const float* __restrict__ verts, const int* __re
         r2 /= den;
       }
     }
-    srf[e * 3 + 0] = r0;
-    srf[e * 3 + 1] = r1;
-    srf[e * 3 + 2] = r2;
-    if (sidx) sidx[e] = nb;
+    if constexpr (PACK4) {
+      *reinterpret_cast<float4*>(srf + e * 4) = make_float4(r0, r1, r2, __int_as_float(nb));
+    } else {
+      srf[e * 3 + 0] = r0;
+      srf[e * 3 + 1] = r1;
+      srf[e * 3 + 2] = r2;
+      if (sidx) sidx[e] = nb;
+    }
   }
 }
 
@@ -155,6 +161,45 @@ inline cudaError_t transpose_w(const float* w, int ldw, T* wt, int Cin, int SC,
   transpose_w_kernel<ROUND, T><<<blocks < 4096 ? blocks : 4096, 256, 0, stream>>>(w, ldw, wt, Cin,
                                                                                   SC);
   return cudaGetLastError();
+}
+
+// Asynchronous 16-byte copy from device to shared memory (cp.async, L2 only);
+// !valid fills the 16 bytes with zeros and reads nothing.  Groups of copies
+// are closed by cp_async_commit; cp_async_wait<n> waits until at most n of
+// this thread's groups are in flight (a __syncthreads must follow before
+// other threads read the data).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// True when p lies on a 16-byte boundary (cp.async and float4 access).
+__host__ __device__ inline bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// Two adjacent bf16 values as one 32-bit word (an mma.sync operand register).
+__device__ __forceinline__ unsigned ld_b32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// c (4 fp32) += a (16 x 16 bf16, row-major) b (16 x 8 bf16, column-major) on the
+// tensor cores: products exact, sums in fp32.  Fragments as PTX's
+// mma.m16n8k16 lays them out: with g = lane / 4, t = lane % 4, a holds rows
+// g and g + 8 at columns 2t, 2t + 1 and 2t + 8, 2t + 9; b holds column g at
+// rows 2t, 2t + 1 and 2t + 8, 2t + 9; c holds rows g, g + 8 at columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_bf16_16816(float* c, const unsigned* a, const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Allow a kernel more than the default 48 KB of dynamic shared memory.

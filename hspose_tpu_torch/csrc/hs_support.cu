@@ -9,34 +9,42 @@
 //
 // What bounds it on an H100: projecting first costs N*Cin*S*Co multiply-adds,
 // gathering first K times as many (about 8.5e9 against 1.5e11 per forward at
-// B=24).  The projection is a dense fp32 product; the reduction reads K rows
-// of P per query, about 1.8 GB at conv_1 (B=24), most of it from L2, and
-// writes only (B, N, Co).
+// B=24).  The projection is a dense product (0.25 ms of fp32 peak per
+// forward).  The reduction gathers K rows of P per query, 928 M fp32 values
+// (3.7 GB) per forward, almost all from L2, and writes only (B, N, Co): its
+// floor is L2's rate, and before this design it ran at about half of that,
+// bound by latency and issue (one 4-byte load in flight per thread, the rf
+// row reloaded from shared memory for every element).
 //
-// Design: two kernels.  (i) project_kernel, a shared-memory-tiled fp32 GEMM:
-// 64x64 output tiles, 256 threads each owning a 4x4 block, the reduction axis
-// staged 16 deep; the bias is added at the store.  W may be a column slice of
-// a wider matrix (row stride ldw).  (ii) reduce_kernel, one block per (batch,
-// 8-query tile), 128 threads over channels: the block stages the queries'
-// normalised neighbour directions, neighbour indices and the (3, S*Co) support
-// directions in shared memory; each thread runs, per support, the max over k
-// of relu(theta) * P[neighbour] with coalesced loads of P rows, then sums the
-// supports in order.  No (B, N, K, ...) tensor exists.
+// Design: two kernels.
+// (i) The projection.  fp32: project_f32_kernel, a SIMT GEMM with 128 x 128
+// tiles, an 8 x 8 block per thread, the next tiles loaded while this one's products
+// run (A through registers into a transposed tile, W by cp.async); each output keeps
+// the sequential-k fused multiply-add order and the bias added at the store,
+// so P keeps its bits.  bf16: project_bf16_kernel on the tensor cores
+// (mma.sync) over bf16 features and W rounded to bf16 as its operand
+// fragments are formed (_w_parts), so every product is exact and the sum is
+// fp32, as the TPU kernel's one-pass bf16 product with fp32 accumulation
+// (_mm); P stays fp32 with the fp32 bias.  W may be a column slice of a wider matrix (row stride
+// ldw).  No library GEMM is called.
+// (ii) reduce_kernel: one block per (batch, query tile), each thread four
+// adjacent columns as float4; the rf row and neighbour index of a (query, k)
+// come as one float4 from shared memory and serve all four columns; K is a
+// template argument, so a support's K loads of P are in flight together.
+// Per column the arithmetic is the replaced kernel's, so the outputs keep
+// their bits.  No (B, N, K, ...) tensor exists.  The bf16 tier stages
+// bf16-rounded rf rows and directions (hs_common.cuh).  Projecting before
+// the gather gives each gathered row the same value as the TPU kernel's
+// gather-then-project.
 //
-// The bf16 tier (exact=False of the same TPU kernel) instantiates both with
-// bf16 operands: the GEMM reads bf16 features and rounds each weight to bf16
-// as it stages it (_w_parts), so every product is exact and the sum is fp32,
-// as the TPU kernel's one-pass bf16 product with fp32 accumulation (_mm);
-// P stays fp32 with the fp32 bias.  The reduction stages bf16-rounded rf
-// rows and directions (hs_common.cuh).  Projecting before the gather gives
-// each gathered row the same value as the TPU kernel's gather-then-project.
-// The GEMM runs on the CUDA cores; tensor cores are later work.
+// project_kernel, the earlier 64 x 64 CUDA-core GEMM, stays for K8's two
+// products below.
 //
 // The differentiable op (K3 with want_win, and its backward K8), both tiers:
 // * hs_support_reduce_win is the reduction with WIN: it also records, per
 //   (point, support column), the first k reaching the max of theta * P (a
 //   strict > from -FLT_MAX, pallas_hs_fused.py:248-261).  The serving
-//   instantiations (WIN false) are compiled from the same lines as before.
+//   instantiations (WIN false) are compiled from the same lines.
 // * hs_support_fused_bwd (K8) replaces hspose_tpu/ops/pallas_hs_fused.py::
 //   _support_bwd_kernel with exact=True: dfeat, dverts, dW, db and dd from
 //   win, the forward's projection P (kept as a residual instead of
@@ -78,9 +86,8 @@ constexpr int APAD = BM + 4;  // row stride of the transposed A tile
 // AT (A read transposed) A[k * lda + m]; W[k, n] is W[k * ldw + n], or with WT
 // W[n * ldw + k]; neighbouring threads walk the unit stride.  blockIdx.z sums
 // the k slice [z * kchunk, (z + 1) * kchunk) into C + z * M * Nc (split-k
-// partial sums); bias may be null.  The projection is <TA, false, false>.
-// WR rounds W to bf16 as it is staged: the bf16 tier's W operand, by default
-// when A is bf16.
+// partial sums); bias may be null.  K8's dfeat and dW products.  WR rounds W
+// to bf16 as it is staged.
 template <typename TA, bool AT = false, bool WT = false,
           bool WR = std::is_same_v<TA, __nv_bfloat16>>
 __global__ void __launch_bounds__(GEMM_THREADS)
@@ -142,52 +149,302 @@ project_kernel(const TA* __restrict__ A, int lda, const float* __restrict__ W, i
   }
 }
 
-constexpr int TQ = 8;
-constexpr int THREADS = 128;
+// The forward's projection in fp32 (the bf16 tier's is project_bf16_kernel):
+// C (M, Nc) = A (M, Kd) W (Kd, Nc; row stride ldw) + bias on the CUDA cores.
+// 128 x 128 output tiles, 256 threads each owning 8 rows (two groups of four
+// at ty * 4 and 64 + ty * 4) by 8 columns (two float4 groups at tx * 4 and
+// 64 + tx * 4), so that per k a thread reads 4 float4 from shared memory for
+// 64 fused multiply-adds.  The A tile is stored
+// transposed (As[k][m]): its next rows are loaded into registers while this
+// tile's products run and written after them; the W tile comes by cp.async
+// into the other buffer.  Every output is one fused multiply-add chain in
+// increasing k from 0 with the bias added at the store, the arithmetic of
+// project_kernel, so P keeps its bits.  Needs Kd, ldw and Nc multiples of 4
+// and A, W 16-byte aligned.
+constexpr int PM = 128, PN = 128, PK = 16;
+constexpr int PAS = PM + 4;  // row stride of the transposed A tile
 
-template <bool FAST, bool WIN>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(GEMM_THREADS, 2)
+project_f32_kernel(const float* __restrict__ A, const float* __restrict__ W, int ldw,
+                   const float* __restrict__ bias, float* __restrict__ C, int M, int Kd, int Nc) {
+  constexpr int NJ = 2;  // float4 column groups per thread
+  constexpr int AV = PM * PK / 4 / GEMM_THREADS;  // float4 of the A tile per thread
+  __shared__ __align__(16) float As[2][PK][PAS];
+  __shared__ __align__(16) float Ws[2][PK][PN];
+  const int m0 = blockIdx.y * PM, n0 = blockIdx.x * PN;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+
+  float4 ra[AV];  // the next A tile, rows tid / 4 + 64 v, features (tid % 4) * 4 ..
+  auto load_a = [&](int k0) {
+#pragma unroll
+    for (int v = 0; v < AV; ++v) {
+      const int r = tid / 4 + 64 * v, c = tid % 4 * 4;
+      ra[v] = m0 + r < M && k0 + c < Kd
+                  ? __ldg(reinterpret_cast<const float4*>(A + (size_t)(m0 + r) * Kd + k0 + c))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto store_a = [&](int buf) {
+#pragma unroll
+    for (int v = 0; v < AV; ++v) {
+      const int r = tid / 4 + 64 * v, c = tid % 4 * 4;
+      As[buf][c + 0][r] = ra[v].x;
+      As[buf][c + 1][r] = ra[v].y;
+      As[buf][c + 2][r] = ra[v].z;
+      As[buf][c + 3][r] = ra[v].w;
+    }
+  };
+  auto load_w = [&](int buf, int k0) {
+    for (int e = tid; e < PK * PN / 4; e += GEMM_THREADS) {
+      const int r = e / (PN / 4), c = e % (PN / 4) * 4;
+      const bool ok = k0 + r < Kd && n0 + c < Nc;
+      hs::cp_async16(&Ws[buf][r][c], ok ? W + (size_t)(k0 + r) * ldw + n0 + c : W, ok);
+    }
+    hs::cp_async_commit();
+  };
+
+  float acc[8][NJ * 4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ * 4; ++j) acc[i][j] = 0.f;
+
+  const int nk = (Kd + PK - 1) / PK;
+  load_a(0);
+  load_w(0, 0);
+  store_a(0);
+  hs::cp_async_wait<0>();
+  __syncthreads();
+  for (int t = 0; t < nk; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < nk) {
+      load_a((t + 1) * PK);
+      load_w(buf ^ 1, (t + 1) * PK);
+    }
+#pragma unroll
+    for (int k = 0; k < PK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][k][64 + ty * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float w[NJ * 4];
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        const float4 w4 = *reinterpret_cast<const float4*>(&Ws[buf][k][jj * 64 + tx * 4]);
+        w[jj * 4 + 0] = w4.x;
+        w[jj * 4 + 1] = w4.y;
+        w[jj * 4 + 2] = w4.z;
+        w[jj * 4 + 3] = w4.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ * 4; ++j) acc[i][j] += a[i] * w[j];
+    }
+    if (t + 1 < nk) store_a(buf ^ 1);
+    hs::cp_async_wait<0>();
+    __syncthreads();  // the next tile is in place; this one may be rewritten
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + (i / 4) * 64 + ty * 4 + i % 4;
+    if (r >= M) continue;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int col = n0 + jj * 64 + tx * 4;
+      if (col >= Nc) continue;
+      const float* a = acc[i] + jj * 4;
+      *reinterpret_cast<float4*>(C + (size_t)r * Nc + col) =
+          make_float4(a[0] + bias[col], a[1] + bias[col + 1], a[2] + bias[col + 2],
+                      a[3] + bias[col + 3]);
+    }
+  }
+}
+
+// The bf16 tier's projection: C (M, Nc) = A (M, Kd; bf16) W (Kd, Nc; row
+// stride ldw) + bias on the tensor cores: mma.sync m16n8k16 over bf16
+// features and W rounded to bf16 (to nearest even, as hs::bf16_round) as
+// each B fragment is formed from the fp32 tile, so every product is exact
+// and the sums are fp32, as the TPU kernel's one-pass bf16 product with fp32
+// accumulation (_mm); P is fp32 with the fp32 bias.  64 x 128 output tiles,
+// 8 warps of 32 x 32, the A and W tiles 32 deep double-buffered by cp.async;
+// outputs leave in pairs of adjacent columns.  Needs Kd % 8 == 0, ldw and Nc
+// multiples of 4, A and W 16-byte aligned, bias 8-byte aligned.
+constexpr int TM = 64, TN = 128, TK = 32;
+constexpr int TKS = TK + 8;  // bf16 row stride of the A tile: fragment reads hit 32 banks
+constexpr int TNW = TN + 4;  // fp32 row stride of the W tile: rows 2t, columns g hit 32 banks
+
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__global__ void __launch_bounds__(GEMM_THREADS)
+project_bf16_kernel(const __nv_bfloat16* __restrict__ A, const float* __restrict__ W, int ldw,
+                    const float* __restrict__ bias, float* __restrict__ C, int M, int Kd,
+                    int Nc) {
+  __shared__ __align__(16) __nv_bfloat16 As[2][TM][TKS];
+  __shared__ __align__(16) float Ws[2][TK][TNW];
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int wm = warp % 2, wn = warp / 2;  // the warp's tile: rows wm * 32, columns wn * 32
+
+  auto load = [&](int buf, int k0) {
+    for (int e = tid; e < TM * TK / 8; e += GEMM_THREADS) {
+      const int r = e / (TK / 8), c = e % (TK / 8) * 8;
+      const bool ok = m0 + r < M && k0 + c < Kd;
+      hs::cp_async16(&As[buf][r][c], ok ? A + (size_t)(m0 + r) * Kd + k0 + c : A, ok);
+    }
+    for (int e = tid; e < TK * TN / 4; e += GEMM_THREADS) {
+      const int r = e / (TN / 4), c = e % (TN / 4) * 4;
+      const bool ok = k0 + r < Kd && n0 + c < Nc;
+      hs::cp_async16(&Ws[buf][r][c], ok ? W + (size_t)(k0 + r) * ldw + n0 + c : W, ok);
+    }
+    hs::cp_async_commit();
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  const int nk = (Kd + TK - 1) / TK;
+  load(0, 0);
+  for (int t = 0; t < nk; ++t) {
+    if (t + 1 < nk)
+      load((t + 1) & 1, (t + 1) * TK);
+    else
+      hs::cp_async_commit();
+    hs::cp_async_wait<1>();
+    __syncthreads();
+    const int buf = t & 1;
+#pragma unroll
+    for (int ks = 0; ks < TK; ks += 16) {
+      unsigned a[2][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const __nv_bfloat16* p = &As[buf][wm * 32 + mt * 16 + g][ks + 2 * t4];
+        a[mt][0] = hs::ld_b32(p);
+        a[mt][1] = hs::ld_b32(p + 8 * TKS);
+        a[mt][2] = hs::ld_b32(p + 8);
+        a[mt][3] = hs::ld_b32(p + 8 * TKS + 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* p = &Ws[buf][ks + 2 * t4][wn * 32 + nt * 8 + g];
+        b[nt][0] = bf16_pair(p[0], p[TNW]);
+        b[nt][1] = bf16_pair(p[8 * TNW], p[9 * TNW]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) hs::mma_bf16_16816(acc[mt][nt], a[mt], b[nt]);
+    }
+    __syncthreads();  // the next load rewrites this buffer
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = n0 + wn * 32 + nt * 8 + 2 * t4;
+      if (col >= Nc) continue;
+      const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + wm * 32 + mt * 16 + g + h * 8;
+        if (r < M)
+          *reinterpret_cast<float2*>(C + (size_t)r * Nc + col) =
+              make_float2(acc[mt][nt][2 * h] + bb.x, acc[mt][nt][2 * h + 1] + bb.y);
+      }
+    }
+}
+
+constexpr int RTHREADS = 128;
+
+// The reduction: out[q, c] = mean_s max_k relu(rf_k . d_{s,c}) * P[idx_k, s*Co + c].
+// One block per (batch, TQ-query tile), 128 threads; each thread owns four
+// adjacent columns c4 * 4 .. + 3 and the queries t = ql, ql + QPB, ... of
+// the tile (QPB = 128 / min(Co / 4, 128) queries side by side).  The block
+// stages the tile's unit rf rows with their neighbour index as float4
+// (hs::stage_rf, PACK4); per (query, support) a thread reads its twelve
+// directions once, then for each k one float4 of rf and index and one float4
+// of P.  K is a template argument (KT; 0 reads it at run time), so the K
+// loads of a support are in flight together.  Per column the arithmetic is
+// that of the kernel this one replaced: theta from the same expression, the
+// max in increasing k (WIN: the first k by strict > from -FLT_MAX, and its
+// k recorded), the supports summed in order, then / S; so the fp32 outputs
+// keep their bits, and WIN gives the serving kernel's.  Needs Co % 4 == 0 and
+// proj, out, win 16-byte aligned.
+template <bool FAST, bool WIN, int KT>
+__global__ void __launch_bounds__(RTHREADS)
 reduce_kernel(const float* __restrict__ proj, const float* __restrict__ verts,
               const int* __restrict__ idx, const float* __restrict__ dirs,
-              float* __restrict__ out, int* __restrict__ win, int N, int K, int S, int Co) {
-  extern __shared__ float smem[];
-  const int SC = S * Co;
-  float* sd = smem;                                   // (3, S*Co)
-  float* srf = smem + 3 * SC;                         // (TQ, K, 3)
-  int* sidx = reinterpret_cast<int*>(srf + TQ * K * 3);  // (TQ, K)
+              float* __restrict__ out, int* __restrict__ win, int N, int K_arg, int S, int Co,
+              int TQ) {
+  extern __shared__ __align__(16) float srf[];  // (TQ, K) float4: rf, index bits
+  const int K = KT ? KT : K_arg;
+  const int SC = S * Co, C4 = Co / 4;
   const int b = blockIdx.y, q0 = blockIdx.x * TQ;
-
-  hs::stage_dirs<FAST>(dirs, sd, SC);
-  hs::stage_rf<FAST>(verts, idx, srf, sidx, b, q0, TQ, N, K);
+  hs::stage_rf<FAST, true>(verts, idx, srf, nullptr, b, q0, TQ, N, K);
   __syncthreads();
 
+  const int lanes_c = min(C4, RTHREADS), QPB = RTHREADS / lanes_c;
+  const int ql = threadIdx.x / lanes_c;
+  if (ql >= QPB) return;
   const float* Pb = proj + (size_t)b * N * SC;
+  const float4* rf4 = reinterpret_cast<const float4*>(srf);
   const int tq = min(TQ, N - q0);
-  for (int c = threadIdx.x; c < Co; c += blockDim.x) {
-    for (int t = 0; t < tq; ++t) {
-      float total = 0.f;
+  for (int c4 = threadIdx.x % lanes_c; c4 < C4; c4 += lanes_c) {
+    for (int t = ql; t < tq; t += QPB) {
+      const size_t row = (size_t)b * N + q0 + t;
+      float total[4] = {0.f, 0.f, 0.f, 0.f};
       for (int s = 0; s < S; ++s) {
-        const int col = s * Co + c;
-        const float d0 = sd[col], d1 = sd[SC + col], d2 = sd[2 * SC + col];
-        float m = -FLT_MAX;
-        int kb = 0;
-        for (int j = 0; j < K; ++j) {
-          const float* r = srf + (t * K + j) * 3;
-          const float theta = fmaxf(r[0] * d0 + r[1] * d1 + r[2] * d2, 0.f);
-          if constexpr (WIN) {
-            const float v = theta * Pb[(size_t)sidx[t * K + j] * SC + col];
-            if (v > m) {
-              m = v;
-              kb = j;
-            }
-          } else {
-            m = fmaxf(m, theta * Pb[(size_t)sidx[t * K + j] * SC + col]);
+        const int col = s * Co + c4 * 4;
+        float d0[4], d1[4], d2[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          d0[c] = __ldg(dirs + col + c);
+          d1[c] = __ldg(dirs + SC + col + c);
+          d2[c] = __ldg(dirs + 2 * SC + col + c);
+          if (FAST) {
+            d0[c] = hs::bf16_round(d0[c]);
+            d1[c] = hs::bf16_round(d1[c]);
+            d2[c] = hs::bf16_round(d2[c]);
           }
         }
-        if constexpr (WIN) win[((size_t)b * N + q0 + t) * SC + col] = kb;
-        total += m;
+        float m[4] = {-FLT_MAX, -FLT_MAX, -FLT_MAX, -FLT_MAX};
+        int kb[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const float4 r = rf4[t * K + j];
+          const float4 p4 =
+              __ldg(reinterpret_cast<const float4*>(Pb + (size_t)__float_as_int(r.w) * SC + col));
+          const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float theta = fmaxf(r.x * d0[c] + r.y * d1[c] + r.z * d2[c], 0.f);
+            if constexpr (WIN) {
+              const float v = theta * p[c];
+              if (v > m[c]) {
+                m[c] = v;
+                kb[c] = j;
+              }
+            } else {
+              m[c] = fmaxf(m[c], theta * p[c]);
+            }
+          }
+        }
+        if constexpr (WIN)
+          *reinterpret_cast<int4*>(win + row * SC + col) = make_int4(kb[0], kb[1], kb[2], kb[3]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) total[c] += m[c];
       }
-      out[((size_t)b * N + q0 + t) * Co + c] = total / S;
+      *reinterpret_cast<float4*>(out + row * Co + c4 * 4) =
+          make_float4(total[0] / S, total[1] / S, total[2] / S, total[3] / S);
     }
   }
 }
@@ -195,23 +452,45 @@ reduce_kernel(const float* __restrict__ proj, const float* __restrict__ verts,
 template <typename TA>
 int project(const TA* feat, const float* w, int ldw, const float* b, float* proj, int rows,
             int Cin, int Cout, cudaStream_t stream) {
-  const dim3 grid((Cout + BN - 1) / BN, (rows + BM - 1) / BM);
-  project_kernel<TA><<<grid, GEMM_THREADS, 0, stream>>>(feat, Cin, w, ldw, b, proj, rows, Cin,
-                                                        Cout, Cin);
+  if (Cin % (hs::is_bf16<TA> ? 8 : 4) || ldw % 4 || Cout % 4 || !hs::aligned16(feat) ||
+      !hs::aligned16(w) || reinterpret_cast<size_t>(b) % 8)
+    return (int)cudaErrorInvalidValue;
+  if constexpr (hs::is_bf16<TA>)
+    project_bf16_kernel<<<dim3((Cout + TN - 1) / TN, (rows + TM - 1) / TM), GEMM_THREADS, 0,
+                          stream>>>(feat, w, ldw, b, proj, rows, Cin, Cout);
+  else
+    project_f32_kernel<<<dim3((Cout + PN - 1) / PN, (rows + PM - 1) / PM), GEMM_THREADS, 0,
+                         stream>>>(feat, w, ldw, b, proj, rows, Cin, Cout);
+  return (int)cudaGetLastError();
+}
+
+template <bool FAST, bool WIN, int KT>
+int reduce_k(const float* proj, const float* verts, const int* idx, const float* dirs, float* out,
+             int* win, int B, int N, int K, int S, int Co, cudaStream_t stream) {
+  // two queries per thread and column group
+  const int TQ = 2 * (RTHREADS / min(Co / 4, RTHREADS));
+  const size_t smem = sizeof(float4) * (size_t)TQ * K;
+  auto kernel = reduce_kernel<FAST, WIN, KT>;
+  cudaError_t err = hs::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((N + TQ - 1) / TQ, B), RTHREADS, smem, stream>>>(proj, verts, idx, dirs, out, win,
+                                                                 N, K, S, Co, TQ);
   return (int)cudaGetLastError();
 }
 
 template <bool FAST, bool WIN = false>
 int reduce(const float* proj, const float* verts, const int* idx, const float* dirs, float* out,
            int* win, int B, int N, int K, int S, int Co, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (3 * (size_t)S * Co + (size_t)TQ * K * 3) +
-                      sizeof(int) * (size_t)TQ * K;
-  cudaError_t err = hs::allow_smem(reduce_kernel<FAST, WIN>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + TQ - 1) / TQ, B);
-  reduce_kernel<FAST, WIN><<<grid, THREADS, smem, stream>>>(proj, verts, idx, dirs, out, win, N,
-                                                            K, S, Co);
-  return (int)cudaGetLastError();
+  if (Co % 4 || !hs::aligned16(proj) || !hs::aligned16(out) || (WIN && !hs::aligned16(win)))
+    return (int)cudaErrorInvalidValue;
+  switch (K) {  // the model's K = 20 and 8 unrolled
+    case 20: return reduce_k<FAST, WIN, 20>(proj, verts, idx, dirs, out, win, B, N, K, S, Co,
+                                            stream);
+    case 8: return reduce_k<FAST, WIN, 8>(proj, verts, idx, dirs, out, win, B, N, K, S, Co,
+                                          stream);
+    default: return reduce_k<FAST, WIN, 0>(proj, verts, idx, dirs, out, win, B, N, K, S, Co,
+                                           stream);
+  }
 }
 
 constexpr int DW_KC = 256;  // rows per split-k slice of the dW product

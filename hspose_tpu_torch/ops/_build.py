@@ -31,10 +31,10 @@ PTXAS_REPORT = "-Xptxas=-v"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
-    # points, out, B, N, D, kk, stream
-    "hs_knn": [_P, _P, _I, _I, _I, _I, _P],
-    # points, is_bf16, out, B, N, D, kk, stream
-    "hs_knn_packed": [_P, _I, _P, _I, _I, _I, _I, _P],
+    # points, out, B, N, D, kk, lanes, stream
+    "hs_knn": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # points, is_bf16, out, B, N, D, kk, lanes, stream
+    "hs_knn_packed": [_P, _I, _P, _I, _I, _I, _I, _I, _P],
     # verts, idx, dirs, out, B, N, K, S, Co, fast, stream
     "hs_surface": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # feat, fast, w, ldw, b, proj, rows, Cin, Cout, stream

@@ -8,7 +8,8 @@ CPU tensors, and on CUDA tensors launches its kernel or raises:
 
 * ``hs_surface_fused`` -> ``csrc/hs_surface.cu``;
 * ``hs_support_fused`` -> ``csrc/hs_support.cu`` (a tiled GEMM for the
-  projection, then the gather-theta-max-mean reduction);
+  projection, on the tensor cores in the bf16 tier, then the
+  gather-theta-max-mean reduction);
 * ``orl_global_fused`` -> ``csrc/orl.cu``.
 
 Inputs are fp32 and ``idx`` int32, with values in [0, N).  The bf16 tier
@@ -191,6 +192,23 @@ def hs_surface_fused(vertices: torch.Tensor, idx: torch.Tensor, dirs: torch.Tens
     return out
 
 
+def _support_project(feature_map: torch.Tensor, weights: torch.Tensor, bias: torch.Tensor,
+                     S: int, co: int, fast: bool) -> torch.Tensor:
+    """P = feat @ W + b, (B, N, S*co) fp32, by ``hs_support_project``.  The
+    kernels read float4 columns and 16-byte rows."""
+    B, N, cin = feature_map.shape
+    if (co % 4 or weights.stride(0) % 4 or cin % (8 if fast else 4)
+            or weights.data_ptr() % 16 or bias.data_ptr() % 16):
+        raise ValueError(f"the support kernels take out_channel and the weights' row stride "
+                         f"in multiples of 4, Cin in multiples of {8 if fast else 4} and "
+                         f"16-byte aligned weights and bias; got out_channel={co}, Cin={cin}, "
+                         f"stride {weights.stride(0)}")
+    proj = torch.empty((B, N, S * co), dtype=torch.float32, device=feature_map.device)
+    _build.launch("hs_support_project", feature_map, int(fast), weights, weights.stride(0),
+                  bias, proj, B * N, cin, S * co)
+    return proj
+
+
 def hs_support_fused(feature_map: torch.Tensor, vertices: torch.Tensor,
                      idx: torch.Tensor, weights: torch.Tensor, bias: torch.Tensor,
                      dirs: torch.Tensor, support_num: int,
@@ -215,10 +233,8 @@ def hs_support_fused(feature_map: torch.Tensor, vertices: torch.Tensor,
     _build.check_rows(weights, "weights", (cin, S * co))
     _build.check(bias, "bias", torch.float32, (S * co,))
     _build.check(dirs, "dirs", torch.float32, (3, S * co))
-    proj = torch.empty((B, N, S * co), dtype=torch.float32, device=feature_map.device)
+    proj = _support_project(feature_map, weights, bias, S, co, fast)
     out = torch.empty((B, N, co), dtype=torch.float32, device=feature_map.device)
-    _build.launch("hs_support_project", feature_map, int(fast), weights, weights.stride(0),
-                  bias, proj, B * N, cin, S * co)
     _build.launch("hs_support_reduce", proj, vertices, idx, dirs, out, B, N, K, S, co,
                   int(fast))
     _count(hs_support_fused, fast)
@@ -568,10 +584,8 @@ def hs_support_fused_fwd(feature_map: torch.Tensor, vertices: torch.Tensor, idx:
     cin = feature_map.shape[2]
     _build.check_rows(weights, "weights", (cin, S * co))
     _build.check(bias, "bias", torch.float32, (S * co,))
-    proj, out = _empty((B, N, S * co), vertices), _empty((B, N, co), vertices)
-    win = _empty((B, N, S * co), vertices, torch.int32)
-    _build.launch("hs_support_project", feature_map, int(fast), weights, weights.stride(0), bias,
-                  proj, B * N, cin, S * co)
+    proj = _support_project(feature_map, weights, bias, S, co, fast)
+    out, win = _empty((B, N, co), vertices), _empty((B, N, S * co), vertices, torch.int32)
     _build.launch("hs_support_reduce_win", proj, vertices, idx, dirs, out, win, B, N, K, S, co,
                   int(fast))
     _count(hs_support_fused_fwd, fast)

@@ -19,6 +19,26 @@ from hspose_tpu_torch.ops import _build
 from hspose_tpu_torch.ops.knn import PACKED_MAX_N, knn_indices, knn_indices_packed
 
 MAX_K = 31  # the kernel keeps at most 32 = k + 1 entries per query
+MAX_D = 512  # a block keeps its query rows in shared memory
+SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def knn_lanes(batch: int, n: int, d: int, k: int) -> int:
+    """Selecting lanes per query (4, 8 or 16; 256 / lanes queries per block
+    of 256 threads) of the kernel's launch for ``batch`` clouds of ``n``
+    points of dimension ``d``, k neighbours.  The lanes split a query's
+    source points between them and merge their lists in (distance, index)
+    order, so the choice does not change the result, only the time: fewer
+    lanes mean larger query tiles, which the distance product of D > 8
+    needs, more lanes more blocks, which the small searches need to fill
+    the card.  Chosen from the nine searches of the B = 24 forward and K5's
+    at N = 2056 on an H100 (``PERF.md`` §6)."""
+    blocks = batch * -(-n // 64)  # blocks of 64 queries
+    if d > 8:
+        return 4 if blocks >= SMS // 2 else 16
+    if blocks < 2 * SMS:
+        return 16
+    return 8 if k <= 8 and blocks < 4 * SMS else 4
 
 
 def knn_indices_cuda(points: torch.Tensor, k: int, packed: bool = False) -> torch.Tensor:
@@ -29,7 +49,9 @@ def knn_indices_cuda(points: torch.Tensor, k: int, packed: bool = False) -> torc
     fp32 or bf16 points, ordered by packed keys (``knn_indices_packed``).
     Above N = 2048 the index does not fit the key, and the JAX package then
     runs the exact search (pallas_knn.py:347-348); so does this wrapper, on
-    the points widened to fp32, counted in ``.streamed_launches``."""
+    the points widened to fp32, counted in ``.streamed_launches``.  The
+    kernel takes bf16 points with D a multiple of 16 on the tensor cores;
+    other bf16 points are widened to fp32, which holds their values exactly."""
     if packed:
         if points.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"points: expected fp32 or bf16, got {points.dtype}")
@@ -42,13 +64,18 @@ def knn_indices_cuda(points: torch.Tensor, k: int, packed: bool = False) -> torc
     B, N, D = points.shape
     if not 1 <= k <= min(MAX_K, N - 1):
         raise ValueError(f"k={k} must lie in [1, min({MAX_K}, N - 1 = {N - 1})]")
+    if D > MAX_D:
+        raise ValueError(f"the KNN kernel takes D <= {MAX_D}, got D={D}")
     out = torch.empty((B, N, k), dtype=torch.int32, device=points.device)
+    lanes = knn_lanes(B, N, D, k)
     if packed:
+        if points.dtype == torch.bfloat16 and D % 16:
+            points = points.float()
         _build.launch("hs_knn_packed", points, int(points.dtype == torch.bfloat16), out, B,
-                      N, D, k + 1)
+                      N, D, k + 1, lanes)
         knn_indices_cuda.packed_launches += 1
         return out
-    _build.launch("hs_knn", points, out, B, N, D, k + 1)
+    _build.launch("hs_knn", points, out, B, N, D, k + 1, lanes)
     if N > PACKED_MAX_N:
         knn_indices_cuda.streamed_launches += 1
     else:

@@ -14,12 +14,17 @@ The first form imports ``hspose_tpu_torch`` from DIR (a checkout, such as a
   shapes), with each kernel's time (CUDA events, mean of 20 launches after
   3, summed over the calls of one pass);
 * the fp32 serving forward's pose outputs at B=24, N=1028;
-* the total loss of three fp32 train steps at B=16, N=1028.
+* the total loss of three fp32 train steps at B=16, N=1028;
+
+and times what it does not hold to bits: the bf16 tier's KNN (packed keys)
+and support kernels at the B=24 bf16 forward's shapes, and the serving
+crops/s of both tiers at B=24 (as ``chip_smoke.py`` phase 5: best of 3
+windows of 20 forwards after 3 warm-up).
 
 The second form says, for every saved output, whether all the files hold
-the same bits, and prints the kernel times side by side.  Run the trees in
-turns in one call (parent, change, change, parent) so that run-to-run
-spread shows beside any difference.
+the same bits, and prints the kernel times and the crops/s side by side.
+Run the trees in turns in one call (parent, change, change, parent) so that
+run-to-run spread shows beside any difference.
 """
 
 from __future__ import annotations
@@ -46,6 +51,26 @@ def _timed(times: dict, name: str, fn, iters: int = 20, warmup: int = 3):
     return out
 
 
+def _crops_per_s(serve, batch: int, iters: int = 20) -> tuple[float, list]:
+    """Best of 3 windows of ``iters`` calls of ``serve`` (host clock around
+    work that ends in a synchronize), after 3 warm-up calls."""
+    import time
+
+    import torch
+
+    for _ in range(3):
+        serve()
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            serve()
+        torch.cuda.synchronize()
+        rates.append(batch * iters / (time.perf_counter() - t0))
+    return max(rates), rates
+
+
 def collect(tree: str) -> dict:
     sys.path.insert(0, str(Path(tree).resolve()))
     import numpy as np
@@ -54,6 +79,7 @@ def collect(tree: str) -> dict:
     import hspose_tpu_torch
     from hspose_tpu_torch.config import HSPoseConfig, ModelConfig
     from hspose_tpu_torch.engine.train_step import build_train_step, to_device
+    from hspose_tpu_torch.geometry.rotations import generate_RT
     from hspose_tpu_torch.models.hspose import build_model, draw_pool_samples, eval_forward
     from hspose_tpu_torch.ops import cuda_hs, cuda_hs_fused as f
     from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
@@ -174,6 +200,37 @@ def collect(tree: str) -> dict:
         pose = eval_forward(model, pc, obj, pool_samples=samples)
         out.update({f"serve {k}": v for k, v in zip(pose._fields, pose)})
 
+        # times only: the bf16 tier's KNN and support kernels, B=24
+        B, bf16_times = 24, {}
+        for n, d, k in [(N, 3, 20), (N, 128, 20), (N, 3, 4), (N // 4, 3, 20), (N // 4, 128, 20),
+                        (N // 4, 256, 20), (N // 4, 3, 4), (N // 16, 3, 8), (N // 16, 256, 8)]:
+            pts = clouds[n] if d == 3 else normal(B, n, d).to(torch.bfloat16)
+            _timed(bf16_times, "knn_packed (bf16)",
+                   lambda: knn_indices_cuda(pts, k, packed=True))
+        for cin, co, n, k in [(128, 128, N, 20), (128, 256, N // 4, 20), (256, 256, N // 4, 20),
+                              (256, 512, N // 16, 8)]:
+            stdv = 1.0 / (co * (S + 1)) ** 0.5
+            w, b = normal(cin, (S + 1) * co, scale=stdv), normal((S + 1) * co, scale=stdv)
+            args = (normal(B, n, cin).to(torch.bfloat16), clouds[n],
+                    knn_indices_cuda(clouds[n], k, packed=True), w[:, co:], b[co:],
+                    unit(S * co), S, co)
+            _timed(bf16_times, "hs_support (bf16)", lambda: f.hs_support_fused(*args))
+        times.update(bf16_times)
+
+        # times only: serving crops/s at B=24 in both tiers
+        rates = {}
+        sym = torch.tensor([[0, 1, 0, 0]], dtype=torch.float32, device=dev).repeat(24, 1)
+        for tier in ("float32", "bfloat16"):
+            torch.manual_seed(0)
+            m = build_model(ModelConfig(compute_dtype=tier), device=dev)
+            gen = torch.Generator(device=dev).manual_seed(0)
+
+            def serve():
+                o = eval_forward(m, pc, obj, generator=gen)
+                return generate_RT(o.p_green_R, o.p_red_R, o.f_green_R, o.f_red_R, o.pred_T, sym)
+
+            rates[f"serving crops/s {tier}"] = _crops_per_s(serve, 24)
+
     # three train steps
     torch.manual_seed(0)
     model = build_model(ModelConfig(), device=dev, train_heads=True)
@@ -185,7 +242,8 @@ def collect(tree: str) -> dict:
     for k, v in out.items():
         for i, x in enumerate(v if isinstance(v, tuple) else (v,)):
             flat[f"{k}[{i}]"] = x.detach().cpu()
-    return {"tree": tree, "outputs": flat, "times": times}
+    return {"tree": tree, "outputs": flat, "times": times, "rates": rates,
+            "card": torch.cuda.get_device_name(0)}
 
 
 def compare(paths: list[str]) -> int:
@@ -201,9 +259,15 @@ def compare(paths: list[str]) -> int:
         print(f"  differ: {k}, max abs "
               + ", ".join(f"{(r['outputs'][k].double() - runs[0]['outputs'][k].double()).abs().max().item():.3e}"
                           for r in runs[1:]))
+    print("cards: " + " | ".join(r.get("card", "?") for r in runs))
     print("kernel ms per pass: " + " | ".join(Path(p).stem for p in paths))
     for name in runs[0]["times"]:
-        print(f"  {name}: " + " | ".join(f"{r['times'][name]:.4f}" for r in runs))
+        print(f"  {name}: " + " | ".join(f"{r['times'].get(name, float('nan')):.4f}"
+                                          for r in runs))
+    for name in runs[0].get("rates", {}):
+        print(f"  {name} (best of 3 windows): "
+              + " | ".join(f"{r['rates'][name][0]:.1f} {[round(x, 1) for x in r['rates'][name][1]]}"
+                           for r in runs if name in r.get("rates", {})))
     return 1 if differ else 0
 
 

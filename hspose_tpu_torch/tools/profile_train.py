@@ -1,10 +1,15 @@
-"""Where a train step's time goes on one CUDA card, per tier.
+"""Where a train step's or a serving forward's time goes on one CUDA card,
+per tier.
 
-    python hspose_tpu_torch/tools/profile_train.py [--tiers float32 bfloat16 v4 bf16v4] [--out FILE.json]
+    python hspose_tpu_torch/tools/profile_train.py [--tiers float32 bfloat16 v4 bf16v4 serve bf16serve] [--out FILE.json]
 
 A tier is a ``compute_dtype``, or ``v4`` / ``bf16v4``: fp32 / bf16 with
-``bwd_store=False`` and ``train_v4_small=True``.  For each tier: ``build_train_step`` at B=16, N=1028 with seeded random
-weights and 3 warm-up steps; then every tier is timed without the profiler
+``bwd_store=False`` and ``train_v4_small=True``, or ``serve`` / ``bf16serve``:
+the serving forward (``eval_forward`` + ``generate_RT`` under no_grad) at
+B=24 in fp32 / bf16, a "step" being one forward, where the kernels of K1
+(the KNN) and K3 (the HS support projection and reduction) are also summed
+apart.  For each training tier: ``build_train_step`` at B=16, N=1028 with
+seeded random weights and 3 warm-up steps; then every tier is timed without the profiler
 (best of 3 windows of 5 steps, the tiers in turn), and only then is each
 profiled over 5 steps (CPU and CUDA activities): launches after a profiler
 session are slower, so no unprofiled window follows one.  Prints, per step:
@@ -27,6 +32,49 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 B, N, STEPS, WARMUP, TOP = 16, 1028, 5, 3, 12
+SERVE_B = 24
+SERVE_TIERS = {"serve": "float32", "bf16serve": "bfloat16"}
+# kernels of the serving forward's K1 and K3, by name (csrc/knn.cu, csrc/hs_support.cu;
+# PyTorch's own reductions are at::native::reduce_kernel)
+GROUPS = {"K1": ("(anonymous namespace)::knn_kernel<",),
+          "K3": ("(anonymous namespace)::project_f32_kernel(",
+                 "(anonymous namespace)::project_bf16_kernel(",
+                 "(anonymous namespace)::reduce_kernel<")}
+
+
+def prepare_serve(dtype: str):
+    """A warmed-up serving forward of one tier: a function that runs STEPS
+    forwards and returns the wall ms per forward."""
+    import torch
+
+    from hspose_tpu_torch.config import ModelConfig
+    from hspose_tpu_torch.geometry.rotations import generate_RT
+    from hspose_tpu_torch.models.hspose import build_model, eval_forward
+
+    torch.manual_seed(0)
+    model = build_model(ModelConfig(compute_dtype=dtype), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    pc = torch.randn((SERVE_B, N, 3), device="cuda", generator=g) * 0.2
+    obj = torch.arange(SERVE_B, device="cuda") % 6
+    sym = torch.tensor([[0, 1, 0, 0]], dtype=torch.float32, device="cuda").repeat(SERVE_B, 1)
+
+    def serve():
+        with torch.no_grad():
+            o = eval_forward(model, pc, obj, generator=g)
+            generate_RT(o.p_green_R, o.p_red_R, o.f_green_R, o.f_red_R, o.pred_T, sym)
+
+    for _ in range(WARMUP):
+        serve()
+    torch.cuda.synchronize()
+
+    def timed_steps() -> float:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            serve()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / STEPS
+
+    return timed_steps
 
 
 def prepare(dtype: str):
@@ -75,12 +123,17 @@ def profile(dtype: str, timed_steps, walls: list[float]) -> dict:
     device = sum(v[0] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:TOP]
     wall = min(walls)
-    return {"tier": dtype, "wall_ms": wall, "wall_windows_ms": walls,
-            "profiled_wall_ms": profiled_wall, "kernel_ms": device,
-            "idle_share": 1.0 - device / wall,
-            "launches": sum(v[1] for v in kernels.values()) / STEPS,
-            "top": [{"kernel": name[:90], "ms": ms, "calls": n / STEPS}
-                    for name, (ms, n) in top]}
+    out = {"tier": dtype, "wall_ms": wall, "wall_windows_ms": walls,
+           "profiled_wall_ms": profiled_wall, "kernel_ms": device,
+           "idle_share": 1.0 - device / wall,
+           "launches": sum(v[1] for v in kernels.values()) / STEPS,
+           "top": [{"kernel": name[:90], "ms": ms, "calls": n / STEPS}
+                   for name, (ms, n) in top]}
+    if dtype in SERVE_TIERS:
+        out["groups_ms"] = {g: sum(ms for name, (ms, _) in kernels.items()
+                                   if any(p in name for p in pats))
+                            for g, pats in GROUPS.items()}
+    return out
 
 
 def main() -> int:
@@ -97,18 +150,22 @@ def main() -> int:
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    runs = {t: prepare(t) for t in args.tiers}
+    runs = {t: prepare_serve(SERVE_TIERS[t]) if t in SERVE_TIERS else prepare(t)
+            for t in args.tiers}
     walls = {t: [] for t in args.tiers}
     for _ in range(3):
         for t in args.tiers:
             walls[t].append(runs[t]())
     results = [profile(t, runs[t], walls[t]) for t in args.tiers]
     for r in results:
-        print(f"{r['tier']} train step, B={B}, N={N}, {card}: wall {r['wall_ms']:.2f} ms "
-              f"(windows {', '.join(f'{w:.2f}' for w in r['wall_windows_ms'])}; "
-              f"{r['profiled_wall_ms']:.2f} under the profiler), device kernels "
-              f"{r['kernel_ms']:.2f} ms, idle {r['idle_share']:.3f}, "
-              f"{r['launches']:.0f} launches per step")
+        what = (f"serving forward, B={SERVE_B}" if r["tier"] in SERVE_TIERS
+                else f"train step, B={B}")
+        print(f"{r['tier']} {what}, N={N}, {card}: wall {r['wall_ms']:.3f} ms "
+              f"(windows {', '.join(f'{w:.3f}' for w in r['wall_windows_ms'])}; "
+              f"{r['profiled_wall_ms']:.3f} under the profiler), device kernels "
+              f"{r['kernel_ms']:.3f} ms, idle {r['idle_share']:.3f}, "
+              f"{r['launches']:.0f} launches per step"
+              + "".join(f", {g} {ms:.3f} ms" for g, ms in r.get("groups_ms", {}).items()))
         for k in r["top"]:
             print(f"  {k['ms']:8.3f} ms {k['calls']:6.1f} calls  {k['kernel']}")
     if args.out:
