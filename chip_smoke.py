@@ -9,12 +9,13 @@ not 0:
 1. environment: card name and power limit, torch / CUDA / nvcc versions,
    whether triton imports; TF32 off for matrix products and cuDNN;
 2. build: the kernels of ``hspose_tpu_torch/csrc`` with nvcc (sm_90a), and
-   the registers, shared memory and spills ptxas reports for K1's and K3's
-   kernels (``PTXAS_KERNELS``);
+   the registers, shared memory and spills ptxas reports for K1's, K2's,
+   K3's and K4's kernels (``PTXAS_KERNELS``);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at every shape the B=24, N=1028 forward gives it, with kernel and plain
    times from CUDA events; K1's nine searches are also kept one by one
-   (``searches``), and K3's two launches are timed apart (``parts``: the
+   (``searches``), K4's five layers likewise (``layers``), each beside its
+   bound, and K3's two launches are timed apart (``parts``: the
    projection with its bound and a library product as yardstick, the
    reduction with its bound);
 4. slice: ``PoseNet9D`` at full width with seeded random weights serves a few
@@ -29,7 +30,7 @@ not 0:
    B=24 bf16 forward gives them (KNN: >= 99.9% of the neighbours shared and
    swapped neighbours within 2^-10 relative distance; the reductions within
    1e-4 of the largest value), with kernel and plain times, the nine
-   searches and K3's parts kept as in phase 3;
+   searches, K4's five layers and K3's parts kept as in phase 3;
 7. bf16 slice: the same model built with ``compute_dtype="bfloat16"``
    serves the same requests; the launch counters must show 9 packed-key
    KNN, no exact KNN, 1 surface, 4 support and 5 ORL bf16 launches and no
@@ -120,7 +121,14 @@ not 0:
 19. K5: the exact KNN above N = 2048 (the JAX package's streamed kernel)
    against its plain version at N = 2056 and 4096 (xyz k=20 and k=4,
    features k=20 in fp32 and bf16), with times, and one fp32 harness batch
-   at ``data.num_points=2056``: 3 streamed and 6 other KNN launches.
+   at ``data.num_points=2056``: 3 streamed and 6 other KNN launches;
+20. K2 and K4 off the forward's shapes, fp32 and bf16, so that each branch
+   of their launches runs: K4 at the N = 2056 harness forward's five ORL
+   shapes (B=24), at B=4 N=2056, N=5000, K=5 and on an index tensor off
+   16-byte alignment; K2 at S, K and Co other than 7, 20 and 128; each
+   against its plain version within 1e-4 of the largest value, the
+   forwards with winners bit for bit the serving kernels' and their
+   winners as in phase 8; K4 must refuse features off 16-byte alignment.
 
 Each kernel's ``bound_ms`` is the least time the card could take for its
 calls: per call the larger of the bytes it must move (each input read once,
@@ -187,13 +195,23 @@ def run(cmd: list[str]) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
 
 
+# clock cycles of the sleep kernel that holds the stream while cuda_ms
+# enqueues its calls (about 10 ms on an H100)
+QUEUE_CYCLES = 20_000_000
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events after warm-up."""
+    """Mean device time of ``fn`` in ms, by CUDA events after warm-up.  A
+    sleep kernel ahead of the first event holds the stream while the host
+    enqueues the ``iters`` calls, so that a kernel shorter than its
+    wrapper's host time (an ORL layer: 5 to 20 us against about 25 us) is timed
+    back to back on the device, not at the host's pace."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -222,11 +240,11 @@ def phase_env() -> str:
     return smi
 
 
-# kernels whose registers, shared memory and spills phase 2 prints: K1's and
-# K3's, and by the same names K8's GEMM (project_kernel) and K13's
+# kernels whose registers, shared memory and spills phase 2 prints: K1's to
+# K4's, and by the same names K8's GEMM (project_kernel) and K13's
 # support_bwd_reduce_kernel
-PTXAS_KERNELS = ("knn_kernel", "project_f32_kernel", "project_bf16_kernel", "project_kernel",
-                 "reduce_kernel")
+PTXAS_KERNELS = ("knn_kernel", "surface_kernel", "project_f32_kernel", "project_bf16_kernel",
+                 "project_kernel", "reduce_kernel", "orl_kernel")
 
 
 def ptxas_report(text: str, names=PTXAS_KERNELS) -> list[str]:
@@ -376,7 +394,9 @@ def phase_kernels(dtype: str = "float32") -> dict:
                    f"{TOL_REL * scale:.3e}), {ms:.4f} ms (plain {pms:.4f} ms)")
         if not (err <= TOL_REL * scale and got.dtype == torch.float32):
             raise AssertionError(f"{name} {label}: error {err} > {TOL_REL} * {scale}")
-        record(rec, name, err, ms, pms, bound(tensors + [got], macs, op_dtype))
+        bnd = bound(tensors + [got], macs, op_dtype)
+        record(rec, name, err, ms, pms, bnd)
+        return bnd
 
     S = 7
     # conv_0
@@ -409,11 +429,14 @@ def phase_kernels(dtype: str = "float32") -> dict:
     for layer, c, n, k in [(0, 128, N, 20), (1, 128, N, 20), (2, 256, n1, 20),
                            (3, 256, n1, 20), (4, 512, n2, 8)]:
         feat, idx = features(n, c), knn_cuda(clouds[n], k)
-        close("orl_global" + tag, f"conv_{layer} C={c} N={n} K={k}",
-              orl_global_fused(feat, idx), orl_global_plain(feat, idx),
-              cuda_ms(lambda: orl_global_fused(feat, idx)),
-              cuda_ms(lambda: orl_global_plain(feat, idx)),
-              [feat, idx], 0)
+        ms, pms = cuda_ms(lambda: orl_global_fused(feat, idx)), cuda_ms(
+            lambda: orl_global_plain(feat, idx))
+        bnd = close("orl_global" + tag, f"conv_{layer} C={c} N={n} K={k}",
+                    orl_global_fused(feat, idx), orl_global_plain(feat, idx), ms, pms,
+                    [feat, idx], 0)
+        rec["orl_global" + tag].setdefault("layers", []).append(
+            {"layer": layer, "N": n, "C": c, "K": k, "ms": ms, "plain_ms": pms,
+             "bound_ms": bnd[0]})
     return rec
 
 
@@ -1555,6 +1578,99 @@ def phase_k5(smi: str) -> tuple[dict, dict]:
     return rec, launches
 
 
+# K4's calls off the B=24, N=1028 forward, (B, N, C, K): the N = 2056 harness
+# forward's five ORL branches (64-byte rows, the neighbour lists read through
+# L1 at N = 2056), 16-byte rows with the lists staged (B=4, N=2056) and read
+# through L1 (N=5000, K=8), and a K read at run time
+ORL_SHAPES = [(B, N_LARGE, 128, 20), (B, N_LARGE, 128, 20), (B, N_LARGE // 4, 256, 20),
+              (B, N_LARGE // 4, 256, 20), (B, N_LARGE // 16, 512, 8), (4, N_LARGE, 128, 20),
+              (2, 5000, 64, 8), (3, 33, 256, 5)]
+# K2's calls off the forward, (B, N, K, S, Co): S and K read at run time (the
+# supports held eight at a time), and Co below 128 (queries side by side)
+SURFACE_SHAPES = [(4, 300, 12, 10, 64), (3, 200, 20, 3, 96), (2, N, 20, 9, 128),
+                  (2, 130, 7, 7, 40), (2, 100, 20, 7, 40)]
+
+
+def phase_k2k4_shapes() -> None:
+    """K2 and K4 at shapes off the B=24, N=1028 forward, so that each branch
+    of their launches runs on the card (ORL_SHAPES, SURFACE_SHAPES, and one
+    ORL call on an index tensor 4 bytes off 16-byte alignment), in fp32 and
+    bf16: each serving call against its plain version within TOL_REL of
+    the largest value, the forward with winners bit for bit the serving
+    kernel's, its winners against the plain version's as in phase 8; and
+    features off 16-byte alignment must be refused."""
+    from hspose_tpu_torch.ops import cuda_hs_fused as f
+    from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
+    from hspose_tpu_torch.ops.knn import gather_neighbors, neighbor_directions_normalized
+
+    phase = "k2k4-shapes"
+    rng = np.random.default_rng(SEED + 12)
+
+    def close(name, label, got, want):
+        torch.cuda.synchronize()
+        scale, err = want.abs().max().item(), (got - want).abs().max().item()
+        log(phase, f"{name} {label}: max abs err {err:.3e} (bound {TOL_REL * scale:.3e})")
+        if not (err <= TOL_REL * scale and got.dtype == torch.float32):
+            raise AssertionError(f"{name} {label}: error {err} > {TOL_REL} * {scale}")
+
+    def at_win(x, win):  # x (B, N, K, C) at each column's winner
+        return x.gather(2, win.long()[:, :, None]).squeeze(2)
+
+    def off16(t):  # a contiguous copy of t 4 bytes off 16-byte alignment
+        buf = torch.empty(t.numel() * t.element_size() + 4, dtype=torch.uint8, device=t.device)
+        out = buf[4:].view(t.dtype).view(t.shape)
+        out.copy_(t)
+        return out
+
+    orl_cases = [(shape, False) for shape in ORL_SHAPES] + [((2, 300, 128, 20), True)]
+    for (b, n, c, k), unaligned in orl_cases:
+        idx = knn_indices_cuda(cloud_b(rng, b, n), k)
+        if unaligned:
+            idx = off16(idx)
+        for fast in (False, True):
+            feat = normal(rng, b, n, c).to(torch.bfloat16 if fast else torch.float32)
+            label = (f"B={b} N={n} C={c} K={k} {feat.dtype}"
+                     + (" idx off 16-byte alignment" if unaligned else ""))
+            got = f.orl_global_fused(feat, idx)
+            close("orl_global", label, got, f.orl_global_plain(feat, idx))
+            (out_k, win_k), (_, win_p) = (f.orl_global_fused_fwd(feat, idx),
+                                          f.orl_global_fused_fwd_plain(feat, idx))
+            same_bits("orl_global_fused_fwd", label + " (against the serving kernel)",
+                      (out_k,), (got,))
+            rows = gather_neighbors(feat, idx).float()
+            check_winners(phase, "orl_global_fused_fwd", label, win_k, win_p,
+                          at_win(rows, win_k), at_win(rows, win_p))
+            del rows
+
+    for b, n, k, S, co in SURFACE_SHAPES:
+        verts = cloud_b(rng, b, n)
+        idx = knn_indices_cuda(verts, k)
+        dirs = unit_dirs(rng, S * co)
+        for exact in (True, False):
+            label = f"B={b} N={n} K={k} S={S} Co={co} exact={exact}"
+            args = (verts, idx, dirs, S, co)
+            got = f.hs_surface_fused(*args, exact=exact)
+            close("hs_surface", label, got, f.hs_surface_plain(*args, exact=exact))
+            (out_k, win_k), (_, win_p) = (f.hs_surface_fused_fwd(*args, exact=exact),
+                                          f.hs_surface_fused_fwd_plain(*args, exact=exact))
+            same_bits("hs_surface_fused_fwd", label + " (against the serving kernel)",
+                      (out_k,), (got,))
+            if exact:
+                theta = torch.relu(neighbor_directions_normalized(verts, idx) @ dirs)
+            else:
+                theta = f._theta_fast(f._rf_fast(verts, idx), f._bf16(dirs))
+            check_winners(phase, "hs_surface_fused_fwd", label, win_k, win_p,
+                          at_win(theta, win_k), at_win(theta, win_p))
+
+    feat = off16(normal(rng, 2, 300, 128))
+    try:
+        f.orl_global_fused(feat, knn_indices_cuda(cloud_b(rng, 2, 300), 20))
+    except RuntimeError as err:
+        log(phase, f"orl_global on features off 16-byte alignment: refused ({err})")
+    else:
+        raise AssertionError("orl_global took features off 16-byte alignment")
+
+
 # kernel -> (source, the TPU kernel it replaces, the record and counter it
 # shares, when another kernel of the line ports the same function)
 SOURCES = {
@@ -1687,6 +1803,7 @@ def main() -> int:
     k5_rec, k5_launches = phase_k5(smi)
     rec.update(k5_rec)
     launches["knn_streamed"] = k5_launches["knn_streamed"]
+    phase_k2k4_shapes()
     print(json.dumps(kernel_line(rec, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

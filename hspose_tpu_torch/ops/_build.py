@@ -41,10 +41,8 @@ SIGNATURES = {
     "hs_support_project": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
     # proj, verts, idx, dirs, out, B, N, K, S, Co, fast, stream
     "hs_support_reduce": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # feat, fast, idx, partial, out, B, N, K, C, stream
-    "hs_orl": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    # N -> tiles of the ORL partial-sum scratch (no launch)
-    "hs_orl_tiles": [_I],
+    # feat, fast, idx, out, B, N, K, C, stream
+    "hs_orl": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
     # rf, dirs, out, win, B, N, K, S, Co, fast, stream
     "hs_surface_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # rf, dirs, win, gb, drf, partial, dd, B, N, K, S, Co, fast, stream
@@ -81,8 +79,8 @@ SIGNATURES = {
     # drf, dvq, partial, dw_partial, dg, wt, dfeat, dverts, dw, red, B, N, K, Cin, S, Co,
     # fast, stream
     "hs_support_fused_bwd": [_P, _P, _I] + [_P] * 21 + [_I] * 7 + [_P],
-    # feat, fast, idx, partial, out, win, B, N, K, C, stream
-    "hs_orl_win": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
+    # feat, fast, idx, out, win, B, N, K, C, stream
+    "hs_orl_win": [_P, _I] + [_P] * 3 + [_I] * 4 + [_P],
     # idx, win, gb, rowptr, ent, dfeat, B, N, K, C, fast, stream
     "hs_orl_bwd": [_P] * 6 + [_I] * 5 + [_P],
     # chamfer: a, b, dist, B, N, M, stream

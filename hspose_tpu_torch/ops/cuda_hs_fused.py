@@ -241,6 +241,21 @@ def hs_support_fused(feature_map: torch.Tensor, vertices: torch.Tensor,
     return out
 
 
+# What the ORL kernel (csrc/orl.cu) takes on the card; it picks its own
+# slice of channels and returns an error for anything else.
+ORL_LIMITS = ("the ORL kernel takes C a multiple of 16 bytes, 16-byte aligned features and "
+              "N rows of a 16-byte slice of channels with their tile sums in 227 KB of shared "
+              "memory (N <= 14087 in fp32, 13672 in bf16)")
+
+
+def _launch_orl(name: str, feature: torch.Tensor, *args) -> None:
+    try:
+        _build.launch(name, feature, *args)
+    except RuntimeError as err:
+        raise RuntimeError(f"{err}; {ORL_LIMITS}: got (B, N, C) = {tuple(feature.shape)}, "
+                           f"{feature.dtype}") from err
+
+
 def orl_global_fused(feature: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """ORL global branch; see ``orl_global_plain``.  bf16 ``feature`` runs
     the bf16 tier; the output is fp32 either way.  Differentiable in
@@ -254,10 +269,8 @@ def orl_global_fused(feature: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                  (None, None, None))
     B, N, C = feature.shape
     K = _check_idx(idx, B, N)
-    tiles = _build.load().hs_orl_tiles(N)
-    partial = torch.empty((B, tiles, C), dtype=torch.float32, device=feature.device)
     out = torch.empty((B, 1, C), dtype=torch.float32, device=feature.device)
-    _build.launch("hs_orl", feature, int(fast), idx, partial, out, B, N, K, C)
+    _launch_orl("hs_orl", feature, int(fast), idx, out, B, N, K, C)
     _count(orl_global_fused, fast)
     return out
 
@@ -637,9 +650,8 @@ def orl_global_fused_fwd(feature: torch.Tensor, idx: torch.Tensor):
     K = _check_idx(idx, B, N)
     if K > 32:
         raise ValueError(f"the fused backwards take K <= 32, got K={K}")
-    partial = _empty((B, _build.load().hs_orl_tiles(N), C), feature)
     out, win = _empty((B, 1, C), feature), _empty((B, N, C), feature, torch.int32)
-    _build.launch("hs_orl_win", feature, int(fast), idx, partial, out, win, B, N, K, C)
+    _launch_orl("hs_orl_win", feature, int(fast), idx, out, win, B, N, K, C)
     _count(orl_global_fused_fwd, fast)
     return out, win
 

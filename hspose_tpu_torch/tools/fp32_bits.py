@@ -11,8 +11,13 @@ The first form imports ``hspose_tpu_torch`` from DIR (a checkout, such as a
   forward (KNN, surface, support, ORL) and of the B=16 train step (K12, K15,
   K11, K13; K11 without winner values and K14; the fused ops' forwards with
   winners and their backwards K9, K8, K10 at conv_0's and conv_2..conv_4's
-  shapes), with each kernel's time (CUDA events, mean of 20 launches after
-  3, summed over the calls of one pass);
+  shapes), with each kernel's device time (CUDA events, mean of 20 launches
+  after 3, enqueued behind a sleep kernel, summed over the calls of one
+  pass; the ORL kernel also per layer);
+* the bf16 tier's surface and ORL outputs at the B=24 forward's shapes and
+  their forwards with winners at the B=16 step's, with their times (the
+  ORL kernel per layer): their sums are fp32 in a fixed order, so they keep
+  their bits too;
 * the fp32 serving forward's pose outputs at B=24, N=1028;
 * the total loss of three fp32 train steps at B=16, N=1028;
 
@@ -34,7 +39,16 @@ import sys
 from pathlib import Path
 
 
-def _timed(times: dict, name: str, fn, iters: int = 20, warmup: int = 3):
+# clock cycles of the sleep kernel that holds the stream while _timed enqueues
+# its calls (about 10 ms on an H100), as chip_smoke.py::cuda_ms
+QUEUE_CYCLES = 20_000_000
+
+
+def _timed(times: dict, name: str, fn, iters: int = 20, warmup: int = 3, part: str = ""):
+    """``fn()``, with its mean device time added to times[name] and, when
+    ``part`` is given, to times[name + " " + part] too.  The calls are
+    enqueued behind a sleep kernel, so that a kernel shorter than its
+    wrapper's host time is timed back to back on the device."""
     import torch
 
     out = fn()
@@ -42,12 +56,14 @@ def _timed(times: dict, name: str, fn, iters: int = 20, warmup: int = 3):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
-    times[name] = times.get(name, 0.0) + start.elapsed_time(end) / iters
+    for key in (name, f"{name} {part}") if part else (name,):
+        times[key] = times.get(key, 0.0) + start.elapsed_time(end) / iters
     return out
 
 
@@ -126,7 +142,8 @@ def collect(tree: str) -> dict:
                                (3, 256, N // 4, 20), (4, 512, N // 16, 8)]:
             feat, oidx = normal(B, n, c), knn_indices_cuda(clouds[n], k)
             out[f"orl_global conv_{layer}"] = _timed(times, "orl_global",
-                                                     lambda: f.orl_global_fused(feat, oidx))
+                                                     lambda: f.orl_global_fused(feat, oidx),
+                                                     part=f"conv_{layer}")
 
         # training kernels, B=16, on the forwards' own residuals
         B = 16
@@ -186,7 +203,7 @@ def collect(tree: str) -> dict:
                     feat, verts, kidx, w[:, co:], d, fwd[1], fwd[2], gb, S, co))
             ofeat, oidx, ogb = normal(B, n, co), knn_indices_cuda(verts, k), normal(B, 1, co)
             ofwd = _timed(times, "orl_global_fused_fwd",
-                          lambda: f.orl_global_fused_fwd(ofeat, oidx))
+                          lambda: f.orl_global_fused_fwd(ofeat, oidx), part=f"conv_{layer}")
             out[f"orl_global_fused_fwd conv_{layer}"] = ofwd
             out[f"orl_global_fused_bwd conv_{layer}"] = _timed(
                 times, "orl_global_fused_bwd", lambda: f.orl_global_fused_bwd(oidx, ofwd[1], ogb))
@@ -200,8 +217,26 @@ def collect(tree: str) -> dict:
         pose = eval_forward(model, pc, obj, pool_samples=samples)
         out.update({f"serve {k}": v for k, v in zip(pose._fields, pose)})
 
+        # the bf16 tier's surface and ORL kernels: the B=24 forward's shapes, and
+        # their forwards with winners at the B=16 step's
+        bf16_times = {}
+        for B in (24, 16):
+            verts = normal(B, N, 3, scale=0.2)
+            sargs = (verts, knn_indices_cuda(verts, 20, packed=True), unit(S * 128), S, 128)
+            name = "hs_surface (bf16)" if B == 24 else "hs_surface_fused_fwd (bf16)"
+            fn = f.hs_surface_fused if B == 24 else f.hs_surface_fused_fwd
+            out[name] = _timed(bf16_times, name, lambda: fn(*sargs, exact=False))
+            for layer, c, n, k in [(0, 128, N, 20), (1, 128, N, 20), (2, 256, N // 4, 20),
+                                   (3, 256, N // 4, 20), (4, 512, N // 16, 8)][2 if B == 16 else 0:]:
+                pts = normal(B, n, 3, scale=0.2)
+                feat, oidx = normal(B, n, c).to(torch.bfloat16), knn_indices_cuda(pts, k, packed=True)
+                name = "orl_global (bf16)" if B == 24 else "orl_global_fused_fwd (bf16)"
+                fn = f.orl_global_fused if B == 24 else f.orl_global_fused_fwd
+                out[f"{name} conv_{layer}"] = _timed(bf16_times, name, lambda: fn(feat, oidx),
+                                                     part=f"conv_{layer}")
+
         # times only: the bf16 tier's KNN and support kernels, B=24
-        B, bf16_times = 24, {}
+        B = 24
         for n, d, k in [(N, 3, 20), (N, 128, 20), (N, 3, 4), (N // 4, 3, 20), (N // 4, 128, 20),
                         (N // 4, 256, 20), (N // 4, 3, 4), (N // 16, 3, 8), (N // 16, 256, 8)]:
             pts = clouds[n] if d == 3 else normal(B, n, d).to(torch.bfloat16)

@@ -7,8 +7,9 @@ A tier is a ``compute_dtype``, or ``v4`` / ``bf16v4``: fp32 / bf16 with
 ``bwd_store=False`` and ``train_v4_small=True``, or ``serve`` / ``bf16serve``:
 the serving forward (``eval_forward`` + ``generate_RT`` under no_grad) at
 B=24 in fp32 / bf16, a "step" being one forward, where the kernels of K1
-(the KNN) and K3 (the HS support projection and reduction) are also summed
-apart.  For each training tier: ``build_train_step`` at B=16, N=1028 with
+(the KNN), K2 (the HS surface reduction), K3 (the HS support projection and
+reduction) and K4 (the ORL reduction) are also summed apart, with their
+launches.  For each training tier: ``build_train_step`` at B=16, N=1028 with
 seeded random weights and 3 warm-up steps; then every tier is timed without the profiler
 (best of 3 windows of 5 steps, the tiers in turn), and only then is each
 profiled over 5 steps (CPU and CUDA activities): launches after a profiler
@@ -34,12 +35,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 B, N, STEPS, WARMUP, TOP = 16, 1028, 5, 3, 12
 SERVE_B = 24
 SERVE_TIERS = {"serve": "float32", "bf16serve": "bfloat16"}
-# kernels of the serving forward's K1 and K3, by name (csrc/knn.cu, csrc/hs_support.cu;
-# PyTorch's own reductions are at::native::reduce_kernel)
+# kernels of the serving forward's K1-K4, by name (csrc/knn.cu, csrc/hs_surface.cu,
+# csrc/hs_support.cu, csrc/orl.cu; PyTorch's own reductions are at::native::reduce_kernel);
+# K4 also by the names of the two launches its one-launch kernel replaced, so that
+# a tree from before it profiles alike
 GROUPS = {"K1": ("(anonymous namespace)::knn_kernel<",),
+          "K2": ("(anonymous namespace)::surface_kernel<",),
           "K3": ("(anonymous namespace)::project_f32_kernel(",
                  "(anonymous namespace)::project_bf16_kernel(",
-                 "(anonymous namespace)::reduce_kernel<")}
+                 "(anonymous namespace)::reduce_kernel<"),
+          "K4": ("(anonymous namespace)::orl_kernel<",
+                 "(anonymous namespace)::orl_partial_kernel<",
+                 "(anonymous namespace)::orl_finish_kernel(")}
 
 
 def prepare_serve(dtype: str):
@@ -130,9 +137,11 @@ def profile(dtype: str, timed_steps, walls: list[float]) -> dict:
            "top": [{"kernel": name[:90], "ms": ms, "calls": n / STEPS}
                    for name, (ms, n) in top]}
     if dtype in SERVE_TIERS:
-        out["groups_ms"] = {g: sum(ms for name, (ms, _) in kernels.items()
-                                   if any(p in name for p in pats))
-                            for g, pats in GROUPS.items()}
+        out["groups"] = {}
+        for g, pats in GROUPS.items():
+            hits = [v for name, v in kernels.items() if any(p in name for p in pats)]
+            out["groups"][g] = {"ms": sum(ms for ms, _ in hits),
+                                "launches": sum(n for _, n in hits) / STEPS}
     return out
 
 
@@ -165,7 +174,8 @@ def main() -> int:
               f"{r['profiled_wall_ms']:.3f} under the profiler), device kernels "
               f"{r['kernel_ms']:.3f} ms, idle {r['idle_share']:.3f}, "
               f"{r['launches']:.0f} launches per step"
-              + "".join(f", {g} {ms:.3f} ms" for g, ms in r.get("groups_ms", {}).items()))
+              + "".join(f", {g} {v['ms']:.3f} ms ({v['launches']:.0f} launches)"
+                        for g, v in r.get("groups", {}).items()))
         for k in r["top"]:
             print(f"  {k['ms']:8.3f} ms {k['calls']:6.1f} calls  {k['kernel']}")
     if args.out:
