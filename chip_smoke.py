@@ -9,8 +9,9 @@ not 0:
 1. environment: card name and power limit, torch / CUDA / nvcc versions,
    whether triton imports; TF32 off for matrix products and cuDNN;
 2. build: the kernels of ``hspose_tpu_torch/csrc`` with nvcc (sm_90a), and
-   the registers, shared memory and spills ptxas reports for K1's, K2's,
-   K3's and K4's kernels (``PTXAS_KERNELS``);
+   the registers, shared memory and spills ptxas reports for K1's to K4's
+   kernels and for K13's and K14's rows, reduction and recompute kernels
+   (``PTXAS_KERNELS``);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at every shape the B=24, N=1028 forward gives it, with kernel and plain
    times from CUDA events; K1's nine searches are also kept one by one
@@ -42,6 +43,9 @@ not 0:
    largest value, winners equal on >= 99.9% of entries and near-ties where
    not; backwards fed the same residuals as their plain versions, every
    cotangent within 1e-4 of its largest value; kernel and plain times;
+   K13 also per layer (``layers``) and per launch (``parts``: rows,
+   reduction, partial sum, each with its bound, timed by torch.profiler),
+   with at most one launch of each per call;
 9. training slice: ``build_train_step`` at full width takes 3 steps on a
    (16, 1028) synthetic batch; the launch counters must show 9 KNN, 1 + 1
    surface and 4 + 4 support training launches per step and no serving
@@ -56,7 +60,7 @@ not 0:
    the largest value, winners as in phase 8, and the bf16 cotangents
    (drf, dg, dd) within one bf16 ulp of each element plus 1e-4 of the
    largest (the fp32 sums differ in order, which can move a rounding to
-   bf16 by one ulp);
+   bf16 by one ulp); K13's ``layers`` and ``parts`` as in phase 8;
 11. bf16 training slice: ``build_train_step`` on ``compute_dtype="bfloat16"``
    takes 3 steps at (16, 1028); the counters must show 9 packed-key KNN and
    1 + 1 surface and 4 + 4 support bf16 training launches per step, nothing
@@ -73,7 +77,8 @@ not 0:
    forwards with winners against the serving kernels and every backward
    against a second launch, bit for bit; then one autograd backward through
    ``hs_surface_fused``, K9's carrier (no model path reaches K9), which must
-   launch one K2 with winners and one K9;
+   launch one K2 with winners and one K9; K14 per layer and per launch
+   (recompute, rows, reduction, partial sum) as K13 in phase 8;
 13. v4 training slice: ``build_train_step`` on ``ModelConfig(bwd_store=False,
    train_v4_small=True)`` takes 3 steps at (16, 1028); the counters must show
    9 KNN, 1 + 1 K12/K15, 1 K11 without winner values + 1 K14, 3 K3 with
@@ -128,7 +133,14 @@ not 0:
    16-byte alignment; K2 at S, K and Co other than 7, 20 and 128; each
    against its plain version within 1e-4 of the largest value, the
    forwards with winners bit for bit the serving kernels' and their
-   winners as in phase 8; K4 must refuse features off 16-byte alignment.
+   winners as in phase 8; K4 must refuse features off 16-byte alignment;
+21. K13 and K14 off the step's shapes, fp32 and bf16, so that each branch
+   of their launches runs: (K, Cin, Co, S) = (5, 132, 128, 3), (31, 128,
+   512, 7) and (20, 256, 256, 9) at B=3, N=1001 (every template width of
+   K, Cin beyond one 128-channel block, column tiles of other widths, a row
+   count that is a multiple of no tile): K13 against its plain version at
+   phase 8's gates (phase 10's in bf16), K14 bit for bit K13 on the
+   forward's stored values, each launched twice with the same bits.
 
 Each kernel's ``bound_ms`` is the least time the card could take for its
 calls: per call the larger of the bytes it must move (each input read once,
@@ -142,6 +154,8 @@ backwards are winner- or argmin-routed scatters), so theirs is null.  K3's
 projection alone has one: ``parts.project.library_ms`` is ``torch.addmm(b,
 feat, W)`` in fp32 with TF32 off, ``torch.matmul`` on bf16 operands in the
 bf16 tier, neither called by the port.
+K13's and K14's ``parts`` are their launches timed apart, each with the
+bound of its own inputs and outputs.
 ``launches`` is each kernel's count in the main run of its path: phases 4,
 7, 9, 11, 13 and 15, for K2 with winners and K9 the autograd call of phases
 12 and 14, for K16 the recon harness run, for K17 and K18 the autograd call
@@ -241,10 +255,11 @@ def phase_env() -> str:
 
 
 # kernels whose registers, shared memory and spills phase 2 prints: K1's to
-# K4's, and by the same names K8's GEMM (project_kernel) and K13's
-# support_bwd_reduce_kernel
+# K4's, K13's and K14's (support_bwd_rows_kernel, support_bwd_reduce_kernel,
+# recompute_kernel), and by the same names K8's GEMM (project_kernel)
 PTXAS_KERNELS = ("knn_kernel", "surface_kernel", "project_f32_kernel", "project_bf16_kernel",
-                 "project_kernel", "reduce_kernel", "orl_kernel")
+                 "project_kernel", "reduce_kernel", "orl_kernel", "support_bwd_rows_kernel",
+                 "recompute_kernel")
 
 
 def ptxas_report(text: str, names=PTXAS_KERNELS) -> list[str]:
@@ -303,11 +318,12 @@ def unit_dirs(rng, n: int) -> torch.Tensor:
     return d / d.norm(dim=0, keepdim=True)
 
 
-def bound(tensors, macs: float, dtype) -> tuple[float, str]:
+def bound(tensors, macs: float, dtype, nbytes: float = 0.0) -> tuple[float, str]:
     """(ms, what bounds it) of the least time the card could take for one
-    call: the bytes of ``tensors`` (its inputs and outputs, each once) over
-    HBM_BYTES_PER_S, or ``macs`` multiply-adds at the peak of ``dtype``."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    call: the bytes of ``tensors`` (its inputs and outputs, each once) and
+    ``nbytes`` more over HBM_BYTES_PER_S, or ``macs`` multiply-adds at the
+    peak of ``dtype``."""
+    nbytes += sum(t.numel() * t.element_size() for t in tensors)
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, 2 * macs / PEAK_OPS[dtype] * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
@@ -677,12 +693,13 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(e - 7)
 
 
-def compare_cotangents(phase: str, rec: dict, name: str, label: str, pairs, ms: float,
-                       pms: float, tensors, macs: float, op_dtype=torch.float32) -> None:
+def compare_cotangents(phase: str, rec: dict, name: str, label: str, pairs, ms: float | None,
+                       pms: float, tensors, macs: float, op_dtype=torch.float32):
     """pairs: (what, kernel tensor, plain tensor); fp32 ones within TOL_REL of
     their largest plain value, bf16 ones also one bf16 ulp of each element
     (the two fp32 sums differ in order, which can move the final rounding by
-    one ulp).  Logs and records the call under ``name``."""
+    one ulp).  Logs and records the call under ``name`` and returns its
+    bound; with ``ms`` None only checks and logs."""
     torch.cuda.synchronize()
     worst, parts = 0.0, []
     for what, got, want in pairs:
@@ -698,8 +715,13 @@ def compare_cotangents(phase: str, rec: dict, name: str, label: str, pairs, ms: 
                                  f"ulp slack) > {TOL_REL} * {scale}, or {got.dtype} is "
                                  f"not {want.dtype}")
         worst = max(worst, err)
+    if ms is None:
+        log(phase, f"{name} {label}: " + ", ".join(parts))
+        return None
     log(phase, f"{name} {label}: " + ", ".join(parts) + f"; {ms:.4f} ms (plain {pms:.4f} ms)")
-    record(rec, name, worst, ms, pms, bound(tensors + [got for _, got, _ in pairs], macs, op_dtype))
+    bnd = bound(tensors + [got for _, got, _ in pairs], macs, op_dtype)
+    record(rec, name, worst, ms, pms, bnd)
+    return bnd
 
 
 def check_winners(phase: str, name: str, label: str, wk, wp, mk, mp) -> None:
@@ -712,6 +734,80 @@ def check_winners(phase: str, name: str, label: str, wk, wp, mk, mp) -> None:
                f"{gap:.3e} (bound {TOL_REL * scale:.3e})")
     if agree < WIN_AGREE or not gap <= TOL_REL * scale:
         raise AssertionError(f"{name} {label}: winners agree {agree}, gap {gap}")
+
+
+# K13's and K14's launches by kernel name (csrc/hs_support_train.cu; the
+# partial sum is hs_common.cuh's, shared with other backwards)
+SUPPORT_BWD_PARTS = {"support_bwd_rows_kernel": "rows", "support_bwd_reduce_kernel": "reduction",
+                     "recompute_kernel": "recompute", "sum_partials_kernel": "partial_sum"}
+
+
+def support_bwd_bounds(g, rf, w, dirs, win, gb, recompute: bool, op_dtype) -> dict:
+    """Each launch of one K13 (or, with ``recompute``, K14) call: its
+    bound from its own inputs and outputs, each once."""
+    rows, K, cin = g.numel() // (g.shape[-2] * g.shape[-1]), g.shape[-2], g.shape[-1]
+    sc, co = win.shape[-1], gb.shape[-1]
+    f32, esz = 4, g.element_size()
+    parts = -(-rows // 128)
+    winners = 3 * rows * sc * f32 + rows * co * f32  # win, twin, pwin, gb
+    out = {"rows": bound([], rows * sc * (cin + 3), op_dtype,
+                         winners + cin * sc * f32 + 3 * sc * esz + rows * K * (cin + 3) * esz),
+           "reduction": bound([], rows * sc * (cin + 4), op_dtype,
+                              winners + rows * K * (cin + 3) * esz + parts * (cin + 4) * sc * f32),
+           "partial_sum": bound([], 0, op_dtype, (parts + 1) * (cin + 4) * sc * f32)}
+    if recompute:
+        out = {"recompute": bound([], rows * sc * (cin + 3), op_dtype,
+                                  rows * K * (cin + 3) * esz + cin * sc * f32 + sc * f32
+                                  + 3 * sc * esz + 3 * rows * sc * f32), **out}
+    return out
+
+
+def support_bwd_parts(phase: str, r: dict, label: str, fn, bounds: dict, calls: int = 10) -> None:
+    """K13's or K14's launches timed apart: each kernel's mean device time
+    per launch, by torch.profiler over ``calls`` calls after one, summed
+    over the pass into r["parts"] beside its bound.  Each part of ``bounds``
+    must launch, at most once a call, and no other kernel of
+    SUPPORT_BWD_PARTS may (the profiler can drop a launch's record, so a
+    part may show fewer than ``calls``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the calls queue behind a sleep kernel: launches that run while the
+        # session starts are not recorded
+        torch.cuda._sleep(QUEUE_CYCLES)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
+            continue
+        part = next((p for k, p in SUPPORT_BWD_PARTS.items() if k in e.name), None)
+        if part is not None:
+            total[part] = total.get(part, 0.0) + e.time_range.elapsed_us() / 1e3
+            count[part] = count.get(part, 0) + 1
+    if set(count) != set(bounds) or any(n > calls for n in count.values()):
+        raise AssertionError(f"{label}: launches over {calls} calls {count}, expected at most "
+                             f"one of each of {sorted(bounds)} per call")
+    ms = {part: total[part] / count[part] for part in bounds}
+    parts = r.setdefault("parts", {})
+    for part, (bms, by) in bounds.items():
+        e = parts.setdefault(part, {"ms": 0.0, "bound_ms": 0.0, "bound_ms_by": {}})
+        e["ms"] += ms[part]
+        e["bound_ms"] += bms
+        e["bound_ms_by"][by] = e["bound_ms_by"].get(by, 0.0) + bms
+        e["bound_by"] = max(e["bound_ms_by"], key=e["bound_ms_by"].get)
+    r["launches_per_call"] = len(bounds)
+    log(phase, f"  {label}: " + ", ".join(f"{part} {ms[part]:.4f} ms (bound {bms:.4f} {by})"
+                                         for part, (bms, by) in bounds.items())
+        + f"; launches seen over {calls} calls {count}")
+
+
+def layer_time(r: dict, layer: int, ms: float, pms: float, bnd) -> None:
+    r.setdefault("layers", []).append({"layer": layer, "ms": ms, "plain_ms": pms,
+                                       "bound_ms": bnd[0]})
 
 
 def phase_train_kernels(dtype: str = "float32") -> dict:
@@ -733,8 +829,8 @@ def phase_train_kernels(dtype: str = "float32") -> dict:
     S, B = 7, TRAIN_B
 
     def compare(name, label, pairs, ms, pms, tensors, macs):
-        compare_cotangents(phase, rec, name + tag, label, pairs, ms, pms, tensors, macs,
-                           op_dtype)
+        return compare_cotangents(phase, rec, name + tag, label, pairs, ms, pms, tensors, macs,
+                                  op_dtype)
 
     def winners(name, label, wk, wp, mk, mp):
         check_winners(phase, name + tag, label, wk, wp, mk, mp)
@@ -791,13 +887,18 @@ def phase_train_kernels(dtype: str = "float32") -> dict:
                 [g, rf, fargs[2], fargs[3], fargs[4], win_k], (g.numel() + rf.numel()) * sc)
         gb = normal(rng, B, n, co)
         bargs = (g, rf, fargs[2], fargs[4], win_k, tw_k, pw_k, gb, S, co)
-        compare("hs_support_bwd", label,
-                list(zip(("dg", "drf", "dw", "db", "dd"), cuda_hs.hs_support_bwd(*bargs),
-                         cuda_hs.hs_support_bwd_plain(*bargs))),
-                cuda_ms(lambda: cuda_hs.hs_support_bwd(*bargs), 10),
-                cuda_ms(lambda: cuda_hs.hs_support_bwd_plain(*bargs), 10),
-                [g, rf, fargs[2], fargs[4], win_k, tw_k, pw_k, gb],
-                win_k.numel() * (2 * cin + 6))  # dg, dW at each winner; drf, dd
+        ms = cuda_ms(lambda: cuda_hs.hs_support_bwd(*bargs), 10)
+        pms = cuda_ms(lambda: cuda_hs.hs_support_bwd_plain(*bargs), 10)
+        bnd = compare("hs_support_bwd", label,
+                      list(zip(("dg", "drf", "dw", "db", "dd"), cuda_hs.hs_support_bwd(*bargs),
+                               cuda_hs.hs_support_bwd_plain(*bargs))), ms, pms,
+                      [g, rf, fargs[2], fargs[4], win_k, tw_k, pw_k, gb],
+                      win_k.numel() * (2 * cin + 6))  # dg, dW at each winner; drf, dd
+        r = rec["hs_support_bwd" + tag]
+        layer_time(r, layer, ms, pms, bnd)
+        support_bwd_parts(phase, r, label, lambda: cuda_hs.hs_support_bwd(*bargs),
+                          support_bwd_bounds(g, rf, fargs[2], fargs[4], win_k, gb, False,
+                                             op_dtype))
     return rec
 
 
@@ -837,7 +938,7 @@ def phase_v4_kernels(dtype: str = "float32") -> tuple[dict, dict]:
     S, B = 7, TRAIN_B
 
     def compare(name, *args):
-        compare_cotangents(phase, rec, name + tag, *args, op_dtype=op)
+        return compare_cotangents(phase, rec, name + tag, *args, op_dtype=op)
 
     def winners(name, *args):
         check_winners(phase, name + tag, *args)
@@ -894,13 +995,17 @@ def phase_v4_kernels(dtype: str = "float32") -> tuple[dict, dict]:
              got, k13)
         log(phase, f"hs_support_bwd_recompute{tag} {label}: K13's bits on the forward's stored "
                    f"values")
-        compare("hs_support_bwd_recompute", label,
-                list(zip(("dg", "drf", "dw", "db", "dd"), got,
-                         cuda_hs.hs_support_bwd_recompute_plain(*bargs))),
-                cuda_ms(lambda: cuda_hs.hs_support_bwd_recompute(*bargs), 10),
-                cuda_ms(lambda: cuda_hs.hs_support_bwd_recompute_plain(*bargs), 10),
-                [g, rf, fargs[2], fargs[3], fargs[4], win_k, gb],
-                win_k.numel() * (3 * cin + 9))  # P at each winner; dg, dW; theta, drf, dd
+        ms = cuda_ms(lambda: cuda_hs.hs_support_bwd_recompute(*bargs), 10)
+        pms = cuda_ms(lambda: cuda_hs.hs_support_bwd_recompute_plain(*bargs), 10)
+        bnd = compare("hs_support_bwd_recompute", label,
+                      list(zip(("dg", "drf", "dw", "db", "dd"), got,
+                               cuda_hs.hs_support_bwd_recompute_plain(*bargs))), ms, pms,
+                      [g, rf, fargs[2], fargs[3], fargs[4], win_k, gb],
+                      win_k.numel() * (3 * cin + 9))  # P at each winner; dg, dW; theta, drf, dd
+        r = rec["hs_support_bwd_recompute" + tag]
+        layer_time(r, layer, ms, pms, bnd)
+        support_bwd_parts(phase, r, label, lambda: cuda_hs.hs_support_bwd_recompute(*bargs),
+                          support_bwd_bounds(g, rf, fargs[2], fargs[4], win_k, gb, True, op))
 
     # K2 with winners, K9: conv_0
     label = f"conv_0 N={N} K=20 Co=128"
@@ -1671,6 +1776,51 @@ def phase_k2k4_shapes() -> None:
         raise AssertionError("orl_global took features off 16-byte alignment")
 
 
+# K13's and K14's calls off the step, (K, Cin, Co, S): K under each template
+# width (8, 20, 32), Cin beyond one 128-channel block, S*Co in column tiles
+# of 192, 256 and 256; at B=3, N=1001 the rows are a multiple of no tile
+SUPPORT_BWD_SHAPES = [(5, 132, 128, 3), (31, 128, 512, 7), (20, 256, 256, 9)]
+
+
+def phase_k13k14_shapes() -> None:
+    """K13 and K14 at shapes off the B=16 step (SUPPORT_BWD_SHAPES, B=3,
+    N=1001), in fp32 and bf16, so that each branch of their launches runs on
+    the card: K13 against its plain version at phase 8's gates (phase 10's in
+    bf16), K14 bit for bit K13 on the forward's stored values, each launched
+    twice with the same bits."""
+    from hspose_tpu_torch.ops import cuda_hs
+    from hspose_tpu_torch.ops.knn import gather_neighbors, knn_indices, neighbor_directions_normalized
+
+    phase = "k13k14-shapes"
+    rng = np.random.default_rng(SEED + 13)
+    b, n = 3, 1001
+    for k, cin, co, S in SUPPORT_BWD_SHAPES:
+        for op in (torch.float32, torch.bfloat16):
+            label = f"B={b} N={n} K={k} Cin={cin} Co={co} S={S} {op}"
+            feat = torch.relu(normal(rng, b, n, cin))
+            idx = knn_indices(feat, k)
+            g = gather_neighbors(feat.to(op), idx)
+            rf = neighbor_directions_normalized(cloud_b(rng, b, n).to(op), idx)
+            stdv = 1.0 / (co * (S + 1)) ** 0.5
+            w = normal(rng, cin, (S + 1) * co, scale=stdv)
+            bias = normal(rng, (S + 1) * co, scale=stdv)
+            dirs = unit_dirs(rng, S * co).to(op)
+            _, win, tw, pw = cuda_hs.hs_support_fwd(g, rf, w[:, co:], bias[co:], dirs, S, co)
+            gb = normal(rng, b, n, co)
+            bargs = (g, rf, w[:, co:], dirs, win, tw, pw, gb, S, co)
+            got = cuda_hs.hs_support_bwd(*bargs)
+            same_bits("hs_support_bwd", label, got, cuda_hs.hs_support_bwd(*bargs))
+            compare_cotangents(phase, {}, "hs_support_bwd", label,
+                               list(zip(("dg", "drf", "dw", "db", "dd"), got,
+                                        cuda_hs.hs_support_bwd_plain(*bargs))), None, 0.0, [], 0)
+            rargs = (g, rf, w[:, co:], bias[co:], dirs, win, gb, S, co)
+            k14 = cuda_hs.hs_support_bwd_recompute(*rargs)
+            same_bits("hs_support_bwd_recompute", label, k14,
+                      cuda_hs.hs_support_bwd_recompute(*rargs))
+            same_bits("hs_support_bwd_recompute", label + " (against K13)", k14, got)
+            log(phase, f"hs_support_bwd_recompute {label}: K13's bits, twice")
+
+
 # kernel -> (source, the TPU kernel it replaces, the record and counter it
 # shares, when another kernel of the line ports the same function)
 SOURCES = {
@@ -1804,6 +1954,7 @@ def main() -> int:
     rec.update(k5_rec)
     launches["knn_streamed"] = k5_launches["knn_streamed"]
     phase_k2k4_shapes()
+    phase_k13k14_shapes()
     print(json.dumps(kernel_line(rec, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

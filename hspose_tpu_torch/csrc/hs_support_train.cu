@@ -24,56 +24,84 @@
 // accumulation gives them; b is added in fp32 and db sums the unrounded
 // gb*twin.  dg and drf are rounded to bf16 once, after their sums.
 //
-// What bounds it on an H100: the forward's projection of every gathered row
+// What bounds the forward on an H100: the projection of every gathered row
 // is a dense fp32 product, B*N*K*Cin*S*Co multiply-adds (3.8e10 at conv_1,
 // B=16; 1.0e11 over the four layers), on the CUDA cores since fp32 has no
 // tensor-core path; the (B, N, S*Co) winner values it writes are small beside
-// it.  In the backward each column has one winning row per query, so dg, dW
-// and drf are sparse: B*N*S*Co*Cin multiply-adds (K times fewer than the
-// dense products of the TPU kernel), bound by the L2 reads that feed them:
-// a row of W^T per (query, column) for dg, a winning g row per (query,
-// column) for dW.  The bf16 branch reads half the bytes of g, rf and dirs
-// but keeps the same CUDA-core multiply-adds on the widened operands, so the
-// same 1.0e11 fp32 operations bound it here; on the bf16 tensor cores
-// (wgmma, 989 TFLOP/s) the forward's product would be bound by its bytes
-// instead, which is the later, faster version this design leaves room for.
+// it.  Forward: one block per (batch, TQ-query tile), TQ * Co/4 threads;
+// thread (t, cg) owns query t and channels 4cg..4cg+3 for every k, so the max
+// over k and the argmax stay in its registers.  The block stages its queries'
+// g rows (TQ*K x Cin) once in shared memory; per support it streams W in
+// 16-row slices and accumulates P in registers (a float4 of g against four
+// float4s of W per step), then applies theta, the max with a strict > (the
+// first maximal k wins) and writes win, twin, pwin.
 //
-// Design.
-// * Forward: one block per (batch, TQ-query tile), TQ * Co/4 threads; thread
-//   (t, cg) owns query t and channels 4cg..4cg+3 for every k, so the max over
-//   k and the argmax stay in its registers.  The block stages its queries'
-//   g rows (TQ*K x Cin) once in shared memory; per support it streams W in
-//   16-row slices and accumulates P in registers (a float4 of g against four
-//   float4s of W per step), then applies theta, the max with a strict >
-//   (the first maximal k wins) and writes win, twin, pwin.
-// * Backward, rows: one block per query.  It buckets the query's S*Co
-//   columns by their winning k (a stable counting sort in shared memory, one
-//   warp ranking 32 columns at a time), then thread i sums
-//   gb*twin[sc] * W[i, sc] over each bucket in a register and writes
-//   dg[q, k, i]; threads k < K sum drf over the same buckets.  W is read as
-//   its transpose (one contiguous row per column sc, made by a small first
-//   launch), from L2.
-// * Backward, reductions: one block per (128-query chunk, 64-column tile),
-//   thread i over Cin accumulates dW[i, sc] from the winning g rows in
-//   registers; 64 threads also carry db and dd.  Each block writes a row of
-//   partial sums and a second launch adds the partials in chunk order, so
-//   dW, db and dd are the same from run to run.
+// The backward.  Each column has one winning row per query, so dg, dW and the
+// recomputed P are sparse: B*N*S*Co*Cin multiply-adds each (1.9e9 at conv_1,
+// B=16), K times fewer than the TPU kernel's dense products.  Every one of
+// them takes one operand gathered by the winner (a row of W^T for dg, a
+// winning g row for dW and P), and the fp32 bits fix the order of each sum,
+// so no product is shared between lanes: the bound that holds is one
+// shared-memory word per multiply-add, a quarter of the fp32 peak (an SM
+// reads 32 words a clock and issues 128 fp32 multiply-adds).  The design
+// keeps every gathered operand in shared memory, read without bank
+// conflicts, and reads each input from L2 once per block:
+// * Rows (dg, drf), support_bwd_rows_kernel: a warp per query, TQ queries and
+//   128 input channels per block (a float4 per lane; Cin beyond 128 in more
+//   blocks).  The block streams W in chunks of 32 columns, transposed
+//   through registers into shared memory (the bf16 tier rounds it there), so
+//   W is read from L2 once per TQ queries, not once per (query, column).
+//   Each lane holds one column of the chunk (winner, gb*twin, gb*pwin); for
+//   k = 0 .. K-1 a ballot finds the chunk's columns that k wins and the warp
+//   walks them in column order, adding gb*twin[c] * W^T[c] into its k's
+//   registers.  So no column is ranked ahead and no transpose launch is
+//   needed.  In the first channel block, lane 3k' + d (k' = k mod 10) then
+//   walks the columns each of its k's wins (the ballots kept in shared
+//   memory) for drf[q, k, d], so the warp-wide walk carries no drf work.
+// * Reduction (dW, db, dd), support_bwd_reduce_kernel: a block per (column
+//   tile of at most 256, 128 input channels, 128-query chunk), a thread per
+//   column holding its 128 dW sums in registers.  Each stage copies RED_QS
+//   queries' K g rows (the block's channels; a warp per row) and their
+//   winner values into shared memory by cp.async, double-buffered; the rows
+//   lie at an odd word stride, so the lanes' different winners read
+//   different banks.  Blocks that share a chunk run side by side, so g
+//   comes from HBM about once.  The bf16 tier reads two channels a word.
+//   Each block writes a row of partial sums and hs::sum_partials adds them
+//   in chunk order.
+//
+// The fp32 bits of every cotangent are those of the kernels before this
+// design (hspose_tpu_torch/tools/fp32_bits.py holds them), by keeping each
+// sum's order and expression:
+// * dg[q, k, i] = fmaf(gb*twin[c], W[i, c], acc) from 0.f over the columns c
+//   that k wins, in increasing c; drf[q, k, d] = fmaf(gb*pwin[c] (gated),
+//   dirs[d, c], acc) in the same order;
+// * dW[i, c] = fmaf(gb*twin[q, c], g[q, win, i], acc), db[c] = acc + gb*twin
+//   (unrounded in the bf16 tier) and dd[d, c] = fmaf(gb*pwin, rf[q, win, d],
+//   acc), each from 0.f in increasing q within a chunk of RED_QC queries;
+//   the chunks' partial sums are then added in chunk order from 0.f;
+// * K14's P = fmaf(g[q, win, i], W[i, c], acc) from 0.f in increasing i,
+//   then + b[c]; theta by the forward's expression.
+// tests/test_torch_support_bwd_order.py models these orders against the
+// replaced kernels' on tied inputs.
 //
 // bwd_store=False, both tiers: the forward without STORE writes win but not
 // twin/pwin (K11's no-values launch), and the recompute backward
 // (hs_support_bwd_recompute, K14) replaces hspose_tpu/ops/pallas_hs.py::
 // _support_bwd_kernel (:240, exact=True and exact=False): recompute_kernel<T>
-// forms, per (query, column), theta and P = g[q, win] . W[:, col] + b[col] at
-// the recorded winner with the forward's arithmetic (fmaf over Cin in order,
-// W rounded to bf16 in the bf16 tier, then + b; theta by the same
-// expression), into scratch twin/pwin, and the stored-values backward's
-// kernels above route the cotangents from them.  So K14 gives K13's
-// cotangents, bit for bit, from the same inputs.  Plain version:
-// hspose_tpu_torch/ops/cuda_hs.py::hs_support_bwd_recompute_plain.  What bounds it: besides K13's
-// work, B*N*S*Co*Cin fp32 multiply-adds for the recomputed P (K times fewer
-// than the forward's), fed by a W column per thread from L2 and g rows staged
-// in shared memory for RC_TQ queries at a time.
-
+// forms theta and P at the recorded winners with the forward's arithmetic (W
+// rounded to bf16 in the bf16 tier) into scratch twin/pwin, and the
+// stored-values backward's kernels above route the cotangents from them.  So
+// K14 gives K13's cotangents, bit for bit, from the same inputs.  Plain
+// version: hspose_tpu_torch/ops/cuda_hs.py::hs_support_bwd_recompute_plain.
+// recompute_kernel: a thread per column of a tile of at most 256, RC_TQ
+// queries per block; per stage of RC_CH channels the queries' K g rows (odd
+// word stride again, so the lanes' different winners read different banks)
+// and the W chunk (16-byte copies where W's rows allow) are copied in by
+// cp.async, double-buffered; each W value read feeds RC_TQ multiply-adds.
+// 16-channel stages keep a block's shared memory small enough for two
+// blocks per SM.
+//
+// Launches per call: K13 three (rows, reduction, sum_partials), K14 four.
 #include <algorithm>
 
 #include "hs_common.cuh"
@@ -82,13 +110,17 @@ namespace {
 
 constexpr int BK = 16;           // rows of W per slice in the forward
 constexpr int FWD_THREADS = 256;  // TQ * Co/4
-constexpr int ROWS_THREADS = 128;
-constexpr int RED_CH = 64;       // columns per block in the reduction kernel
-constexpr int RED_QC = 128;      // queries per block in the reduction kernel
-constexpr int RED_QS = 16;       // queries staged at once in the reduction kernel
-constexpr int RC_TQ = 16;        // queries per block in the recompute kernel
-constexpr int RC_CH = 16;        // input channels staged at once in the recompute kernel
-constexpr int RC_THREADS = 128;  // columns per block in the recompute kernel
+constexpr int ROWS_CS = 128;     // input channels per rows block: a float4 per lane
+constexpr int ROWS_CC = 32;      // columns per staged W^T chunk: one per lane
+constexpr int ROWS_WS = ROWS_CS + 4;  // row stride (floats) of the staged W^T chunk
+constexpr int ROWS_DS = ROWS_CC + 1;  // row stride (floats) of the staged directions
+constexpr int RED_QC = 128;      // queries per partial sum: part of the association of dW, db, dd
+constexpr int RED_QS = 4;        // queries per stage of the reduction kernel
+constexpr int RED_CS = 128;      // input channels per reduction block
+constexpr int RED_CT = 256;      // most columns (threads) per reduction block
+constexpr int RC_TQ = 16;        // queries per recompute block
+constexpr int RC_CH = 16;        // input channels per stage of the recompute kernel
+constexpr int RC_CT = 256;       // most columns (threads) per recompute block
 
 template <int KP, typename T, bool STORE>
 __global__ void __launch_bounds__(FWD_THREADS)
@@ -204,177 +236,329 @@ support_fwd_kernel(const T* __restrict__ g, const T* __restrict__ rf,
   }
 }
 
-// Stage, for the flattened (b, n) rows row0 .. row0 + nrows - 1 and columns
-// c0 .. c0 + nc - 1, the winner, gb*twin and the gated gb*pwin into (nq, width)
-// shared arrays; entries past nrows or nc are zero.  FAST (the bf16 tier)
-// rounds gb*twin and gb*pwin to bf16 as product operands and also stages the
-// unrounded gb*twin into sb, for db.
-template <bool FAST>
-__device__ inline void stage_winners(const int* __restrict__ win, const float* __restrict__ twin,
-                                     const float* __restrict__ pwin, const float* __restrict__ gb,
-                                     int* sk, float* sv, float* sb, float* su, size_t row0, int nq,
-                                     int nrows, int c0, int nc, int width, int SC, int S, int Co) {
-  for (int e = threadIdx.x; e < nq * width; e += blockDim.x) {
-    const int t = e / width, j = e % width;
-    int k = 0;
-    float v = 0.f, u = 0.f;
-    if (t < nrows && j < nc) {
-      const size_t row = row0 + t;
-      const size_t at = row * SC + c0 + j;
-      const float gs = hs::div_s<FAST>(gb[row * Co + (c0 + j) % Co], S);
-      const float tw = twin[at];
-      k = win[at];
-      v = gs * tw;
-      u = tw > 0.f ? gs * pwin[at] : 0.f;
-    }
-    sk[e] = k;
-    if constexpr (FAST) {
-      sb[e] = v;
-      sv[e] = hs::bf16_round(v);
-      su[e] = hs::bf16_round(u);
-    } else {
-      sv[e] = v;
-      su[e] = u;
-    }
-  }
+// Threads of a column tile: S*Co split into as few tiles of at most `most`
+// columns as will do, each a whole number of warps.
+inline int column_tile(int SC, int most) {
+  const int tiles = (SC + most - 1) / most;
+  return ((SC + tiles - 1) / tiles + 31) / 32 * 32;
 }
 
-// One block per query row q.  The row's S*Co columns are bucketed by their
-// winning k, stably (hs::bucket_by_winner), so dg[q, k, i] is a sum over k's bucket in
-// column order, held in a register by thread i: no shared-memory
-// read-modify-write and no atomics.  Threads k < K sum drf over the same
-// buckets.  The bf16 tier rounds gb*twin and gb*pwin to bf16 (the products'
-// operands) and writes dg and drf rounded to bf16 once.
-template <typename T>
-__global__ void __launch_bounds__(ROWS_THREADS)
-support_bwd_rows_kernel(const float* __restrict__ wt, const T* __restrict__ dirs,
+// Four consecutive values into fp32 storage, or rounded (to nearest even)
+// into bf16 storage; p lies on a 4-element boundary.
+__device__ __forceinline__ void store4(float* p, const float* a) {
+  *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* a) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a[0], a[1]), hi = __floats2bfloat162_rn(a[2], a[3]);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                            *reinterpret_cast<const unsigned*>(&hi));
+}
+
+// Queries (warps) per rows block: KP = 32 holds 128 sums a lane.
+template <int KP>
+__host__ __device__ constexpr int rows_tq() { return KP > 20 ? 8 : 16; }
+
+// Element e of a staged W chunk (ROWS_CS channel rows x ROWS_CC/4 column
+// groups of four): the lanes of a warp cover 16 rows x 2 groups, so that
+// their loads fill 32-byte sectors and their transposed stores fall on 32
+// different banks (ROWS_WS = 4 mod 32).
+__device__ __forceinline__ void w_elem(int e, int& i, int& c4) {
+  const int l = e % 32, wp = e / 32;
+  i = (wp % 8) * 16 + l % 16;
+  c4 = (wp / 8) * 2 + l / 16;
+}
+
+// dg and drf.  Block: TQ warps, one query each, and ROWS_CS input channels
+// (blockIdx.y), lane l holding channels 4l..4l+3 and the sums of every k in
+// registers.  Per chunk of ROWS_CC columns: W^T[c, channels] and the
+// directions are staged (double-buffered through registers), lane j holds
+// column j's winner, gb*twin and gated gb*pwin, and for each k in order a
+// ballot gives the columns k wins, walked in column order.  The bf16 tier
+// rounds W, gb*twin and gb*pwin to bf16 (the products' operands) and writes
+// dg and drf rounded to bf16 once.
+template <int KP, typename T>
+__global__ void __launch_bounds__(rows_tq<KP>() * 32, 1)
+support_bwd_rows_kernel(const float* __restrict__ w, int ldw, const T* __restrict__ dirs,
                         const int* __restrict__ win, const float* __restrict__ twin,
                         const float* __restrict__ pwin, const float* __restrict__ gb,
-                        T* __restrict__ dg, T* __restrict__ drf, int K, int Cin,
+                        T* __restrict__ dg, T* __restrict__ drf, int rows, int K, int Cin,
                         int S, int Co) {
-  extern __shared__ __align__(16) float smem[];
-  const int SC = S * Co;
-  float2* spair = reinterpret_cast<float2*>(smem);  // (SC) bucket order: (column bits, gb*twin)
-  float* sv = smem + 2 * SC;                         // (SC) gb*twin, column order
-  float* su = sv + SC;                               // (SC) gated gb*pwin, column order
-  int* sk = reinterpret_cast<int*>(su + SC);         // (SC) winner
-  int* srank = sk + SC;                              // (SC) place within its bucket
-  int* scnt = srank + SC;                            // (32) bucket sizes
-  int* soff = scnt + 32;                             // (33) bucket offsets
-  const size_t q = blockIdx.x;
+  constexpr bool FAST = hs::is_bf16<T>;
+  constexpr int TQ = rows_tq<KP>(), NT = TQ * 32;
+  constexpr int NW = ROWS_CS * ROWS_CC / 4 / NT;  // float4s of W each thread stages per chunk
+  constexpr int NR = (KP + 9) / 10;               // drf sums per lane
+  constexpr unsigned ALL = 0xffffffffu;
+  __shared__ __align__(16) float sw[2][ROWS_CC * ROWS_WS];  // W^T chunk: (column, channel)
+  __shared__ float sd[2][3 * ROWS_DS];                      // directions of the chunk's columns
+  __shared__ float su_[TQ][ROWS_CC];      // per warp: the chunk's gated gb*pwin, for drf
+  __shared__ unsigned sm_[TQ][32];        // per warp: the chunk's columns that each k wins
+  const int SC = S * Co, lane = threadIdx.x % 32;
+  const int i0 = blockIdx.y * ROWS_CS;
+  const size_t q = (size_t)blockIdx.x * TQ + threadIdx.x / 32;
+  const bool live = q < (size_t)rows, with_rf = blockIdx.y == 0;
+  const int rk = lane < 30 ? lane / 3 : -1, rd = lane % 3;  // drf[q, rk + 10 s, rd] of this lane
+  const bool w_vec = hs::aligned16(w) && ldw % 4 == 0;
 
-  for (int c = threadIdx.x; c < SC; c += blockDim.x) {
-    const size_t at = q * SC + c;
-    const float gs = hs::div_s<hs::is_bf16<T>>(gb[q * Co + c % Co], S);
-    const float tw = twin[at];
-    const float v = gs * tw, u = tw > 0.f ? gs * pwin[at] : 0.f;
-    sk[c] = win[at];
-    sv[c] = hs::is_bf16<T> ? hs::bf16_round(v) : v;
-    su[c] = hs::is_bf16<T> ? hs::bf16_round(u) : u;
-  }
-  __syncthreads();
-  hs::bucket_by_winner(sk, srank, scnt, soff, SC);
-  __syncthreads();
-  for (int c = threadIdx.x; c < SC; c += blockDim.x)
-    spair[soff[sk[c]] + srank[c]] = make_float2(__int_as_float(c), sv[c]);
-  __syncthreads();
-
-  T* dgq = dg + q * K * Cin;
-  for (int i = threadIdx.x; i < Cin; i += blockDim.x) {
-    for (int k = 0; k < K; ++k) {
-      float acc = 0.f;
-      const int pe = soff[k + 1];
-#pragma unroll 4
-      for (int p = soff[k]; p < pe; ++p) {
-        const float2 e = spair[p];
-        acc = fmaf(e.y, wt[(size_t)__float_as_int(e.x) * Cin + i], acc);
+  float4 wr[NW];
+  float dr = 0.f, twn = 0.f, pwn = 0.f, gbn = 0.f;
+  int kn = -1;
+  // the chunk at column c0 into registers: W, directions, this lane's winner values
+  auto fetch = [&](int c0) {
+#pragma unroll
+    for (int r = 0; r < NW; ++r) {
+      int i, c4;
+      w_elem(threadIdx.x + r * NT, i, c4);
+      const int row = i0 + i, col = c0 + c4 * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < Cin && col < SC) {
+        const float* p = w + (size_t)row * ldw + col;
+        v = w_vec ? *reinterpret_cast<const float4*>(p) : make_float4(p[0], p[1], p[2], p[3]);
       }
-      hs::store_f(dgq + k * Cin + i, acc);
+      wr[r] = v;
     }
+    if (threadIdx.x < 3 * ROWS_CC) {
+      const int col = c0 + threadIdx.x % ROWS_CC;
+      dr = col < SC ? hs::load_f(dirs + (threadIdx.x / ROWS_CC) * SC + col) : 0.f;
+    }
+    const int col = c0 + lane;
+    kn = -1;
+    if (live && col < SC) {
+      const size_t at = q * SC + col;
+      kn = win[at];
+      twn = twin[at];
+      pwn = pwin[at];
+      gbn = gb[q * Co + col % Co];
+    }
+  };
+  // the registers into shared buffer buf, W transposed
+  auto stage = [&](int buf) {
+#pragma unroll
+    for (int r = 0; r < NW; ++r) {
+      int i, c4;
+      w_elem(threadIdx.x + r * NT, i, c4);
+      float* s = sw[buf] + c4 * 4 * ROWS_WS + i;
+      const float v[4] = {wr[r].x, wr[r].y, wr[r].z, wr[r].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[j * ROWS_WS] = FAST ? hs::bf16_round(v[j]) : v[j];
+    }
+    if (threadIdx.x < 3 * ROWS_CC)
+      sd[buf][(threadIdx.x / ROWS_CC) * ROWS_DS + threadIdx.x % ROWS_CC] = dr;
+  };
+
+  float acc[KP][4], racc[NR];
+#pragma unroll
+  for (int k = 0; k < KP; ++k)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[k][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < NR; ++s) racc[s] = 0.f;
+
+  const int chunks = (SC + ROWS_CC - 1) / ROWS_CC;
+  fetch(0);
+  stage(0);
+  __syncthreads();
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int buf = ch & 1;
+    const int kl = kn;
+    const float gs = hs::div_s<FAST>(gbn, S);
+    float vl = gs * twn, ul = twn > 0.f ? gs * pwn : 0.f;
+    if constexpr (FAST) {
+      vl = hs::bf16_round(vl);
+      ul = hs::bf16_round(ul);
+    }
+    if (ch + 1 < chunks) fetch((ch + 1) * ROWS_CC);
+    if (live) {
+      const float* wrow = sw[buf] + 4 * lane;
+      const float* drow = sd[buf] + rd * ROWS_DS;
+      float* su = su_[threadIdx.x / 32];
+      unsigned* smask = sm_[threadIdx.x / 32];
+      if (with_rf) su[lane] = ul;
+#pragma unroll
+      for (int k = 0; k < KP; ++k) {
+        if (k < K) {
+          unsigned m = __ballot_sync(ALL, kl == k);
+          if (with_rf && lane == 0) smask[k] = m;
+          while (m) {
+            const int j = __ffs(m) - 1;
+            m &= m - 1;
+            const float v = __shfl_sync(ALL, vl, j);
+            const float4 w4 = *reinterpret_cast<const float4*>(wrow + j * ROWS_WS);
+            acc[k][0] = fmaf(v, w4.x, acc[k][0]);
+            acc[k][1] = fmaf(v, w4.y, acc[k][1]);
+            acc[k][2] = fmaf(v, w4.z, acc[k][2]);
+            acc[k][3] = fmaf(v, w4.w, acc[k][3]);
+          }
+        }
+      }
+      if (with_rf) {  // drf apart from the warp-wide walk: each lane walks its own k's columns
+        __syncwarp();
+#pragma unroll
+        for (int s = 0; s < NR; ++s) {
+          const int k = rk + 10 * s;
+          if (rk >= 0 && k < K) {
+            unsigned m = smask[k];
+            while (m) {
+              const int j = __ffs(m) - 1;
+              m &= m - 1;
+              racc[s] = fmaf(su[j], drow[j], racc[s]);
+            }
+          }
+        }
+      }
+    }
+    if (ch + 1 < chunks) stage(buf ^ 1);
+    __syncthreads();
   }
-  if (threadIdx.x < K) {
-    const int k = threadIdx.x;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-    for (int p = soff[k]; p < soff[k + 1]; ++p) {
-      const int c = __float_as_int(spair[p].x);
-      const float u = su[c];
-      a0 += u * hs::load_f(dirs + c);
-      a1 += u * hs::load_f(dirs + SC + c);
-      a2 += u * hs::load_f(dirs + 2 * SC + c);
+  if (!live) return;
+  if (i0 + 4 * lane < Cin) {
+    T* out = dg + q * K * Cin + i0 + 4 * lane;
+#pragma unroll
+    for (int k = 0; k < KP; ++k)
+      if (k < K) store4(out + (size_t)k * Cin, acc[k]);
+  }
+  if (with_rf && rk >= 0) {
+#pragma unroll
+    for (int s = 0; s < NR; ++s) {
+      const int k = rk + 10 * s;
+      if (k < K) hs::store_f(drf + (q * K + k) * 3 + rd, racc[s]);
     }
-    T* r = drf + (q * K + k) * 3;
-    hs::store_f(r, a0);
-    hs::store_f(r + 1, a1);
-    hs::store_f(r + 2, a2);
   }
 }
 
-// The bf16 tier's dW and dd take the bf16-rounded gb*twin and gb*pwin, and db
-// the unrounded gb*twin.
+// 4-byte words per staged row of n channels of T, plus one so that the
+// stride is odd and rows of different k start on different banks.
 template <typename T>
-__global__ void __launch_bounds__(256)
+__host__ __device__ constexpr int row_words(int n) { return n / (hs::is_bf16<T> ? 2 : 1) + 1; }
+
+// Channel pair (2w, 2w + 1) of a staged bf16 row word, as fp32.
+__device__ __forceinline__ float bf16_lo(unsigned x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned x) { return __uint_as_float(x & 0xffff0000u); }
+
+// Copy N channels (from channel ch0 on) of each of the nrow rows of g that
+// follow row0 into shared words st (row stride `stride` words), zeros past
+// nvalid rows or Cin channels, by 4-byte cp.async: a warp copies whole rows
+// (32 / (words per row) rows at a time where rows are shorter than a warp),
+// so each copy's addresses are a row base and the lane.
+template <int N, typename T>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ g, unsigned* st, size_t row0,
+                                           int nrow, int nvalid, int ch0, int stride, int Cin) {
+  constexpr int EPW = hs::is_bf16<T> ? 2 : 1;
+  constexpr int NW = N / EPW;                 // words per row
+  constexpr int LPR = NW < 32 ? NW : 32;      // lanes per row
+  constexpr int RPW = 32 / LPR;               // rows per warp step
+  constexpr int WPL = (NW + LPR - 1) / LPR;   // words per lane
+  const int lane = threadIdx.x % 32, sub = lane / LPR, l = lane % LPR;
+  const int step = (blockDim.x / 32) * RPW;
+  for (int row = (threadIdx.x / 32) * RPW + sub; row < nrow; row += step) {
+    const T* src = g + (row0 + row) * Cin + ch0;
+    unsigned* dst = st + row * stride;
+    const bool rv = row < nvalid;
+#pragma unroll
+    for (int u = 0; u < WPL; ++u) {
+      const int wd = l + LPR * u;
+      const bool ok = rv && ch0 + wd * EPW < Cin;
+      hs::cp_async4(dst + wd, ok ? src + wd * EPW : g, ok);
+    }
+  }
+}
+
+// dW, db, dd.  Block: one column per thread (a tile of blockDim.x columns,
+// blockIdx.x), RED_CS input channels (blockIdx.y) and one chunk of RED_QC
+// queries (blockIdx.z), whose sums go to its own row of partial.  Per stage
+// RED_QS queries' K g rows and winner values are copied in by cp.async,
+// double-buffered.  The bf16 tier's dW and dd take the bf16-rounded gb*twin
+// and gb*pwin, and db the unrounded gb*twin.
+template <typename T>
+__global__ void __launch_bounds__(RED_CT, 1)
 support_bwd_reduce_kernel(const T* __restrict__ g, const T* __restrict__ rf,
                           const int* __restrict__ win, const float* __restrict__ twin,
                           const float* __restrict__ pwin, const float* __restrict__ gb,
                           float* __restrict__ partial, int rows, int K, int Cin, int S,
                           int Co) {
   constexpr bool FAST = hs::is_bf16<T>;
-  __shared__ int sk[RED_QS * RED_CH];
-  __shared__ float sv[RED_QS * RED_CH];
-  __shared__ float su[RED_QS * RED_CH];
-  __shared__ float sb[FAST ? RED_QS * RED_CH : 1];  // unrounded gb*twin, for db
-  const int SC = S * Co;
-  const int chunk = blockIdx.y, c0 = blockIdx.x * RED_CH;
-  const int nc = min(RED_CH, SC - c0);
-  const int qa = chunk * RED_QC, qb = min(rows, qa + RED_QC);
-  const int E = (Cin + 4) * SC;  // one chunk's partial: dW rows, then db, then dd
-  float* part = partial + (size_t)chunk * E;
+  constexpr int GW = row_words<T>(RED_CS);
+  extern __shared__ __align__(16) unsigned smem_w[];
+  const int SC = S * Co, CT = blockDim.x, tid = threadIdx.x;
+  const int c = blockIdx.x * CT + tid;
+  const int i0 = blockIdx.y * RED_CS;
+  const int qa = blockIdx.z * RED_QC, qb = min(rows, qa + RED_QC);
+  const bool with_rf = blockIdx.y == 0;
+  // a stage: the g rows (RED_QS * K, GW), then win, twin, pwin, gb (RED_QS, CT) each
+  const int gwords = RED_QS * K * GW, stage_words = gwords + 4 * RED_QS * CT;
 
-  for (int i0 = 0; i0 < Cin; i0 += blockDim.x) {
-    const int i = i0 + threadIdx.x;
-    const bool extra = i0 == 0 && threadIdx.x < RED_CH;  // also carries db, dd of column threadIdx.x
-    float acc[RED_CH];
+  auto issue = [&](int q0, int buf) {
+    unsigned* st = smem_w + buf * stage_words;
+    stage_rows<RED_CS>(g, st, (size_t)q0 * K, RED_QS * K, (qb - q0) * K, i0, GW, Cin);
+    unsigned* sv = st + gwords;
+    for (int t = 0; t < RED_QS; ++t) {
+      const bool ok = q0 + t < qb && c < SC;
+      const size_t at = (size_t)(q0 + t) * SC + c;
+      hs::cp_async4(sv + t * CT + tid, ok ? win + at : win, ok);
+      hs::cp_async4(sv + (RED_QS + t) * CT + tid, ok ? twin + at : twin, ok);
+      hs::cp_async4(sv + (2 * RED_QS + t) * CT + tid, ok ? pwin + at : pwin, ok);
+      hs::cp_async4(sv + (3 * RED_QS + t) * CT + tid,
+                    ok ? gb + (size_t)(q0 + t) * Co + c % Co : gb, ok);
+    }
+    hs::cp_async_commit();
+  };
+
+  float acc[RED_CS];
 #pragma unroll
-    for (int j = 0; j < RED_CH; ++j) acc[j] = 0.f;
-    float db = 0.f, dd0 = 0.f, dd1 = 0.f, dd2 = 0.f;
-    for (int q0 = qa; q0 < qb; q0 += RED_QS) {
-      const int nq = min(RED_QS, qb - q0);
-      __syncthreads();
-      stage_winners<FAST>(win, twin, pwin, gb, sk, sv, sb, su, q0, RED_QS, nq, c0, nc, RED_CH,
-                          SC, S, Co);
-      __syncthreads();
-      for (int t = 0; t < nq; ++t) {
-        const size_t q = (size_t)q0 + t;
-        if (i < Cin) {
-          const T* gq = g + q * K * Cin + i;
+  for (int j = 0; j < RED_CS; ++j) acc[j] = 0.f;
+  float db = 0.f, dd0 = 0.f, dd1 = 0.f, dd2 = 0.f;
+  const int stages = (qb - qa + RED_QS - 1) / RED_QS;
+  issue(qa, 0);
+  for (int s = 0; s < stages; ++s) {
+    hs::cp_async_wait<0>();
+    __syncthreads();  // stage s has landed, and stage s - 1's buffer is no longer read
+    if (s + 1 < stages) issue(qa + (s + 1) * RED_QS, (s + 1) & 1);
+    const unsigned* st = smem_w + (s & 1) * stage_words;
+    const unsigned* sv = st + gwords;
+    const int q0 = qa + s * RED_QS, nq = min(RED_QS, qb - q0);
+    for (int t = 0; t < nq; ++t) {
+      const int k = (int)sv[t * CT + tid];
+      const float tw = __uint_as_float(sv[(RED_QS + t) * CT + tid]);
+      const float gs = hs::div_s<FAST>(__uint_as_float(sv[(3 * RED_QS + t) * CT + tid]), S);
+      const float v = gs * tw;
+      const float u = tw > 0.f ? gs * __uint_as_float(sv[(2 * RED_QS + t) * CT + tid]) : 0.f;
+      const float vo = FAST ? hs::bf16_round(v) : v, uo = FAST ? hs::bf16_round(u) : u;
+      float r0 = 0.f, r1 = 0.f, r2 = 0.f;
+      if (with_rf) {
+        const T* r = rf + ((size_t)(q0 + t) * K + k) * 3;
+        r0 = hs::load_f(r);
+        r1 = hs::load_f(r + 1);
+        r2 = hs::load_f(r + 2);
+      }
+      const unsigned* row = st + (t * K + k) * GW;
+      if constexpr (FAST) {
 #pragma unroll
-          for (int j = 0; j < RED_CH; ++j)
-            acc[j] = fmaf(sv[t * RED_CH + j], hs::load_f(gq + (size_t)sk[t * RED_CH + j] * Cin),
-                          acc[j]);
+        for (int wd = 0; wd < RED_CS / 2; ++wd) {
+          const unsigned x = row[wd];
+          acc[2 * wd] = fmaf(vo, bf16_lo(x), acc[2 * wd]);
+          acc[2 * wd + 1] = fmaf(vo, bf16_hi(x), acc[2 * wd + 1]);
         }
-        if (extra) {
-          const int j = threadIdx.x;
-          const T* r = rf + (q * K + sk[t * RED_CH + j]) * 3;
-          const float u = su[t * RED_CH + j];
-          db += (FAST ? sb : sv)[t * RED_CH + j];
-          dd0 += u * hs::load_f(r);
-          dd1 += u * hs::load_f(r + 1);
-          dd2 += u * hs::load_f(r + 2);
-        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < RED_CS; ++j) acc[j] = fmaf(vo, __uint_as_float(row[j]), acc[j]);
+      }
+      if (with_rf) {
+        db += v;
+        dd0 = fmaf(uo, r0, dd0);
+        dd1 = fmaf(uo, r1, dd1);
+        dd2 = fmaf(uo, r2, dd2);
       }
     }
-    if (i < Cin) {
+  }
+  if (c >= SC) return;
+  float* part = partial + (size_t)blockIdx.z * (Cin + 4) * SC + c;
 #pragma unroll
-      for (int j = 0; j < RED_CH; ++j)
-        if (j < nc) part[(size_t)i * SC + c0 + j] = acc[j];
-    }
-    if (extra && threadIdx.x < nc) {
-      const int col = c0 + threadIdx.x;
-      part[(size_t)Cin * SC + col] = db;
-      part[(size_t)(Cin + 1) * SC + col] = dd0;
-      part[(size_t)(Cin + 2) * SC + col] = dd1;
-      part[(size_t)(Cin + 3) * SC + col] = dd2;
-    }
+  for (int j = 0; j < RED_CS; ++j)
+    if (i0 + j < Cin) part[(size_t)(i0 + j) * SC] = acc[j];
+  if (with_rf) {
+    part[(size_t)Cin * SC] = db;
+    part[(size_t)(Cin + 1) * SC] = dd0;
+    part[(size_t)(Cin + 2) * SC] = dd1;
+    part[(size_t)(Cin + 3) * SC] = dd2;
   }
 }
 
@@ -383,42 +567,86 @@ support_bwd_reduce_kernel(const T* __restrict__ g, const T* __restrict__ rf,
 // theta = relu(rf[q, k] . d[:, col]) by support_fwd_kernel's expression.  The
 // bf16 tier (T = __nv_bfloat16) rounds W to bf16 as the forward stages it,
 // so each product is exact and P has the forward's bits.
-// Block: RC_THREADS columns (grid.x) of RC_TQ queries (grid.y); the queries'
-// g rows are staged RC_CH channels at a time.
+// Block: one column per thread (a tile of blockDim.x columns, blockIdx.x) and
+// RC_TQ queries (blockIdx.y); per stage of RC_CH channels the queries' K g
+// rows and the W chunk (RC_CH, columns) are copied in by cp.async,
+// double-buffered.
 template <typename T>
-__global__ void __launch_bounds__(RC_THREADS)
+__global__ void __launch_bounds__(RC_CT)
 recompute_kernel(const T* __restrict__ g, const T* __restrict__ rf,
                  const float* __restrict__ w, int ldw, const float* __restrict__ bias,
                  const T* __restrict__ dirs, const int* __restrict__ win,
                  float* __restrict__ twin, float* __restrict__ pwin, int rows, int K, int Cin,
                  int S, int Co) {
-  extern __shared__ float sg[];  // (RC_TQ, K, RC_CH)
-  const int SC = S * Co;
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr bool FAST = hs::is_bf16<T>;
+  constexpr int GW = row_words<T>(RC_CH);
+  extern __shared__ __align__(16) unsigned smem_w[];
+  const int SC = S * Co, CT = blockDim.x, tid = threadIdx.x;
+  const int col = blockIdx.x * CT + tid;
   const int q0 = blockIdx.y * RC_TQ, tq = min(RC_TQ, rows - q0);
+  // a stage: the g rows (RC_TQ * K, GW), then W (RC_CH, CT)
+  const int gwords = RC_TQ * K * GW, stage_words = gwords + RC_CH * CT;
+  const bool w_vec = hs::aligned16(w) && ldw % 4 == 0;
   int kk[RC_TQ];
+#pragma unroll
+  for (int t = 0; t < RC_TQ; ++t)
+    kk[t] = (col < SC && t < tq) ? win[(size_t)(q0 + t) * SC + col] : 0;
+
+  auto issue = [&](int ic, int buf) {
+    unsigned* st = smem_w + buf * stage_words;
+    stage_rows<RC_CH>(g, st, (size_t)q0 * K, RC_TQ * K, tq * K, ic, GW, Cin);
+    unsigned* sw = st + gwords;
+    if (w_vec) {
+      const int c4s = CT / 4;
+      for (int e = tid; e < RC_CH * c4s; e += CT) {
+        const int i = ic + e / c4s, c = blockIdx.x * CT + (e % c4s) * 4;
+        const bool ok = i < Cin && c < SC;
+        hs::cp_async16(sw + (e / c4s) * CT + (e % c4s) * 4, ok ? w + (size_t)i * ldw + c : w, ok);
+      }
+    } else {
+      for (int e = tid; e < RC_CH * CT; e += CT) {
+        const int i = ic + e / CT, c = blockIdx.x * CT + e % CT;
+        const bool ok = i < Cin && c < SC;
+        hs::cp_async4(sw + e, ok ? w + (size_t)i * ldw + c : w, ok);
+      }
+    }
+    hs::cp_async_commit();
+  };
+
   float acc[RC_TQ];
 #pragma unroll
-  for (int t = 0; t < RC_TQ; ++t) {
-    kk[t] = (col < SC && t < tq) ? win[(size_t)(q0 + t) * SC + col] : 0;
-    acc[t] = 0.f;
-  }
-  for (int i0 = 0; i0 < Cin; i0 += RC_CH) {
-    const int nch = min(RC_CH, Cin - i0);
-    __syncthreads();  // the previous slice is no longer read
-    for (int e = threadIdx.x; e < RC_TQ * K * RC_CH; e += blockDim.x) {
-      const int t = e / (K * RC_CH), k = (e / RC_CH) % K, i = e % RC_CH;
-      sg[e] = (t < tq && i < nch) ? hs::load_f(g + ((size_t)(q0 + t) * K + k) * Cin + i0 + i)
-                                  : 0.f;
-    }
-    __syncthreads();
-    if (col < SC) {
-      for (int i = 0; i < nch; ++i) {
-        const float wr = w[(size_t)(i0 + i) * ldw + col];
-        const float wv = hs::is_bf16<T> ? hs::bf16_round(wr) : wr;
+  for (int t = 0; t < RC_TQ; ++t) acc[t] = 0.f;
+  const int stages = (Cin + RC_CH - 1) / RC_CH;
+  issue(0, 0);
+  for (int s = 0; s < stages; ++s) {
+    hs::cp_async_wait<0>();
+    __syncthreads();  // stage s has landed, and stage s - 1's buffer is no longer read
+    if (s + 1 < stages) issue((s + 1) * RC_CH, (s + 1) & 1);
+    const unsigned* st = smem_w + (s & 1) * stage_words;
+    const float* sw = reinterpret_cast<const float*>(st + gwords) + tid;
+    const int nch = min(RC_CH, Cin - s * RC_CH);  // a multiple of 4
+    if constexpr (FAST) {
 #pragma unroll
-        for (int t = 0; t < RC_TQ; ++t)
-          acc[t] = fmaf(sg[(t * K + kk[t]) * RC_CH + i], wv, acc[t]);
+      for (int wd = 0; wd < RC_CH / 2; ++wd) {
+        if (2 * wd < nch) {
+          const float w0 = hs::bf16_round(sw[2 * wd * CT]), w1 = hs::bf16_round(sw[(2 * wd + 1) * CT]);
+#pragma unroll
+          for (int t = 0; t < RC_TQ; ++t) {
+            const unsigned x = st[(t * K + kk[t]) * GW + wd];
+            acc[t] = fmaf(bf16_lo(x), w0, acc[t]);
+            acc[t] = fmaf(bf16_hi(x), w1, acc[t]);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < RC_CH; ++i) {
+        if (i < nch) {
+          const float wv = sw[i * CT];
+#pragma unroll
+          for (int t = 0; t < RC_TQ; ++t)
+            acc[t] = fmaf(__uint_as_float(st[(t * K + kk[t]) * GW + i]), wv, acc[t]);
+        }
       }
     }
   }
@@ -426,7 +654,9 @@ recompute_kernel(const T* __restrict__ g, const T* __restrict__ rf,
   const float d0 = hs::load_f(dirs + col), d1 = hs::load_f(dirs + SC + col),
               d2 = hs::load_f(dirs + 2 * SC + col);
   const float bb = bias[col];
-  for (int t = 0; t < tq; ++t) {
+#pragma unroll
+  for (int t = 0; t < RC_TQ; ++t) {
+    if (t >= tq) break;
     const size_t at = (size_t)(q0 + t) * SC + col;
     const T* rq = rf + ((size_t)(q0 + t) * K + kk[t]) * 3;
     const float r[3] = {hs::load_f(rq), hs::load_f(rq + 1), hs::load_f(rq + 2)};
@@ -465,30 +695,37 @@ cudaError_t launch_fwd_k(const void* g, const void* rf, const float* w, int ldw,
                                   Co, st);
 }
 
+template <int KP, typename T>
+cudaError_t launch_rows(const float* w, int ldw, const void* dirs, const int* win,
+                        const float* twin, const float* pwin, const float* gb, void* dg,
+                        void* drf, int rows, int K, int Cin, int S, int Co, cudaStream_t st) {
+  constexpr int TQ = rows_tq<KP>();
+  support_bwd_rows_kernel<KP, T><<<dim3((rows + TQ - 1) / TQ, (Cin + ROWS_CS - 1) / ROWS_CS),
+                                   TQ * 32, 0, st>>>(
+      w, ldw, static_cast<const T*>(dirs), win, twin, pwin, gb, static_cast<T*>(dg),
+      static_cast<T*>(drf), rows, K, Cin, S, Co);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_bwd(const void* g, const void* rf, const float* w, int ldw, const void* dirs,
                        const int* win, const float* twin, const float* pwin, const float* gb,
-                       void* dg, void* drf, float* wt, float* partial, float* red, int B, int N,
-                       int K, int Cin, int S, int Co, cudaStream_t st) {
-  constexpr bool FAST = hs::is_bf16<T>;
-  const int SC = S * Co;
-  // W^T, so that the rows kernel reads one column of W as a contiguous row;
-  // the bf16 tier rounds it (dg's W operand)
-  cudaError_t err = hs::transpose_w<FAST>(w, ldw, wt, Cin, SC, st);
-  if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(float) * 6 * (size_t)SC + sizeof(int) * 65;
-  err = hs::allow_smem(support_bwd_rows_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  support_bwd_rows_kernel<T><<<B * N, ROWS_THREADS, smem, st>>>(
-      wt, static_cast<const T*>(dirs), win, twin, pwin, gb, static_cast<T*>(dg),
-      static_cast<T*>(drf), K, Cin, S, Co);
-  err = cudaGetLastError();
+                       void* dg, void* drf, float* partial, float* red, int B, int N, int K,
+                       int Cin, int S, int Co, cudaStream_t st) {
+  const int SC = S * Co, rows = B * N;
+  cudaError_t err =
+      K <= 8    ? launch_rows<8, T>(w, ldw, dirs, win, twin, pwin, gb, dg, drf, rows, K, Cin, S, Co, st)
+      : K <= 20 ? launch_rows<20, T>(w, ldw, dirs, win, twin, pwin, gb, dg, drf, rows, K, Cin, S, Co, st)
+                : launch_rows<32, T>(w, ldw, dirs, win, twin, pwin, gb, dg, drf, rows, K, Cin, S, Co, st);
   if (err != cudaSuccess) return err;
 
-  const int rows = B * N, parts = (rows + RED_QC - 1) / RED_QC;
-  const int threads = Cin >= 256 ? 256 : ((Cin + 31) / 32) * 32;
-  support_bwd_reduce_kernel<T><<<dim3((SC + RED_CH - 1) / RED_CH, parts),
-                                 std::max(threads, RED_CH), 0, st>>>(
+  const int ct = column_tile(SC, RED_CT), parts = (rows + RED_QC - 1) / RED_QC;
+  const size_t smem =
+      2 * sizeof(unsigned) * ((size_t)RED_QS * K * row_words<T>(RED_CS) + 4 * RED_QS * ct);
+  err = hs::allow_smem(support_bwd_reduce_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  support_bwd_reduce_kernel<T><<<dim3((SC + ct - 1) / ct, (Cin + RED_CS - 1) / RED_CS, parts), ct,
+                                 smem, st>>>(
       static_cast<const T*>(g), static_cast<const T*>(rf), win, twin, pwin, gb, partial, rows, K,
       Cin, S, Co);
   err = cudaGetLastError();
@@ -496,6 +733,24 @@ cudaError_t launch_bwd(const void* g, const void* rf, const float* w, int ldw, c
   return hs::sum_partials(partial, red, parts, (Cin + 4) * SC, st);
 }
 
+template <typename T>
+cudaError_t launch_recompute(const void* g, const void* rf, const float* w, int ldw,
+                             const float* b, const void* dirs, const int* win, const float* gb,
+                             float* twin, float* pwin, void* dg, void* drf, float* partial,
+                             float* red, int B, int N, int K, int Cin, int S, int Co,
+                             cudaStream_t st) {
+  const int SC = S * Co, rows = B * N, ct = column_tile(SC, RC_CT);
+  const size_t smem = 2 * sizeof(unsigned) * ((size_t)RC_TQ * K * row_words<T>(RC_CH) + RC_CH * ct);
+  cudaError_t err = hs::allow_smem(recompute_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  recompute_kernel<T><<<dim3((SC + ct - 1) / ct, (rows + RC_TQ - 1) / RC_TQ), ct, smem, st>>>(
+      static_cast<const T*>(g), static_cast<const T*>(rf), w, ldw, b,
+      static_cast<const T*>(dirs), win, twin, pwin, rows, K, Cin, S, Co);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_bwd<T>(g, rf, w, ldw, dirs, win, twin, pwin, gb, dg, drf, partial, red, B, N, K,
+                       Cin, S, Co, st);
+}
 
 }  // namespace
 
@@ -543,57 +798,37 @@ extern "C" int hs_support_fwd_win(const void* g, const void* rf, const float* w,
                                                  nullptr, B, N, K, Cin, S, Co, st));
 }
 
-template <typename T>
-cudaError_t launch_recompute(const void* g, const void* rf, const float* w, int ldw,
-                             const float* b, const void* dirs, const int* win, const float* gb,
-                             float* twin, float* pwin, void* dg, void* drf, float* wt,
-                             float* partial, float* red, int B, int N, int K, int Cin, int S,
-                             int Co, cudaStream_t st) {
-  const int SC = S * Co, rows = B * N;
-  const size_t smem = sizeof(float) * (size_t)RC_TQ * K * RC_CH;
-  recompute_kernel<T><<<dim3((SC + RC_THREADS - 1) / RC_THREADS, (rows + RC_TQ - 1) / RC_TQ),
-                        RC_THREADS, smem, st>>>(
-      static_cast<const T*>(g), static_cast<const T*>(rf), w, ldw, b,
-      static_cast<const T*>(dirs), win, twin, pwin, rows, K, Cin, S, Co);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_bwd<T>(g, rf, w, ldw, dirs, win, twin, pwin, gb, dg, drf, wt, partial, red, B, N,
-                       K, Cin, S, Co, st);
-}
-
 // K14: g (B, N, K, Cin), rf (B, N, K, 3), dirs (3, S*Co), fp32 or (fast != 0) bf16;
 // w (Cin, S*Co; row stride ldw), b (S*Co), win (B, N, S*Co), gb (B, N, Co); scratch
-// twin, pwin (B, N, S*Co), wt (S*Co, Cin) and partial (hs_support_bwd_parts(B * N),
-// Cin + 4, S*Co) -> dg, drf (in g's type) and red = [dW; db; dd] as hs_support_bwd.
+// twin, pwin (B, N, S*Co) and partial (hs_support_bwd_parts(B * N), Cin + 4, S*Co)
+// -> dg, drf (in g's type) and red = [dW; db; dd] as hs_support_bwd.
 extern "C" int hs_support_bwd_recompute(const void* g, const void* rf, const float* w, int ldw,
                                         const float* b, const void* dirs, const int* win,
                                         const float* gb, float* twin, float* pwin, void* dg,
-                                        void* drf, float* wt, float* partial, float* red, int B,
-                                        int N, int K, int Cin, int S, int Co, int fast,
-                                        void* stream) {
+                                        void* drf, float* partial, float* red, int B, int N,
+                                        int K, int Cin, int S, int Co, int fast, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hs_support_train_supported(K, Cin, Co)) return (int)cudaErrorInvalidValue;
   return (int)(fast ? launch_recompute<__nv_bfloat16>(g, rf, w, ldw, b, dirs, win, gb, twin,
-                                                      pwin, dg, drf, wt, partial, red, B, N, K,
-                                                      Cin, S, Co, st)
+                                                      pwin, dg, drf, partial, red, B, N, K, Cin,
+                                                      S, Co, st)
                     : launch_recompute<float>(g, rf, w, ldw, b, dirs, win, gb, twin, pwin, dg,
-                                              drf, wt, partial, red, B, N, K, Cin, S, Co, st));
+                                              drf, partial, red, B, N, K, Cin, S, Co, st));
 }
 
 // g (B, N, K, Cin), rf (B, N, K, 3), dirs (3, S*Co), fp32 or (fast != 0) bf16;
 // w (Cin, S*Co; row stride ldw), win/twin/pwin (B, N, S*Co), gb (B, N, Co), scratch
-// wt (S*Co, Cin) and partial (hs_support_bwd_parts(B * N), Cin + 4, S*Co) -> dg
-// (B, N, K, Cin) and drf (B, N, K, 3) in g's type, red (Cin + 4, S*Co) = [dW; db; dd]
-// fp32.
+// partial (hs_support_bwd_parts(B * N), Cin + 4, S*Co) -> dg (B, N, K, Cin) and drf
+// (B, N, K, 3) in g's type, red (Cin + 4, S*Co) = [dW; db; dd] fp32.
 extern "C" int hs_support_bwd(const void* g, const void* rf, const float* w, int ldw,
                               const void* dirs, const int* win, const float* twin,
                               const float* pwin, const float* gb, void* dg, void* drf,
-                              float* wt, float* partial, float* red, int B, int N, int K,
-                              int Cin, int S, int Co, int fast, void* stream) {
+                              float* partial, float* red, int B, int N, int K, int Cin, int S,
+                              int Co, int fast, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hs_support_train_supported(K, Cin, Co)) return (int)cudaErrorInvalidValue;
   return (int)(fast ? launch_bwd<__nv_bfloat16>(g, rf, w, ldw, dirs, win, twin, pwin, gb, dg,
-                                                drf, wt, partial, red, B, N, K, Cin, S, Co, st)
-                    : launch_bwd<float>(g, rf, w, ldw, dirs, win, twin, pwin, gb, dg, drf, wt,
+                                                drf, partial, red, B, N, K, Cin, S, Co, st)
+                    : launch_bwd<float>(g, rf, w, ldw, dirs, win, twin, pwin, gb, dg, drf,
                                         partial, red, B, N, K, Cin, S, Co, st));
 }

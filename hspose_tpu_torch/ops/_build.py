@@ -51,18 +51,18 @@ SIGNATURES = {
     "hs_surface_bwd_parts": [_I, _I],
     # g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S, Co, fast, stream
     "hs_support_fwd": [_P, _P, _P, _I] + [_P] * 6 + [_I] * 7 + [_P],
-    # g, rf, w, ldw, dirs, win, twin, pwin, gb, dg, drf, wt, partial, red,
+    # g, rf, w, ldw, dirs, win, twin, pwin, gb, dg, drf, partial, red,
     # B, N, K, Cin, S, Co, fast, stream
-    "hs_support_bwd": [_P, _P, _P, _I] + [_P] * 10 + [_I] * 7 + [_P],
+    "hs_support_bwd": [_P, _P, _P, _I] + [_P] * 9 + [_I] * 7 + [_P],
     # B * N -> rows of the support backward's partial-sum scratch (no launch)
     "hs_support_bwd_parts": [_I],
     # K, Cin, Co -> 0 when the training support kernels take these sizes (no launch)
     "hs_support_train_supported": [_I, _I, _I],
     # bwd_store=False: g, rf, w, ldw, b, dirs, out, win, B, N, K, Cin, S, Co, fast, stream
     "hs_support_fwd_win": [_P, _P, _P, _I] + [_P] * 4 + [_I] * 7 + [_P],
-    # g, rf, w, ldw, b, dirs, win, gb, twin, pwin, dg, drf, wt, partial, red,
+    # g, rf, w, ldw, b, dirs, win, gb, twin, pwin, dg, drf, partial, red,
     # B, N, K, Cin, S, Co, fast, stream
-    "hs_support_bwd_recompute": [_P, _P, _P, _I] + [_P] * 11 + [_I] * 7 + [_P],
+    "hs_support_bwd_recompute": [_P, _P, _P, _I] + [_P] * 10 + [_I] * 7 + [_P],
     # the differentiable fused ops: forwards with winners and their backwards
     # verts, idx, dirs, out, win, B, N, K, S, Co, fast, stream
     "hs_surface_win": [_P] * 5 + [_I] * 6 + [_P],

@@ -300,12 +300,11 @@ def hs_support_bwd(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor,
     _build.check(pwin, "pwin", torch.float32, (B, N, S * co))
     _build.check(gb, "gb", torch.float32, (B, N, co))
     parts = _build.load().hs_support_bwd_parts(B * N)
-    wt = _empty((S * co, cin), g)  # scratch: W transposed
     partial = _empty((parts, cin + 4, S * co), g)
     red = _empty((cin + 4, S * co), g)
     dg, drf = _empty(g.shape, g, dt), _empty(rf.shape, g, dt)
     _build.launch("hs_support_bwd", g, rf, w, w.stride(0), dirs, win, twin, pwin, gb, dg,
-                  drf, wt, partial, red, B, N, K, cin, S, co, fast)
+                  drf, partial, red, B, N, K, cin, S, co, fast)
     _count(hs_support_bwd, fast)
     return dg, drf, red[:cin], red[cin], red[cin + 1:].to(dt)
 
@@ -325,12 +324,11 @@ def hs_support_bwd_recompute(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor,
     _build.check(gb, "gb", torch.float32, (B, N, co))
     parts = _build.load().hs_support_bwd_parts(B * N)
     twin, pwin = _empty((B, N, S * co), g), _empty((B, N, S * co), g)  # scratch
-    wt = _empty((S * co, cin), g)  # scratch: W transposed
     partial = _empty((parts, cin + 4, S * co), g)
     red = _empty((cin + 4, S * co), g)
     dg, drf = _empty(g.shape, g, dt), _empty(rf.shape, g, dt)
     _build.launch("hs_support_bwd_recompute", g, rf, w, w.stride(0), b, dirs, win, gb, twin,
-                  pwin, dg, drf, wt, partial, red, B, N, K, cin, S, co, fast)
+                  pwin, dg, drf, partial, red, B, N, K, cin, S, co, fast)
     _count(hs_support_bwd_recompute, fast)
     return dg, drf, red[:cin], red[cin], red[cin + 1:].to(dt)
 

@@ -13,11 +13,12 @@ The first form imports ``hspose_tpu_torch`` from DIR (a checkout, such as a
   winners and their backwards K9, K8, K10 at conv_0's and conv_2..conv_4's
   shapes), with each kernel's device time (CUDA events, mean of 20 launches
   after 3, enqueued behind a sleep kernel, summed over the calls of one
-  pass; the ORL kernel also per layer);
+  pass; the ORL kernel, K13 and K14 also per layer);
 * the bf16 tier's surface and ORL outputs at the B=24 forward's shapes and
-  their forwards with winners at the B=16 step's, with their times (the
-  ORL kernel per layer): their sums are fp32 in a fixed order, so they keep
-  their bits too;
+  their forwards with winners at the B=16 step's, and its K13 and K14
+  (with the K11 forwards that feed them) at the B=16 step's four HS layers,
+  with their times (the ORL kernel, K13 and K14 per layer): their sums are
+  fp32 in a fixed order, so they keep their bits too;
 * the fp32 serving forward's pose outputs at B=24, N=1028;
 * the total loss of three fp32 train steps at B=16, N=1028;
 
@@ -170,14 +171,15 @@ def collect(tree: str) -> dict:
             bargs = (g, rf, w[:, co:], d, *fwd[1:], gb, S, co)
             out[f"hs_support_fwd conv_{layer}"] = fwd
             out[f"hs_support_bwd conv_{layer}"] = _timed(
-                times, "hs_support_bwd", lambda: cuda_hs.hs_support_bwd(*bargs))
+                times, "hs_support_bwd", lambda: cuda_hs.hs_support_bwd(*bargs),
+                part=f"conv_{layer}")
             # bwd_store=False: K11 without winner values, K14 on its winners
             novals = _timed(times, "hs_support_fwd_novals", lambda: cuda_hs.hs_support_fwd(
                 g, rf, w[:, co:], b[co:], d, S, co, store=False))
             out[f"hs_support_fwd_novals conv_{layer}"] = novals
             out[f"hs_support_bwd_recompute conv_{layer}"] = _timed(
                 times, "hs_support_bwd_recompute", lambda: cuda_hs.hs_support_bwd_recompute(
-                    g, rf, w[:, co:], b[co:], d, novals[1], gb, S, co))
+                    g, rf, w[:, co:], b[co:], d, novals[1], gb, S, co), part=f"conv_{layer}")
 
         # train_v4_small: the fused ops' forwards with winners and backwards K9, K8, K10
         verts = normal(B, N, 3, scale=0.2)
@@ -234,6 +236,30 @@ def collect(tree: str) -> dict:
                 fn = f.orl_global_fused if B == 24 else f.orl_global_fused_fwd
                 out[f"{name} conv_{layer}"] = _timed(bf16_times, name, lambda: fn(feat, oidx),
                                                      part=f"conv_{layer}")
+
+        # the bf16 tier's K13 and K14 (and the K11 forwards feeding them), B=16
+        B = 16
+        for layer, cin, co, n, k in [(1, 128, 128, N, 20), (2, 128, 256, N // 4, 20),
+                                     (3, 256, 256, N // 4, 20), (4, 256, 512, N // 16, 8)]:
+            feat = torch.relu(normal(B, n, cin)).to(torch.bfloat16)
+            kidx = knn_indices_cuda(feat, k, packed=True)
+            g = gather_neighbors(feat, kidx)
+            rf = neighbor_directions_normalized(normal(B, n, 3, scale=0.2).to(torch.bfloat16), kidx)
+            stdv = 1.0 / (co * (S + 1)) ** 0.5
+            w, b = normal(cin, (S + 1) * co, scale=stdv), normal((S + 1) * co, scale=stdv)
+            d, gb = unit(S * co).to(torch.bfloat16), normal(B, n, co)
+            fargs = (g, rf, w[:, co:], b[co:], d, S, co)
+            fwd = cuda_hs.hs_support_fwd(*fargs)
+            novals = cuda_hs.hs_support_fwd(*fargs, store=False)
+            out[f"hs_support_fwd (bf16) conv_{layer}"] = fwd
+            out[f"hs_support_bwd (bf16) conv_{layer}"] = _timed(
+                bf16_times, "hs_support_bwd (bf16)",
+                lambda: cuda_hs.hs_support_bwd(g, rf, w[:, co:], d, *fwd[1:], gb, S, co),
+                part=f"conv_{layer}")
+            out[f"hs_support_bwd_recompute (bf16) conv_{layer}"] = _timed(
+                bf16_times, "hs_support_bwd_recompute (bf16)",
+                lambda: cuda_hs.hs_support_bwd_recompute(g, rf, w[:, co:], b[co:], d, novals[1],
+                                                         gb, S, co), part=f"conv_{layer}")
 
         # times only: the bf16 tier's KNN and support kernels, B=24
         B = 24

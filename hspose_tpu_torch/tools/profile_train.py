@@ -9,7 +9,11 @@ the serving forward (``eval_forward`` + ``generate_RT`` under no_grad) at
 B=24 in fp32 / bf16, a "step" being one forward, where the kernels of K1
 (the KNN), K2 (the HS surface reduction), K3 (the HS support projection and
 reduction) and K4 (the ORL reduction) are also summed apart, with their
-launches.  For each training tier: ``build_train_step`` at B=16, N=1028 with
+launches; in the training tiers the kernels of K13 and K14 (the HS support
+backward: its rows, reduction and recompute kernels, and before them its W
+transposes) are summed the same way, beside the shared partial-sum kernel
+that each of their calls (and other backwards') also launches.  For each
+training tier: ``build_train_step`` at B=16, N=1028 with
 seeded random weights and 3 warm-up steps; then every tier is timed without the profiler
 (best of 3 windows of 5 steps, the tiers in turn), and only then is each
 profiled over 5 steps (CPU and CUDA activities): launches after a profiler
@@ -47,6 +51,15 @@ GROUPS = {"K1": ("(anonymous namespace)::knn_kernel<",),
           "K4": ("(anonymous namespace)::orl_kernel<",
                  "(anonymous namespace)::orl_partial_kernel<",
                  "(anonymous namespace)::orl_finish_kernel(")}
+# the training tiers' K13/K14 kernels (csrc/hs_support_train.cu; the fp32
+# instantiations of hs::transpose_w_kernel are theirs alone in trees that
+# still transpose W), and hs::sum_partials_kernel, which K13, K14, K15, K8,
+# K9 and K10 all launch
+TRAIN_GROUPS = {"K13/K14": ("(anonymous namespace)::support_bwd_rows_kernel<",
+                            "(anonymous namespace)::support_bwd_reduce_kernel<",
+                            "(anonymous namespace)::recompute_kernel<",
+                            "transpose_w_kernel<false, float>", "transpose_w_kernel<true, float>"),
+                "partial sums (shared)": ("sum_partials_kernel",)}
 
 
 def prepare_serve(dtype: str):
@@ -136,12 +149,11 @@ def profile(dtype: str, timed_steps, walls: list[float]) -> dict:
            "launches": sum(v[1] for v in kernels.values()) / STEPS,
            "top": [{"kernel": name[:90], "ms": ms, "calls": n / STEPS}
                    for name, (ms, n) in top]}
-    if dtype in SERVE_TIERS:
-        out["groups"] = {}
-        for g, pats in GROUPS.items():
-            hits = [v for name, v in kernels.items() if any(p in name for p in pats)]
-            out["groups"][g] = {"ms": sum(ms for ms, _ in hits),
-                                "launches": sum(n for _, n in hits) / STEPS}
+    out["groups"] = {}
+    for g, pats in (GROUPS if dtype in SERVE_TIERS else TRAIN_GROUPS).items():
+        hits = [v for name, v in kernels.items() if any(p in name for p in pats)]
+        out["groups"][g] = {"ms": sum(ms for ms, _ in hits),
+                            "launches": sum(n for _, n in hits) / STEPS}
     return out
 
 
