@@ -10,7 +10,8 @@ not 0:
    whether triton imports; TF32 off for matrix products and cuDNN;
 2. build: the kernels of ``hspose_tpu_torch/csrc`` with nvcc (sm_90a), and
    the registers, shared memory and spills ptxas reports for K1's to K4's
-   kernels and for K13's and K14's rows, reduction and recompute kernels
+   kernels, K11's projection tile and reduction, K13's and K14's rows,
+   reduction and recompute kernels and K8's dg rows and drf walks
    (``PTXAS_KERNELS``);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at every shape the B=24, N=1028 forward gives it, with kernel and plain
@@ -45,7 +46,12 @@ not 0:
    cotangent within 1e-4 of its largest value; kernel and plain times;
    K13 also per layer (``layers``) and per launch (``parts``: rows,
    reduction, partial sum, each with its bound, timed by torch.profiler),
-   with at most one launch of each per call;
+   with at most one launch of each per call; K11 (fed the source rows
+   ``feat`` and index ``idx`` that g gathers, g formed as their gather) per
+   layer and per launch (``parts``: the projection of the source rows with
+   its bound and a library product as yardstick, the gather-reduction with
+   its bound), with the bound of the design it replaced
+   (``bound_gathered_ms``: every gathered row projected);
 9. training slice: ``build_train_step`` at full width takes 3 steps on a
    (16, 1028) synthetic batch; the launch counters must show 9 KNN, 1 + 1
    surface and 4 + 4 support training launches per step and no serving
@@ -78,7 +84,12 @@ not 0:
    against a second launch, bit for bit; then one autograd backward through
    ``hs_surface_fused``, K9's carrier (no model path reaches K9), which must
    launch one K2 with winners and one K9; K14 per layer and per launch
-   (recompute, rows, reduction, partial sum) as K13 in phase 8;
+   (recompute, rows, reduction, partial sum) as K13 in phase 8; K11 without
+   values per layer and per launch as in phase 8; K8 per layer and per
+   launch (inverse lists, route, drf walk, dd partial sums, the source-row
+   scatter, dverts, the two partial sums, and dfeat's and dW's products,
+   each beside one library product, or in the bf16 tier the dg rows and
+   their source-row sums for dfeat);
 13. v4 training slice: ``build_train_step`` on ``ModelConfig(bwd_store=False,
    train_v4_small=True)`` takes 3 steps at (16, 1028); the counters must show
    9 KNN, 1 + 1 K12/K15, 1 K11 without winner values + 1 K14, 3 K3 with
@@ -134,13 +145,18 @@ not 0:
    against its plain version within 1e-4 of the largest value, the
    forwards with winners bit for bit the serving kernels' and their
    winners as in phase 8; K4 must refuse features off 16-byte alignment;
-21. K13 and K14 off the step's shapes, fp32 and bf16, so that each branch
-   of their launches runs: (K, Cin, Co, S) = (5, 132, 128, 3), (31, 128,
-   512, 7) and (20, 256, 256, 9) at B=3, N=1001 (every template width of
-   K, Cin beyond one 128-channel block, column tiles of other widths, a row
-   count that is a multiple of no tile): K13 against its plain version at
-   phase 8's gates (phase 10's in bf16), K14 bit for bit K13 on the
-   forward's stored values, each launched twice with the same bits.
+21. K11, K13 and K14 off the step's shapes, fp32 and bf16, so that each
+   branch of their launches runs: (K, Cin, Co, S) = (5, 132, 128, 3), (31,
+   128, 512, 7) and (20, 256, 256, 9) at B=3, N=1001 (every template width
+   of K, Cin beyond one 128-channel block, column tiles of other widths, a
+   row count that is a multiple of no tile): K11 against its plain version
+   at phase 8's gates, twice with the same bits, its no-values launch bit
+   for bit its stored one; K13 against its plain version at phase 8's gates
+   (phase 10's in bf16), K14 bit for bit K13 on the forward's stored
+   values, each launched twice with the same bits;
+22. the relaxed-KNN serving tier (``serve_k=16``, the kernels' generic-K
+   branches) in fp32 and bf16: phase 4's and 7's launch counts, poses and
+   card-against-CPU gates on the same seeded weights.
 
 Each kernel's ``bound_ms`` is the least time the card could take for its
 calls: per call the larger of the bytes it must move (each input read once,
@@ -153,9 +169,12 @@ port never calls; no single PyTorch call computes the other functions (the
 backwards are winner- or argmin-routed scatters), so theirs is null.  K3's
 projection alone has one: ``parts.project.library_ms`` is ``torch.addmm(b,
 feat, W)`` in fp32 with TF32 off, ``torch.matmul`` on bf16 operands in the
-bf16 tier, neither called by the port.
-K13's and K14's ``parts`` are their launches timed apart, each with the
-bound of its own inputs and outputs.
+bf16 tier, neither called by the port; so has K11's (the same calls on its
+source rows), and K8's two products (``torch.matmul`` of the same shapes,
+fp32, TF32 off).  K11's, K13's, K14's and K8's ``parts`` are their launches
+timed apart, each with the bound of its own inputs and outputs; K11's
+``bound_ms`` is the least work of the function (the source rows projected
+once), ``bound_gathered_ms`` that of the design it replaced.
 ``launches`` is each kernel's count in the main run of its path: phases 4,
 7, 9, 11, 13 and 15, for K2 with winners and K9 the autograd call of phases
 12 and 14, for K16 the recon harness run, for K17 and K18 the autograd call
@@ -188,6 +207,7 @@ SLICE_ATOL = 1e-3  # card against CPU on the pose outputs
 KNN_SWAP_REL = 2.0 ** -10  # packed-key KNN: distance gap of a swapped neighbour
 SLICE_ATOL_BF16 = 3e-2  # bf16 tier, card against CPU on the pose outputs
 SEED = 0
+SERVE_K_RELAXED = 16  # phase 22: the relaxed-KNN serving tier's neighbour count
 TRAIN_B = 16  # the train batch (train.batch_size)
 TRAIN_STEPS = 3
 WIN_AGREE = 0.999  # K11, K12: share of winners equal to the plain version's
@@ -255,11 +275,13 @@ def phase_env() -> str:
 
 
 # kernels whose registers, shared memory and spills phase 2 prints: K1's to
-# K4's, K13's and K14's (support_bwd_rows_kernel, support_bwd_reduce_kernel,
-# recompute_kernel), and by the same names K8's GEMM (project_kernel)
-PTXAS_KERNELS = ("knn_kernel", "surface_kernel", "project_f32_kernel", "project_bf16_kernel",
-                 "project_kernel", "reduce_kernel", "orl_kernel", "support_bwd_rows_kernel",
-                 "recompute_kernel")
+# K4's, K11's (the projection tile gemm_kernel, shared with K3's fp32
+# projection and K8's products, and support_fwd_kernel), K13's and K14's
+# (support_bwd_rows_kernel, support_bwd_reduce_kernel, recompute_kernel) and
+# K8's rows and drf walks (dg_rows_kernel, rf_grad_kernel)
+PTXAS_KERNELS = ("knn_kernel", "surface_kernel", "gemm_kernel", "project_bf16_kernel",
+                 "reduce_kernel", "orl_kernel", "support_fwd_kernel", "support_bwd_rows_kernel",
+                 "recompute_kernel", "dg_rows_kernel", "rf_grad_kernel")
 
 
 def ptxas_report(text: str, names=PTXAS_KERNELS) -> list[str]:
@@ -492,13 +514,14 @@ def support_parts(phase: str, r: dict, label: str, args, fast: bool) -> None:
     parts["project"]["library_ms"] += l_ms
 
 
-def build_seeded_model(device, dtype: str = "float32"):
-    """The serving model with weights from SEED: the same in both tiers."""
+def build_seeded_model(device, dtype: str = "float32", serve_k: int = 0):
+    """The serving model with weights from SEED: the same in both tiers (and
+    with any ``serve_k``)."""
     from hspose_tpu_torch.config import ModelConfig
     from hspose_tpu_torch.models.hspose import build_model
 
     torch.manual_seed(SEED)
-    model = build_model(ModelConfig(compute_dtype=dtype), device=device)
+    model = build_model(ModelConfig(compute_dtype=dtype, serve_k=serve_k), device=device)
     g = torch.Generator().manual_seed(SEED + 1)
     with torch.no_grad():
         for m in model.modules():
@@ -568,17 +591,19 @@ def serve_requests(model, requests, samples, obj, sym) -> list:
     return results
 
 
-def phase_slice(dtype: str = "float32", fp32_results: list | None = None):
+def phase_slice(dtype: str = "float32", fp32_results: list | None = None, serve_k: int = 0):
     """A few requests through the serving path of one tier: launch counts,
     finite orthonormal poses, card against the CPU plain ops; for bf16 also
-    the deviation from the fp32 tier's ``fp32_results``.  Returns the
-    launches and the results."""
+    the deviation from the fp32 tier's ``fp32_results``.  ``serve_k`` > 0
+    serves the relaxed-KNN tier (each search and reduction at that K, the
+    kernels' generic-K branches).  Returns the launches and the results."""
     from hspose_tpu_torch.geometry.rotations import generate_RT
     from hspose_tpu_torch.models.hspose import draw_pool_samples, eval_forward
 
-    phase = "slice" if dtype == "float32" else "bf16-slice"
+    phase = ("slice" if dtype == "float32" else "bf16-slice") + (
+        f"-serve_k{serve_k}" if serve_k else "")
     bound = SLICE_ATOL if dtype == "float32" else SLICE_ATOL_BF16
-    model = build_seeded_model(DEVICE, dtype)
+    model = build_seeded_model(DEVICE, dtype, serve_k)
     rng = np.random.default_rng(SEED + 2)
     obj = torch.arange(B, device=DEVICE) % 6
     sym = torch.tensor([[0, 1, 0, 0]], dtype=torch.float32, device=DEVICE).repeat(B, 1)
@@ -727,19 +752,32 @@ def compare_cotangents(phase: str, rec: dict, name: str, label: str, pairs, ms: 
 def check_winners(phase: str, name: str, label: str, wk, wp, mk, mp) -> None:
     """Winners agree on >= WIN_AGREE of entries; where not, the values at
     the two winners (mk, mp) are fp32 near-ties."""
-    agree = (wk == wp).double().mean().item()
+    differ = wk != wp
+    n_differ = int(differ.sum().item())  # a count: a mean can round below 1 with none
+    agree = 1.0 - n_differ / wk.numel()
     scale = mp.abs().max().item()
-    gap = (mk - mp)[wk != wp].abs().max().item() if agree < 1 else 0.0
+    gap = (mk - mp)[differ].abs().max().item() if n_differ else 0.0
     log(phase, f"{name} {label}: winners agree {agree:.6f}, largest value gap where not "
                f"{gap:.3e} (bound {TOL_REL * scale:.3e})")
     if agree < WIN_AGREE or not gap <= TOL_REL * scale:
         raise AssertionError(f"{name} {label}: winners agree {agree}, gap {gap}")
 
 
-# K13's and K14's launches by kernel name (csrc/hs_support_train.cu; the
-# partial sum is hs_common.cuh's, shared with other backwards)
-SUPPORT_BWD_PARTS = {"support_bwd_rows_kernel": "rows", "support_bwd_reduce_kernel": "reduction",
-                     "recompute_kernel": "recompute", "sum_partials_kernel": "partial_sum"}
+# launches by kernel name, per kernel: (substring of the profiler's kernel
+# name, part), the first match wins.  K13's and K14's (csrc/hs_support_train.cu;
+# the partial sum is hs_common.cuh's, shared with other backwards), K11's (the
+# projection tile of csrc/hs_project.cuh and the gather-reduction) and K8's
+# (csrc/hs_fused_bwd.cuh, csrc/hs_support.cu: dfeat's and dW's products are
+# the tile with W, or feat, read transposed)
+SUPPORT_BWD_PARTS = (("support_bwd_rows_kernel", "rows"), ("support_bwd_reduce_kernel", "reduction"),
+                     ("recompute_kernel", "recompute"), ("sum_partials_kernel", "partial_sum"))
+SUPPORT_FWD_PARTS = (("gemm_kernel", "projection"), ("support_fwd_kernel", "reduction"))
+FUSED_BWD_PARTS = (("inverse_index_kernel", "inverse_index"), ("route_kernel", "route"),
+                   ("rf_grad_kernel", "rf_grad"), ("dd_partial_kernel", "dd_partial"),
+                   ("dfeat_source_kernel", "dfeat_source"), ("source_proj_kernel", "source"),
+                   ("dverts_kernel", "dverts"),
+                   ("dg_rows_kernel", "dg_rows"), ("gemm_kernel<float, false, true", "dfeat_gemm"),
+                   ("gemm_kernel<", "dw_gemm"), ("sum_partials_kernel", "partial_sum"))
 
 
 def support_bwd_bounds(g, rf, w, dirs, win, gb, recompute: bool, op_dtype) -> dict:
@@ -762,15 +800,64 @@ def support_bwd_bounds(g, rf, w, dirs, win, gb, recompute: bool, op_dtype) -> di
     return out
 
 
-def support_bwd_parts(phase: str, r: dict, label: str, fn, bounds: dict, calls: int = 10) -> None:
-    """K13's or K14's launches timed apart: each kernel's mean device time
-    per launch, by torch.profiler over ``calls`` calls after one, summed
-    over the pass into r["parts"] beside its bound.  Each part of ``bounds``
-    must launch, at most once a call, and no other kernel of
-    SUPPORT_BWD_PARTS may (the profiler can drop a launch's record, so a
-    part may show fewer than ``calls``)."""
+def support_fwd_bounds(feat, rf, idx, w, b, dirs, co: int, store: bool, op_dtype) -> dict:
+    """Each launch of one K11 call: the projection of the source rows
+    (feat, W, b in, P out) and the gather-reduction (P, rf, idx, dirs in;
+    out, win and, with ``store``, twin and pwin out), each once."""
+    rows, cin = feat.numel() // feat.shape[-1], feat.shape[-1]
+    sc, K = w.shape[1], idx.shape[-1]
+    p_bytes = rows * sc * 4
+    return {"projection": bound([feat, b], rows * cin * sc, op_dtype, cin * sc * 4 + p_bytes),
+            "reduction": bound([rf, idx, dirs], rows * K * sc, torch.float32,
+                               p_bytes + rows * sc * 4 * (3 if store else 1) + rows * co * 4)}
+
+
+def fused_bwd_bounds(feat, verts, idx, w, win, gb, op_dtype) -> dict:
+    """Each launch of one K8 call, from its own inputs and outputs, each
+    once; the bf16 tier's rows (dg_rows, dfeat_source) stand in for fp32's
+    dfeat product."""
+    B, N, K = idx.shape
+    rows, cin, sc, co = B * N, feat.shape[-1], win.shape[-1], gb.shape[-1]
+    f32, fast = 4, feat.dtype == torch.bfloat16
+    plane = rows * sc * f32  # one (B, N, S*Co) fp32 tensor
+    small = rows * 3 * f32 + idx.numel() * 4 + 3 * sc * f32  # verts, idx, dirs
+    lists = (B * (N + 1) + idx.numel()) * 4
+    parts, dw_parts = -(-N // 64) * B, -(-rows // 256)
+    out = {"inverse_index": bound([idx], 0, torch.float32, lists),
+           "route": bound([], 3 * rows * sc, torch.float32,
+                          small + 4 * plane + rows * co * f32),  # win, P in; dz, dproj out
+           "rf_grad": bound([], 3 * rows * sc, torch.float32,
+                            small + 2 * plane + idx.numel() * 3 * f32 + rows * 3 * f32),
+           "dd_partial": bound([], 4 * rows * sc, torch.float32,
+                               small + 3 * plane + parts * 4 * sc * f32),
+           "source": bound([idx], 0, torch.float32, 3 * plane),
+           "dverts": bound([], 0, torch.float32, lists + idx.numel() * 3 * f32
+                           + 2 * rows * 3 * f32),
+           "dw_gemm": bound([feat], rows * cin * sc, torch.float32,
+                            plane + dw_parts * cin * sc * f32),
+           "partial_sum": bound([], 0, torch.float32,
+                                (parts + 1) * 4 * sc * f32 + (dw_parts + 1) * cin * sc * f32)}
+    if fast:
+        dg = idx.numel() * cin * 2
+        out["dg_rows"] = bound([], rows * sc * cin, op_dtype, 2 * plane + cin * sc * f32 + dg)
+        out["dfeat_source"] = bound([], 0, torch.float32, lists + dg + rows * cin * 2)
+    else:
+        out["dfeat_gemm"] = bound([w], rows * sc * cin, torch.float32, plane + rows * cin * f32)
+    return out
+
+
+def launch_parts(phase: str, r: dict, label: str, fn, bounds: dict, names, per_call=None,
+                 calls: int = 10) -> None:
+    """A kernel's launches timed apart: each part's mean device time per
+    launch (by torch.profiler over ``calls`` calls after one) times its
+    launches per call (``per_call``, 1 unless given), summed over the pass
+    into r["parts"] beside its bound.  ``names`` maps the kernels to parts
+    (SUPPORT_BWD_PARTS, ...).  Each part of ``bounds`` must launch, at most
+    ``per_call`` times a call, and no other part may (the profiler can drop
+    a launch's record, so a part may show fewer)."""
     from torch.profiler import ProfilerActivity, profile
 
+    per_call = per_call or {}
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -784,14 +871,14 @@ def support_bwd_parts(phase: str, r: dict, label: str, fn, bounds: dict, calls: 
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
             continue
-        part = next((p for k, p in SUPPORT_BWD_PARTS.items() if k in e.name), None)
+        part = next((p for k, p in names if k in e.name), None)
         if part is not None:
             total[part] = total.get(part, 0.0) + e.time_range.elapsed_us() / 1e3
             count[part] = count.get(part, 0) + 1
-    if set(count) != set(bounds) or any(n > calls for n in count.values()):
+    if set(count) != set(bounds) or any(n > calls * per_call.get(p, 1) for p, n in count.items()):
         raise AssertionError(f"{label}: launches over {calls} calls {count}, expected at most "
-                             f"one of each of {sorted(bounds)} per call")
-    ms = {part: total[part] / count[part] for part in bounds}
+                             f"{ {p: per_call.get(p, 1) for p in bounds} } a call")
+    ms = {part: total[part] / count[part] * per_call.get(part, 1) for part in bounds}
     parts = r.setdefault("parts", {})
     for part, (bms, by) in bounds.items():
         e = parts.setdefault(part, {"ms": 0.0, "bound_ms": 0.0, "bound_ms_by": {}})
@@ -799,15 +886,60 @@ def support_bwd_parts(phase: str, r: dict, label: str, fn, bounds: dict, calls: 
         e["bound_ms"] += bms
         e["bound_ms_by"][by] = e["bound_ms_by"].get(by, 0.0) + bms
         e["bound_by"] = max(e["bound_ms_by"], key=e["bound_ms_by"].get)
-    r["launches_per_call"] = len(bounds)
+    r["launches_per_call"] = sum(per_call.get(p, 1) for p in bounds)
     log(phase, f"  {label}: " + ", ".join(f"{part} {ms[part]:.4f} ms (bound {bms:.4f} {by})"
                                          for part, (bms, by) in bounds.items())
         + f"; launches seen over {calls} calls {count}")
 
 
+def library_part(r: dict, part: str, ms: float) -> None:
+    """Add a library yardstick's time to r["parts"][part]["library_ms"]."""
+    e = r["parts"][part]
+    e["library_ms"] = e.get("library_ms", 0.0) + ms
+
+
 def layer_time(r: dict, layer: int, ms: float, pms: float, bnd) -> None:
     r.setdefault("layers", []).append({"layer": layer, "ms": ms, "plain_ms": pms,
                                        "bound_ms": bnd[0]})
+
+
+def support_fwd_work(fargs, src, win) -> tuple[list, float]:
+    """K11's least work (with its outputs, which ``compare_cotangents``
+    adds): feat, rf, idx, W, b, dirs read and win written once; the
+    projection of the B*N source rows and theta at each (query, k, column)."""
+    g, rf, w, b, dirs, S, co = fargs
+    feat, idx = src["feat"], src["idx"]
+    return [feat, rf, idx, w, b, dirs, win], feat.numel() * S * co + rf.numel() * S * co
+
+
+def support_fwd_detail(phase: str, r: dict, layer: int, label: str, fargs, src, store: bool,
+                       ms: float, pms: float, bnd, op_dtype) -> None:
+    """K11's per-layer time, the bound of the design it replaced (every
+    gathered row projected: g read and (B, N, K) * S*Co multiply-adds,
+    summed in r["bound_gathered_ms"]), its two launches timed apart
+    (``launch_parts``) and, for the projection, a library product as
+    yardstick (``torch.addmm`` in fp32 with TF32 off, ``torch.matmul`` on
+    bf16 operands; the port never calls it)."""
+    from hspose_tpu_torch.ops import cuda_hs
+
+    g, rf, w, b, dirs, S, co = fargs
+    feat = src["feat"]
+    layer_time(r, layer, ms, pms, bnd)
+    old = bound([g, rf, w, b, dirs], (g.numel() + rf.numel()) * S * co, op_dtype,
+                feat.shape[0] * feat.shape[1] * (S * co * (12 if store else 4) + co * 4))
+    r["bound_gathered_ms"] = r.get("bound_gathered_ms", 0.0) + old[0]
+    launch_parts(phase, r, label,
+                 lambda: cuda_hs.hs_support_fwd(*fargs, store=store, **src),
+                 support_fwd_bounds(feat, rf, src["idx"], w, b, dirs, co, store, op_dtype),
+                 SUPPORT_FWD_PARTS)
+    feat2d = feat.reshape(-1, feat.shape[-1])
+    if feat.dtype == torch.bfloat16:
+        w16 = w.to(torch.bfloat16)
+        library_part(r, "projection", cuda_ms(lambda: torch.matmul(feat2d, w16), 10))
+    else:
+        library_part(r, "projection", cuda_ms(lambda: torch.addmm(b, feat2d, w), 10))
+    log(phase, f"  {label}: gather-then-project bound {old[0]:.4f} ms ({old[1]}), projection "
+               f"library {r['parts']['projection']['library_ms']:.4f} ms (summed so far)")
 
 
 def phase_train_kernels(dtype: str = "float32") -> dict:
@@ -874,17 +1006,19 @@ def phase_train_kernels(dtype: str = "float32") -> dict:
         w_full = normal(rng, cin, (S + 1) * co, scale=stdv)
         b_full = normal(rng, (S + 1) * co, scale=stdv)
         fargs = (g, rf, w_full[:, co:], b_full[co:], unit_dirs(rng, S * co).to(op_dtype), S, co)
-        out_k, win_k, tw_k, pw_k = cuda_hs.hs_support_fwd(*fargs)
+        src = {"feat": feat, "idx": idx}  # K11 reads the rows g gathers
+        out_k, win_k, tw_k, pw_k = cuda_hs.hs_support_fwd(*fargs, **src)
         out_p, win_p, tw_p, pw_p = cuda_hs.hs_support_fwd_plain(*fargs)
         winners("hs_support_fwd", label, win_k, win_p, tw_k * pw_k, tw_p * pw_p)
         same = win_k == win_p
-        sc = S * co
-        compare("hs_support_fwd", label,
-                [("out", out_k, out_p), ("twin", tw_k * same, tw_p * same),
-                 ("pwin", pw_k * same, pw_p * same)],
-                cuda_ms(lambda: cuda_hs.hs_support_fwd(*fargs), 10),
-                cuda_ms(lambda: cuda_hs.hs_support_fwd_plain(*fargs), 10),
-                [g, rf, fargs[2], fargs[3], fargs[4], win_k], (g.numel() + rf.numel()) * sc)
+        ms = cuda_ms(lambda: cuda_hs.hs_support_fwd(*fargs, **src), 10)
+        pms = cuda_ms(lambda: cuda_hs.hs_support_fwd_plain(*fargs), 10)
+        bnd = compare("hs_support_fwd", label,
+                      [("out", out_k, out_p), ("twin", tw_k * same, tw_p * same),
+                       ("pwin", pw_k * same, pw_p * same)], ms, pms,
+                      *support_fwd_work(fargs, src, win_k))
+        support_fwd_detail(phase, rec["hs_support_fwd" + tag], layer, label, fargs, src, True,
+                           ms, pms, bnd, op_dtype)
         gb = normal(rng, B, n, co)
         bargs = (g, rf, fargs[2], fargs[4], win_k, tw_k, pw_k, gb, S, co)
         ms = cuda_ms(lambda: cuda_hs.hs_support_bwd(*bargs), 10)
@@ -896,9 +1030,9 @@ def phase_train_kernels(dtype: str = "float32") -> dict:
                       win_k.numel() * (2 * cin + 6))  # dg, dW at each winner; drf, dd
         r = rec["hs_support_bwd" + tag]
         layer_time(r, layer, ms, pms, bnd)
-        support_bwd_parts(phase, r, label, lambda: cuda_hs.hs_support_bwd(*bargs),
-                          support_bwd_bounds(g, rf, fargs[2], fargs[4], win_k, gb, False,
-                                             op_dtype))
+        launch_parts(phase, r, label, lambda: cuda_hs.hs_support_bwd(*bargs),
+                     support_bwd_bounds(g, rf, fargs[2], fargs[4], win_k, gb, False, op_dtype),
+                     SUPPORT_BWD_PARTS)
     return rec
 
 
@@ -968,9 +1102,10 @@ def phase_v4_kernels(dtype: str = "float32") -> tuple[dict, dict]:
         stdv = 1.0 / (co * (S + 1)) ** 0.5
         w, b = normal(rng, cin, (S + 1) * co, scale=stdv), normal(rng, (S + 1) * co, scale=stdv)
         fargs = (g, rf, w[:, co:], b[co:], unit_dirs(rng, S * co).to(op), S, co)
-        out_k, win_k = cuda_hs.hs_support_fwd(*fargs, store=False)
+        src = {"feat": feat, "idx": idx}  # K11 reads the rows g gathers
+        out_k, win_k = cuda_hs.hs_support_fwd(*fargs, store=False, **src)
         out_p, win_p = cuda_hs.hs_support_fwd_plain(*fargs)[:2]
-        stored = cuda_hs.hs_support_fwd(*fargs)
+        stored = cuda_hs.hs_support_fwd(*fargs, **src)
         bits("hs_support_fwd_novals", label, (out_k, win_k), stored[:2])
         theta_proj = [cuda_hs._theta(rf, fargs[4][:, sl])
                       * (g.float() @ cuda_hs._operand(fargs[2][:, sl], fast) + fargs[3][sl])
@@ -981,10 +1116,12 @@ def phase_v4_kernels(dtype: str = "float32") -> tuple[dict, dict]:
                         for i, x in enumerate(theta_proj)], -1)
         del theta_proj
         winners("hs_support_fwd_novals", label, win_k, win_p, vk, vp)
-        compare("hs_support_fwd_novals", label, [("out", out_k, out_p)],
-                cuda_ms(lambda: cuda_hs.hs_support_fwd(*fargs, store=False), 10),
-                cuda_ms(lambda: cuda_hs.hs_support_fwd_plain(*fargs), 10),
-                [g, rf, fargs[2], fargs[3], fargs[4], win_k], (g.numel() + rf.numel()) * S * co)
+        ms = cuda_ms(lambda: cuda_hs.hs_support_fwd(*fargs, store=False, **src), 10)
+        pms = cuda_ms(lambda: cuda_hs.hs_support_fwd_plain(*fargs), 10)
+        bnd = compare("hs_support_fwd_novals", label, [("out", out_k, out_p)], ms, pms,
+                      *support_fwd_work(fargs, src, win_k))
+        support_fwd_detail(phase, rec["hs_support_fwd_novals" + tag], layer, label, fargs, src,
+                           False, ms, pms, bnd, op)
         gb = normal(rng, B, n, co)
         bargs = (g, rf, fargs[2], fargs[3], fargs[4], win_k, gb, S, co)
         got = cuda_hs.hs_support_bwd_recompute(*bargs)
@@ -1004,8 +1141,9 @@ def phase_v4_kernels(dtype: str = "float32") -> tuple[dict, dict]:
                       win_k.numel() * (3 * cin + 9))  # P at each winner; dg, dW; theta, drf, dd
         r = rec["hs_support_bwd_recompute" + tag]
         layer_time(r, layer, ms, pms, bnd)
-        support_bwd_parts(phase, r, label, lambda: cuda_hs.hs_support_bwd_recompute(*bargs),
-                          support_bwd_bounds(g, rf, fargs[2], fargs[4], win_k, gb, True, op))
+        launch_parts(phase, r, label, lambda: cuda_hs.hs_support_bwd_recompute(*bargs),
+                     support_bwd_bounds(g, rf, fargs[2], fargs[4], win_k, gb, True, op),
+                     SUPPORT_BWD_PARTS)
 
     # K2 with winners, K9: conv_0
     label = f"conv_0 N={N} K=20 Co=128"
@@ -1065,13 +1203,27 @@ def phase_v4_kernels(dtype: str = "float32") -> tuple[dict, dict]:
         bargs = (feat, verts, idx, fargs[3], fargs[5], win_k, proj_k, gb, S, co)
         got = f.hs_support_fused_bwd(*bargs)
         bits("hs_support_fused_bwd", label, got, f.hs_support_fused_bwd(*bargs))
-        compare("hs_support_fused_bwd", label,
-                list(zip(("dfeat", "dverts", "dw", "db", "dd"), got,
-                         f.hs_support_fused_bwd_plain(*bargs))),
-                cuda_ms(lambda: f.hs_support_fused_bwd(*bargs), 10),
-                cuda_ms(lambda: f.hs_support_fused_bwd_plain(*bargs), 10),
-                [feat, verts, idx, fargs[3], fargs[5], win_k, proj_k, gb],
-                2 * B * n * cin * S * co + 9 * win_k.numel())  # dfeat, dW; theta, drfn, dd
+        ms = cuda_ms(lambda: f.hs_support_fused_bwd(*bargs), 10)
+        pms = cuda_ms(lambda: f.hs_support_fused_bwd_plain(*bargs), 10)
+        bnd = compare("hs_support_fused_bwd", label,
+                      list(zip(("dfeat", "dverts", "dw", "db", "dd"), got,
+                               f.hs_support_fused_bwd_plain(*bargs))), ms, pms,
+                      [feat, verts, idx, fargs[3], fargs[5], win_k, proj_k, gb],
+                      2 * B * n * cin * S * co + 9 * win_k.numel())  # dfeat, dW; theta, drfn, dd
+        r = rec["hs_support_fused_bwd" + tag]
+        layer_time(r, layer, ms, pms, bnd)
+        # K8's launches apart; its two products beside one library product each
+        # (fp32, TF32 off; the port never calls them), on the projection P as a
+        # stand-in of the same shape for dproj_src
+        launch_parts(phase, r, label, lambda: f.hs_support_fused_bwd(*bargs),
+                     fused_bwd_bounds(feat, verts, idx, fargs[3], win_k, gb, op),
+                     FUSED_BWD_PARTS, {"partial_sum": 2})
+        p2d, feat2d = proj_k.reshape(B * n, -1), feat.reshape(B * n, cin).float()
+        if not fast:
+            w_t = fargs[3].t()
+            library_part(r, "dfeat_gemm", cuda_ms(lambda: torch.matmul(p2d, w_t), 10))
+        feat_t = feat2d.t()
+        library_part(r, "dw_gemm", cuda_ms(lambda: torch.matmul(feat_t, p2d), 10))
 
     # K4 with winners, K10: the ORL branches of conv_2 .. conv_4
     for layer, c, n, k in [(2, 256, N // 4, 20), (3, 256, N // 4, 20), (4, 512, N // 16, 8)]:
@@ -1799,13 +1951,25 @@ def phase_k13k14_shapes() -> None:
             label = f"B={b} N={n} K={k} Cin={cin} Co={co} S={S} {op}"
             feat = torch.relu(normal(rng, b, n, cin))
             idx = knn_indices(feat, k)
-            g = gather_neighbors(feat.to(op), idx)
+            src = {"feat": feat.to(op), "idx": idx}
+            g = gather_neighbors(src["feat"], idx)
             rf = neighbor_directions_normalized(cloud_b(rng, b, n).to(op), idx)
             stdv = 1.0 / (co * (S + 1)) ** 0.5
             w = normal(rng, cin, (S + 1) * co, scale=stdv)
             bias = normal(rng, (S + 1) * co, scale=stdv)
             dirs = unit_dirs(rng, S * co).to(op)
-            _, win, tw, pw = cuda_hs.hs_support_fwd(g, rf, w[:, co:], bias[co:], dirs, S, co)
+            fargs = (g, rf, w[:, co:], bias[co:], dirs, S, co)
+            out, win, tw, pw = cuda_hs.hs_support_fwd(*fargs, **src)
+            same_bits("hs_support_fwd", label, (out, win, tw, pw),
+                      cuda_hs.hs_support_fwd(*fargs, **src))
+            same_bits("hs_support_fwd_novals", label + " (against the stored launch)",
+                      (out, win), cuda_hs.hs_support_fwd(*fargs, store=False, **src))
+            out_p, win_p, tw_p, pw_p = cuda_hs.hs_support_fwd_plain(*fargs)
+            check_winners(phase, "hs_support_fwd", label, win, win_p, tw * pw, tw_p * pw_p)
+            agree = win == win_p
+            compare_cotangents(phase, {}, "hs_support_fwd", label,
+                               [("out", out, out_p), ("twin", tw * agree, tw_p * agree),
+                                ("pwin", pw * agree, pw_p * agree)], None, 0.0, [], 0)
             gb = normal(rng, b, n, co)
             bargs = (g, rf, w[:, co:], dirs, win, tw, pw, gb, S, co)
             got = cuda_hs.hs_support_bwd(*bargs)
@@ -1955,6 +2119,8 @@ def main() -> int:
     launches["knn_streamed"] = k5_launches["knn_streamed"]
     phase_k2k4_shapes()
     phase_k13k14_shapes()
+    for dtype in ("float32", "bfloat16"):
+        phase_slice(dtype, serve_k=SERVE_K_RELAXED)
     print(json.dumps(kernel_line(rec, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -105,64 +105,6 @@ __device__ inline void stage_dirs(const float* __restrict__ dirs, float* sd, int
   for (int e = threadIdx.x; e < 3 * n; e += blockDim.x) sd[e] = FAST ? bf16_round(dirs[e]) : dirs[e];
 }
 
-// Bucket the n columns of one row by their winner sk[c] (< 32), stably:
-// afterwards soff[k] .. soff[k + 1] - 1 are the places of bucket k and
-// srank[c] is column c's place within its bucket, in column order.  One warp
-// ranks 32 columns at a time with __match_any_sync and keeps running bucket
-// sizes in scnt (32 ints of scratch); soff holds 33.  Threads past the first
-// warp return at once; the caller syncs the block before and after.
-__device__ inline void bucket_by_winner(const int* sk, int* srank, int* scnt, int* soff, int n) {
-  if (threadIdx.x >= 32) return;
-  const int lane = threadIdx.x;
-  scnt[lane] = 0;
-  __syncwarp();
-  for (int c0 = 0; c0 < n; c0 += 32) {
-    const int c = c0 + lane;
-    const bool valid = c < n;
-    const int k = valid ? sk[c] : -1;
-    const unsigned grp = __match_any_sync(0xffffffffu, k);
-    const int r = __popc(grp & ((1u << lane) - 1u));  // lanes before this one in its bucket
-    const int base = valid ? scnt[k] : 0;
-    __syncwarp();
-    if (valid) {
-      srank[c] = base + r;
-      if (r == 0) scnt[k] = base + __popc(grp);
-    }
-    __syncwarp();
-  }
-  int incl = scnt[lane];
-  for (int d = 1; d < 32; d *= 2) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += v;
-  }
-  soff[lane + 1] = incl;
-  if (lane == 0) soff[0] = 0;
-}
-
-// W (Cin, SC; row stride ldw) -> wt (SC, Cin), one contiguous row per column
-// of W, for kernels that read a column per thread block.  ROUND rounds each
-// value to bf16 (the bf16 tier's W operand); T is fp32 or bf16 storage.
-template <bool ROUND, typename T>
-__global__ void transpose_w_kernel(const float* __restrict__ w, int ldw, T* __restrict__ wt,
-                                   int Cin, int SC) {
-  const size_t n = (size_t)Cin * SC;
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const int c = (int)(e / Cin), i = (int)(e % Cin);
-    const float v = w[(size_t)i * ldw + c];
-    store_f(wt + e, ROUND ? bf16_round(v) : v);
-  }
-}
-
-template <bool ROUND, typename T>
-inline cudaError_t transpose_w(const float* w, int ldw, T* wt, int Cin, int SC,
-                               cudaStream_t stream) {
-  const int blocks = (Cin * SC + 255) / 256;
-  transpose_w_kernel<ROUND, T><<<blocks < 4096 ? blocks : 4096, 256, 0, stream>>>(w, ldw, wt, Cin,
-                                                                                  SC);
-  return cudaGetLastError();
-}
-
 // Asynchronous 16-byte copy from device to shared memory (cp.async, L2 only);
 // !valid fills the 16 bytes with zeros and reads nothing.  Groups of copies
 // are closed by cp_async_commit; cp_async_wait<n> waits until at most n of

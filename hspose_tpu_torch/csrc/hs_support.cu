@@ -17,11 +17,11 @@
 // row reloaded from shared memory for every element).
 //
 // Design: two kernels.
-// (i) The projection.  fp32: project_f32_kernel, a SIMT GEMM with 128 x 128
-// tiles, an 8 x 8 block per thread, the next tiles loaded while this one's products
-// run (A through registers into a transposed tile, W by cp.async); each output keeps
-// the sequential-k fused multiply-add order and the bias added at the store,
-// so P keeps its bits.  bf16: project_bf16_kernel on the tensor cores
+// (i) The projection.  fp32: hs_project.cuh's gemm_kernel, a SIMT GEMM with
+// 128 x 128 tiles, an 8 x 8 block per thread, the next tiles loaded while this
+// one's products run (A through registers into a transposed tile, W by
+// cp.async); each output keeps the sequential-k fused multiply-add order and
+// the bias added at the store, so P keeps its bits.  bf16: project_bf16_kernel on the tensor cores
 // (mma.sync) over bf16 features and W rounded to bf16 as its operand
 // fragments are formed (_w_parts), so every product is exact and the sum is
 // fp32, as the TPU kernel's one-pass bf16 product with fp32 accumulation
@@ -37,9 +37,6 @@
 // the gather gives each gathered row the same value as the TPU kernel's
 // gather-then-project.
 //
-// project_kernel, the earlier 64 x 64 CUDA-core GEMM, stays for K8's two
-// products below.
-//
 // The differentiable op (K3 with want_win, and its backward K8), both tiers:
 // * hs_support_reduce_win is the reduction with WIN: it also records, per
 //   (point, support column), the first k reaching the max of theta * P (a
@@ -51,9 +48,10 @@
 //   recomputed) and the output cotangent.  The routed cotangents, dd, db,
 //   dverts and dproj scattered to its source rows (dproj_src) come from
 //   hs_fused_bwd.cuh; then the TPU kernel's products (_mm_g / _mm_gp,
-//   :478-482) are two passes of the same tiled GEMM as the projection:
-//   dfeat = dproj_src W^T and dW = feat^T dproj_src, the latter split over
-//   row chunks into partial sums added in order.  Plain versions:
+//   :478-482) are two passes of the projection's tile (hs_project.cuh), with
+//   W read transposed and feat read transposed: dfeat = dproj_src W^T and
+//   dW = feat^T dproj_src, the latter split over DW_KC-row chunks into
+//   partial sums added in order (part of dW's association).  Plain versions:
 //   hspose_tpu_torch/ops/cuda_hs_fused.py::hs_support_fused_fwd_plain and
 //   hs_support_fused_bwd_plain.  What bounds it: the two GEMMs, 2 * B*N*Cin*S*Co
 //   fp32 multiply-adds on the CUDA cores (1.9e9 at conv_3, B=16); the rest
@@ -61,205 +59,25 @@
 // * With exact=False (the bf16 tier: bf16 features, fast != 0) the TPU kernel
 //   rounds each (query, k) row's dg = bf16(dproj) bf16(W)^T to bf16 before
 //   the source-row sum (_mm_gp, _scatter_rows), so dfeat is no longer one
-//   product of the scattered dproj: dg_rows_kernel buckets each query's
-//   columns by winner and sums, per k, bf16(dproj) times a bf16 copy of W^T
-//   (hs_support_train.cu's rows kernel, on dproj), writing (B, N, K, Cin)
-//   bf16 rows; dfeat_source_kernel sums each source row's inverse list of
-//   them in order and rounds to bf16.  dW = feat^T dproj_src stays one GEMM
-//   (bf16 feat, the source-row sums of bf16(dproj) not rounded again).  What
-//   bounds it: the same B*N*Cin*S*Co multiply-adds for dg; a copy of W^T
-//   per query from L2 (bf16, SC*Cin*2 bytes); the (B, N, K, Cin) rows once
-//   each way.
+//   product of the scattered dproj: dg_rows_kernel (the design of
+//   hs_support_train.cu's rows kernel: a warp per query, W^T streamed in
+//   32-column chunks per block of queries, a ballot walk per k) sums, per k,
+//   bf16(dproj) times bf16(W) in fp64, writing (B, N, K, Cin) bf16 rows;
+//   dfeat_source_kernel sums each source row's inverse list of them in order
+//   and rounds to bf16.  dW = feat^T dproj_src stays one GEMM (bf16 feat, the
+//   source-row sums of bf16(dproj) not rounded again).  What bounds it: the
+//   same B*N*Cin*S*Co multiply-adds for dg, in fp64 (half the fp32 rate);
+//   the (B, N, K, Cin) rows once each way.
 
 #include <cfloat>
 #include <type_traits>
 
 #include "hs_fused_bwd.cuh"
+#include "hs_project.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16;
 constexpr int GEMM_THREADS = 256;
-constexpr int APAD = BM + 4;  // row stride of the transposed A tile
-
-// C (M, Nc) = A (M, Kd) W (Kd, Nc) (+ bias).  A[m, k] is A[m * lda + k], or with
-// AT (A read transposed) A[k * lda + m]; W[k, n] is W[k * ldw + n], or with WT
-// W[n * ldw + k]; neighbouring threads walk the unit stride.  blockIdx.z sums
-// the k slice [z * kchunk, (z + 1) * kchunk) into C + z * M * Nc (split-k
-// partial sums); bias may be null.  K8's dfeat and dW products.  WR rounds W
-// to bf16 as it is staged.
-template <typename TA, bool AT = false, bool WT = false,
-          bool WR = std::is_same_v<TA, __nv_bfloat16>>
-__global__ void __launch_bounds__(GEMM_THREADS)
-project_kernel(const TA* __restrict__ A, int lda, const float* __restrict__ W, int ldw,
-               const float* __restrict__ bias, float* __restrict__ C, int M, int Kd, int Nc,
-               int kchunk) {
-  __shared__ __align__(16) float As[BK][APAD];  // As[k][m]
-  __shared__ __align__(16) float Ws[BK][BN];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int kb = blockIdx.z * kchunk, ke = min(Kd, kb + kchunk);
-  C += (size_t)blockIdx.z * M * Nc;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = kb; k0 < ke; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += GEMM_THREADS) {
-      const int r = AT ? e % BM : e / BK, c = AT ? e / BM : e % BK;
-      As[c][r] = (m0 + r < M && k0 + c < ke)
-                     ? hs::load_f(AT ? A + (size_t)(k0 + c) * lda + m0 + r
-                                     : A + (size_t)(m0 + r) * lda + k0 + c)
-                     : 0.f;
-    }
-    for (int e = tid; e < BK * BN; e += GEMM_THREADS) {
-      const int r = WT ? e % BK : e / BN, c = WT ? e / BK : e % BN;
-      const float w = (k0 + r < ke && n0 + c < Nc)
-                          ? (WT ? W[(size_t)(n0 + c) * ldw + k0 + r] : W[(size_t)(k0 + r) * ldw + n0 + c])
-                          : 0.f;
-      Ws[r][c] = WR ? hs::bf16_round(w) : w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < BK; ++c) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[c][ty * 4]);
-      const float4 w4 = *reinterpret_cast<const float4*>(&Ws[c][tx * 4]);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float w[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * w[j];
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty * 4 + i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col < Nc) C[(size_t)r * Nc + col] = bias ? acc[i][j] + bias[col] : acc[i][j];
-    }
-  }
-}
-
-// The forward's projection in fp32 (the bf16 tier's is project_bf16_kernel):
-// C (M, Nc) = A (M, Kd) W (Kd, Nc; row stride ldw) + bias on the CUDA cores.
-// 128 x 128 output tiles, 256 threads each owning 8 rows (two groups of four
-// at ty * 4 and 64 + ty * 4) by 8 columns (two float4 groups at tx * 4 and
-// 64 + tx * 4), so that per k a thread reads 4 float4 from shared memory for
-// 64 fused multiply-adds.  The A tile is stored
-// transposed (As[k][m]): its next rows are loaded into registers while this
-// tile's products run and written after them; the W tile comes by cp.async
-// into the other buffer.  Every output is one fused multiply-add chain in
-// increasing k from 0 with the bias added at the store, the arithmetic of
-// project_kernel, so P keeps its bits.  Needs Kd, ldw and Nc multiples of 4
-// and A, W 16-byte aligned.
-constexpr int PM = 128, PN = 128, PK = 16;
-constexpr int PAS = PM + 4;  // row stride of the transposed A tile
-
-__global__ void __launch_bounds__(GEMM_THREADS, 2)
-project_f32_kernel(const float* __restrict__ A, const float* __restrict__ W, int ldw,
-                   const float* __restrict__ bias, float* __restrict__ C, int M, int Kd, int Nc) {
-  constexpr int NJ = 2;  // float4 column groups per thread
-  constexpr int AV = PM * PK / 4 / GEMM_THREADS;  // float4 of the A tile per thread
-  __shared__ __align__(16) float As[2][PK][PAS];
-  __shared__ __align__(16) float Ws[2][PK][PN];
-  const int m0 = blockIdx.y * PM, n0 = blockIdx.x * PN;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-
-  float4 ra[AV];  // the next A tile, rows tid / 4 + 64 v, features (tid % 4) * 4 ..
-  auto load_a = [&](int k0) {
-#pragma unroll
-    for (int v = 0; v < AV; ++v) {
-      const int r = tid / 4 + 64 * v, c = tid % 4 * 4;
-      ra[v] = m0 + r < M && k0 + c < Kd
-                  ? __ldg(reinterpret_cast<const float4*>(A + (size_t)(m0 + r) * Kd + k0 + c))
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-  auto store_a = [&](int buf) {
-#pragma unroll
-    for (int v = 0; v < AV; ++v) {
-      const int r = tid / 4 + 64 * v, c = tid % 4 * 4;
-      As[buf][c + 0][r] = ra[v].x;
-      As[buf][c + 1][r] = ra[v].y;
-      As[buf][c + 2][r] = ra[v].z;
-      As[buf][c + 3][r] = ra[v].w;
-    }
-  };
-  auto load_w = [&](int buf, int k0) {
-    for (int e = tid; e < PK * PN / 4; e += GEMM_THREADS) {
-      const int r = e / (PN / 4), c = e % (PN / 4) * 4;
-      const bool ok = k0 + r < Kd && n0 + c < Nc;
-      hs::cp_async16(&Ws[buf][r][c], ok ? W + (size_t)(k0 + r) * ldw + n0 + c : W, ok);
-    }
-    hs::cp_async_commit();
-  };
-
-  float acc[8][NJ * 4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ * 4; ++j) acc[i][j] = 0.f;
-
-  const int nk = (Kd + PK - 1) / PK;
-  load_a(0);
-  load_w(0, 0);
-  store_a(0);
-  hs::cp_async_wait<0>();
-  __syncthreads();
-  for (int t = 0; t < nk; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < nk) {
-      load_a((t + 1) * PK);
-      load_w(buf ^ 1, (t + 1) * PK);
-    }
-#pragma unroll
-    for (int k = 0; k < PK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][k][64 + ty * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float w[NJ * 4];
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const float4 w4 = *reinterpret_cast<const float4*>(&Ws[buf][k][jj * 64 + tx * 4]);
-        w[jj * 4 + 0] = w4.x;
-        w[jj * 4 + 1] = w4.y;
-        w[jj * 4 + 2] = w4.z;
-        w[jj * 4 + 3] = w4.w;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ * 4; ++j) acc[i][j] += a[i] * w[j];
-    }
-    if (t + 1 < nk) store_a(buf ^ 1);
-    hs::cp_async_wait<0>();
-    __syncthreads();  // the next tile is in place; this one may be rewritten
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = m0 + (i / 4) * 64 + ty * 4 + i % 4;
-    if (r >= M) continue;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      const int col = n0 + jj * 64 + tx * 4;
-      if (col >= Nc) continue;
-      const float* a = acc[i] + jj * 4;
-      *reinterpret_cast<float4*>(C + (size_t)r * Nc + col) =
-          make_float4(a[0] + bias[col], a[1] + bias[col + 1], a[2] + bias[col + 2],
-                      a[3] + bias[col + 3]);
-    }
-  }
-}
 
 // The bf16 tier's projection: C (M, Nc) = A (M, Kd; bf16) W (Kd, Nc; row
 // stride ldw) + bias on the tensor cores: mma.sync m16n8k16 over bf16
@@ -455,13 +273,13 @@ int project(const TA* feat, const float* w, int ldw, const float* b, float* proj
   if (Cin % (hs::is_bf16<TA> ? 8 : 4) || ldw % 4 || Cout % 4 || !hs::aligned16(feat) ||
       !hs::aligned16(w) || reinterpret_cast<size_t>(b) % 8)
     return (int)cudaErrorInvalidValue;
-  if constexpr (hs::is_bf16<TA>)
+  if constexpr (hs::is_bf16<TA>) {
     project_bf16_kernel<<<dim3((Cout + TN - 1) / TN, (rows + TM - 1) / TM), GEMM_THREADS, 0,
                           stream>>>(feat, w, ldw, b, proj, rows, Cin, Cout);
-  else
-    project_f32_kernel<<<dim3((Cout + PN - 1) / PN, (rows + PM - 1) / PM), GEMM_THREADS, 0,
-                         stream>>>(feat, w, ldw, b, proj, rows, Cin, Cout);
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  } else {
+    return (int)hsp::gemm<float>(feat, Cin, w, ldw, b, proj, rows, Cin, Cout, 0, stream);
+  }
 }
 
 template <bool FAST, bool WIN, int KT>
@@ -495,47 +313,151 @@ int reduce(const float* proj, const float* verts, const int* idx, const float* d
 
 constexpr int DW_KC = 256;  // rows per split-k slice of the dW product
 constexpr int ROWS_THREADS = 128;
+constexpr int DG_NT = 512;    // threads per dg rows block
+constexpr int DG_CC = 32;     // columns per staged W^T chunk: one per lane
+constexpr int DG_CS = 128;    // input channels per dg rows block: four per lane
+// bytes of a block's staged W^T chunks: two buffers of (DG_CC, DG_CS) fp64
+constexpr size_t DG_W_BYTES = 2 * sizeof(double) * DG_CC * DG_CS;
 
-// The bf16 tier's dg rows (pallas_hs_fused.py:482-483, exact=False): one block
-// per query q; its SC columns are bucketed by winner (hs::bucket_by_winner),
-// and thread i sums bf16(dproj[q, c]) * wt[c, i] over each bucket k in column
-// order and writes dg[q, k, i] rounded to bf16, the row's cotangent as the
-// TPU kernel rounds it before the source-row sum.  The exact products are
-// summed in fp64 and rounded to fp32, then to bf16, so that the row's
+// The bf16 tier's dg rows (pallas_hs_fused.py:482-483, exact=False):
+// dg[q, k, i] = the sum of bf16(dproj[q, c]) * bf16(W[i, c]) over the columns
+// c that k wins, in increasing c, written rounded to bf16: the row's cotangent
+// as the TPU kernel rounds it before the source-row sum.  The exact products
+// are summed in fp64 and rounded to fp32, then to bf16, so that the row's
 // rounding does not depend on the order of the sum (ops/cuda_hs_fused.py::
 // _support_fused_bwd_fast forms the same row from a product in another order).
-__global__ void __launch_bounds__(ROWS_THREADS)
+// Block: DG_NT threads, DG_CS input channels (blockIdx.y) and DG_NT / 32 / KS
+// queries, each query's winners split over KS warps of KH winners each
+// (k = kr * KH .. + KH - 1 for the query's warp kr), lane l holding channels
+// 4l .. 4l + 3 and the fp64 sums of its warp's winners in registers.  Per
+// chunk of DG_CC columns, W^T[c, channels] is staged in shared memory (loaded
+// as float4 rows of W, transposed through registers, rounded to bf16 and held
+// as fp64, so that the walk converts nothing; double-buffered), lane j holds
+// column j's winner and bf16(dproj), and for each of the warp's k in order a
+// ballot gives the columns k wins, walked in column order.  So W is read
+// from L2 once per block of queries, not once per (query, column), no column
+// is ranked ahead, and each column's walk step feeds four channels.  What
+// bounds it: one staged fp64 operand (8 bytes of shared memory) per
+// multiply-add.
+template <int KH, int KS>
+__global__ void __launch_bounds__(DG_NT)
 dg_rows_kernel(const float* __restrict__ dproj, const int* __restrict__ win,
-               const __nv_bfloat16* __restrict__ wt, __nv_bfloat16* __restrict__ dg, int K,
-               int Cin, int SC) {
-  extern __shared__ __align__(16) float smem[];
-  float2* spair = reinterpret_cast<float2*>(smem);  // (SC) bucket order: (column bits, value)
-  int* sk = reinterpret_cast<int*>(spair + SC);      // (SC) winner
-  int* srank = sk + SC;                              // (SC) place within its bucket
-  int* scnt = srank + SC;                            // (32) bucket sizes
-  int* soff = scnt + 32;                             // (33) bucket offsets
-  const size_t q = blockIdx.x;
-  for (int c = threadIdx.x; c < SC; c += blockDim.x) sk[c] = win[q * SC + c];
-  __syncthreads();
-  hs::bucket_by_winner(sk, srank, scnt, soff, SC);
-  __syncthreads();
-  for (int c = threadIdx.x; c < SC; c += blockDim.x)
-    spair[soff[sk[c]] + srank[c]] =
-        make_float2(__int_as_float(c), hs::bf16_round(dproj[q * SC + c]));
-  __syncthreads();
-  __nv_bfloat16* dgq = dg + q * K * Cin;
-  for (int i = threadIdx.x; i < Cin; i += blockDim.x) {
-    for (int k = 0; k < K; ++k) {
-      double acc = 0.0;
-      const int pe = soff[k + 1];
-#pragma unroll 4
-      for (int p = soff[k]; p < pe; ++p) {
-        const float2 e = spair[p];
-        acc += (double)e.y * (double)__bfloat162float(wt[(size_t)__float_as_int(e.x) * Cin + i]);
+               const float* __restrict__ w, int ldw, __nv_bfloat16* __restrict__ dg, int rows,
+               int K, int Cin, int SC) {
+  constexpr int TQ = DG_NT / 32 / KS;           // queries per block
+  constexpr int NW = DG_CS * DG_CC / 4 / DG_NT;  // float4s of W each thread stages per chunk
+  constexpr unsigned ALL = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char dg_smem[];
+  double* sw = reinterpret_cast<double*>(dg_smem);  // [2][DG_CC][DG_CS]: (column, channel)
+  double* sv = reinterpret_cast<double*>(dg_smem + DG_W_BYTES) + (threadIdx.x / 32) * DG_CC;
+  const int lane = threadIdx.x % 32, wp = threadIdx.x / 32;
+  const int i0 = blockIdx.y * DG_CS, k0 = (wp % KS) * KH;
+  const size_t q = (size_t)blockIdx.x * TQ + wp / KS;
+  const bool live = q < (size_t)rows && k0 < K;
+  const bool w_vec = hs::aligned16(w) && ldw % 4 == 0;
+
+  // element e of a chunk: channel row e / 8, columns (e % 8) * 4 .. + 3, so
+  // that 8 lanes read 128 contiguous bytes of a row of W
+  float4 wr[NW];
+  int kn = -1;
+  float vn = 0.f;
+  auto fetch = [&](int c0) {
+#pragma unroll
+    for (int r = 0; r < NW; ++r) {
+      const int e = threadIdx.x + r * DG_NT, row = i0 + e / 8, col = c0 + e % 8 * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < Cin && col < SC) {
+        const float* p = w + (size_t)row * ldw + col;
+        v = w_vec ? *reinterpret_cast<const float4*>(p) : make_float4(p[0], p[1], p[2], p[3]);
       }
-      dgq[k * Cin + i] = __float2bfloat16_rn((float)acc);
+      wr[r] = v;
     }
+    const int col = c0 + lane;
+    kn = -1;
+    vn = 0.f;
+    if (live && col < SC) {
+      kn = win[q * SC + col];
+      vn = hs::bf16_round(dproj[q * SC + col]);
+    }
+  };
+  // channel 4l + t of column c's row sits at (t / 2) * 64 + (2l ^ 2((c / 4) %
+  // 8)) + t % 2: a lane's two pairs are two aligned 16-byte reads, the lanes'
+  // reads of a row fall on different banks, and the XOR (within 16 places)
+  // spreads the writes of the 8 column groups a warp stages at once too
+  auto stage = [&](int buf) {
+#pragma unroll
+    for (int r = 0; r < NW; ++r) {
+      const int e = threadIdx.x + r * DG_NT, i = e / 8, col = e % 8 * 4;
+      const int at = i % 4 / 2 * 64 + ((2 * (i / 4)) ^ (2 * (col / 4 % 8))) + i % 2;
+      const float v[4] = {wr[r].x, wr[r].y, wr[r].z, wr[r].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sw[(buf * DG_CC + col + j) * DG_CS + at] = hs::bf16_round(v[j]);
+    }
+  };
+
+  double acc[KH][4];
+#pragma unroll
+  for (int k = 0; k < KH; ++k)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[k][c] = 0.0;
+
+  const int chunks = (SC + DG_CC - 1) / DG_CC;
+  fetch(0);
+  stage(0);
+  __syncthreads();
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int buf = ch & 1;
+    const int kl = kn;
+    const float vn_chunk = vn;
+    sv[lane] = (double)vn;
+    if (ch + 1 < chunks) fetch((ch + 1) * DG_CC);
+    __syncwarp();
+    if (live) {
+      const double* wb = sw + buf * DG_CC * DG_CS;
+#pragma unroll
+      for (int k = 0; k < KH; ++k) {
+        if (k0 + k >= K) break;
+        // columns whose bf16(dproj) is 0 add +-0 to a sum that is never -0: skipped
+        unsigned m = __ballot_sync(ALL, kl == k0 + k && vn_chunk != 0.f);
+        while (m) {
+          const int j = __ffs(m) - 1;
+          m &= m - 1;
+          const double v = sv[j];
+          const double* wj = wb + j * DG_CS + ((2 * lane) ^ (2 * (j / 4 % 8)));
+          const double2 a = *reinterpret_cast<const double2*>(wj);
+          const double2 c = *reinterpret_cast<const double2*>(wj + 64);
+          acc[k][0] += v * a.x;
+          acc[k][1] += v * a.y;
+          acc[k][2] += v * c.x;
+          acc[k][3] += v * c.y;
+        }
+      }
+    }
+    if (ch + 1 < chunks) stage(buf ^ 1);
+    __syncthreads();
   }
+  if (!live) return;
+  __nv_bfloat16* out = dg + q * K * Cin + i0 + 4 * lane;
+#pragma unroll
+  for (int k = 0; k < KH; ++k) {
+    if (k0 + k >= K) break;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (i0 + 4 * lane + c < Cin)
+        out[(size_t)(k0 + k) * Cin + c] = __float2bfloat16_rn((float)acc[k][c]);
+  }
+}
+
+template <int KH, int KS>
+cudaError_t launch_dg_rows(const float* dproj, const int* win, const float* w, int ldw,
+                           __nv_bfloat16* dg, int rows, int K, int Cin, int SC, cudaStream_t st) {
+  constexpr int TQ = DG_NT / 32 / KS;
+  const size_t smem = DG_W_BYTES + sizeof(double) * DG_NT;
+  cudaError_t err = hs::allow_smem(dg_rows_kernel<KH, KS>, smem);
+  if (err != cudaSuccess) return err;
+  dg_rows_kernel<KH, KS><<<dim3((rows + TQ - 1) / TQ, (Cin + DG_CS - 1) / DG_CS), DG_NT, smem,
+                           st>>>(dproj, win, w, ldw, dg, rows, K, Cin, SC);
+  return cudaGetLastError();
 }
 
 // dfeat[b, r, i] = the sum over r's inverse list of dg[entry, i] (bf16 values,
@@ -601,18 +523,18 @@ extern "C" int hs_support_fused_dw_parts(int rows) { return (rows + DW_KC - 1) /
 // feat's type, dverts (B, N, 3), dw (Cin, S*Co), red (4, S*Co) = [dd; db].  Scratch:
 // rowptr (B, N + 1), ent (B, N*K) int32; dz, dproj, dproj_src (B, N, S*Co), drf
 // (B, N, K, 3), dvq (B, N, 3), partial (hs_fused_bwd_parts(B, N), 4, S*Co), dw_partial
-// (hs_support_fused_dw_parts(B * N), Cin, S*Co) fp32; with fast, dg (B, N, K, Cin) and
-// wt (S*Co, Cin) bf16 (null otherwise).
+// (hs_support_fused_dw_parts(B * N), Cin, S*Co) fp32; with fast, dg (B, N, K, Cin) bf16
+// (null otherwise).
 extern "C" int hs_support_fused_bwd(const void* feat, const float* w, int ldw,
                                     const float* verts, const int* idx, const float* dirs,
                                     const int* win, const float* proj, const float* gb,
                                     int* rowptr, int* ent, float* dz, float* dproj,
                                     float* dproj_src, float* drf, float* dvq, float* partial,
-                                    float* dw_partial, void* dg, void* wt, void* dfeat,
+                                    float* dw_partial, void* dg, void* dfeat,
                                     float* dverts, float* dw, float* red, int B, int N, int K,
                                     int Cin, int S, int Co, int fast, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hsb::supported(N, K)) return (int)cudaErrorInvalidValue;
+  if (hsb::supported(N, K) || Cin % 4) return (int)cudaErrorInvalidValue;
   const int SC = S * Co, rows = B * N;
   cudaError_t err =
       fast ? hsb::fused_bwd<true, true>(verts, idx, dirs, win, gb, proj, rowptr, ent, dz, dproj,
@@ -624,16 +546,11 @@ extern "C" int hs_support_fused_bwd(const void* feat, const float* w, int ldw,
   if (err != cudaSuccess) return (int)err;
   const int parts = (rows + DW_KC - 1) / DW_KC;
   if (fast) {
-    // dg rows (bf16) from bf16 W^T, then dfeat by source row
-    auto* wtb = static_cast<__nv_bfloat16*>(wt);
+    // dg rows (bf16) from W rounded to bf16, then dfeat by source row
     auto* dgb = static_cast<__nv_bfloat16*>(dg);
-    err = hs::transpose_w<true>(w, ldw, wtb, Cin, SC, st);
-    if (err != cudaSuccess) return (int)err;
-    const size_t smem = sizeof(float) * 2 * (size_t)SC + sizeof(int) * (2 * (size_t)SC + 65);
-    err = hs::allow_smem(dg_rows_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    dg_rows_kernel<<<rows, ROWS_THREADS, smem, st>>>(dproj, win, wtb, dgb, K, Cin, SC);
-    err = cudaGetLastError();
+    err = K <= 8    ? launch_dg_rows<8, 1>(dproj, win, w, ldw, dgb, rows, K, Cin, SC, st)
+          : K <= 20 ? launch_dg_rows<10, 2>(dproj, win, w, ldw, dgb, rows, K, Cin, SC, st)
+                    : launch_dg_rows<8, 4>(dproj, win, w, ldw, dgb, rows, K, Cin, SC, st);
     if (err != cudaSuccess) return (int)err;
     dfeat_source_kernel<<<rows, ROWS_THREADS, 0, st>>>(rowptr, ent, dgb,
                                                        static_cast<__nv_bfloat16*>(dfeat), N, K,
@@ -641,24 +558,17 @@ extern "C" int hs_support_fused_bwd(const void* feat, const float* w, int ldw,
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     // dW (Cin, SC) = feat^T (bf16) dproj_src (the sums of bf16(dproj), not rounded again)
-    project_kernel<__nv_bfloat16, true, false, false>
-        <<<dim3((SC + BN - 1) / BN, (Cin + BM - 1) / BM, parts), GEMM_THREADS, 0, st>>>(
-            static_cast<const __nv_bfloat16*>(feat), Cin, dproj_src, SC, nullptr, dw_partial, Cin,
-            rows, SC, DW_KC);
+    err = hsp::gemm<__nv_bfloat16, true>(static_cast<const __nv_bfloat16*>(feat), Cin, dproj_src,
+                                         SC, nullptr, dw_partial, Cin, rows, SC, DW_KC, st);
   } else {
     // dfeat (rows, Cin) = dproj_src (rows, SC) W^T
-    project_kernel<float, false, true>
-        <<<dim3((Cin + BN - 1) / BN, (rows + BM - 1) / BM), GEMM_THREADS, 0, st>>>(
-            dproj_src, SC, w, ldw, nullptr, static_cast<float*>(dfeat), rows, SC, Cin, SC);
-    err = cudaGetLastError();
+    err = hsp::gemm<float, false, true>(dproj_src, SC, w, ldw, nullptr,
+                                        static_cast<float*>(dfeat), rows, SC, Cin, 0, st);
     if (err != cudaSuccess) return (int)err;
     // dW (Cin, SC) = feat^T (Cin, rows) dproj_src (rows, SC), in row slices
-    project_kernel<float, true, false>
-        <<<dim3((SC + BN - 1) / BN, (Cin + BM - 1) / BM, parts), GEMM_THREADS, 0, st>>>(
-            static_cast<const float*>(feat), Cin, dproj_src, SC, nullptr, dw_partial, Cin, rows,
-            SC, DW_KC);
+    err = hsp::gemm<float, true>(static_cast<const float*>(feat), Cin, dproj_src, SC, nullptr,
+                                 dw_partial, Cin, rows, SC, DW_KC, st);
   }
-  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)hs::sum_partials(dw_partial, dw, parts, Cin * SC, st);
 }

@@ -1,6 +1,7 @@
 // HS support reduction of the training path (conv_1 .. conv_4) on
-// pre-gathered features, forward with stored winner values, and its backward.
-//   P[k, sc]  = g[b, n, k, :] @ W[:, sc] + bias[sc]             (per row, in the kernel)
+// pre-gathered features g = feat[idx], forward with stored winner values, and
+// its backward.
+//   P[k, sc]  = g[b, n, k, :] @ W[:, sc] + bias[sc] = P_src[idx[b, n, k], sc]
 //   th[k, sc] = relu(rf[b, n, k] . dir_sc)
 //   out (B, N, Co) = mean_s max_k th * P;  win, twin, pwin (B, N, S*Co) = the first
 //   maximal k and th, P there
@@ -24,17 +25,31 @@
 // accumulation gives them; b is added in fp32 and db sums the unrounded
 // gb*twin.  dg and drf are rounded to bf16 once, after their sums.
 //
-// What bounds the forward on an H100: the projection of every gathered row
-// is a dense fp32 product, B*N*K*Cin*S*Co multiply-adds (3.8e10 at conv_1,
-// B=16; 1.0e11 over the four layers), on the CUDA cores since fp32 has no
-// tensor-core path; the (B, N, S*Co) winner values it writes are small beside
-// it.  Forward: one block per (batch, TQ-query tile), TQ * Co/4 threads;
-// thread (t, cg) owns query t and channels 4cg..4cg+3 for every k, so the max
-// over k and the argmax stay in its registers.  The block stages its queries'
-// g rows (TQ*K x Cin) once in shared memory; per support it streams W in
-// 16-row slices and accumulates P in registers (a float4 of g against four
-// float4s of W per step), then applies theta, the max with a strict > (the
-// first maximal k wins) and writes win, twin, pwin.
+// What bounds the forward on an H100.  The rows g are a gather of the
+// layer's feature map by the neighbour index (models/layers.py), so each
+// gathered row's projection equals its source row's, bit for bit, when both
+// are the same fused multiply-add chain: projecting the B*N source rows costs
+// B*N*Cin*S*Co multiply-adds (5.7e9 over the four layers at B=16), K times
+// fewer than projecting every gathered row (1.0e11, the kernel before this
+// design); the (B, N, S*Co) winner values the forward writes (about 0.4 GB a
+// step) are then as large a cost.  Forward, two launches:
+// (i) P_src (B, N, S*Co) = feat @ W + b by hs_project.cuh's tile, on the CUDA
+//     cores in both tiers: fp32, and in the bf16 tier bf16 features widened
+//     exactly against W rounded to bf16 where it is staged, so each output is
+//     the kernel-before-this's fmaf chain in increasing input channel from
+//     0.f with the bias added after (a tensor-core product would sum in
+//     another order, and the bf16 winner values are held to their bits);
+// (ii) support_fwd_kernel gathers P_src by idx and reduces: one block per
+//     (batch, query tile), each thread four adjacent columns as float4; the
+//     rf row and neighbour index of a (query, k) are staged as one float4 in
+//     shared memory and serve all four columns; K = 20 and 8 are unrolled so
+//     that a support's K loads are in flight together.  Per column the
+//     arithmetic is the replaced kernel's: theta from the same expression, the
+//     winner rule k == 0 || v > m (the first maximal k; NaN compares as
+//     K3's strict > from -FLT_MAX does not), the supports added in order,
+//     then / S.
+// g stays the autograd input (the backwards read it); the forward reads
+// the source rows and the index beside it.
 //
 // The backward.  Each column has one winning row per query, so dg, dW and the
 // recomputed P are sparse: B*N*S*Co*Cin multiply-adds each (1.9e9 at conv_1,
@@ -101,15 +116,15 @@
 // 16-channel stages keep a block's shared memory small enough for two
 // blocks per SM.
 //
-// Launches per call: K13 three (rows, reduction, sum_partials), K14 four.
+// Launches per call: K11 two (projection, reduction), K13 three (rows,
+// reduction, sum_partials), K14 four.
 #include <algorithm>
 
-#include "hs_common.cuh"
+#include "hs_project.cuh"
 
 namespace {
 
-constexpr int BK = 16;           // rows of W per slice in the forward
-constexpr int FWD_THREADS = 256;  // TQ * Co/4
+constexpr int FWD_THREADS = 128;  // threads per reduction block of the forward
 constexpr int ROWS_CS = 128;     // input channels per rows block: a float4 per lane
 constexpr int ROWS_CC = 32;      // columns per staged W^T chunk: one per lane
 constexpr int ROWS_WS = ROWS_CS + 4;  // row stride (floats) of the staged W^T chunk
@@ -122,117 +137,89 @@ constexpr int RC_TQ = 16;        // queries per recompute block
 constexpr int RC_CH = 16;        // input channels per stage of the recompute kernel
 constexpr int RC_CT = 256;       // most columns (threads) per recompute block
 
-template <int KP, typename T, bool STORE>
+// The forward's reduction over the projected source rows:
+// out[q, c] = mean_s max_k relu(rf[q, k] . d_{s,c}) * P_src[idx[q, k], s*Co + c],
+// with win (and, STORE, twin, pwin) at the first maximal k.  One block per
+// (batch, TQ-query tile), FWD_THREADS threads; each thread owns four adjacent
+// columns c4 * 4 .. + 3 and the queries t = ql, ql + QPB, ... of the tile
+// (QPB = FWD_THREADS / min(Co / 4, FWD_THREADS) queries side by side).  The
+// tile's rf rows (in T, read as fp32) and neighbour indices are staged as
+// float4 (rf, index bits); per (query, support) a thread reads its twelve
+// directions once, then for each k one float4 of rf and index and one
+// float4 of P_src.  KT = 0 reads K at run time.  Needs Co % 4 == 0 and
+// proj, out, win, twin, pwin 16-byte aligned.
+template <typename T, bool STORE, int KT>
 __global__ void __launch_bounds__(FWD_THREADS)
-support_fwd_kernel(const T* __restrict__ g, const T* __restrict__ rf,
-                   const float* __restrict__ w, int ldw, const float* __restrict__ bias,
-                   const T* __restrict__ dirs, float* __restrict__ out,
-                   int* __restrict__ win, float* __restrict__ twin, float* __restrict__ pwin,
-                   int N, int K, int Cin, int S, int Co, int TQ) {
-  extern __shared__ __align__(16) float smem[];
-  const int SC = S * Co, CG = Co / 4;
-  float* sg = smem;                       // (TQ * KP, Cin), rows k >= K are zero
-  float* sw = sg + (size_t)TQ * KP * Cin;  // (BK, Co)
-  float* srf = sw + BK * Co;              // (TQ * KP, 3)
+support_fwd_kernel(const float* __restrict__ proj, const T* __restrict__ rf,
+                   const int* __restrict__ idx, const T* __restrict__ dirs,
+                   float* __restrict__ out, int* __restrict__ win, float* __restrict__ twin,
+                   float* __restrict__ pwin, int N, int K_arg, int S, int Co, int TQ) {
+  extern __shared__ __align__(16) float4 srf4[];  // (TQ, K): rf, index bits
+  const int K = KT ? KT : K_arg;
+  const int SC = S * Co, C4 = Co / 4;
   const int b = blockIdx.y, q0 = blockIdx.x * TQ;
   const int tq = min(TQ, N - q0);
-  const int t = threadIdx.x / CG, cg = threadIdx.x % CG;
-
-  const int c4 = Cin / 4;
-  for (int e = threadIdx.x; e < TQ * KP * c4; e += blockDim.x) {
-    const int row = e / c4, tt = row / KP, k = row % KP;
+  for (int e = threadIdx.x; e < TQ * K; e += blockDim.x) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (tt < tq && k < K) {
-      const size_t at = (((size_t)b * N + q0 + tt) * K + k) * c4 + e % c4;
-      if constexpr (hs::is_bf16<T>) {  // four bf16 values, widened exactly
-        const uint2 raw = reinterpret_cast<const uint2*>(g)[at];
-        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-        v = make_float4(lo.x, lo.y, hi.x, hi.y);
-      } else {
-        v = reinterpret_cast<const float4*>(g)[at];
-      }
+    if (e / K < tq) {
+      const size_t at = ((size_t)b * N + q0) * K + e;
+      const T* r = rf + at * 3;
+      v = make_float4(hs::load_f(r), hs::load_f(r + 1), hs::load_f(r + 2),
+                      __int_as_float(idx[at]));
     }
-    reinterpret_cast<float4*>(sg)[e] = v;
+    srf4[e] = v;
   }
-  for (int e = threadIdx.x; e < TQ * KP * 3; e += blockDim.x) {
-    const int row = e / 3, tt = row / KP, k = row % KP;
-    srf[e] = (tt < tq && k < K)
-                 ? hs::load_f(rf + (((size_t)b * N + q0 + tt) * K + k) * 3 + e % 3)
-                 : 0.f;
-  }
+  __syncthreads();
 
-  const bool active = t < tq;
-  const size_t qrow = (size_t)b * N + q0 + t;
-  float oacc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int s = 0; s < S; ++s) {
-    float acc[KP][4];
+  const int lanes_c = min(C4, FWD_THREADS), QPB = FWD_THREADS / lanes_c;
+  const int ql = threadIdx.x / lanes_c;
+  if (ql >= QPB) return;
+  const float* Pb = proj + (size_t)b * N * SC;
+  for (int c4 = threadIdx.x % lanes_c; c4 < C4; c4 += lanes_c) {
+    for (int t = ql; t < tq; t += QPB) {
+      const size_t row = (size_t)b * N + q0 + t;
+      float total[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int s = 0; s < S; ++s) {
+        const int col = s * Co + c4 * 4;
+        float d0[4], d1[4], d2[4];
 #pragma unroll
-    for (int k = 0; k < KP; ++k)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[k][j] = 0.f;
-
-    for (int k0 = 0; k0 < Cin; k0 += BK) {
-      __syncthreads();  // the previous slice is no longer read (and sg, srf are staged)
-      for (int e = threadIdx.x; e < BK * Co; e += blockDim.x) {
-        const int r = e / Co, c = e % Co;
-        const float v = k0 + r < Cin ? w[(size_t)(k0 + r) * ldw + s * Co + c] : 0.f;
-        sw[e] = hs::is_bf16<T> ? hs::bf16_round(v) : v;  // the one-pass product's W operand
-      }
-      __syncthreads();
-      const int kmax = min(BK, Cin - k0);
-      for (int kk = 0; kk < kmax; kk += 4) {
-        float4 w4[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          w4[i] = *reinterpret_cast<const float4*>(&sw[(kk + i) * Co + cg * 4]);
-#pragma unroll
-        for (int k = 0; k < KP; ++k) {
-          const float4 a = *reinterpret_cast<const float4*>(&sg[(size_t)(t * KP + k) * Cin + k0 + kk]);
-          acc[k][0] = fmaf(a.w, w4[3].x, fmaf(a.z, w4[2].x, fmaf(a.y, w4[1].x, fmaf(a.x, w4[0].x, acc[k][0]))));
-          acc[k][1] = fmaf(a.w, w4[3].y, fmaf(a.z, w4[2].y, fmaf(a.y, w4[1].y, fmaf(a.x, w4[0].y, acc[k][1]))));
-          acc[k][2] = fmaf(a.w, w4[3].z, fmaf(a.z, w4[2].z, fmaf(a.y, w4[1].z, fmaf(a.x, w4[0].z, acc[k][2]))));
-          acc[k][3] = fmaf(a.w, w4[3].w, fmaf(a.z, w4[2].w, fmaf(a.y, w4[1].w, fmaf(a.x, w4[0].w, acc[k][3]))));
+        for (int c = 0; c < 4; ++c) {
+          d0[c] = hs::load_f(dirs + col + c);
+          d1[c] = hs::load_f(dirs + SC + col + c);
+          d2[c] = hs::load_f(dirs + 2 * SC + col + c);
         }
-      }
-    }
-
-    if (active) {
+        float m[4] = {0.f, 0.f, 0.f, 0.f}, tw[4] = {0.f, 0.f, 0.f, 0.f},
+              pw[4] = {0.f, 0.f, 0.f, 0.f};
+        int kb[4] = {0, 0, 0, 0};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = s * Co + cg * 4 + j;
-        const float d0 = hs::load_f(dirs + col), d1 = hs::load_f(dirs + SC + col),
-                    d2 = hs::load_f(dirs + 2 * SC + col);
-        const float bb = bias[col];
-        float m = 0.f, tw = 0.f, pw = 0.f;
-        int kb = 0;
+        for (int j = 0; j < K; ++j) {
+          const float4 r = srf4[t * K + j];
+          const float4 p4 =
+              __ldg(reinterpret_cast<const float4*>(Pb + (size_t)__float_as_int(r.w) * SC + col));
+          const float p[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
-        for (int k = 0; k < KP; ++k) {
-          if (k < K) {
-            const float* r = srf + (t * KP + k) * 3;
-            const float th = fmaxf(r[0] * d0 + r[1] * d1 + r[2] * d2, 0.f);
-            const float p = acc[k][j] + bb;
-            const float v = th * p;
-            if (k == 0 || v > m) {
-              m = v;
-              kb = k;
-              tw = th;
-              pw = p;
+          for (int c = 0; c < 4; ++c) {
+            const float th = fmaxf(r.x * d0[c] + r.y * d1[c] + r.z * d2[c], 0.f);
+            const float v = th * p[c];
+            if (j == 0 || v > m[c]) {
+              m[c] = v;
+              kb[c] = j;
+              tw[c] = th;
+              pw[c] = p[c];
             }
           }
         }
-        win[qrow * SC + col] = kb;
+        *reinterpret_cast<int4*>(win + row * SC + col) = make_int4(kb[0], kb[1], kb[2], kb[3]);
         if constexpr (STORE) {
-          twin[qrow * SC + col] = tw;
-          pwin[qrow * SC + col] = pw;
+          *reinterpret_cast<float4*>(twin + row * SC + col) = make_float4(tw[0], tw[1], tw[2], tw[3]);
+          *reinterpret_cast<float4*>(pwin + row * SC + col) = make_float4(pw[0], pw[1], pw[2], pw[3]);
         }
-        oacc[j] += m;
-      }
-    }
-  }
-  if (active) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) out[qrow * Co + cg * 4 + j] = oacc[j] / S;
+        for (int c = 0; c < 4; ++c) total[c] += m[c];
+      }
+      *reinterpret_cast<float4*>(out + row * Co + c4 * 4) =
+          make_float4(total[0] / S, total[1] / S, total[2] / S, total[3] / S);
+    }
   }
 }
 
@@ -666,33 +653,44 @@ recompute_kernel(const T* __restrict__ g, const T* __restrict__ rf,
   }
 }
 
-template <int KP, typename T, bool STORE>
-cudaError_t launch_fwd(const void* g, const void* rf, const float* w, int ldw, const float* b,
-                       const void* dirs, float* out, int* win, float* twin, float* pwin, int B,
-                       int N, int K, int Cin, int S, int Co, cudaStream_t stream) {
-  const int TQ = FWD_THREADS / (Co / 4);
-  const size_t smem = sizeof(float) * ((size_t)TQ * KP * Cin + BK * Co + (size_t)TQ * KP * 3);
-  cudaError_t err = hs::allow_smem(support_fwd_kernel<KP, T, STORE>, smem);
+template <typename T, bool STORE, int KT>
+cudaError_t launch_reduce(const float* proj, const void* rf, const int* idx, const void* dirs,
+                          float* out, int* win, float* twin, float* pwin, int B, int N, int K,
+                          int S, int Co, cudaStream_t st) {
+  // two queries per thread and column group
+  const int TQ = 2 * (FWD_THREADS / std::min(Co / 4, FWD_THREADS));
+  const size_t smem = sizeof(float4) * (size_t)TQ * K;
+  auto kernel = support_fwd_kernel<T, STORE, KT>;
+  cudaError_t err = hs::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + TQ - 1) / TQ, B);
-  support_fwd_kernel<KP, T, STORE><<<grid, TQ * (Co / 4), smem, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(rf), w, ldw, b,
-      static_cast<const T*>(dirs), out, win, twin, pwin, N, K, Cin, S, Co, TQ);
+  kernel<<<dim3((N + TQ - 1) / TQ, B), FWD_THREADS, smem, st>>>(
+      proj, static_cast<const T*>(rf), idx, static_cast<const T*>(dirs), out, win, twin, pwin, N,
+      K, S, Co, TQ);
   return cudaGetLastError();
 }
 
+// The forward: P_src = feat @ W + b into proj (B, N, S*Co), then the
+// reduction (K = 20 and 8 unrolled, the rest at run time).
 template <typename T, bool STORE = true>
-cudaError_t launch_fwd_k(const void* g, const void* rf, const float* w, int ldw, const float* b,
-                         const void* dirs, float* out, int* win, float* twin, float* pwin, int B,
-                         int N, int K, int Cin, int S, int Co, cudaStream_t st) {
-  if (K <= 8)
-    return launch_fwd<8, T, STORE>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S,
-                                   Co, st);
-  if (K <= 20)
-    return launch_fwd<20, T, STORE>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin,
-                                    S, Co, st);
-  return launch_fwd<32, T, STORE>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S,
-                                  Co, st);
+cudaError_t launch_fwd(const void* feat, const int* idx, const void* rf, const float* w, int ldw,
+                       const float* b, const void* dirs, float* proj, float* out, int* win,
+                       float* twin, float* pwin, int B, int N, int K, int Cin, int S, int Co,
+                       cudaStream_t st) {
+  if (!hs::aligned16(proj) || !hs::aligned16(out) || !hs::aligned16(win) ||
+      (STORE && (!hs::aligned16(twin) || !hs::aligned16(pwin))))
+    return cudaErrorInvalidValue;
+  const int SC = S * Co;
+  cudaError_t err = hsp::gemm<T, false, false, hs::is_bf16<T>>(
+      static_cast<const T*>(feat), Cin, w, ldw, b, proj, B * N, Cin, SC, 0, st);
+  if (err != cudaSuccess) return err;
+  switch (K) {
+    case 20: return launch_reduce<T, STORE, 20>(proj, rf, idx, dirs, out, win, twin, pwin, B, N,
+                                                K, S, Co, st);
+    case 8: return launch_reduce<T, STORE, 8>(proj, rf, idx, dirs, out, win, twin, pwin, B, N, K,
+                                              S, Co, st);
+    default: return launch_reduce<T, STORE, 0>(proj, rf, idx, dirs, out, win, twin, pwin, B, N,
+                                               K, S, Co, st);
+  }
 }
 
 template <int KP, typename T>
@@ -755,47 +753,43 @@ cudaError_t launch_recompute(const void* g, const void* rf, const float* w, int 
 }  // namespace
 
 // The wrapper's checks, in one place: 0 when the kernels take these sizes
-// (K <= 32; Co a multiple of 4 with Co/4 dividing 256; Cin a multiple of 4;
-// the staged g rows within 160 KB of shared memory), else 1.
+// (K <= 32; Cin and Co multiples of 4), else 1.
 extern "C" int hs_support_train_supported(int K, int Cin, int Co) {
-  if (K < 1 || K > 32 || Cin % 4 != 0 || Co % 4 != 0 || Co / 4 > FWD_THREADS ||
-      FWD_THREADS % (Co / 4) != 0)
-    return 1;
-  const int TQ = FWD_THREADS / (Co / 4);
-  const int KP = K <= 8 ? 8 : (K <= 20 ? 20 : 32);
-  return (size_t)TQ * KP * Cin * sizeof(float) > 160 * 1024 ? 1 : 0;
+  return (K < 1 || K > 32 || Cin % 4 != 0 || Co % 4 != 0) ? 1 : 0;
 }
 
 // Chunks of the reduction kernel: the partial-sum scratch is
 // (hs_support_bwd_parts(B * N), Cin + 4, S*Co).
 extern "C" int hs_support_bwd_parts(int rows) { return (rows + RED_QC - 1) / RED_QC; }
 
-// g (B, N, K, Cin), rf (B, N, K, 3), dirs (3, S*Co), fp32 or (fast != 0) bf16;
-// w (Cin, S*Co; row stride ldw), b (S*Co) fp32 -> out (B, N, Co), win (B, N, S*Co)
-// int32, twin, pwin (B, N, S*Co), fp32.
-extern "C" int hs_support_fwd(const void* g, const void* rf, const float* w, int ldw,
-                              const float* b, const void* dirs, float* out, int* win,
-                              float* twin, float* pwin, int B, int N, int K, int Cin, int S,
-                              int Co, int fast, void* stream) {
+// feat (B, N, Cin), rf (B, N, K, 3), dirs (3, S*Co), fp32 or (fast != 0) bf16;
+// idx (B, N, K) int32 in [0, N), the rows of feat that g gathers; w (Cin,
+// S*Co; row stride ldw), b (S*Co) fp32; scratch proj (B, N, S*Co) fp32 ->
+// out (B, N, Co), win (B, N, S*Co) int32, twin, pwin (B, N, S*Co), fp32.
+extern "C" int hs_support_fwd(const void* feat, const int* idx, const void* rf, const float* w,
+                              int ldw, const float* b, const void* dirs, float* proj, float* out,
+                              int* win, float* twin, float* pwin, int B, int N, int K, int Cin,
+                              int S, int Co, int fast, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hs_support_train_supported(K, Cin, Co)) return (int)cudaErrorInvalidValue;
-  return (int)(fast ? launch_fwd_k<__nv_bfloat16>(g, rf, w, ldw, b, dirs, out, win, twin, pwin,
-                                                  B, N, K, Cin, S, Co, st)
-                    : launch_fwd_k<float>(g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K,
-                                          Cin, S, Co, st));
+  return (int)(fast ? launch_fwd<__nv_bfloat16>(feat, idx, rf, w, ldw, b, dirs, proj, out, win,
+                                                twin, pwin, B, N, K, Cin, S, Co, st)
+                    : launch_fwd<float>(feat, idx, rf, w, ldw, b, dirs, proj, out, win, twin,
+                                        pwin, B, N, K, Cin, S, Co, st));
 }
 
 // bwd_store=False: as hs_support_fwd, writing out and win only.
-extern "C" int hs_support_fwd_win(const void* g, const void* rf, const float* w, int ldw,
-                                  const float* b, const void* dirs, float* out, int* win, int B,
-                                  int N, int K, int Cin, int S, int Co, int fast, void* stream) {
+extern "C" int hs_support_fwd_win(const void* feat, const int* idx, const void* rf,
+                                  const float* w, int ldw, const float* b, const void* dirs,
+                                  float* proj, float* out, int* win, int B, int N, int K, int Cin,
+                                  int S, int Co, int fast, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hs_support_train_supported(K, Cin, Co)) return (int)cudaErrorInvalidValue;
-  return (int)(fast ? launch_fwd_k<__nv_bfloat16, false>(g, rf, w, ldw, b, dirs, out, win,
-                                                         nullptr, nullptr, B, N, K, Cin, S, Co,
-                                                         st)
-                    : launch_fwd_k<float, false>(g, rf, w, ldw, b, dirs, out, win, nullptr,
-                                                 nullptr, B, N, K, Cin, S, Co, st));
+  return (int)(fast ? launch_fwd<__nv_bfloat16, false>(feat, idx, rf, w, ldw, b, dirs, proj, out,
+                                                       win, nullptr, nullptr, B, N, K, Cin, S,
+                                                       Co, st)
+                    : launch_fwd<float, false>(feat, idx, rf, w, ldw, b, dirs, proj, out, win,
+                                               nullptr, nullptr, B, N, K, Cin, S, Co, st));
 }
 
 // K14: g (B, N, K, Cin), rf (B, N, K, 3), dirs (3, S*Co), fp32 or (fast != 0) bf16;

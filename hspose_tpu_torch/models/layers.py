@@ -156,7 +156,8 @@ class HSLayer(nn.Module):
             rf = neighbor_directions_normalized(vertices.to(dt), rf_idx)
             g = gather_neighbors(feature_map, rf_idx)
             activation = hs_support_reduce(g, rf, self.weights[:, co:], self.bias[co:],
-                                           dirs.to(dt), s, co, store=self.bwd_store)
+                                           dirs.to(dt), s, co, store=self.bwd_store,
+                                           feat=feature_map.detach(), idx=rf_idx)
         else:
             # the JAX layer passes the directions rounded to its dtype and widened
             # (layers.py:240, :262), so in training their cotangent rounds too

@@ -49,8 +49,9 @@ SIGNATURES = {
     "hs_surface_bwd": [_P] * 7 + [_I] * 6 + [_P],
     # B, N -> rows of the surface backward's partial-sum scratch (no launch)
     "hs_surface_bwd_parts": [_I, _I],
-    # g, rf, w, ldw, b, dirs, out, win, twin, pwin, B, N, K, Cin, S, Co, fast, stream
-    "hs_support_fwd": [_P, _P, _P, _I] + [_P] * 6 + [_I] * 7 + [_P],
+    # feat, idx, rf, w, ldw, b, dirs, proj, out, win, twin, pwin, B, N, K, Cin, S, Co, fast,
+    # stream
+    "hs_support_fwd": [_P] * 4 + [_I] + [_P] * 7 + [_I] * 7 + [_P],
     # g, rf, w, ldw, dirs, win, twin, pwin, gb, dg, drf, partial, red,
     # B, N, K, Cin, S, Co, fast, stream
     "hs_support_bwd": [_P, _P, _P, _I] + [_P] * 9 + [_I] * 7 + [_P],
@@ -58,8 +59,9 @@ SIGNATURES = {
     "hs_support_bwd_parts": [_I],
     # K, Cin, Co -> 0 when the training support kernels take these sizes (no launch)
     "hs_support_train_supported": [_I, _I, _I],
-    # bwd_store=False: g, rf, w, ldw, b, dirs, out, win, B, N, K, Cin, S, Co, fast, stream
-    "hs_support_fwd_win": [_P, _P, _P, _I] + [_P] * 4 + [_I] * 7 + [_P],
+    # bwd_store=False: feat, idx, rf, w, ldw, b, dirs, proj, out, win, B, N, K, Cin, S, Co,
+    # fast, stream
+    "hs_support_fwd_win": [_P] * 4 + [_I] + [_P] * 5 + [_I] * 7 + [_P],
     # g, rf, w, ldw, b, dirs, win, gb, twin, pwin, dg, drf, partial, red,
     # B, N, K, Cin, S, Co, fast, stream
     "hs_support_bwd_recompute": [_P, _P, _P, _I] + [_P] * 10 + [_I] * 7 + [_P],
@@ -76,9 +78,9 @@ SIGNATURES = {
     # B * N -> slices of the support backward's dW partial-sum scratch (no launch)
     "hs_support_fused_dw_parts": [_I],
     # feat, w, ldw, verts, idx, dirs, win, proj, gb, rowptr, ent, dz, dproj, dproj_src,
-    # drf, dvq, partial, dw_partial, dg, wt, dfeat, dverts, dw, red, B, N, K, Cin, S, Co,
-    # fast, stream
-    "hs_support_fused_bwd": [_P, _P, _I] + [_P] * 21 + [_I] * 7 + [_P],
+    # drf, dvq, partial, dw_partial, dg, dfeat, dverts, dw, red, B, N, K, Cin, S, Co, fast,
+    # stream
+    "hs_support_fused_bwd": [_P, _P, _I] + [_P] * 20 + [_I] * 7 + [_P],
     # feat, fast, idx, out, win, B, N, K, C, stream
     "hs_orl_win": [_P, _I] + [_P] * 3 + [_I] * 4 + [_P],
     # idx, win, gb, rowptr, ent, dfeat, B, N, K, C, fast, stream

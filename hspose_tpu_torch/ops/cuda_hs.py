@@ -26,6 +26,13 @@ in both tiers.  The two ``autograd.Function``s,
 ``HSSurfaceReduce`` and ``HSSupportReduce``, pair each forward with its
 backward.  ``win`` is int32.
 
+The rows g are a gather of a feature map by the neighbour index
+(``models/layers.py``), so K11 on the card projects the source rows once and
+gathers the projections: it reads ``feat`` and ``idx`` (g = feat[idx]),
+which the caller passes beside g, and not g; the backwards read g.  Each
+gathered row's projection keeps its bits, since both are the same fused
+multiply-add chain over the input channels.
+
 Inputs are fp32, or, for the bf16 train step (the TPU kernels'
 ``exact=False``), bf16 g, rf and dirs with W and b in fp32.  The bf16
 calls launch the same kernels instantiated for bf16 operands; their
@@ -249,37 +256,49 @@ def _check_support(g, rf, dirs, S, co):
         raise ValueError("g: expected a 16-byte aligned tensor")
     if _build.load().hs_support_train_supported(K, cin, co):
         raise ValueError(f"hs_support kernels do not take K={K}, Cin={cin}, Co={co} "
-                         f"(K <= 32, Cin and Co multiples of 4, Co/4 dividing 256)")
+                         f"(1 <= K <= 32, Cin and Co multiples of 4)")
     _build.check(rf, "rf", dt, (B, N, K, 3))
     _build.check(dirs, "dirs", dt, (3, S * co))
     return B, N, K, cin, dt, fast
 
 
 def hs_support_fwd(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                   dirs: torch.Tensor, support_num: int, out_channel: int, store: bool = True):
+                   dirs: torch.Tensor, support_num: int, out_channel: int, store: bool = True,
+                   *, feat: torch.Tensor | None = None, idx: torch.Tensor | None = None):
     """K11: see ``hs_support_fwd_plain``.  ``w`` (fp32) may be a column slice
     of the layer's (Cin, (S+1)*Co) matrix.  Without ``store`` it returns
-    (out, win) and writes no winner values."""
+    (out, win) and writes no winner values.
+
+    The kernel projects the source rows and gathers: on CUDA tensors it
+    reads ``feat`` (B, N, Cin, in g's dtype) and ``idx`` (B, N, K) int32,
+    the rows g gathers (g = feat[idx], which the caller promises), and not g
+    itself; the plain version computes from g."""
     if _build.on_cpu(g, rf, w, b, dirs):
         res = hs_support_fwd_plain(g, rf, w, b, dirs, support_num, out_channel)
         return res if store else res[:2]
     S, co = support_num, out_channel
-    B, N, K, cin, _, fast = _check_support(g, rf, dirs, S, co)
+    B, N, K, cin, dt, fast = _check_support(g, rf, dirs, S, co)
+    if feat is None or idx is None:
+        raise ValueError("hs_support_fwd on the card reads the source rows: pass feat "
+                         "(B, N, Cin) and idx (B, N, K), the rows that g gathers")
+    _build.check(feat, "feat", dt, (B, N, cin))
+    _build.check(idx, "idx", torch.int32, (B, N, K))
     _build.check_rows(w, "w", (cin, S * co))
     _build.check(b, "b", torch.float32, (S * co,))
+    proj = _empty((B, N, S * co), g)  # scratch: the source rows' projection
     out = _empty((B, N, co), g)
     win = _empty((B, N, S * co), g, torch.int32)
     if not store:
-        _build.launch("hs_support_fwd_win", g, rf, w, w.stride(0), b, dirs, out, win,
-                      B, N, K, cin, S, co, fast)
+        _build.launch("hs_support_fwd_win", feat, idx, rf, w, w.stride(0), b, dirs, proj, out,
+                      win, B, N, K, cin, S, co, fast)
         if fast:
             hs_support_fwd.novals_bf16_launches += 1
         else:
             hs_support_fwd.novals_launches += 1
         return out, win
     twin, pwin = _empty((B, N, S * co), g), _empty((B, N, S * co), g)
-    _build.launch("hs_support_fwd", g, rf, w, w.stride(0), b, dirs, out, win, twin, pwin,
-                  B, N, K, cin, S, co, fast)
+    _build.launch("hs_support_fwd", feat, idx, rf, w, w.stride(0), b, dirs, proj, out, win,
+                  twin, pwin, B, N, K, cin, S, co, fast)
     _count(hs_support_fwd, fast)
     return out, win, twin, pwin
 
@@ -366,15 +385,20 @@ class HSSurfaceReduce(torch.autograd.Function):
 class HSSupportReduce(torch.autograd.Function):
     """mean_s max_k relu(rf . dir_s) * (g @ W_s + b_s) on pre-gathered rows g,
     differentiable in g, rf, w, b and dirs.  ``store`` keeps the winner
-    values for K13; without it K14 recomputes them."""
+    values for K13; without it K14 recomputes them.  ``feat`` and ``idx``
+    (g = feat[idx]) are read by the forward's kernel and not differentiated."""
 
     @staticmethod
-    def forward(ctx, g, rf, w, b, dirs, support_num: int, out_channel: int, store: bool = True):
+    def forward(ctx, g, rf, w, b, dirs, support_num: int, out_channel: int, store: bool = True,
+                feat=None, idx=None):
+        src = {"feat": feat, "idx": idx}
         if store:
-            out, win, twin, pwin = hs_support_fwd(g, rf, w, b, dirs, support_num, out_channel)
+            out, win, twin, pwin = hs_support_fwd(g, rf, w, b, dirs, support_num, out_channel,
+                                                  **src)
             ctx.save_for_backward(g, rf, w, dirs, win, twin, pwin)
         else:
-            out, win = hs_support_fwd(g, rf, w, b, dirs, support_num, out_channel, store=False)
+            out, win = hs_support_fwd(g, rf, w, b, dirs, support_num, out_channel, store=False,
+                                      **src)
             ctx.save_for_backward(g, rf, w, b, dirs, win)
         ctx.sizes = (support_num, out_channel)
         ctx.store = store
@@ -385,7 +409,7 @@ class HSSupportReduce(torch.autograd.Function):
         bwd = hs_support_bwd if ctx.store else hs_support_bwd_recompute
         grads = bwd(*ctx.saved_tensors, gout.contiguous(), *ctx.sizes)
         return tuple(gr if need else None
-                     for gr, need in zip(grads, ctx.needs_input_grad)) + (None, None, None)
+                     for gr, need in zip(grads, ctx.needs_input_grad)) + (None,) * 5
 
 
 def hs_surface_reduce(rf: torch.Tensor, dirs: torch.Tensor, support_num: int,
@@ -396,8 +420,10 @@ def hs_surface_reduce(rf: torch.Tensor, dirs: torch.Tensor, support_num: int,
 
 def hs_support_reduce(g: torch.Tensor, rf: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                       dirs: torch.Tensor, support_num: int, out_channel: int,
-                      store: bool = True) -> torch.Tensor:
+                      store: bool = True, *, feat: torch.Tensor | None = None,
+                      idx: torch.Tensor | None = None) -> torch.Tensor:
     """g (B, N, K, Cin), rf (B, N, K, 3), w (Cin, S*Co), b (S*Co,),
     dirs (3, S*Co) -> (B, N, Co), differentiable; ``store`` is the JAX
-    package's ``bwd_store``."""
-    return HSSupportReduce.apply(g, rf, w, b, dirs, support_num, out_channel, store)
+    package's ``bwd_store``.  On the card the forward also takes ``feat``
+    and ``idx``, with g = feat[idx] (``hs_support_fwd``)."""
+    return HSSupportReduce.apply(g, rf, w, b, dirs, support_num, out_channel, store, feat, idx)

@@ -625,15 +625,14 @@ def hs_support_fused_bwd(feature_map: torch.Tensor, vertices: torch.Tensor, idx:
     rowptr, ent = _inverse_lists(idx)
     dfeat, dverts = _empty((B, N, cin), vertices, feature_map.dtype), _empty((B, N, 3), vertices)
     dw, red = _empty((cin, sc), vertices), _empty((4, sc), vertices)
-    # the bf16 tier's per-(query, k) rows of dfeat and bf16 W^T (scratch)
-    dg, wt = ((_empty((B, N, K, cin), vertices, torch.bfloat16),
-               _empty((sc, cin), vertices, torch.bfloat16)) if fast else (None, None))
+    # the bf16 tier's per-(query, k) rows of dfeat (scratch)
+    dg = _empty((B, N, K, cin), vertices, torch.bfloat16) if fast else None
     _build.launch("hs_support_fused_bwd", feature_map, weights, weights.stride(0), vertices, idx,
                   dirs, win, proj, gb, rowptr, ent, *(_empty((B, N, sc), vertices) for _ in "zps"),
                   _empty((B, N, K, 3), vertices), _empty((B, N, 3), vertices),
                   _empty((lib.hs_fused_bwd_parts(B, N), 4, sc), vertices),
                   _empty((lib.hs_support_fused_dw_parts(B * N), cin, sc), vertices),
-                  0 if dg is None else dg, 0 if wt is None else wt,
+                  0 if dg is None else dg,
                   dfeat, dverts, dw, red, B, N, K, cin, S, co, int(fast))
     _count(hs_support_fused_bwd, fast)
     return dfeat, dverts, dw, red[3], red[:3]

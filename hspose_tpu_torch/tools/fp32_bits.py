@@ -15,10 +15,11 @@ The first form imports ``hspose_tpu_torch`` from DIR (a checkout, such as a
   after 3, enqueued behind a sleep kernel, summed over the calls of one
   pass; the ORL kernel, K13 and K14 also per layer);
 * the bf16 tier's surface and ORL outputs at the B=24 forward's shapes and
-  their forwards with winners at the B=16 step's, and its K13 and K14
-  (with the K11 forwards that feed them) at the B=16 step's four HS layers,
-  with their times (the ORL kernel, K13 and K14 per layer): their sums are
-  fp32 in a fixed order, so they keep their bits too;
+  their forwards with winners at the B=16 step's, its K13 and K14 (with the
+  K11 forwards that feed them) at the B=16 step's four HS layers, and its
+  K3 with winners and K8 at conv_2..conv_4's, with their times (the ORL
+  kernel, K13 and K14 per layer): their sums are fp32 (K8's rows fp64) in a
+  fixed order, so they keep their bits too;
 * the fp32 serving forward's pose outputs at B=24, N=1028;
 * the total loss of three fp32 train steps at B=16, N=1028;
 
@@ -26,6 +27,10 @@ and times what it does not hold to bits: the bf16 tier's KNN (packed keys)
 and support kernels at the B=24 bf16 forward's shapes, and the serving
 crops/s of both tiers at B=24 (as ``chip_smoke.py`` phase 5: best of 3
 windows of 20 forwards after 3 warm-up).
+
+K11 is called with each tree's own signature (from the source-row design
+on, the kernel also takes the rows g gathers, feat and idx), on g =
+feat[idx], so that every tree sees the same values.
 
 The second form says, for every saved output, whether all the files hold
 the same bits, and prints the kernel times and the crops/s side by side.
@@ -86,6 +91,15 @@ def _crops_per_s(serve, batch: int, iters: int = 20) -> tuple[float, list]:
         torch.cuda.synchronize()
         rates.append(batch * iters / (time.perf_counter() - t0))
     return max(rates), rates
+
+
+def _k11(cuda_hs, g, feat, idx):
+    """This tree's K11 on g = feat[idx], as ``fn(rf, w, b, d, S, co, store=...)``."""
+    import inspect
+
+    if "feat" in inspect.signature(cuda_hs.hs_support_fwd).parameters:
+        return lambda *a, **kw: cuda_hs.hs_support_fwd(g, *a, feat=feat, idx=idx, **kw)
+    return lambda *a, **kw: cuda_hs.hs_support_fwd(g, *a, **kw)
 
 
 def collect(tree: str) -> dict:
@@ -165,8 +179,9 @@ def collect(tree: str) -> dict:
             stdv = 1.0 / (co * (S + 1)) ** 0.5
             w, b = normal(cin, (S + 1) * co, scale=stdv), normal((S + 1) * co, scale=stdv)
             d = unit(S * co)
-            fwd = _timed(times, "hs_support_fwd",
-                         lambda: cuda_hs.hs_support_fwd(g, rf, w[:, co:], b[co:], d, S, co))
+            k11 = _k11(cuda_hs, g, feat, kidx)
+            fwd = _timed(times, "hs_support_fwd", lambda: k11(rf, w[:, co:], b[co:], d, S, co),
+                         part=f"conv_{layer}")
             gb = normal(B, n, co)
             bargs = (g, rf, w[:, co:], d, *fwd[1:], gb, S, co)
             out[f"hs_support_fwd conv_{layer}"] = fwd
@@ -174,8 +189,9 @@ def collect(tree: str) -> dict:
                 times, "hs_support_bwd", lambda: cuda_hs.hs_support_bwd(*bargs),
                 part=f"conv_{layer}")
             # bwd_store=False: K11 without winner values, K14 on its winners
-            novals = _timed(times, "hs_support_fwd_novals", lambda: cuda_hs.hs_support_fwd(
-                g, rf, w[:, co:], b[co:], d, S, co, store=False))
+            novals = _timed(times, "hs_support_fwd_novals",
+                            lambda: k11(rf, w[:, co:], b[co:], d, S, co, store=False),
+                            part=f"conv_{layer}")
             out[f"hs_support_fwd_novals conv_{layer}"] = novals
             out[f"hs_support_bwd_recompute conv_{layer}"] = _timed(
                 times, "hs_support_bwd_recompute", lambda: cuda_hs.hs_support_bwd_recompute(
@@ -202,7 +218,8 @@ def collect(tree: str) -> dict:
             out[f"hs_support_fused_fwd conv_{layer}"] = fwd
             out[f"hs_support_fused_bwd conv_{layer}"] = _timed(
                 times, "hs_support_fused_bwd", lambda: f.hs_support_fused_bwd(
-                    feat, verts, kidx, w[:, co:], d, fwd[1], fwd[2], gb, S, co))
+                    feat, verts, kidx, w[:, co:], d, fwd[1], fwd[2], gb, S, co),
+                part=f"conv_{layer}")
             ofeat, oidx, ogb = normal(B, n, co), knn_indices_cuda(verts, k), normal(B, 1, co)
             ofwd = _timed(times, "orl_global_fused_fwd",
                           lambda: f.orl_global_fused_fwd(ofeat, oidx), part=f"conv_{layer}")
@@ -248,9 +265,9 @@ def collect(tree: str) -> dict:
             stdv = 1.0 / (co * (S + 1)) ** 0.5
             w, b = normal(cin, (S + 1) * co, scale=stdv), normal((S + 1) * co, scale=stdv)
             d, gb = unit(S * co).to(torch.bfloat16), normal(B, n, co)
-            fargs = (g, rf, w[:, co:], b[co:], d, S, co)
-            fwd = cuda_hs.hs_support_fwd(*fargs)
-            novals = cuda_hs.hs_support_fwd(*fargs, store=False)
+            k11 = _k11(cuda_hs, g, feat, kidx)
+            fwd = k11(rf, w[:, co:], b[co:], d, S, co)
+            novals = k11(rf, w[:, co:], b[co:], d, S, co, store=False)
             out[f"hs_support_fwd (bf16) conv_{layer}"] = fwd
             out[f"hs_support_bwd (bf16) conv_{layer}"] = _timed(
                 bf16_times, "hs_support_bwd (bf16)",
@@ -260,6 +277,21 @@ def collect(tree: str) -> dict:
                 bf16_times, "hs_support_bwd_recompute (bf16)",
                 lambda: cuda_hs.hs_support_bwd_recompute(g, rf, w[:, co:], b[co:], d, novals[1],
                                                          gb, S, co), part=f"conv_{layer}")
+
+        # the bf16 tier's K3 with winners and K8, conv_2 .. conv_4 of the v4 step
+        for layer, cin, co, n, k in [(2, 128, 256, N // 4, 20), (3, 256, 256, N // 4, 20),
+                                     (4, 256, 512, N // 16, 8)]:
+            feat = torch.relu(normal(B, n, cin)).to(torch.bfloat16)
+            verts, kidx = normal(B, n, 3, scale=0.2), knn_indices_cuda(feat, k, packed=True)
+            stdv = 1.0 / (co * (S + 1)) ** 0.5
+            w, b = normal(cin, (S + 1) * co, scale=stdv), normal((S + 1) * co, scale=stdv)
+            d, gb = unit(S * co), normal(B, n, co)
+            fwd = f.hs_support_fused_fwd(feat, verts, kidx, w[:, co:], b[co:], d, S, co)
+            out[f"hs_support_fused_fwd (bf16) conv_{layer}"] = fwd
+            out[f"hs_support_fused_bwd (bf16) conv_{layer}"] = _timed(
+                bf16_times, "hs_support_fused_bwd (bf16)", lambda: f.hs_support_fused_bwd(
+                    feat, verts, kidx, w[:, co:], d, fwd[1], fwd[2], gb, S, co),
+                part=f"conv_{layer}")
 
         # times only: the bf16 tier's KNN and support kernels, B=24
         B = 24

@@ -9,10 +9,13 @@ the serving forward (``eval_forward`` + ``generate_RT`` under no_grad) at
 B=24 in fp32 / bf16, a "step" being one forward, where the kernels of K1
 (the KNN), K2 (the HS surface reduction), K3 (the HS support projection and
 reduction) and K4 (the ORL reduction) are also summed apart, with their
-launches; in the training tiers the kernels of K13 and K14 (the HS support
-backward: its rows, reduction and recompute kernels, and before them its W
-transposes) are summed the same way, beside the shared partial-sum kernel
-that each of their calls (and other backwards') also launches.  For each
+launches; in the training tiers the kernels of K11 (the HS support forward:
+its projection and reduction), K13 and K14 (the HS support backward: its
+rows, reduction and recompute kernels, and before them its W transposes) and
+K8 (the fused support backward) are summed the same way (``TRAIN_GROUPS``),
+beside the shared partial-sum kernel that each of their calls (and other
+backwards') also launches.  To compare two trees, run this script's copy in
+both.  For each
 training tier: ``build_train_step`` at B=16, N=1028 with
 seeded random weights and 3 warm-up steps; then every tier is timed without the profiler
 (best of 3 windows of 5 steps, the tiers in turn), and only then is each
@@ -41,24 +44,41 @@ SERVE_B = 24
 SERVE_TIERS = {"serve": "float32", "bf16serve": "bfloat16"}
 # kernels of the serving forward's K1-K4, by name (csrc/knn.cu, csrc/hs_surface.cu,
 # csrc/hs_support.cu, csrc/orl.cu; PyTorch's own reductions are at::native::reduce_kernel);
-# K4 also by the names of the two launches its one-launch kernel replaced, so that
-# a tree from before it profiles alike
+# K3's fp32 projection and K4 also by the names of the launches they replaced
+# (project_f32_kernel; orl_partial_kernel, orl_finish_kernel), so that a tree
+# from before them profiles alike
 GROUPS = {"K1": ("(anonymous namespace)::knn_kernel<",),
           "K2": ("(anonymous namespace)::surface_kernel<",),
-          "K3": ("(anonymous namespace)::project_f32_kernel(",
+          "K3": ("hsp::gemm_kernel<float, false, false, false",
+                 "(anonymous namespace)::project_f32_kernel(",
                  "(anonymous namespace)::project_bf16_kernel(",
                  "(anonymous namespace)::reduce_kernel<"),
           "K4": ("(anonymous namespace)::orl_kernel<",
                  "(anonymous namespace)::orl_partial_kernel<",
                  "(anonymous namespace)::orl_finish_kernel(")}
-# the training tiers' K13/K14 kernels (csrc/hs_support_train.cu; the fp32
-# instantiations of hs::transpose_w_kernel are theirs alone in trees that
-# still transpose W), and hs::sum_partials_kernel, which K13, K14, K15, K8,
-# K9 and K10 all launch
-TRAIN_GROUPS = {"K13/K14": ("(anonymous namespace)::support_bwd_rows_kernel<",
+# the training tiers' kernels of K11 (csrc/hs_support_train.cu: its projection
+# tile, csrc/hs_project.cuh, and its reduction; in the fp32 v4 tier K3's
+# projection has the same instantiation and is counted here too, in every
+# tree), K13/K14 (the fp32 instantiations of hs::transpose_w_kernel are
+# theirs alone in trees that still transpose W) and K8 (csrc/hs_fused_bwd.cuh
+# with SUPPORT, csrc/hs_support.cu; its inverse lists are shared with K10 and
+# left out), by the names of this tree and of the trees before it, and
+# hs::sum_partials_kernel, which K13, K14, K15, K8, K9 and K10 all launch
+TRAIN_GROUPS = {"K11": ("(anonymous namespace)::support_fwd_kernel<",
+                        "hsp::gemm_kernel<float, false, false, false",
+                        "hsp::gemm_kernel<__nv_bfloat16, false, false, true",
+                        "(anonymous namespace)::project_f32_kernel("),
+                "K13/K14": ("(anonymous namespace)::support_bwd_rows_kernel<",
                             "(anonymous namespace)::support_bwd_reduce_kernel<",
                             "(anonymous namespace)::recompute_kernel<",
                             "transpose_w_kernel<false, float>", "transpose_w_kernel<true, float>"),
+                "K8": ("hsb::route_kernel<true,", "hsb::rf_grad_kernel<",
+                       "hsb::dd_partial_kernel<true,", "hsb::source_kernel<true,",
+                       "hsb::source_proj_kernel<", "hsb::dverts_kernel<",
+                       "(anonymous namespace)::dg_rows_kernel", "dfeat_source_kernel",
+                       "transpose_w_kernel<true, __nv_bfloat16>",
+                       "(anonymous namespace)::project_kernel<", "hsp::gemm_kernel<float, false, true",
+                       "hsp::gemm_kernel<float, true", "hsp::gemm_kernel<__nv_bfloat16, true"),
                 "partial sums (shared)": ("sum_partials_kernel",)}
 
 

@@ -235,13 +235,34 @@ def models():
     return (jmodel, params, stats, *ported)
 
 
-@pytest.mark.parametrize("N", [128, 257])
-def test_bf16_eval_forward_matches_jax_and_fp32(models, monkeypatch, N):
+def with_serve_k(models, serve_k: int):
+    """The fixture's models, or all three rebuilt with ``serve_k`` (the
+    relaxed-KNN serving tier, hspose_tpu/models/face_recon.py:91-93) on the
+    same weights."""
+    if serve_k == 0:
+        return models
+    _, params, stats, *_ = models
+    cfg = default_config()
+    jmodel = j_build_model(cfg.replace(model=dataclasses.replace(
+        cfg.model, compute_dtype="bfloat16", serve_k=serve_k)))
+    ported = []
+    for dtype in ("bfloat16", "float32"):
+        model = build_model(ModelConfig(compute_dtype=dtype, serve_k=serve_k), device="cpu")
+        load_jax_params(model, params, stats)
+        ported.append(model)
+    return (jmodel, params, stats, *ported)
+
+
+@pytest.mark.parametrize("N,serve_k", [
+    pytest.param(128, 0, id="128"), pytest.param(257, 0, id="257"),
+    pytest.param(128, 16, id="128-serve_k16"), pytest.param(257, 16, id="257-serve_k16")])
+def test_bf16_eval_forward_matches_jax_and_fp32(models, monkeypatch, N, serve_k):
     """The whole bf16 serving forward against the JAX package's bf16
     forward, both on packed-key KNN (the JAX CPU path would take the exact
     XLA search, so the test points its ``knn_indices_fast`` at the Pallas
-    fast kernel in interpret mode), and against the port's fp32 forward."""
-    jmodel, params, stats, model, model32 = models
+    fast kernel in interpret mode), and against the port's fp32 forward;
+    also with ``serve_k=16``."""
+    jmodel, params, stats, model, model32 = with_serve_k(models, serve_k)
     rng = np.random.default_rng(N)
     pts = (rng.normal(scale=0.2, size=(2, N, 3)) + [0.1, -0.05, 0.6]).astype(np.float32)
     obj = np.array([1, 5], np.int32)

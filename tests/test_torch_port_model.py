@@ -8,6 +8,7 @@ replaced by a numpy-seeded one and the same kept rows go to the port as
 depth: 2e-4 at N=128, 5e-4 at N=1028 (as tests/test_torch_parity.py).
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -66,9 +67,25 @@ def _pin_jax_pooling(monkeypatch, perms):
                         lambda key, n, **kw: jnp.asarray(perms[n]))
 
 
-@pytest.mark.parametrize("N,atol", [(128, 2e-4), (1028, 5e-4)])
-def test_eval_forward_and_pose_match_jax(models, monkeypatch, N, atol):
-    jmodel, params, stats, model = models
+def with_serve_k(models, serve_k: int):
+    """The fixture's models, or both rebuilt with ``serve_k`` (the relaxed-KNN
+    serving tier, hspose_tpu/models/face_recon.py:91-93) on the same weights."""
+    if serve_k == 0:
+        return models
+    jmodel, params, stats, _ = models
+    cfg = default_config()
+    jmodel = j_build_model(cfg.replace(model=dataclasses.replace(cfg.model, serve_k=serve_k)))
+    model = build_model(ModelConfig(serve_k=serve_k), device="cpu")
+    load_jax_params(model, params, stats)
+    return jmodel, params, stats, model
+
+
+@pytest.mark.parametrize("N,atol,serve_k", [
+    pytest.param(128, 2e-4, 0, id="128-0.0002"), pytest.param(1028, 5e-4, 0, id="1028-0.0005"),
+    pytest.param(128, 2e-4, 16, id="128-0.0002-serve_k16"),
+    pytest.param(1028, 5e-4, 16, id="1028-0.0005-serve_k16")])
+def test_eval_forward_and_pose_match_jax(models, monkeypatch, N, atol, serve_k):
+    jmodel, params, stats, model = with_serve_k(models, serve_k)
     rng = np.random.default_rng(N)
     pts = (rng.normal(scale=0.2, size=(2, N, 3)) + [0.1, -0.05, 0.6]).astype(np.float32)
     obj = np.array([1, 5], np.int32)
