@@ -11,8 +11,8 @@ not 0:
 2. build: the kernels of ``hspose_tpu_torch/csrc`` with nvcc (sm_90a), and
    the registers, shared memory and spills ptxas reports for K1's to K4's
    kernels, K11's projection tile and reduction, K13's and K14's rows,
-   reduction and recompute kernels and K8's dg rows and drf walks
-   (``PTXAS_KERNELS``);
+   reduction and recompute kernels, K8's dg rows and drf walks and K12's
+   and K15's kernels (``PTXAS_KERNELS``);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at every shape the B=24, N=1028 forward gives it, with kernel and plain
    times from CUDA events; K1's nine searches are also kept one by one
@@ -44,9 +44,11 @@ not 0:
    largest value, winners equal on >= 99.9% of entries and near-ties where
    not; backwards fed the same residuals as their plain versions, every
    cotangent within 1e-4 of its largest value; kernel and plain times;
-   K13 also per layer (``layers``) and per launch (``parts``: rows,
-   reduction, partial sum, each with its bound, timed by torch.profiler),
-   with at most one launch of each per call; K11 (fed the source rows
+   K12 and K15 also per launch (``parts``: K12's reduction; K15's routing
+   with its drf walk and dd tile partials, and the partial sum, each with
+   its bound, timed by torch.profiler); K13 also per layer (``layers``) and
+   per launch (``parts``: rows, reduction, partial sum, each with its
+   bound), with at most one launch of each per call; K11 (fed the source rows
    ``feat`` and index ``idx`` that g gathers, g formed as their gather) per
    layer and per launch (``parts``: the projection of the source rows with
    its bound and a library product as yardstick, the gather-reduction with
@@ -66,7 +68,8 @@ not 0:
    the largest value, winners as in phase 8, and the bf16 cotangents
    (drf, dg, dd) within one bf16 ulp of each element plus 1e-4 of the
    largest (the fp32 sums differ in order, which can move a rounding to
-   bf16 by one ulp); K13's ``layers`` and ``parts`` as in phase 8;
+   bf16 by one ulp); K12's and K15's ``parts``, K13's ``layers`` and
+   ``parts`` as in phase 8;
 11. bf16 training slice: ``build_train_step`` on ``compute_dtype="bfloat16"``
    takes 3 steps at (16, 1028); the counters must show 9 packed-key KNN and
    1 + 1 surface and 4 + 4 support bf16 training launches per step, nothing
@@ -153,7 +156,11 @@ not 0:
    at phase 8's gates, twice with the same bits, its no-values launch bit
    for bit its stored one; K13 against its plain version at phase 8's gates
    (phase 10's in bf16), K14 bit for bit K13 on the forward's stored
-   values, each launched twice with the same bits;
+   values, each launched twice with the same bits; and K12 and K15 at
+   (K, S, Co) = (5, 3, 64), (31, 9, 128) and (12, 10, 96), B=3, N=1001 (K
+   and S read at run time, a part-full last block and tile), against
+   their plain versions at phase 8's gates (phase 10's in bf16), each
+   launched twice with the same bits;
 22. the relaxed-KNN serving tier (``serve_k=16``, the kernels' generic-K
    branches) in fp32 and bf16: phase 4's and 7's launch counts, poses and
    card-against-CPU gates on the same seeded weights.
@@ -175,6 +182,7 @@ fp32, TF32 off).  K11's, K13's, K14's and K8's ``parts`` are their launches
 timed apart, each with the bound of its own inputs and outputs; K11's
 ``bound_ms`` is the least work of the function (the source rows projected
 once), ``bound_gathered_ms`` that of the design it replaced.
+K12's and K15's ``parts`` likewise.
 ``launches`` is each kernel's count in the main run of its path: phases 4,
 7, 9, 11, 13 and 15, for K2 with winners and K9 the autograd call of phases
 12 and 14, for K16 the recon harness run, for K17 and K18 the autograd call
@@ -277,11 +285,13 @@ def phase_env() -> str:
 # kernels whose registers, shared memory and spills phase 2 prints: K1's to
 # K4's, K11's (the projection tile gemm_kernel, shared with K3's fp32
 # projection and K8's products, and support_fwd_kernel), K13's and K14's
-# (support_bwd_rows_kernel, support_bwd_reduce_kernel, recompute_kernel) and
-# K8's rows and drf walks (dg_rows_kernel, rf_grad_kernel)
+# (support_bwd_rows_kernel, support_bwd_reduce_kernel, recompute_kernel),
+# K8's rows and drf walks (dg_rows_kernel, rf_grad_kernel), and K12's and
+# K15's (surface_fwd_kernel; surface_bwd_kernel, sum_tiles_kernel)
 PTXAS_KERNELS = ("knn_kernel", "surface_kernel", "gemm_kernel", "project_bf16_kernel",
                  "reduce_kernel", "orl_kernel", "support_fwd_kernel", "support_bwd_rows_kernel",
-                 "recompute_kernel", "dg_rows_kernel", "rf_grad_kernel")
+                 "recompute_kernel", "dg_rows_kernel", "rf_grad_kernel", "surface_fwd_kernel",
+                 "surface_bwd_kernel", "sum_tiles_kernel")
 
 
 def ptxas_report(text: str, names=PTXAS_KERNELS) -> list[str]:
@@ -772,12 +782,27 @@ def check_winners(phase: str, name: str, label: str, wk, wp, mk, mp) -> None:
 SUPPORT_BWD_PARTS = (("support_bwd_rows_kernel", "rows"), ("support_bwd_reduce_kernel", "reduction"),
                      ("recompute_kernel", "recompute"), ("sum_partials_kernel", "partial_sum"))
 SUPPORT_FWD_PARTS = (("gemm_kernel", "projection"), ("support_fwd_kernel", "reduction"))
+# K12's one launch and K15's two (csrc/hs_surface_train.cu)
+SURFACE_FWD_PARTS = (("surface_fwd_kernel", "reduction"),)
+SURFACE_BWD_PARTS = (("surface_bwd_kernel", "route_drf_dd"), ("sum_tiles_kernel", "partial_sum"))
 FUSED_BWD_PARTS = (("inverse_index_kernel", "inverse_index"), ("route_kernel", "route"),
                    ("rf_grad_kernel", "rf_grad"), ("dd_partial_kernel", "dd_partial"),
                    ("dfeat_source_kernel", "dfeat_source"), ("source_proj_kernel", "source"),
                    ("dverts_kernel", "dverts"),
                    ("dg_rows_kernel", "dg_rows"), ("gemm_kernel<float, false, true", "dfeat_gemm"),
                    ("gemm_kernel<", "dw_gemm"), ("sum_partials_kernel", "partial_sum"))
+
+
+def surface_bwd_bounds(rf, dirs, win, gb, drf, op_dtype) -> dict:
+    """Each launch of one K15 call: the routing kernel reads rf, dirs, win
+    and gb once and writes drf and the 16-query tiles' dd partial sums, with
+    theta, drf's and dd's multiply-adds at each winner; the partial sum
+    reads the tiles' rows and writes dd."""
+    B, N, sc = win.shape
+    tiles = B * -(-N // 16)
+    return {"route_drf_dd": bound([rf, dirs, win, gb, drf], 9 * win.numel(), op_dtype,
+                                  tiles * 3 * sc * 4),
+            "partial_sum": bound([], 0, torch.float32, (tiles + 1) * 3 * sc * 4)}
 
 
 def support_bwd_bounds(g, rf, w, dirs, win, gb, recompute: bool, op_dtype) -> dict:
@@ -980,18 +1005,24 @@ def phase_train_kernels(dtype: str = "float32") -> dict:
             theta.gather(2, win_k.long()[:, :, None]).squeeze(2),
             theta.gather(2, win_p.long()[:, :, None]).squeeze(2))
     del theta
-    compare("hs_surface_fwd", label, [("out", out_k, out_p)],
-            cuda_ms(lambda: cuda_hs.hs_surface_fwd(rf, dirs, S, co), 10),
-            cuda_ms(lambda: cuda_hs.hs_surface_fwd_plain(rf, dirs, S, co), 10),
-            [rf, dirs, win_k], rf.numel() * S * co)
+    fwd_bound = compare("hs_surface_fwd", label, [("out", out_k, out_p)],
+                        cuda_ms(lambda: cuda_hs.hs_surface_fwd(rf, dirs, S, co), 10),
+                        cuda_ms(lambda: cuda_hs.hs_surface_fwd_plain(rf, dirs, S, co), 10),
+                        [rf, dirs, win_k], rf.numel() * S * co)
+    launch_parts(phase, rec["hs_surface_fwd" + tag], label,
+                 lambda: cuda_hs.hs_surface_fwd(rf, dirs, S, co), {"reduction": fwd_bound},
+                 SURFACE_FWD_PARTS)
     gb = normal(rng, B, N, co)
     args = (rf, dirs, win_k, gb, S, co)
+    drf_k, dd_k = cuda_hs.hs_surface_bwd(*args)
     compare("hs_surface_bwd", label,
-            list(zip(("drf", "dd"), cuda_hs.hs_surface_bwd(*args),
-                     cuda_hs.hs_surface_bwd_plain(*args))),
+            list(zip(("drf", "dd"), (drf_k, dd_k), cuda_hs.hs_surface_bwd_plain(*args))),
             cuda_ms(lambda: cuda_hs.hs_surface_bwd(*args), 10),
             cuda_ms(lambda: cuda_hs.hs_surface_bwd_plain(*args), 10),
             [rf, dirs, win_k, gb], 9 * win_k.numel())  # theta, drf, dd at each winner
+    launch_parts(phase, rec["hs_surface_bwd" + tag], label,
+                 lambda: cuda_hs.hs_surface_bwd(*args),
+                 surface_bwd_bounds(rf, dirs, win_k, gb, drf_k, op_dtype), SURFACE_BWD_PARTS)
 
     # K11 / K13: conv_1 .. conv_4, w and b as column slices of the layer's matrix
     for layer, cin, co, n, k in [(1, 128, 128, N, 20), (2, 128, 256, N // 4, 20),
@@ -1932,6 +1963,10 @@ def phase_k2k4_shapes() -> None:
 # width (8, 20, 32), Cin beyond one 128-channel block, S*Co in column tiles
 # of 192, 256 and 256; at B=3, N=1001 the rows are a multiple of no tile
 SUPPORT_BWD_SHAPES = [(5, 132, 128, 3), (31, 128, 512, 7), (20, 256, 256, 9)]
+# K12's and K15's calls off the step, (K, S, Co): K and S read at run time
+# (S = 9, 10: the supports held eight at a time), other widths, and at B=3,
+# N=1001 a part-full last block and tile
+SURFACE_TRAIN_SHAPES = [(5, 3, 64), (31, 9, 128), (12, 10, 96)]
 
 
 def phase_k13k14_shapes() -> None:
@@ -1939,7 +1974,9 @@ def phase_k13k14_shapes() -> None:
     N=1001), in fp32 and bf16, so that each branch of their launches runs on
     the card: K13 against its plain version at phase 8's gates (phase 10's in
     bf16), K14 bit for bit K13 on the forward's stored values, each launched
-    twice with the same bits."""
+    twice with the same bits; and K12 and K15 at SURFACE_TRAIN_SHAPES, B=3,
+    N=1001, against their plain versions with the same gates, each twice
+    with the same bits."""
     from hspose_tpu_torch.ops import cuda_hs
     from hspose_tpu_torch.ops.knn import gather_neighbors, knn_indices, neighbor_directions_normalized
 
@@ -1983,6 +2020,31 @@ def phase_k13k14_shapes() -> None:
                       cuda_hs.hs_support_bwd_recompute(*rargs))
             same_bits("hs_support_bwd_recompute", label + " (against K13)", k14, got)
             log(phase, f"hs_support_bwd_recompute {label}: K13's bits, twice")
+    for k, S, co in SURFACE_TRAIN_SHAPES:
+        verts = cloud_b(rng, b, n)
+        idx = knn_indices(verts, k)
+        for op in (torch.float32, torch.bfloat16):
+            label = f"B={b} N={n} K={k} S={S} Co={co} {op}"
+            rf = neighbor_directions_normalized(verts.to(op), idx)
+            dirs = unit_dirs(rng, S * co).to(op)
+            out, win = cuda_hs.hs_surface_fwd(rf, dirs, S, co)
+            same_bits("hs_surface_fwd", label, (out, win), cuda_hs.hs_surface_fwd(rf, dirs, S, co))
+            out_p, win_p = cuda_hs.hs_surface_fwd_plain(rf, dirs, S, co)
+            theta = torch.relu(rf.double() @ dirs.double())
+            at = [theta.gather(2, w.long()[:, :, None]).squeeze(2) for w in (win, win_p)]
+            check_winners(phase, "hs_surface_fwd", label, win, win_p, *at)
+            del theta, at
+            compare_cotangents(phase, {}, "hs_surface_fwd", label, [("out", out, out_p)], None,
+                               0.0, [], 0)
+            gb = normal(rng, b, n, co)
+            gb[:, ::7] = 0.0  # rows whose every column routes nothing
+            args = (rf, dirs, win, gb, S, co)
+            got = cuda_hs.hs_surface_bwd(*args)
+            same_bits("hs_surface_bwd", label, got, cuda_hs.hs_surface_bwd(*args))
+            compare_cotangents(phase, {}, "hs_surface_bwd", label,
+                               list(zip(("drf", "dd"), got, cuda_hs.hs_surface_bwd_plain(*args))),
+                               None, 0.0, [], 0)
+            log(phase, f"hs_surface_fwd, hs_surface_bwd {label}: twice the same bits")
 
 
 # kernel -> (source, the TPU kernel it replaces, the record and counter it

@@ -16,28 +16,23 @@
 //
 // Design: one block per (batch, TQ-query tile), 128 threads.  The block
 // stages the unit rf rows of its TQ x K neighbours with their index as one
-// float4 each (hs::stage_rf, PACK4).  Each thread owns one output channel
-// and holds that channel's 3 x S directions in registers (loaded once, S a
-// template argument), then per query reads each neighbour's rf row once (a
-// 16-byte broadcast load) and updates the S running maxima: 3S fp32
-// operations and S maxima per shared-memory load, instead of 3 and 1.  The
-// loop order over (k, s) is free because each support's max is exact; theta
-// keeps the replaced kernel's expression (so nvcc forms the same
-// multiply-add chain), the max starts at 0.f (every relu term is >= 0), the
-// supports are added in increasing s and the total divided by S, so the
-// fp32 outputs keep their bits.  S above the template's count is run in
-// groups of eight supports, their directions reloaded per query.  The
-// Pallas one-hot MXU gather is a plain indexed load here.
+// float4 each (hs::stage_rf, PACK4), then runs the reduction body it shares
+// with the training path's forward K12 (hs_surface.cuh): each thread holds
+// one output channel's 3 x S directions in registers and reads each
+// neighbour's rf row once per query, updating S running maxima; the
+// replaced kernel reloaded the rf row for every support and the support's
+// directions for every query.  The Pallas one-hot MXU gather is a plain
+// indexed load here.
 //
 // FAST is the bf16 tier (exact=False of the same TPU kernel): the staged rf
 // rows and the directions are rounded as hs_common.cuh says, the rest is
 // unchanged; every product is then exact, accumulation and output stay fp32.
 //
-// WIN is the forward of the differentiable op, either tier (want_win=True of the same
-// TPU kernel, pallas_hs_fused.py:318-330): it also records, per (point,
-// support column), the first k that reaches the max of relu(theta) (a strict
-// > from -FLT_MAX in increasing k), for the backward.  The serving
-// instantiations (WIN false) are compiled from the same lines.
+// WIN is the forward of the differentiable op, either tier (want_win=True of
+// the same TPU kernel, pallas_hs_fused.py:318-330): it also records, per
+// (point, support column), the first k that reaches the max of relu(theta),
+// for the backward (hs_surface.cuh says how).  The serving instantiations
+// (WIN false) are compiled from the same lines.
 //
 // The backward (K9, hs_surface_fused_bwd below) replaces
 // hspose_tpu/ops/pallas_hs_fused.py::_surface_bwd_kernel (exact=True, and
@@ -49,93 +44,29 @@
 // 10 operations per (point, column); the scatter to source rows follows the
 // inverse neighbour lists, with no atomics.
 
-#include <cfloat>
-
 #include "hs_fused_bwd.cuh"
+#include "hs_surface.cuh"
 
 namespace {
 
 constexpr int TQ = 32;  // queries per block
 constexpr int THREADS = 128;
 
-// One block per (query tile, batch), threads over output channels (and, when
-// Co < 128, queries side by side).  KT = K and ST = S unrolled (0: read at
-// run time, the supports held eight at a time).
+// One block per (query tile, batch): the block stages its queries' unit rf
+// rows, then hs_surface.cuh's body reduces them.  KT = K and ST = S unrolled
+// (0: read at run time).
 template <bool FAST, bool WIN, int KT, int ST>
 __global__ void __launch_bounds__(THREADS)
 surface_kernel(const float* __restrict__ verts, const int* __restrict__ idx,
                const float* __restrict__ dirs, float* __restrict__ out, int* __restrict__ win,
                int N, int K_arg, int S_arg, int Co) {
   extern __shared__ __align__(16) float4 srf[];  // (TQ, K): unit rf, index bits
-  constexpr int SG = ST ? ST : 8;  // supports whose directions a thread holds
-  const int K = KT ? KT : K_arg, S = ST ? ST : S_arg;
-  const int SC = S * Co;
+  const int K = KT ? KT : K_arg;
   const int b = blockIdx.y, q0 = blockIdx.x * TQ;
   hs::stage_rf<FAST, true>(verts, idx, reinterpret_cast<float*>(srf), nullptr, b, q0, TQ, N, K);
   __syncthreads();
-
-  const int lanes_c = min(Co, THREADS), QPB = THREADS / lanes_c;
-  const int ql = threadIdx.x / lanes_c;
-  if (ql >= QPB) return;
-  const int tq = min(TQ, N - q0);
-  const bool held = S <= SG;  // one group: the directions stay for every query
-  for (int c = threadIdx.x % lanes_c; c < Co; c += lanes_c) {
-    float d0[SG], d1[SG], d2[SG];
-    auto load_dirs = [&](int g0) {
-#pragma unroll
-      for (int s = 0; s < SG; ++s) {
-        const int col = (g0 + s) * Co + c;
-        const bool ok = ST || g0 + s < S;
-        d0[s] = ok ? __ldg(dirs + col) : 0.f;
-        d1[s] = ok ? __ldg(dirs + SC + col) : 0.f;
-        d2[s] = ok ? __ldg(dirs + 2 * SC + col) : 0.f;
-        if (FAST) {
-          d0[s] = hs::bf16_round(d0[s]);
-          d1[s] = hs::bf16_round(d1[s]);
-          d2[s] = hs::bf16_round(d2[s]);
-        }
-      }
-    };
-    if (held) load_dirs(0);
-    for (int t = ql; t < tq; t += QPB) {
-      const size_t row = (size_t)b * N + q0 + t;
-      float total = 0.f;
-      for (int g0 = 0; g0 < S; g0 += SG) {
-        if (!held) load_dirs(g0);
-        float m[SG];
-        int kb[SG];
-#pragma unroll
-        for (int s = 0; s < SG; ++s) {
-          m[s] = WIN ? -FLT_MAX : 0.f;  // every relu term is >= 0, so the max may start at 0
-          kb[s] = 0;
-        }
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          const float4 r = srf[t * K + j];
-#pragma unroll
-          for (int s = 0; s < SG; ++s) {
-            if constexpr (WIN) {
-              const float v = fmaxf(r.x * d0[s] + r.y * d1[s] + r.z * d2[s], 0.f);
-              if (v > m[s]) {
-                m[s] = v;
-                kb[s] = j;
-              }
-            } else {
-              m[s] = fmaxf(m[s], r.x * d0[s] + r.y * d1[s] + r.z * d2[s]);
-            }
-          }
-        }
-#pragma unroll
-        for (int s = 0; s < SG; ++s) {
-          if (ST || g0 + s < S) {
-            total += m[s];
-            if constexpr (WIN) win[row * SC + (size_t)(g0 + s) * Co + c] = kb[s];
-          }
-        }
-      }
-      out[row * Co + c] = total / S;
-    }
-  }
+  hss::reduce_rows<FAST, WIN, KT, ST, THREADS>(srf, dirs, out, win, (size_t)b * N + q0,
+                                               min(TQ, N - q0), K, S_arg, Co);
 }
 
 template <bool FAST, bool WIN, int KT, int ST>

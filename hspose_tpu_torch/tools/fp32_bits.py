@@ -17,7 +17,8 @@ The first form imports ``hspose_tpu_torch`` from DIR (a checkout, such as a
 * the bf16 tier's surface and ORL outputs at the B=24 forward's shapes and
   their forwards with winners at the B=16 step's, its K13 and K14 (with the
   K11 forwards that feed them) at the B=16 step's four HS layers, and its
-  K3 with winners and K8 at conv_2..conv_4's, with their times (the ORL
+  K3 with winners and K8 at conv_2..conv_4's, and its K12 (out, win) and
+  K15 (drf, dd) at the B=16 step's conv_0, with their times (the ORL
   kernel, K13 and K14 per layer): their sums are fp32 (K8's rows fp64) in a
   fixed order, so they keep their bits too;
 * the fp32 serving forward's pose outputs at B=24, N=1028;
@@ -292,6 +293,18 @@ def collect(tree: str) -> dict:
                 bf16_times, "hs_support_fused_bwd (bf16)", lambda: f.hs_support_fused_bwd(
                     feat, verts, kidx, w[:, co:], d, fwd[1], fwd[2], gb, S, co),
                 part=f"conv_{layer}")
+
+        # the bf16 tier's K12 and K15, B=16
+        verts = normal(B, N, 3, scale=0.2)
+        rf = neighbor_directions_normalized(verts.to(torch.bfloat16),
+                                            knn_indices_cuda(verts, 20, packed=True))
+        dirs, gb = unit(S * 128).to(torch.bfloat16), normal(B, N, 128)
+        o, win = _timed(bf16_times, "hs_surface_fwd (bf16)",
+                        lambda: cuda_hs.hs_surface_fwd(rf, dirs, S, 128))
+        out["hs_surface_fwd (bf16)"] = (o, win)
+        out["hs_surface_bwd (bf16)"] = _timed(
+            bf16_times, "hs_surface_bwd (bf16)",
+            lambda: cuda_hs.hs_surface_bwd(rf, dirs, win, gb, S, 128))
 
         # times only: the bf16 tier's KNN and support kernels, B=24
         B = 24

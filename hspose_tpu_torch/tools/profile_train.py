@@ -11,10 +11,12 @@ B=24 in fp32 / bf16, a "step" being one forward, where the kernels of K1
 reduction) and K4 (the ORL reduction) are also summed apart, with their
 launches; in the training tiers the kernels of K11 (the HS support forward:
 its projection and reduction), K13 and K14 (the HS support backward: its
-rows, reduction and recompute kernels, and before them its W transposes) and
-K8 (the fused support backward) are summed the same way (``TRAIN_GROUPS``),
-beside the shared partial-sum kernel that each of their calls (and other
-backwards') also launches.  To compare two trees, run this script's copy in
+rows, reduction and recompute kernels, and before them its W transposes), K8
+(the fused support backward), K12 (the HS surface forward) and K15 (its
+backward: the routing kernel and, from the redesign that gave it its own,
+its partial sum) are summed the same way (``TRAIN_GROUPS``), beside the
+shared partial-sum kernel that each of their calls (and other backwards')
+also launches.  To compare two trees, run this script's copy in
 both.  For each
 training tier: ``build_train_step`` at B=16, N=1028 with
 seeded random weights and 3 warm-up steps; then every tier is timed without the profiler
@@ -62,8 +64,10 @@ GROUPS = {"K1": ("(anonymous namespace)::knn_kernel<",),
 # tree), K13/K14 (the fp32 instantiations of hs::transpose_w_kernel are
 # theirs alone in trees that still transpose W) and K8 (csrc/hs_fused_bwd.cuh
 # with SUPPORT, csrc/hs_support.cu; its inverse lists are shared with K10 and
-# left out), by the names of this tree and of the trees before it, and
-# hs::sum_partials_kernel, which K13, K14, K15, K8, K9 and K10 all launch
+# left out), K12 and K15 (csrc/hs_surface_train.cu), by the names of this
+# tree and of the trees before it, and hs::sum_partials_kernel, which K13,
+# K14, K8, K9 and K10 all launch (and K15 in the trees before its own
+# partial sum, sum_tiles_kernel)
 TRAIN_GROUPS = {"K11": ("(anonymous namespace)::support_fwd_kernel<",
                         "hsp::gemm_kernel<float, false, false, false",
                         "hsp::gemm_kernel<__nv_bfloat16, false, false, true",
@@ -79,6 +83,9 @@ TRAIN_GROUPS = {"K11": ("(anonymous namespace)::support_fwd_kernel<",
                        "transpose_w_kernel<true, __nv_bfloat16>",
                        "(anonymous namespace)::project_kernel<", "hsp::gemm_kernel<float, false, true",
                        "hsp::gemm_kernel<float, true", "hsp::gemm_kernel<__nv_bfloat16, true"),
+                "K12": ("(anonymous namespace)::surface_fwd_kernel<",),
+                "K15": ("(anonymous namespace)::surface_bwd_kernel<",
+                        "(anonymous namespace)::sum_tiles_kernel("),
                 "partial sums (shared)": ("sum_partials_kernel",)}
 
 
