@@ -11,8 +11,8 @@ not 0:
 2. build: the kernels of ``hspose_tpu_torch/csrc`` with nvcc (sm_90a), and
    the registers, shared memory and spills ptxas reports for K1's to K4's
    kernels, K11's projection tile and reduction, K13's and K14's rows,
-   reduction and recompute kernels, K8's dg rows and drf walks and K12's
-   and K15's kernels (``PTXAS_KERNELS``);
+   reduction and recompute kernels, K8's dg rows and drf walks, K12's
+   and K15's kernels, K10's and K16's / K17's (``PTXAS_KERNELS``);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at every shape the B=24, N=1028 forward gives it, with kernel and plain
    times from CUDA events; K1's nine searches are also kept one by one
@@ -92,7 +92,8 @@ not 0:
    launch (inverse lists, route, drf walk, dd partial sums, the source-row
    scatter, dverts, the two partial sums, and dfeat's and dW's products,
    each beside one library product, or in the bf16 tier the dg rows and
-   their source-row sums for dfeat);
+   their source-row sums for dfeat); K10 per launch (``parts``): one
+   kernel, at most one launch a call, no inverse lists;
 13. v4 training slice: ``build_train_step`` on ``ModelConfig(bwd_store=False,
    train_v4_small=True)`` takes 3 steps at (16, 1028); the counters must show
    9 KNN, 1 + 1 K12/K15, 1 K11 without winner values + 1 K14, 3 K3 with
@@ -126,8 +127,9 @@ not 0:
    squared norm of a query point (the scale of the expansion's rounding,
    all there is where the clouds coincide), argmins
    equal on >= 99.9% and within 1e-6 in exact distance where not, gradients
-   within 1e-4 of the largest, K18 twice bit for bit; then one autograd
-   call of ``chamfer_distance`` (2 K17, 2 K18);
+   within 1e-4 of the largest, K18 twice bit for bit; K16 and K17 per
+   launch (``parts``) at the recon shape; then one autograd call of
+   ``chamfer_distance`` (2 K17, 2 K18);
 18. eval harness: ``batched_pose_inference`` on in-memory records (3
    batches of 24 crops of 1028 points; no PNG, cv2 or matplotlib) in fp32,
    bf16, and fp32 with ``eval.recon`` on a model with the train heads:
@@ -141,13 +143,16 @@ not 0:
    against its plain version at N = 2056 and 4096 (xyz k=20 and k=4,
    features k=20 in fp32 and bf16), with times, and one fp32 harness batch
    at ``data.num_points=2056``: 3 streamed and 6 other KNN launches;
-20. K2 and K4 off the forward's shapes, fp32 and bf16, so that each branch
-   of their launches runs: K4 at the N = 2056 harness forward's five ORL
-   shapes (B=24), at B=4 N=2056, N=5000, K=5 and on an index tensor off
+20. K2, K4 and K10 off the forward's shapes, fp32 and bf16, so that each
+   branch of their launches runs: K4 at the N = 2056 harness forward's five
+   ORL shapes (B=24), at B=4 N=2056, N=5000, K=5 and on an index tensor off
    16-byte alignment; K2 at S, K and Co other than 7, 20 and 128; each
    against its plain version within 1e-4 of the largest value, the
    forwards with winners bit for bit the serving kernels' and their
    winners as in phase 8; K4 must refuse features off 16-byte alignment;
+   K10 at (N, C, K) = (1028, 128, 20), (2056, 64, 20), (5000, 48, 5), (257,
+   50, 20), (20000, 32, 8) and (33, 36, 7) on random winners, against its
+   plain version with phase 12's gates and twice bit for bit;
 21. K11, K13 and K14 off the step's shapes, fp32 and bf16, so that each
    branch of their launches runs: (K, Cin, Co, S) = (5, 132, 128, 3), (31,
    128, 512, 7) and (20, 256, 256, 9) at B=3, N=1001 (every template width
@@ -287,11 +292,12 @@ def phase_env() -> str:
 # projection and K8's products, and support_fwd_kernel), K13's and K14's
 # (support_bwd_rows_kernel, support_bwd_reduce_kernel, recompute_kernel),
 # K8's rows and drf walks (dg_rows_kernel, rf_grad_kernel), and K12's and
-# K15's (surface_fwd_kernel; surface_bwd_kernel, sum_tiles_kernel)
+# K15's (surface_fwd_kernel; surface_bwd_kernel, sum_tiles_kernel), K10's
+# (orl_bwd_kernel) and K16's / K17's (chamfer_min_kernel)
 PTXAS_KERNELS = ("knn_kernel", "surface_kernel", "gemm_kernel", "project_bf16_kernel",
                  "reduce_kernel", "orl_kernel", "support_fwd_kernel", "support_bwd_rows_kernel",
                  "recompute_kernel", "dg_rows_kernel", "rf_grad_kernel", "surface_fwd_kernel",
-                 "surface_bwd_kernel", "sum_tiles_kernel")
+                 "surface_bwd_kernel", "sum_tiles_kernel", "orl_bwd_kernel", "chamfer_min_kernel")
 
 
 def ptxas_report(text: str, names=PTXAS_KERNELS) -> list[str]:
@@ -785,6 +791,11 @@ SUPPORT_FWD_PARTS = (("gemm_kernel", "projection"), ("support_fwd_kernel", "redu
 # K12's one launch and K15's two (csrc/hs_surface_train.cu)
 SURFACE_FWD_PARTS = (("surface_fwd_kernel", "reduction"),)
 SURFACE_BWD_PARTS = (("surface_bwd_kernel", "route_drf_dd"), ("sum_tiles_kernel", "partial_sum"))
+# K10's one launch (csrc/orl.cu; inverse_index_kernel, the inverse lists of
+# the design it replaced, must not run) and K16's / K17's (csrc/chamfer.cu)
+ORL_BWD_PARTS = (("inverse_index_kernel", "inverse_index"), ("orl_bwd_kernel", "orl_bwd"))
+CHAMFER_PARTS = {"chamfer_min": (("chamfer_min_kernel<false", "search"),),
+                 "chamfer_min_argmin": (("chamfer_min_kernel<true", "search"),)}
 FUSED_BWD_PARTS = (("inverse_index_kernel", "inverse_index"), ("route_kernel", "route"),
                    ("rf_grad_kernel", "rf_grad"), ("dd_partial_kernel", "dd_partial"),
                    ("dfeat_source_kernel", "dfeat_source"), ("source_proj_kernel", "source"),
@@ -1275,11 +1286,17 @@ def phase_v4_kernels(dtype: str = "float32") -> tuple[dict, dict]:
         gb = normal(rng, B, 1, c)
         got = f.orl_global_fused_bwd(idx, win_k, gb, op)
         bits("orl_global_fused_bwd", label, (got,), (f.orl_global_fused_bwd(idx, win_k, gb, op),))
-        compare("orl_global_fused_bwd", label,
-                [("dfeat", got, f.orl_global_fused_bwd_plain(idx, win_k, gb, op))],
-                cuda_ms(lambda: f.orl_global_fused_bwd(idx, win_k, gb, op), 10),
-                cuda_ms(lambda: f.orl_global_fused_bwd_plain(idx, win_k, gb, op), 10),
-                [idx, win_k, gb], 0)
+        bnd = compare("orl_global_fused_bwd", label,
+                      [("dfeat", got, f.orl_global_fused_bwd_plain(idx, win_k, gb, op))],
+                      cuda_ms(lambda: f.orl_global_fused_bwd(idx, win_k, gb, op), 10),
+                      cuda_ms(lambda: f.orl_global_fused_bwd_plain(idx, win_k, gb, op), 10),
+                      [idx, win_k, gb], 0)
+        # one launch a call: launch_parts raises on an inverse_index_kernel
+        # launch, or on more orl_bwd launches than calls (the profiler can
+        # drop a record, so it may see fewer)
+        launch_parts(phase, rec["orl_global_fused_bwd" + tag], label,
+                     lambda: f.orl_global_fused_bwd(idx, win_k, gb, op), {"orl_bwd": bnd},
+                     ORL_BWD_PARTS)
 
     # K9's carrier: one autograd backward through hs_surface_fused
     names = [name + tag for name in ("hs_surface", "hs_surface_fused_fwd", "hs_surface_fused_bwd")]
@@ -1618,6 +1635,13 @@ def phase_chamfer() -> tuple[dict, dict]:
                        cuda_ms(lambda: ch.chamfer_min_argmin_cuda(x, y)),
                        cuda_ms(lambda: ch.chamfer_min_argmin(x, y)),
                        bound([x, y, d17, i17], macs, torch.float32))
+                for name, fn, outs in (("chamfer_min", ch.chamfer_min_cuda, [d16]),
+                                       ("chamfer_min_argmin", ch.chamfer_min_argmin_cuda,
+                                        [d17, i17])):
+                    launch_parts(phase, rec[name], f"{name} {label} {what}",
+                                 lambda: fn(x, y), {"search": bound([x, y, *outs], macs,
+                                                                    torch.float32)},
+                                 CHAMFER_PARTS[name])
                 for name in ("chamfer_min", "chamfer_min_argmin"):
                     rec[name]["library_ms"] = (rec[name]["library_ms"] or 0.0) + lib
         ia, ib = args["a->b"][1], args["b->a"][1]
@@ -1873,6 +1897,13 @@ def phase_k5(smi: str) -> tuple[dict, dict]:
 ORL_SHAPES = [(B, N_LARGE, 128, 20), (B, N_LARGE, 128, 20), (B, N_LARGE // 4, 256, 20),
               (B, N_LARGE // 4, 256, 20), (B, N_LARGE // 16, 512, 8), (4, N_LARGE, 128, 20),
               (2, 5000, 64, 8), (3, 33, 256, 5)]
+# K10's calls off the v4 step, (B, N, C, K): idx staged and one block of rows
+# (N = 1028), idx read through L1 and the rows split over blocks (N = 2056,
+# 20000), idx staged and the rows split (N = 5000, with a part-full channel
+# slice), a C that is not a multiple of 4 (4-byte loads), and N*K odd (idx
+# copied 4 bytes at a time)
+K10_SHAPES = [(2, N, 128, 20), (2, N_LARGE, 64, 20), (2, 5000, 48, 5), (3, 257, 50, 20),
+              (2, 20000, 32, 8), (3, 33, 36, 7)]
 # K2's calls off the forward, (B, N, K, S, Co): S and K read at run time (the
 # supports held eight at a time), and Co below 128 (queries side by side)
 SURFACE_SHAPES = [(4, 300, 12, 10, 64), (3, 200, 20, 3, 96), (2, N, 20, 9, 128),
@@ -1885,8 +1916,10 @@ def phase_k2k4_shapes() -> None:
     ORL call on an index tensor 4 bytes off 16-byte alignment), in fp32 and
     bf16: each serving call against its plain version within TOL_REL of
     the largest value, the forward with winners bit for bit the serving
-    kernel's, its winners against the plain version's as in phase 8; and
-    features off 16-byte alignment must be refused."""
+    kernel's, its winners against the plain version's as in phase 8; K10
+    at K10_SHAPES in both tiers against its plain version (phase 12's
+    gates) and twice with the same bits; and features off 16-byte
+    alignment must be refused."""
     from hspose_tpu_torch.ops import cuda_hs_fused as f
     from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
     from hspose_tpu_torch.ops.knn import gather_neighbors, neighbor_directions_normalized
@@ -1949,6 +1982,22 @@ def phase_k2k4_shapes() -> None:
                 theta = f._theta_fast(f._rf_fast(verts, idx), f._bf16(dirs))
             check_winners(phase, "hs_surface_fused_fwd", label, win_k, win_p,
                           at_win(theta, win_k), at_win(theta, win_p))
+
+    # K10 on neighbour lists that name rows twice and on random winners, so
+    # that every branch of its launch plan runs
+    for b, n, c, k in K10_SHAPES:
+        idx = torch.from_numpy(rng.integers(0, n, (b, n, k)).astype(np.int32)).to(DEVICE)
+        idx[:, :, k // 2] = idx[:, :, 0]
+        win = torch.from_numpy(rng.integers(0, k, (b, n, c)).astype(np.int32)).to(DEVICE)
+        gb = normal(rng, b, 1, c)
+        for dtype in (torch.float32, torch.bfloat16):
+            label = f"B={b} N={n} C={c} K={k} {dtype}"
+            got = f.orl_global_fused_bwd(idx, win, gb, dtype)
+            same_bits("orl_global_fused_bwd", label + " (twice)", (got,),
+                      (f.orl_global_fused_bwd(idx, win, gb, dtype),))
+            compare_cotangents(phase, {}, "orl_global_fused_bwd", label,
+                               [("dfeat", got, f.orl_global_fused_bwd_plain(idx, win, gb, dtype))],
+                               None, 0.0, [], 0)
 
     feat = off16(normal(rng, 2, 300, 128))
     try:

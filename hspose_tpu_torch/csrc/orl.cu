@@ -47,12 +47,14 @@
 // backward K10, hs_orl_bwd, replaces hspose_tpu/ops/pallas_hs_fused.py::
 // _orl_bwd_kernel (exact=True, and exact=False in bf16 with each entry's
 // gb * (1/N) rounded to bf16): dfeat[b, r, c] = gb[b, c] / N times the number of (point, k)
-// whose neighbour k is row r and whose channel c was won by that k.  The
-// count follows r's inverse neighbour list (hs_fused_bwd.cuh), so no atomics
-// and no order enter.  Plain versions: hspose_tpu_torch/ops/cuda_hs_fused.py::
-// orl_global_fused_fwd_plain and orl_global_fused_bwd_plain.  What bounds it:
-// it reads each (point, channel) winner once per neighbour list entry, from
-// L2, and writes (B, N, C).
+// whose neighbour k is row r and whose channel c was won by that k.  Plain
+// versions: hspose_tpu_torch/ops/cuda_hs_fused.py::orl_global_fused_fwd_plain
+// and orl_global_fused_bwd_plain.  What bounds it: reading win (B, N, C) and
+// writing dfeat once (at the v4 step's shapes, 4.2 MB a call in fp32, about
+// 1.3 us at device memory's rate).  The kernel before it walked inverse
+// neighbour lists (a counting sort, one block per batch, in a launch of its
+// own) and read each winner K times through L2; a count needs neither the
+// lists nor their order (orl_bwd_kernel below).
 
 #include <cfloat>
 
@@ -62,7 +64,6 @@ namespace {
 
 constexpr int TQ = 32;           // points per tile: the first sum's unit
 constexpr int MAX_THREADS = 512;
-constexpr int THREADS = 128;     // K10
 constexpr int SMEM_MAX = 232448;  // shared memory a block may use (227 KB)
 
 // The shared memory of one block: N rows of Cs values and the (tiles, Cs)
@@ -264,32 +265,180 @@ int launch(const T* feat, const int* idx, float* out, int* win, int B, int N, in
   }
 }
 
-// One block per source row r of batch b (grid.x = B * N), threads over channels:
-// dfeat[b, r, c] = gb[b, c] / N times the count of r's inverse-list entries
-// (q, k) with win[b, q, c] == k.  The bf16 tier (T = __nv_bfloat16) takes each
-// entry's gb * (1/N) rounded to bf16 (_scatter_rows' operand): the count times
-// it is exact in fp32, and dfeat is that rounded to bf16.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-orl_bwd_kernel(const int* __restrict__ rowptr, const int* __restrict__ ent,
-               const int* __restrict__ win, const float* __restrict__ gb,
-               T* __restrict__ dfeat, int N, int K, int C) {
-  const size_t row = blockIdx.x;
-  const int b = (int)(row / N), r = (int)(row % N);
-  const int* rp = rowptr + (size_t)b * (N + 1);
-  const int* eb = ent + (size_t)b * N * K;
-  const int lo = rp[r], hi = rp[r + 1];
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    int cnt = 0;
-    for (int p = lo; p < hi; ++p) {
-      const int e = eb[p];
-      cnt += win[((size_t)b * N + e / K) * C + c] == e % K;
-    }
-    if constexpr (hs::is_bf16<T>)
-      hs::store_f(dfeat + row * C + c, (float)cnt * hs::bf16_round(gb[(size_t)b * C + c] * (1.f / N)));
-    else
-      dfeat[row * C + c] = (float)cnt * (gb[(size_t)b * C + c] / N);
+// K10.  dfeat[b, r, c] = gb[b, c] / N times the count of (q, k) with
+// idx[b, q, k] == r and win[b, q, c] == k: each (point, channel) pair names
+// one source row, r = idx[b, q, win[b, q, c]], and adds one to its count.  One
+// block per (slice of BWD_CS channels, range of R source rows, batch); grid
+// (ceil(C / BWD_CS), ceil(N / R), B).  The block stages idx[b] in shared
+// memory (SIDX; else it reads the rows through L1), zeroes its (R, BWD_CS)
+// int counts, reads win[b, :, slice] once, VEC channels a load with U loads
+// of the next items in flight while the current ones add, and adds with
+// 32-bit shared-memory atomics; after a barrier it writes its rows of dfeat.
+// Integer counts do not depend on the order of the adds, so the result is
+// the same in every run, and each row is the replaced kernel's store
+// expression: fp32 (float)cnt * (gb / N); bf16 (the TPU kernel's exact=False,
+// _scatter_rows' operand) (float)cnt * bf16(gb * (1/N)) rounded to bf16 (the
+// product is exact in fp32).  Rows no pair names write 0 * scale, as before.
+// Bank use: a count row is BWD_CS words (a multiple of 32), so a count's
+// bank is its channel mod 32; a thread adds its VEC channels in an order
+// rotated by (lane / 8) % 4, so the 32 lanes of an add hit 32 banks.
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_CS = 32;  // channels per block: a count row of 32 banks
+constexpr int BWD_U = 4;    // items per thread per round of loads
+
+template <int VEC>
+struct WinVec;
+template <>
+struct WinVec<4> {
+  using type = int4;
+  __device__ static int4 load(const int* p) { return __ldg(reinterpret_cast<const int4*>(p)); }
+  __device__ static int get(const int4& w, int j) {
+    return j == 0 ? w.x : j == 1 ? w.y : j == 2 ? w.z : w.w;
   }
+};
+template <>
+struct WinVec<1> {
+  using type = int;
+  __device__ static int load(const int* p) { return __ldg(p); }
+  __device__ static int get(const int& w, int) { return w; }
+};
+
+// The shared memory of one K10 block: idx[b] (when staged, padded to 16
+// bytes), then the (R, BWD_CS) counts.
+__host__ __device__ inline size_t bwd_idx_words(int N, int K) { return ((size_t)N * K + 3) / 4 * 4; }
+inline size_t bwd_smem_bytes(int N, int K, int R, bool sidx) {
+  return sizeof(int) * ((sidx ? bwd_idx_words(N, K) : 0) + (size_t)R * BWD_CS);
+}
+
+template <typename T, int VEC, bool SIDX>
+__global__ void __launch_bounds__(BWD_THREADS)
+orl_bwd_kernel(const int* __restrict__ idx, const int* __restrict__ win,
+               const float* __restrict__ gb, T* __restrict__ dfeat, int N, int K, int C, int R) {
+  using W = WinVec<VEC>;
+  constexpr int QV = BWD_CS / VEC;  // loads per (point, slice)
+  extern __shared__ __align__(16) int bsm[];
+  const int b = blockIdx.z, c0 = blockIdx.x * BWD_CS, r0 = blockIdx.y * R;
+  const int rows = min(R, N - r0);
+  int* cnt = bsm + (SIDX ? bwd_idx_words(N, K) : 0);  // (R, BWD_CS)
+  const int* Ib = idx + (size_t)b * N * K;
+  if constexpr (SIDX) {
+    const int e_n = N * K;
+    if (e_n % 4 == 0 && hs::aligned16(Ib)) {
+      for (int e = 4 * threadIdx.x; e < e_n; e += 4 * BWD_THREADS)
+        hs::cp_async16(bsm + e, Ib + e, true);
+    } else {
+      for (int e = threadIdx.x; e < e_n; e += BWD_THREADS) hs::cp_async4(bsm + e, Ib + e, true);
+    }
+    hs::cp_async_commit();
+    Ib = bsm;
+  }
+  for (int e = threadIdx.x; e < rows * BWD_CS; e += BWD_THREADS) cnt[e] = 0;
+
+  // items (point q, load v of the slice); v = lane % QV for every item, as
+  // BWD_THREADS is a multiple of 32 and QV divides 32
+  const int items = N * QV;
+  const int v = threadIdx.x % QV, c = c0 + v * VEC;
+  const bool live = c < C;  // C % VEC == 0, so a load lies wholly inside or outside
+  const int rot = (threadIdx.x / 8) % 4;
+  const int* Wb = win + (size_t)b * N * C + (live ? c : 0);
+  typename W::type cur[BWD_U], nxt[BWD_U];
+  auto load = [&](int base, typename W::type (&w)[BWD_U]) {
+#pragma unroll
+    for (int u = 0; u < BWD_U; ++u) {
+      const int item = base + u * BWD_THREADS + threadIdx.x;
+      const int q = min(item, items - 1) / QV;  // clamped: loads issue together
+      w[u] = W::load(Wb + (size_t)q * C);
+    }
+  };
+  load(0, cur);
+  if constexpr (SIDX) hs::cp_async_wait<0>();
+  __syncthreads();
+
+  for (int base = 0; base < items; base += BWD_U * BWD_THREADS) {
+    if (base + BWD_U * BWD_THREADS < items) load(base + BWD_U * BWD_THREADS, nxt);
+#pragma unroll
+    for (int u = 0; u < BWD_U; ++u) {
+      const int item = base + u * BWD_THREADS + threadIdx.x;
+      if (!live || item >= items) continue;
+      const int* ir = Ib + (size_t)(item / QV) * K;
+#pragma unroll
+      for (int s = 0; s < VEC; ++s) {
+        const int j = (s + rot) % VEC;
+        const int r = ir[W::get(cur[u], j)] - r0;
+        if ((unsigned)r < (unsigned)rows) atomicAdd(cnt + r * BWD_CS + v * VEC + j, 1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < BWD_U; ++u) cur[u] = nxt[u];
+  }
+  __syncthreads();
+
+  // rows r0 .. r0 + rows - 1 of dfeat, VEC channels a thread
+  const float* gbb = gb + (size_t)b * C;
+  float scale[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float g = live ? gbb[c + j] : 0.f;
+    scale[j] = hs::is_bf16<T> ? hs::bf16_round(g * (1.f / N)) : g / N;
+  }
+  if (!live) return;
+  for (int e = threadIdx.x; e < rows * QV; e += BWD_THREADS) {
+    const int r = e / QV;  // e % QV == v
+    T* out = dfeat + ((size_t)b * N + r0 + r) * C + c;
+    float d[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) d[j] = (float)cnt[r * BWD_CS + v * VEC + j] * scale[j];
+    if constexpr (VEC == 4 && !hs::is_bf16<T>) {
+      *reinterpret_cast<float4*>(out) = make_float4(d[0], d[1], d[2], d[3]);
+    } else if constexpr (VEC == 4) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(d[0], d[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(d[2], d[3]);
+      uint2 pk;
+      pk.x = *reinterpret_cast<const unsigned*>(&lo);
+      pk.y = *reinterpret_cast<const unsigned*>(&hi);
+      *reinterpret_cast<uint2*>(out) = pk;
+    } else {
+      hs::store_f(out, d[0]);
+    }
+  }
+}
+
+// The K10 launch plan: idx[b] staged and every row counted in one block
+// where both fit in shared memory; else idx staged where it takes at most
+// half, and the rows split over blocks so that their counts fill the rest;
+// else idx read through L1 and the rows split.  VEC 4 where C % 4 == 0 and
+// win and dfeat lie on 16-byte boundaries.
+template <typename T, int VEC, bool SIDX>
+int launch_bwd_k(const int* idx, const int* win, const float* gb, T* dfeat, int B, int N, int K,
+                 int C, int R, cudaStream_t s) {
+  auto kernel = orl_bwd_kernel<T, VEC, SIDX>;
+  const size_t smem = bwd_smem_bytes(N, K, R, SIDX);
+  cudaError_t err = hs::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((C + BWD_CS - 1) / BWD_CS, (N + R - 1) / R, B);
+  kernel<<<grid, BWD_THREADS, smem, s>>>(idx, win, gb, dfeat, N, K, C, R);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC>
+int launch_bwd_v(const int* idx, const int* win, const float* gb, T* dfeat, int B, int N, int K,
+                 int C, cudaStream_t s) {
+  const size_t row = sizeof(int) * BWD_CS, idx_bytes = sizeof(int) * bwd_idx_words(N, K);
+  if (bwd_smem_bytes(N, K, N, true) <= SMEM_MAX)
+    return launch_bwd_k<T, VEC, true>(idx, win, gb, dfeat, B, N, K, C, N, s);
+  if (idx_bytes <= SMEM_MAX / 2)
+    return launch_bwd_k<T, VEC, true>(idx, win, gb, dfeat, B, N, K, C,
+                                      (int)((SMEM_MAX - idx_bytes) / row), s);
+  return launch_bwd_k<T, VEC, false>(idx, win, gb, dfeat, B, N, K, C, (int)(SMEM_MAX / row), s);
+}
+
+template <typename T>
+int launch_bwd(const int* idx, const int* win, const float* gb, T* dfeat, int B, int N, int K,
+               int C, cudaStream_t s) {
+  if (B < 1 || B > 65535 || C < 1) return (int)cudaErrorInvalidValue;
+  if (C % 4 == 0 && hs::aligned16(win) && hs::aligned16(dfeat))
+    return launch_bwd_v<T, 4>(idx, win, gb, dfeat, B, N, K, C, s);
+  return launch_bwd_v<T, 1>(idx, win, gb, dfeat, B, N, K, C, s);
 }
 
 }  // namespace
@@ -316,18 +465,11 @@ extern "C" int hs_orl_win(const void* feat, int fast, const int* idx, float* out
 }
 
 // K10: idx (B, N, K), win (B, N, C), gb (B, C) the cotangent of out -> dfeat (B, N, C),
-// fp32 or (fast != 0) bf16.  Scratch: rowptr (B, N + 1), ent (B, N*K) int32.
-extern "C" int hs_orl_bwd(const int* idx, const int* win, const float* gb, int* rowptr, int* ent,
-                          void* dfeat, int B, int N, int K, int C, int fast, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// fp32 or (fast != 0) bf16.  One launch, no scratch.
+extern "C" int hs_orl_bwd(const int* idx, const int* win, const float* gb, void* dfeat, int B,
+                          int N, int K, int C, int fast, void* stream) {
   if (hsb::supported(N, K)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = hsb::inverse_index(idx, rowptr, ent, B, N, N * K, s);
-  if (err != cudaSuccess) return (int)err;
-  if (fast)
-    orl_bwd_kernel<<<B * N, THREADS, 0, s>>>(rowptr, ent, win, gb,
-                                             static_cast<__nv_bfloat16*>(dfeat), N, K, C);
-  else
-    orl_bwd_kernel<<<B * N, THREADS, 0, s>>>(rowptr, ent, win, gb, static_cast<float*>(dfeat), N,
-                                             K, C);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return fast ? launch_bwd(idx, win, gb, static_cast<__nv_bfloat16*>(dfeat), B, N, K, C, s)
+              : launch_bwd(idx, win, gb, static_cast<float*>(dfeat), B, N, K, C, s);
 }

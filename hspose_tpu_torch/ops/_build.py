@@ -83,8 +83,8 @@ SIGNATURES = {
     "hs_support_fused_bwd": [_P, _P, _I] + [_P] * 20 + [_I] * 7 + [_P],
     # feat, fast, idx, out, win, B, N, K, C, stream
     "hs_orl_win": [_P, _I] + [_P] * 3 + [_I] * 4 + [_P],
-    # idx, win, gb, rowptr, ent, dfeat, B, N, K, C, fast, stream
-    "hs_orl_bwd": [_P] * 6 + [_I] * 5 + [_P],
+    # idx, win, gb, dfeat, B, N, K, C, fast, stream
+    "hs_orl_bwd": [_P] * 4 + [_I] * 5 + [_P],
     # chamfer: a, b, dist, B, N, M, stream
     "hs_chamfer_min": [_P] * 3 + [_I] * 3 + [_P],
     # a, b, dist, arg, B, N, M, stream

@@ -666,9 +666,8 @@ def orl_global_fused_bwd(idx: torch.Tensor, win: torch.Tensor, gb: torch.Tensor,
     C = win.shape[2]
     _build.check(gb, "gb", torch.float32, (B, 1, C))
     fast = dtype == torch.bfloat16
-    rowptr, ent = _inverse_lists(idx)
     dfeat = _empty((B, N, C), win, dtype)
-    _build.launch("hs_orl_bwd", idx, win, gb, rowptr, ent, dfeat, B, N, K, C, int(fast))
+    _build.launch("hs_orl_bwd", idx, win, gb, dfeat, B, N, K, C, int(fast))
     _count(orl_global_fused_bwd, fast)
     return dfeat
 

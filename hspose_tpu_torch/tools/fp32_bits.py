@@ -18,9 +18,14 @@ The first form imports ``hspose_tpu_torch`` from DIR (a checkout, such as a
   their forwards with winners at the B=16 step's, its K13 and K14 (with the
   K11 forwards that feed them) at the B=16 step's four HS layers, and its
   K3 with winners and K8 at conv_2..conv_4's, and its K12 (out, win) and
-  K15 (drf, dd) at the B=16 step's conv_0, with their times (the ORL
-  kernel, K13 and K14 per layer): their sums are fp32 (K8's rows fp64) in a
-  fixed order, so they keep their bits too;
+  K15 (drf, dd) at the B=16 step's conv_0, and its K10 at conv_2..conv_4's
+  ORL branches, with their times (the ORL kernel, K13, K14 and K10 per
+  layer): their sums are fp32 (K8's rows fp64) in a fixed order, or integer
+  counts (K10), so they keep their bits too;
+* the chamfer kernels' outputs, K16 (dist), K17 (dist, argmin) and K18
+  (the gradient of each cloud), at the recon tier's shape (24, 1028) x (24,
+  1028), with their times per pass of both directions, and on a cloud whose
+  points repeat the other's (exact zeros and ties);
 * the fp32 serving forward's pose outputs at B=24, N=1028;
 * the total loss of three fp32 train steps at B=16, N=1028;
 
@@ -113,7 +118,7 @@ def collect(tree: str) -> dict:
     from hspose_tpu_torch.engine.train_step import build_train_step, to_device
     from hspose_tpu_torch.geometry.rotations import generate_RT
     from hspose_tpu_torch.models.hspose import build_model, draw_pool_samples, eval_forward
-    from hspose_tpu_torch.ops import cuda_hs, cuda_hs_fused as f
+    from hspose_tpu_torch.ops import chamfer as ch, cuda_hs, cuda_hs_fused as f
     from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
     from hspose_tpu_torch.ops.knn import gather_neighbors, neighbor_directions_normalized
     from hspose_tpu_torch.utils.synthetic import synthetic_train_batch
@@ -305,6 +310,44 @@ def collect(tree: str) -> dict:
         out["hs_surface_bwd (bf16)"] = _timed(
             bf16_times, "hs_surface_bwd (bf16)",
             lambda: cuda_hs.hs_surface_bwd(rf, dirs, win, gb, S, 128))
+
+        # the bf16 tier's K10 at conv_2 .. conv_4 of the v4 step, on the bf16
+        # forward's winners, B=16
+        for layer, c, n, k in [(2, 256, N // 4, 20), (3, 256, N // 4, 20), (4, 512, N // 16, 8)]:
+            ofeat = normal(B, n, c).to(torch.bfloat16)
+            oidx = knn_indices_cuda(normal(B, n, 3, scale=0.2), k, packed=True)
+            owin, ogb = f.orl_global_fused_fwd(ofeat, oidx)[1], normal(B, 1, c)
+            out[f"orl_global_fused_bwd (bf16) conv_{layer}"] = _timed(
+                bf16_times, "orl_global_fused_bwd (bf16)",
+                lambda: f.orl_global_fused_bwd(oidx, owin, ogb, torch.bfloat16),
+                part=f"conv_{layer}")
+
+        # the chamfer kernels K16, K17 and K18 at the recon tier's shape,
+        # (24, 1028) x (24, 1028), both directions (timed), and on a cloud whose
+        # points repeat the other's (exact zeros and ties), as chip_smoke.py's
+        # chamfer_clouds
+        B = 24
+        a = normal(B, N, 3, scale=0.2)
+        for kind in ("recon", "duplicates"):
+            if kind == "recon":
+                cb = (normal(B, N, 3, scale=0.2) + 0.05).contiguous()
+                tag, tt = "", times
+            else:
+                pick = torch.from_numpy(rng.integers(0, N // 2, (B, N))).to(dev)
+                cb = torch.gather(a, 1, pick[..., None].expand(B, N, 3)).contiguous()
+                tag, tt = " duplicates", {}
+            arg = {}
+            for x, y, way in ((a, cb, "a->b"), (cb, a, "b->a")):
+                out[f"chamfer_min{tag} {way}"] = _timed(tt, "chamfer_min",
+                                                        lambda: ch.chamfer_min_cuda(x, y))
+                arg[way] = _timed(tt, "chamfer_min_argmin", lambda: ch.chamfer_min_argmin_cuda(x, y))
+                out[f"chamfer_min_argmin{tag} {way}"] = arg[way]
+            ia, ib = arg["a->b"][1], arg["b->a"][1]
+            gda, gdb = normal(B, N), normal(B, N)
+            out[f"chamfer_grad{tag} ga"] = _timed(
+                tt, "chamfer_grad", lambda: ch.chamfer_grad_cuda(a, cb, ia, ib, gda, gdb))
+            out[f"chamfer_grad{tag} gb"] = _timed(
+                tt, "chamfer_grad", lambda: ch.chamfer_grad_cuda(cb, a, ib, ia, gdb, gda))
 
         # times only: the bf16 tier's KNN and support kernels, B=24
         B = 24
