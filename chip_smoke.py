@@ -12,7 +12,8 @@ not 0:
    the registers, shared memory and spills ptxas reports for K1's to K4's
    kernels, K11's projection tile and reduction, K13's and K14's rows,
    reduction and recompute kernels, K8's dg rows and drf walks, K12's
-   and K15's kernels, K10's and K16's / K17's (``PTXAS_KERNELS``);
+   and K15's kernels, K10's, K16's / K17's and K18's, and K9's three
+   (``PTXAS_KERNELS``);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at every shape the B=24, N=1028 forward gives it, with kernel and plain
    times from CUDA events; K1's nine searches are also kept one by one
@@ -93,7 +94,13 @@ not 0:
    scatter, dverts, the two partial sums, and dfeat's and dW's products,
    each beside one library product, or in the bf16 tier the dg rows and
    their source-row sums for dfeat); K10 per launch (``parts``): one
-   kernel, at most one launch a call, no inverse lists;
+   kernel, at most one launch a call, no inverse lists; K9 per launch
+   (``parts``: the fused route / drf / dd kernel, the partial sum, dverts;
+   three launches a call, no inverse lists) at conv_0, and against its
+   plain version and a second launch, bit for bit, at (N, K, S, Co) =
+   (2056, 20, 7, 128), (1001, 5, 3, 64), (257, 31, 9, 96) and (5000, 12,
+   10, 32), B=4 (``K9_SHAPES``: K up to 31, S*Co not a multiple of 32, a
+   dverts window short of a batch's N*K entries);
 13. v4 training slice: ``build_train_step`` on ``ModelConfig(bwd_store=False,
    train_v4_small=True)`` takes 3 steps at (16, 1028); the counters must show
    9 KNN, 1 + 1 K12/K15, 1 K11 without winner values + 1 K14, 3 K3 with
@@ -107,8 +114,9 @@ not 0:
    bf16; K2/K3/K4 with winners bit for bit against the bf16 serving
    kernels; K9 at conv_0's shape, K8 at conv_2..conv_4's and K10 at their
    ORL branches' against their plain versions with phase 10's gates; every
-   backward twice, bit for bit; one autograd backward through a bf16
-   ``hs_surface_fused`` (K9's carrier);
+   backward twice, bit for bit; K9 per launch and at ``K9_SHAPES`` as in
+   phase 12; one autograd backward through a bf16 ``hs_surface_fused``
+   (K9's carrier);
 15. bf16 v4 training slice: phase 13 on ``ModelConfig(compute_dtype=
    "bfloat16", bwd_store=False, train_v4_small=True)``: 9 packed KNN, 1 + 1
    K12/K15 bf16, 1 K11 bf16 without winner values + 1 K14 bf16, 3 + 3
@@ -127,9 +135,12 @@ not 0:
    squared norm of a query point (the scale of the expansion's rounding,
    all there is where the clouds coincide), argmins
    equal on >= 99.9% and within 1e-6 in exact distance where not, gradients
-   within 1e-4 of the largest, K18 twice bit for bit; K16 and K17 per
-   launch (``parts``) at the recon shape; then one autograd call of
-   ``chamfer_distance`` (2 K17, 2 K18);
+   within 1e-4 of the largest, K18 twice bit for bit; K18 also at (4, 5000)
+   x (4, 300) (long lists) and where every point of b, 3000 of them, shares
+   one nearest point of a (a tile's list over two windows); K16, K17 and
+   K18 per launch (``parts``; K18 one launch a call, no inverse lists) at
+   the recon shape; then one autograd call of ``chamfer_distance`` (2 K17,
+   2 K18);
 18. eval harness: ``batched_pose_inference`` on in-memory records (3
    batches of 24 crops of 1028 points; no PNG, cv2 or matplotlib) in fp32,
    bf16, and fp32 with ``eval.recon`` on a model with the train heads:
@@ -292,12 +303,14 @@ def phase_env() -> str:
 # projection and K8's products, and support_fwd_kernel), K13's and K14's
 # (support_bwd_rows_kernel, support_bwd_reduce_kernel, recompute_kernel),
 # K8's rows and drf walks (dg_rows_kernel, rf_grad_kernel), and K12's and
-# K15's (surface_fwd_kernel; surface_bwd_kernel, sum_tiles_kernel), K10's
-# (orl_bwd_kernel) and K16's / K17's (chamfer_min_kernel)
+# K15's (surface_fwd_kernel; surface_bwd_kernel, sum_tiles_kernel, which K9
+# shares), K10's (orl_bwd_kernel), K16's / K17's (chamfer_min_kernel), K18's
+# (chamfer_grad_kernel) and K9's (fused_bwd_kernel, dverts_rows_kernel)
 PTXAS_KERNELS = ("knn_kernel", "surface_kernel", "gemm_kernel", "project_bf16_kernel",
                  "reduce_kernel", "orl_kernel", "support_fwd_kernel", "support_bwd_rows_kernel",
                  "recompute_kernel", "dg_rows_kernel", "rf_grad_kernel", "surface_fwd_kernel",
-                 "surface_bwd_kernel", "sum_tiles_kernel", "orl_bwd_kernel", "chamfer_min_kernel")
+                 "surface_bwd_kernel", "sum_tiles_kernel", "orl_bwd_kernel", "chamfer_min_kernel",
+                 "chamfer_grad_kernel", "fused_bwd_kernel", "dverts_rows_kernel")
 
 
 def ptxas_report(text: str, names=PTXAS_KERNELS) -> list[str]:
@@ -795,7 +808,18 @@ SURFACE_BWD_PARTS = (("surface_bwd_kernel", "route_drf_dd"), ("sum_tiles_kernel"
 # the design it replaced, must not run) and K16's / K17's (csrc/chamfer.cu)
 ORL_BWD_PARTS = (("inverse_index_kernel", "inverse_index"), ("orl_bwd_kernel", "orl_bwd"))
 CHAMFER_PARTS = {"chamfer_min": (("chamfer_min_kernel<false", "search"),),
-                 "chamfer_min_argmin": (("chamfer_min_kernel<true", "search"),)}
+                 "chamfer_min_argmin": (("chamfer_min_kernel<true", "search"),),
+                 "chamfer_grad": (("inverse_index_kernel", "inverse_index"),
+                                  ("chamfer_grad_kernel", "grad"))}
+# K9's three launches (csrc/hs_surface.cu; the partial sum is hs_common.cuh's,
+# shared with K15); inverse_index_kernel, the lists of the design before, must
+# not run
+SURFACE_FUSED_BWD_PARTS = (("inverse_index_kernel", "inverse_index"),
+                           ("fused_bwd_kernel", "route_drf_dd"),
+                           ("sum_tiles_kernel", "partial_sum"), ("dverts_rows_kernel", "dverts"))
+# K9 off conv_0's shape, (N, K, S, Co) at B=4: K up to 31, S*Co not a multiple
+# of 32, and (5000 x 12 entries) dverts in two windows
+K9_SHAPES = ((2056, 20, 7, 128), (1001, 5, 3, 64), (257, 31, 9, 96), (5000, 12, 10, 32))
 FUSED_BWD_PARTS = (("inverse_index_kernel", "inverse_index"), ("route_kernel", "route"),
                    ("rf_grad_kernel", "rf_grad"), ("dd_partial_kernel", "dd_partial"),
                    ("dfeat_source_kernel", "dfeat_source"), ("source_proj_kernel", "source"),
@@ -814,6 +838,22 @@ def surface_bwd_bounds(rf, dirs, win, gb, drf, op_dtype) -> dict:
     return {"route_drf_dd": bound([rf, dirs, win, gb, drf], 9 * win.numel(), op_dtype,
                                   tiles * 3 * sc * 4),
             "partial_sum": bound([], 0, torch.float32, (tiles + 1) * 3 * sc * 4)}
+
+
+def surface_fused_bwd_bounds(verts, idx, dirs, win, gb) -> dict:
+    """Each launch of one K9 call: the fused kernel reads verts, idx, dirs,
+    win and gb once and writes drf, dvq and the 64-query chunks' rows of dd
+    partial sums, with theta, drfn's and dd's multiply-adds at each winner
+    (at the fp32 rate, the bf16 tier's fp64 drfn sums counted as fp32); the
+    partial sum reads the rows and writes dd; dverts reads idx, drf and dvq
+    and writes dverts."""
+    B, N, K = idx.shape
+    sc, parts, f32 = win.shape[-1], B * -(-N // 64), 4
+    drf, rows = idx.numel() * 3 * f32, B * N * 3 * f32
+    return {"route_drf_dd": bound([verts, idx, dirs, win, gb], 9 * win.numel(), torch.float32,
+                                  drf + rows + parts * 3 * sc * f32),
+            "partial_sum": bound([], 0, torch.float32, (parts + 1) * 3 * sc * f32),
+            "dverts": bound([idx], 0, torch.float32, drf + 2 * rows)}
 
 
 def support_bwd_bounds(g, rf, w, dirs, win, gb, recompute: bool, op_dtype) -> dict:
@@ -890,27 +930,33 @@ def launch_parts(phase: str, r: dict, label: str, fn, bounds: dict, names, per_c
     into r["parts"] beside its bound.  ``names`` maps the kernels to parts
     (SUPPORT_BWD_PARTS, ...).  Each part of ``bounds`` must launch, at most
     ``per_call`` times a call, and no other part may (the profiler can drop
-    a launch's record, so a part may show fewer)."""
+    a launch's record, so a part may show fewer).  A session in which the
+    profiler recorded no launch of any part is run again, up to twice: the
+    gate still fails if the parts never launch."""
     from torch.profiler import ProfilerActivity, profile
 
     per_call = per_call or {}
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # the calls queue behind a sleep kernel: launches that run while the
-        # session starts are not recorded
-        torch.cuda._sleep(QUEUE_CYCLES)
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, count = {}, {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
-            continue
-        part = next((p for k, p in names if k in e.name), None)
-        if part is not None:
-            total[part] = total.get(part, 0.0) + e.time_range.elapsed_us() / 1e3
-            count[part] = count.get(part, 0) + 1
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # the calls queue behind a sleep kernel: launches that run while
+            # the session starts are not recorded
+            torch.cuda._sleep(QUEUE_CYCLES)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total, count = {}, {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
+                continue
+            part = next((p for k, p in names if k in e.name), None)
+            if part is not None:
+                total[part] = total.get(part, 0.0) + e.time_range.elapsed_us() / 1e3
+                count[part] = count.get(part, 0) + 1
+        if count:
+            break
+        log(phase, f"  {label}: the profiler recorded no launch of any part; the session again")
     if set(count) != set(bounds) or any(n > calls * per_call.get(p, 1) for p, n in count.items()):
         raise AssertionError(f"{label}: launches over {calls} calls {count}, expected at most "
                              f"{ {p: per_call.get(p, 1) for p in bounds} } a call")
@@ -1214,6 +1260,23 @@ def phase_v4_kernels(dtype: str = "float32") -> tuple[dict, dict]:
             cuda_ms(lambda: f.hs_surface_fused_bwd(*bargs, exact=not fast), 10),
             cuda_ms(lambda: f.hs_surface_fused_bwd_plain(*bargs, exact=not fast), 10),
             [verts, idx, dirs, win_k, gb], 9 * win_k.numel())  # theta, drfn, dd at each winner
+    # three launches a call: launch_parts raises on an inverse_index_kernel launch
+    launch_parts(phase, rec["hs_surface_fused_bwd" + tag], label,
+                 lambda: f.hs_surface_fused_bwd(*bargs, exact=not fast),
+                 surface_fused_bwd_bounds(verts, idx, dirs, win_k, gb), SURFACE_FUSED_BWD_PARTS)
+    for n, k, s_, co in K9_SHAPES:  # off conv_0's shape: against plain, twice bit for bit
+        shape = f"B=4 N={n} K={k} S={s_} Co={co}"
+        verts = cloud_b(rng, 4, n)
+        verts[:, 1] = verts[:, 0]  # a duplicated point: |rf| = 0
+        idx = knn(verts, k)
+        dirs = unit_dirs(rng, s_ * co)
+        win = f.hs_surface_fused_fwd(verts, idx, dirs, s_, co, exact=not fast)[1]
+        kargs = (verts, idx, dirs, win, normal(rng, 4, n, co), s_, co)
+        got = f.hs_surface_fused_bwd(*kargs, exact=not fast)
+        bits("hs_surface_fused_bwd", shape, got, f.hs_surface_fused_bwd(*kargs, exact=not fast))
+        compare("hs_surface_fused_bwd", shape + " (twice, same bits)",
+                list(zip(("dverts", "dd"), got,
+                         f.hs_surface_fused_bwd_plain(*kargs, exact=not fast))), None, 0.0, [], 0)
 
     # K3 with winners, K8: conv_2 .. conv_4 (train_v4_small)
     for layer, cin, co, n, k in [(2, 128, 256, N // 4, 20), (3, 256, 256, N // 4, 20),
@@ -1656,9 +1719,33 @@ def phase_chamfer() -> tuple[dict, dict]:
                 raise AssertionError(f"chamfer_grad {label} {what}: two launches differ")
             ms = cuda_ms(lambda: ch.chamfer_grad_cuda(x, y, ix, iy, gx, gy)) if mains else 0.0
             pms = cuda_ms(lambda: ch.chamfer_grad(x, y, ix, iy, gx, gy)) if mains else 0.0
-            compare_cotangents(phase, rec if mains else {}, "chamfer_grad", f"{label} {what} "
-                               "(twice, same bits)", [(what, got, want)], ms, pms,
-                               [x, y, ix, iy, gx, gy], 0)
+            bnd = compare_cotangents(phase, rec if mains else {}, "chamfer_grad",
+                                     f"{label} {what} (twice, same bits)", [(what, got, want)],
+                                     ms, pms, [x, y, ix, iy, gx, gy], 0)
+            if mains:  # one launch a call: launch_parts raises on an inverse_index_kernel
+                launch_parts(phase, rec["chamfer_grad"], f"chamfer_grad {label} {what}",
+                             lambda: ch.chamfer_grad_cuda(x, y, ix, iy, gx, gy), {"grad": bnd},
+                             CHAMFER_PARTS["chamfer_grad"])
+
+    # K18 where the lists are long, (4, 5000) x (4, 300), and where all 3000
+    # points of b share one nearest point of a (far off the cloud): that
+    # tile's list takes two windows
+    for label, n, m, far in (("long lists", 5000, 300, False), ("one nearest point", N, 3000, True)):
+        a = normal(rng, 4, n, 3, scale=0.2)
+        b = (normal(rng, 4, m, 3, scale=0.01) + 5.0) if far else normal(rng, 4, m, 3, scale=0.2)
+        ia, ib = ch.chamfer_min_argmin_cuda(a, b)[1], ch.chamfer_min_argmin_cuda(b, a)[1]
+        if far and not bool((ib == ib[:, :1]).all()):
+            raise AssertionError("chamfer_grad one nearest point: the points of b do not share one")
+        gda, gdb = normal(rng, 4, n), normal(rng, 4, m)
+        for x, y, ix, iy, gx, gy, what in ((a, b, ia, ib, gda, gdb, "ga"),
+                                           (b, a, ib, ia, gdb, gda, "gb")):
+            got = ch.chamfer_grad_cuda(x, y, ix, iy, gx, gy)
+            same_bits("chamfer_grad", f"{label} {what}", (got,),
+                      (ch.chamfer_grad_cuda(x, y, ix, iy, gx, gy),))
+            compare_cotangents(phase, {}, "chamfer_grad", f"(4, {n}) x (4, {m}) {label} {what} "
+                               "(twice, same bits)",
+                               [(what, got, ch.chamfer_grad(x, y, ix, iy, gx, gy))], None, 0.0,
+                               [], 0)
 
     # the differentiable call: K17 twice, then K18 once per cloud
     a, b = chamfer_clouds(rng, N)

@@ -50,15 +50,22 @@
 // fused -2 a.b + that) and one fminf, against the bound's 3 multiply-adds;
 // K17 adds a compare and two selects per step of G points.
 //
-// The gradient: no atomics.  The inverse lists of ib (the points of b whose
-// nearest point in a is a_i, in increasing j) come from hs_fused_bwd.cuh's
-// counting sort, and one thread per point of a adds its list's terms in that
-// order onto the direct term, each product rounded before its add as
-// index_add_ adds (__fmul_rn, __fadd_rn), so the result repeats bit for bit.
+// The gradient: one launch, no atomics and no scratch.  A block owns a tile
+// of GT rows of a and finds, itself, the points of b whose nearest point
+// lies in its tile, in increasing j: it loads a window of GW points (ib_j,
+// b_j, gdb_j) at once and compacts the window's entries that fall in the
+// tile into a shared-memory list, stably (a ballot per 32 entries, a prefix
+// over those counts).  One thread per row of a then adds the list's terms
+// that name its row, in list order, onto the direct term, each product
+// rounded before its add as index_add_ adds (__fmul_rn, __fadd_rn), so the
+// result repeats bit for bit.  The design before it built the inverse lists
+// of ib with a counting sort (one block per batch, a second launch and two
+// scratch tensors) for the same order.  What bounds it: the latency of its
+// few dependent steps (load, compact, walk); it moves about 50 KB per batch.
+
+#include <cuda_runtime.h>
 
 #include <cmath>
-
-#include "hs_fused_bwd.cuh"
 
 namespace {
 
@@ -68,7 +75,10 @@ constexpr int CH = 256;             // points a warp stages at a time
 constexpr int CH_LANE = CH / 32;    // of which each lane loads
 constexpr int G = 8;                // points per step of the walk
 constexpr int QMAX = 4;             // queries per lane, at most (48 KB of static shared memory)
-constexpr int GRAD_THREADS = 128;
+constexpr int GT = 64;              // rows of a per gradient block, a thread each
+constexpr int GTHREADS = 256;       // threads per gradient block
+constexpr int GW = 1536;            // points of b per window of the gradient's list
+constexpr int GU = 8;               // list entries a row's thread reads at a time
 
 // |p|^2 as the replaced kernel's x*x + y*y + z*z compiled (its SASS): y*y
 // first, then fused multiply-adds of x and of z.
@@ -245,34 +255,122 @@ chamfer_min_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-// ga (B, N, 3); rowptr (B, N + 1) / ent (B, M) the inverse lists of ib.
-__global__ void __launch_bounds__(GRAD_THREADS)
+// ga (B, N, 3): one block per (batch, GT rows of a), GTHREADS threads,
+// thread t < GT for row t.  The points of b are taken in windows of GW, in
+// increasing j; each thread loads its GW / GTHREADS entries of the window,
+// ib_j, b_j and gdb_j, all in flight together (the first window's before the
+// direct term's loads).  The entries whose ib_j falls in the block's rows go,
+// in increasing j, into a shared-memory list: a stable compaction, a ballot
+// per 32-entry slice and, in every warp, a prefix over all the slices'
+// counts.  Then each row's thread walks the list in order, GU entries at a
+// time, adding the terms of the entries that name its row.  A window holds
+// at most GW entries, so the list never overflows; a row's sum is carried
+// across windows in registers.  Every product is rounded before its add, as
+// index_add_ adds (__fmul_rn, __fadd_rn), and each row's terms come in
+// increasing j.
+__global__ void __launch_bounds__(GTHREADS)
 chamfer_grad_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                    const int* __restrict__ ia, const int* __restrict__ rowptr,
-                    const int* __restrict__ ent, const float* __restrict__ gda,
-                    const float* __restrict__ gdb, float* __restrict__ ga, int N, int M) {
-  const int bi = blockIdx.y;
-  const int i = blockIdx.x * GRAD_THREADS + threadIdx.x;
-  if (i >= N) return;
+                    const int* __restrict__ ia, const int* __restrict__ ib,
+                    const float* __restrict__ gda, const float* __restrict__ gdb,
+                    float* __restrict__ ga, int N, int M) {
+  constexpr int SLICES = GW / 32;        // 32-entry slices of a window
+  constexpr int PER = GW / GTHREADS;     // entries a thread loads per window
+  constexpr int WARPS = GTHREADS / 32;
+  static_assert(SLICES <= 64, "a warp scans the slices' counts in two rounds");
+  __shared__ float4 sb[GW];              // the kept points: b_j, gdb_j
+  __shared__ int srow[GW + GU];          // their rows of a, from the tile's first; -1 after
+  __shared__ int scnt[SLICES];           // the slices' counts
+  const int bi = blockIdx.y, t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int i0 = blockIdx.x * GT, i = min(i0 + t % GT, N - 1);
   const size_t row = (size_t)bi * N + i;
-  const float* ap = a + row * 3;
-  const float* bp = b + ((size_t)bi * M + ia[row]) * 3;
-  const float g = gda[row];
-  float acc[3];
+  const int* ibb = ib + (size_t)bi * M;
+  const float* bb = b + (size_t)bi * M * 3;
+  const float* gb = gdb + (size_t)bi * M;
+  // entry j0 + u * GTHREADS + t of a window: slice u * WARPS + warp, lane
+  int r[PER];
+  float4 pb[PER];
+  auto load = [&](int j0) {
 #pragma unroll
-  for (int c = 0; c < 3; ++c) acc[c] = __fmul_rn(2.f * __fsub_rn(ap[c], bp[c]), g);
-  const int* rp = rowptr + (size_t)bi * (N + 1);
-  const int* eb = ent + (size_t)bi * M;
-  for (int e = rp[i]; e < rp[i + 1]; ++e) {
-    const int j = eb[e];
-    const float* bj = b + ((size_t)bi * M + j) * 3;
-    const float gj = gdb[(size_t)bi * M + j];
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      acc[c] = __fadd_rn(acc[c], -__fmul_rn(2.f * __fsub_rn(bj[c], ap[c]), gj));
+    for (int u = 0; u < PER; ++u) {
+      const int j = min(j0 + u * GTHREADS + t, M - 1);
+      const float* p = bb + (size_t)j * 3;
+      r[u] = j0 + u * GTHREADS + t < M ? ibb[j] - i0 : -1;
+      pb[u] = make_float4(p[0], p[1], p[2], gb[j]);
+    }
+  };
+  load(0);
+  float ax = 0.f, ay = 0.f, az = 0.f, acc[3] = {0.f, 0.f, 0.f};
+  if (t < GT) {
+    const float* ap = a + row * 3;
+    const float* bp = b + ((size_t)bi * M + ia[row]) * 3;
+    const float g = gda[row];
+    ax = ap[0];
+    ay = ap[1];
+    az = ap[2];
+    acc[0] = __fmul_rn(2.f * __fsub_rn(ax, bp[0]), g);
+    acc[1] = __fmul_rn(2.f * __fsub_rn(ay, bp[1]), g);
+    acc[2] = __fmul_rn(2.f * __fsub_rn(az, bp[2]), g);
   }
+  for (int j0 = 0; j0 < M; j0 += GW) {
+    unsigned keep[PER];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) ga[row * 3 + c] = acc[c];
+    for (int u = 0; u < PER; ++u) {
+      keep[u] = __ballot_sync(0xffffffffu, r[u] >= 0 && r[u] < GT);
+      if (lane == 0) scnt[u * WARPS + warp] = __popc(keep[u]);
+    }
+    __syncthreads();
+    // every warp: the exclusive prefix of the slices' counts, in j order,
+    // lane l holding slices l and 32 + l
+    const int c0 = scnt[lane], c1 = 32 + lane < SLICES ? scnt[32 + lane] : 0;
+    int i0s = c0, i1s = c1;
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int v0 = __shfl_up_sync(0xffffffffu, i0s, d), v1 = __shfl_up_sync(0xffffffffu, i1s, d);
+      if (lane >= d) {
+        i0s += v0;
+        i1s += v1;
+      }
+    }
+    const int tot0 = __shfl_sync(0xffffffffu, i0s, 31);
+    const int start0 = i0s - c0, start1 = tot0 + i1s - c1;
+    const int n = tot0 + __shfl_sync(0xffffffffu, i1s, 31);
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int sl = u * WARPS + warp;  // the slice's start, from the lane that holds it
+      const int base = __shfl_sync(0xffffffffu, sl < 32 ? start0 : start1, sl % 32);
+      if (keep[u] >> lane & 1u) {
+        const int e = base + __popc(keep[u] & ((1u << lane) - 1u));
+        srow[e] = r[u];
+        sb[e] = pb[u];
+      }
+    }
+    if (t < GU) srow[n + t] = -1;  // the walk's last batch reads past the list
+    if (j0 + GW < M) load(j0 + GW);
+    __syncthreads();
+    // each row's terms in list order, which is increasing j: GU rows of the
+    // list read together, then the matching entries added in order
+    if (t < GT) {
+      for (int e0 = 0; e0 < n; e0 += GU) {
+        int rr[GU];
+#pragma unroll
+        for (int u = 0; u < GU; ++u) rr[u] = srow[e0 + u];
+#pragma unroll
+        for (int u = 0; u < GU; ++u) {
+          if (rr[u] == t) {
+            const float4 q = sb[e0 + u];
+            acc[0] = __fadd_rn(acc[0], -__fmul_rn(2.f * __fsub_rn(q.x, ax), q.w));
+            acc[1] = __fadd_rn(acc[1], -__fmul_rn(2.f * __fsub_rn(q.y, ay), q.w));
+            acc[2] = __fadd_rn(acc[2], -__fmul_rn(2.f * __fsub_rn(q.z, az), q.w));
+          }
+        }
+      }
+    }
+    __syncthreads();  // the list is read before the next window writes it
+  }
+  if (t < GT && i0 + t < N) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) ga[row * 3 + c] = acc[c];
+  }
 }
 
 // Queries per lane for B clouds of N queries on a card of sms SMs: the Q in
@@ -331,16 +429,13 @@ extern "C" int hs_chamfer_min_argmin(const float* a, const float* b, float* dist
 }
 
 // K18: a (B, N, 3), b (B, M, 3), ia (B, N) in [0, M), ib (B, M) in [0, N),
-// gda (B, N), gdb (B, M) -> ga (B, N, 3).  Scratch: rowptr (B, N + 1), ent (B, M).
+// gda (B, N), gdb (B, M) -> ga (B, N, 3).  One launch, no scratch.
 extern "C" int hs_chamfer_grad(const float* a, const float* b, const int* ia, const int* ib,
-                               const float* gda, const float* gdb, int* rowptr, int* ent,
-                               float* ga, int B, int N, int M, void* stream) {
-  if (B < 1 || N < 1 || M < 1 || B > 65535 || (size_t)N * sizeof(int) > 200 * 1024)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = hsb::inverse_index(ib, rowptr, ent, B, N, M, s);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + GRAD_THREADS - 1) / GRAD_THREADS, B);
-  chamfer_grad_kernel<<<grid, GRAD_THREADS, 0, s>>>(a, b, ia, rowptr, ent, gda, gdb, ga, N, M);
+                               const float* gda, const float* gdb, float* ga, int B, int N, int M,
+                               void* stream) {
+  if (B < 1 || N < 1 || M < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + GT - 1) / GT, B);
+  chamfer_grad_kernel<<<grid, GTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, b, ia, ib, gda, gdb, ga, N, M);
   return (int)cudaGetLastError();
 }

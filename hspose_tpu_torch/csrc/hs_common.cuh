@@ -37,6 +37,38 @@ __device__ __forceinline__ float div_s(float x, int S) {
   return FAST ? x * (1.f / S) : x / S;
 }
 
+// One entry of stage_rf: the unit direction of neighbour v from centre c, and
+// raw = v - c, the rf that the backwards' chain differentiates (FAST: on xyz
+// rounded to bf16, unrounded).
+template <bool FAST>
+__device__ __forceinline__ void unit_rf(const float* v, const float* c, float* raw, float* unit) {
+  float r0, r1, r2;
+  if constexpr (FAST) {
+    r0 = bf16_round(v[0]) - bf16_round(c[0]);
+    r1 = bf16_round(v[1]) - bf16_round(c[1]);
+    r2 = bf16_round(v[2]) - bf16_round(c[2]);
+    raw[0] = r0;
+    raw[1] = r1;
+    raw[2] = r2;
+    const float sq = __fadd_rn(__fadd_rn(__fmul_rn(r0, r0), __fmul_rn(r1, r1)), __fmul_rn(r2, r2));
+    const float inv = __fdiv_rn(1.f, fmaxf(__fsqrt_rn(sq), 1e-12f));
+    unit[0] = bf16_round(__fmul_rn(r0, inv));
+    unit[1] = bf16_round(__fmul_rn(r1, inv));
+    unit[2] = bf16_round(__fmul_rn(r2, inv));
+  } else {
+    r0 = v[0] - c[0];
+    r1 = v[1] - c[1];
+    r2 = v[2] - c[2];
+    raw[0] = r0;
+    raw[1] = r1;
+    raw[2] = r2;
+    const float den = fmaxf(sqrtf(r0 * r0 + r1 * r1 + r2 * r2), 1e-12f);
+    unit[0] = r0 / den;
+    unit[1] = r1 / den;
+    unit[2] = r2 / den;
+  }
+}
+
 // Stage the unit receptive-field directions of queries q0 .. q0 + tq - 1 into
 // shared memory: srf[(t * K + j) * 3 + d] = normalize(v[idx[q, j]] - v[q])[d],
 // with the norm clamped at 1e-12 so a duplicated point gives exactly 0
@@ -59,38 +91,18 @@ __device__ inline void stage_rf(const float* __restrict__ verts, const int* __re
                                 float* srf, int* sidx, int b, int q0, int tq, int N, int K) {
   for (int e = threadIdx.x; e < tq * K; e += blockDim.x) {
     const int t = e / K, j = e % K, q = q0 + t;
-    float r0 = 0.f, r1 = 0.f, r2 = 0.f;
+    float raw[3], r[3] = {0.f, 0.f, 0.f};
     int nb = 0;
     if (q < N) {
       nb = idx[((size_t)b * N + q) * K + j];
-      const float* c = verts + ((size_t)b * N + q) * 3;
-      const float* v = verts + ((size_t)b * N + nb) * 3;
-      if constexpr (FAST) {
-        r0 = bf16_round(v[0]) - bf16_round(c[0]);
-        r1 = bf16_round(v[1]) - bf16_round(c[1]);
-        r2 = bf16_round(v[2]) - bf16_round(c[2]);
-        const float sq = __fadd_rn(__fadd_rn(__fmul_rn(r0, r0), __fmul_rn(r1, r1)),
-                                   __fmul_rn(r2, r2));
-        const float inv = __fdiv_rn(1.f, fmaxf(__fsqrt_rn(sq), 1e-12f));
-        r0 = bf16_round(__fmul_rn(r0, inv));
-        r1 = bf16_round(__fmul_rn(r1, inv));
-        r2 = bf16_round(__fmul_rn(r2, inv));
-      } else {
-        r0 = v[0] - c[0];
-        r1 = v[1] - c[1];
-        r2 = v[2] - c[2];
-        const float den = fmaxf(sqrtf(r0 * r0 + r1 * r1 + r2 * r2), 1e-12f);
-        r0 /= den;
-        r1 /= den;
-        r2 /= den;
-      }
+      unit_rf<FAST>(verts + ((size_t)b * N + nb) * 3, verts + ((size_t)b * N + q) * 3, raw, r);
     }
     if constexpr (PACK4) {
-      *reinterpret_cast<float4*>(srf + e * 4) = make_float4(r0, r1, r2, __int_as_float(nb));
+      *reinterpret_cast<float4*>(srf + e * 4) = make_float4(r[0], r[1], r[2], __int_as_float(nb));
     } else {
-      srf[e * 3 + 0] = r0;
-      srf[e * 3 + 1] = r1;
-      srf[e * 3 + 2] = r2;
+      srf[e * 3 + 0] = r[0];
+      srf[e * 3 + 1] = r[1];
+      srf[e * 3 + 2] = r[2];
       if (sidx) sidx[e] = nb;
     }
   }
@@ -173,6 +185,54 @@ static __global__ void sum_partials_kernel(const float* __restrict__ partial,
 static inline cudaError_t sum_partials(const float* partial, float* out, int parts, int E,
                                 cudaStream_t stream) {
   sum_partials_kernel<<<(E + 255) / 256, 256, 0, stream>>>(partial, out, parts, E);
+  return cudaGetLastError();
+}
+
+// The same sum, staged: out[e] = the sum of partial[p, e] over p in
+// increasing order, from 0.f.  A block per SUM_COLS columns: the threads
+// stage SUM_ROWS rows of those columns with coalesced loads (the next
+// round's loads issued before the current round is summed), one warp's
+// first SUM_COLS lanes chain through them, so the rows are read at L2 rate
+// instead of by one dependent load a row.  K15's and K9's partial sums.
+constexpr int SUM_COLS = 16;
+constexpr int SUM_ROWS = 256;  // rows staged per round
+constexpr int SUM_THREADS = 256;
+constexpr int SUM_LOADS = SUM_ROWS * SUM_COLS / SUM_THREADS;
+
+static __global__ void __launch_bounds__(SUM_THREADS)
+sum_tiles_kernel(const float* __restrict__ partial, float* __restrict__ out, int parts, int E) {
+  __shared__ float rows[SUM_ROWS * SUM_COLS];
+  const int e0 = blockIdx.x * SUM_COLS;
+  float v[SUM_LOADS];
+  auto fetch = [&](int p0) {
+#pragma unroll
+    for (int i = 0; i < SUM_LOADS; ++i) {
+      const int f = threadIdx.x + i * SUM_THREADS;
+      const int p = min(p0 + f / SUM_COLS, parts - 1), e = min(e0 + f % SUM_COLS, E - 1);
+      v[i] = partial[(size_t)p * E + e];
+    }
+  };
+  fetch(0);
+  float s = 0.f;
+  for (int p0 = 0; p0 < parts; p0 += SUM_ROWS) {
+    __syncthreads();  // the previous round is summed
+#pragma unroll
+    for (int i = 0; i < SUM_LOADS; ++i) rows[threadIdx.x + i * SUM_THREADS] = v[i];
+    __syncthreads();
+    if (p0 + SUM_ROWS < parts) fetch(p0 + SUM_ROWS);
+    if (threadIdx.x < SUM_COLS) {
+      const int n = min(SUM_ROWS, parts - p0);
+#pragma unroll 8
+      for (int p = 0; p < n; ++p) s += rows[p * SUM_COLS + threadIdx.x];
+    }
+  }
+  if (threadIdx.x < SUM_COLS && e0 + threadIdx.x < E) out[e0 + threadIdx.x] = s;
+}
+
+static inline cudaError_t sum_tiles(const float* partial, float* out, int parts, int E,
+                                    cudaStream_t stream) {
+  sum_tiles_kernel<<<(E + SUM_COLS - 1) / SUM_COLS, SUM_THREADS, 0, stream>>>(partial, out, parts,
+                                                                              E);
   return cudaGetLastError();
 }
 

@@ -1,9 +1,11 @@
-// Backward pieces shared by the fused HS reductions' backwards: the
-// support reduction's (K8, hs_support.cu), the surface reduction's (K9,
-// hs_surface.cu) and, for the inverse neighbour lists, the ORL branch's (K10,
-// orl.cu).  Replaces the bodies of hspose_tpu/ops/pallas_hs_fused.py::
-// _support_bwd_kernel (:420-490) and _surface_bwd_kernel (:493-541), both
-// branches: exact=True (fp32) and, with FAST, exact=False (the bf16 tier).
+// Backward pieces of the fused support reduction's backward (K8,
+// hs_support.cu), which replaces the body of hspose_tpu/ops/
+// pallas_hs_fused.py::_support_bwd_kernel (:420-490), both branches:
+// exact=True (fp32) and, with FAST, exact=False (the bf16 tier).  The
+// surface reduction's backward (K9, hs_surface.cu) ran on these pieces
+// (SUPPORT false) until it got a kernel of its own; it keeps RED_QC, parts
+// and supported from here.  No other kernel uses the inverse lists: K10
+// (orl.cu) and K18 (chamfer.cu) find their sources' order themselves.
 //
 // The TPU kernels walk the neighbour slots k of a query tile, select by the
 // forward's recorded winner, and scatter each cotangent row back to its

@@ -60,7 +60,7 @@
 //     reads of one query's row at many k meet no bank conflict.  The bf16
 //     tier sums in fp32 too (its products are exact) and rounds drf once
 //     when it is stored.
-// (ii) sum_tiles_kernel: dd = the tile partials added from 0.f in tile
+// (ii) hs::sum_tiles_kernel: dd = the tile partials added from 0.f in tile
 //     order (batch-major); a block per 16 columns stages 256 tiles' rows at
 //     a time with coalesced loads (the next rows in flight while one warp
 //     chains through the staged ones), so the partials are read at L2 rate
@@ -86,11 +86,6 @@ constexpr int ROUTE_WARPS = 4;       // warp 0 sums drf; warps 1-4 route the nex
                                      // meanwhile, and 1-2 then add dd's tile partials
 constexpr int BWD_THREADS = 32 * (1 + ROUTE_WARPS);
 constexpr int A_ROWS = QB / ROUTE_WARPS;  // queries a thread routes per chunk
-
-constexpr int SUM_COLS = 16;      // columns per block of sum_tiles_kernel
-constexpr int SUM_ROWS = 256;     // tile rows staged per round
-constexpr int SUM_THREADS = 256;
-constexpr int SUM_LOADS = SUM_ROWS * SUM_COLS / SUM_THREADS;
 
 template <typename T, int KT, int ST>
 __global__ void __launch_bounds__(FWD_THREADS)
@@ -285,40 +280,6 @@ surface_bwd_kernel(const T* __restrict__ rf, const T* __restrict__ dirs,
     hs::store_f(out + e, sacc[(e % 3 * K + e / 3 % K) * QB + e / (3 * K)]);
 }
 
-// out[e] = the sum of partial[p, e] over p in increasing order, from 0.f.  A
-// block per SUM_COLS columns: the threads stage SUM_ROWS rows of those
-// columns with coalesced loads (the next round's loads issued before the
-// current round is summed), one warp's first SUM_COLS lanes chain through them.
-__global__ void __launch_bounds__(SUM_THREADS)
-sum_tiles_kernel(const float* __restrict__ partial, float* __restrict__ out, int parts, int E) {
-  __shared__ float rows[SUM_ROWS * SUM_COLS];
-  const int e0 = blockIdx.x * SUM_COLS;
-  float v[SUM_LOADS];
-  auto fetch = [&](int p0) {
-#pragma unroll
-    for (int i = 0; i < SUM_LOADS; ++i) {
-      const int f = threadIdx.x + i * SUM_THREADS;
-      const int p = min(p0 + f / SUM_COLS, parts - 1), e = min(e0 + f % SUM_COLS, E - 1);
-      v[i] = partial[(size_t)p * E + e];
-    }
-  };
-  fetch(0);
-  float s = 0.f;
-  for (int p0 = 0; p0 < parts; p0 += SUM_ROWS) {
-    __syncthreads();  // the previous round is summed
-#pragma unroll
-    for (int i = 0; i < SUM_LOADS; ++i) rows[threadIdx.x + i * SUM_THREADS] = v[i];
-    __syncthreads();
-    if (p0 + SUM_ROWS < parts) fetch(p0 + SUM_ROWS);
-    if (threadIdx.x < SUM_COLS) {
-      const int n = min(SUM_ROWS, parts - p0);
-#pragma unroll 8
-      for (int p = 0; p < n; ++p) s += rows[p * SUM_COLS + threadIdx.x];
-    }
-  }
-  if (threadIdx.x < SUM_COLS && e0 + threadIdx.x < E) out[e0 + threadIdx.x] = s;
-}
-
 size_t bwd_smem(int K, int Co) {  // sdc, srf, sacc, su, sk, sg
   return sizeof(float4) * 2 * CC +
          sizeof(float) * (6 * QB * (size_t)K + 4 * QB * CP + QB * (size_t)Co);
@@ -384,8 +345,5 @@ extern "C" int hs_surface_bwd(const void* rf, const void* dirs, const int* win,
       fast ? launch_bwd<__nv_bfloat16>(rf, dirs, win, gb, drf, partial, B, N, K, S, Co, st)
            : launch_bwd<float>(rf, dirs, win, gb, drf, partial, B, N, K, S, Co, st);
   if (err != cudaSuccess) return (int)err;
-  const int E = 3 * S * Co;
-  sum_tiles_kernel<<<(E + SUM_COLS - 1) / SUM_COLS, SUM_THREADS, 0, st>>>(
-      partial, dd, hs_surface_bwd_parts(B, N), E);
-  return (int)cudaGetLastError();
+  return (int)hs::sum_tiles(partial, dd, hs_surface_bwd_parts(B, N), 3 * S * Co, st);
 }

@@ -68,9 +68,8 @@ SIGNATURES = {
     # the differentiable fused ops: forwards with winners and their backwards
     # verts, idx, dirs, out, win, B, N, K, S, Co, fast, stream
     "hs_surface_win": [_P] * 5 + [_I] * 6 + [_P],
-    # verts, idx, dirs, win, gb, rowptr, ent, dz, drf, dvq, partial, dverts, red,
-    # B, N, K, S, Co, fast, stream
-    "hs_surface_fused_bwd": [_P] * 13 + [_I] * 6 + [_P],
+    # verts, idx, dirs, win, gb, drf, dvq, partial, dverts, red, B, N, K, S, Co, fast, stream
+    "hs_surface_fused_bwd": [_P] * 10 + [_I] * 6 + [_P],
     # B, N -> rows of the fused backwards' dd (and db) partial-sum scratch (no launch)
     "hs_fused_bwd_parts": [_I, _I],
     # proj, verts, idx, dirs, out, win, B, N, K, S, Co, fast, stream
@@ -89,8 +88,8 @@ SIGNATURES = {
     "hs_chamfer_min": [_P] * 3 + [_I] * 3 + [_P],
     # a, b, dist, arg, B, N, M, stream
     "hs_chamfer_min_argmin": [_P] * 4 + [_I] * 3 + [_P],
-    # a, b, ia, ib, gda, gdb, rowptr, ent, ga, B, N, M, stream
-    "hs_chamfer_grad": [_P] * 9 + [_I] * 3 + [_P],
+    # a, b, ia, ib, gda, gdb, ga, B, N, M, stream
+    "hs_chamfer_grad": [_P] * 7 + [_I] * 3 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

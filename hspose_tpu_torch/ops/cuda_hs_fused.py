@@ -565,13 +565,12 @@ def hs_surface_fused_bwd(vertices: torch.Tensor, idx: torch.Tensor, dirs: torch.
     B, N, K = _check_fused(vertices, idx, dirs, S, co)
     _build.check(win, "win", torch.int32, (B, N, S * co))
     _build.check(gb, "gb", torch.float32, (B, N, co))
-    rowptr, ent = _inverse_lists(idx)
     parts = _build.load().hs_fused_bwd_parts(B, N)
     dverts, red = _empty((B, N, 3), vertices), _empty((3, S * co), vertices)
-    _build.launch("hs_surface_fused_bwd", vertices, idx, dirs, win, gb, rowptr, ent,
-                  _empty((B, N, S * co), vertices), _empty((B, N, K, 3), vertices),
-                  _empty((B, N, 3), vertices), _empty((parts, 3, S * co), vertices), dverts, red,
-                  B, N, K, S, co, int(not exact))
+    _build.launch("hs_surface_fused_bwd", vertices, idx, dirs, win, gb,
+                  _empty((B, N, K, 3), vertices), _empty((B, N, 3), vertices),
+                  _empty((parts, 3, S * co), vertices), dverts, red, B, N, K, S, co,
+                  int(not exact))
     _count(hs_surface_fused_bwd, not exact)
     return dverts, red
 

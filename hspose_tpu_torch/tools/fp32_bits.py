@@ -18,8 +18,8 @@ The first form imports ``hspose_tpu_torch`` from DIR (a checkout, such as a
   their forwards with winners at the B=16 step's, its K13 and K14 (with the
   K11 forwards that feed them) at the B=16 step's four HS layers, and its
   K3 with winners and K8 at conv_2..conv_4's, and its K12 (out, win) and
-  K15 (drf, dd) at the B=16 step's conv_0, and its K10 at conv_2..conv_4's
-  ORL branches, with their times (the ORL kernel, K13, K14 and K10 per
+  K15 (drf, dd) and K9 (dverts, dd) at the B=16 step's conv_0, and its K10
+  at conv_2..conv_4's ORL branches, with their times (the ORL kernel, K13, K14 and K10 per
   layer): their sums are fp32 (K8's rows fp64) in a fixed order, or integer
   counts (K10), so they keep their bits too;
 * the chamfer kernels' outputs, K16 (dist), K17 (dist, argmin) and K18
@@ -310,6 +310,14 @@ def collect(tree: str) -> dict:
         out["hs_surface_bwd (bf16)"] = _timed(
             bf16_times, "hs_surface_bwd (bf16)",
             lambda: cuda_hs.hs_surface_bwd(rf, dirs, win, gb, S, 128))
+
+        # the bf16 tier's K9 at the B=16 step's conv_0, on its K2 winners
+        verts = normal(B, N, 3, scale=0.2)
+        vidx, dirs, gb = knn_indices_cuda(verts, 20, packed=True), unit(S * 128), normal(B, N, 128)
+        win = f.hs_surface_fused_fwd(verts, vidx, dirs, S, 128, exact=False)[1]
+        out["hs_surface_fused_bwd (bf16)"] = _timed(
+            bf16_times, "hs_surface_fused_bwd (bf16)",
+            lambda: f.hs_surface_fused_bwd(verts, vidx, dirs, win, gb, S, 128, exact=False))
 
         # the bf16 tier's K10 at conv_2 .. conv_4 of the v4 step, on the bf16
         # forward's winners, B=16

@@ -1,9 +1,13 @@
-"""Where K10's and K16's / K17's time goes on one CUDA card: the v4 step's
-ORL backward (``ops/cuda_hs_fused.py::orl_global_fused_bwd``,
-``csrc/orl.cu``) and the chamfer search (``ops/chamfer.py::chamfer_min_cuda``
-and ``chamfer_min_argmin_cuda``, ``csrc/chamfer.cu``), per launch.
+"""Where K9's, K10's and K16's to K18's time goes on one CUDA card: the
+fused surface backward (``ops/cuda_hs_fused.py::hs_surface_fused_bwd``,
+``csrc/hs_surface.cu``), the v4 step's ORL backward
+(``ops/cuda_hs_fused.py::orl_global_fused_bwd``, ``csrc/orl.cu``), the
+chamfer search (``ops/chamfer.py::chamfer_min_cuda`` and
+``chamfer_min_argmin_cuda``) and its gradient (``chamfer_grad_cuda``,
+``csrc/chamfer.cu``), per launch.
 
     python hspose_tpu_torch/tools/orl_chamfer_split.py --tree DIR [--out F.json]
+        [--passes K9 K10 K16 K17 K18]
 
 For the tree DIR (a checkout, such as a ``git archive`` of another commit) it
 times, from seeded inputs:
@@ -12,7 +16,9 @@ times, from seeded inputs:
   (256, 257, 20) twice and (512, 64, 8)), in fp32 and bf16, on the winners
   of the tree's K4 forward;
 * K16 and K17 at the recon tier's shape (24, 1028) x (24, 1028), both
-  directions;
+  directions, and K18 there for both clouds, on the tree's K17 argmins;
+* K9 at the B=16 step's conv_0 (N=1028, K=20, S=7, Co=128) in fp32 and bf16,
+  on the winners of the tree's K2 forward;
 
 each call's device time (CUDA events, mean of 20 calls after 3, enqueued
 behind a sleep kernel, as ``chip_smoke.py::cuda_ms``) and each launch's, by
@@ -84,7 +90,7 @@ def add(total: dict, label: str, ms: float, kernels: dict) -> None:
         k["ms"] += kms
 
 
-def collect(tree: str) -> dict:
+def collect(tree: str, passes=("K9", "K10", "K16", "K17", "K18")) -> dict:
     sys.path.insert(0, str(Path(tree).resolve()))
     import numpy as np
     import torch
@@ -102,9 +108,13 @@ def collect(tree: str) -> dict:
     def normal(*shape, scale=1.0):
         return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
 
+    def unit(n):
+        d = normal(3, n)
+        return d / d.norm(dim=0, keepdim=True)
+
     total = {}
     with torch.no_grad():
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16) if "K10" in passes else ():
             label = f"K10 {'fp32' if dtype == torch.float32 else 'bf16'} per v4 step"
             for c, n, k in [(256, 257, 20), (256, 257, 20), (512, 64, 8)]:
                 feat = normal(16, n, c).to(dtype)
@@ -119,8 +129,26 @@ def collect(tree: str) -> dict:
         b = (normal(24, 1028, 3, scale=0.2) + 0.05).contiguous()
         for label, fn in (("K16 per pass", ch.chamfer_min_cuda),
                           ("K17 per pass", ch.chamfer_min_argmin_cuda)):
+            if label[:3] not in passes:
+                continue
             for x, y in ((a, b), (b, a)):
                 add(total, label, call_ms(lambda: fn(x, y)), kernel_ms(lambda: fn(x, y)))
+        if "K18" in passes:  # both clouds' gradients: one pass of the backward
+            ia, ib = ch.chamfer_min_argmin_cuda(a, b)[1], ch.chamfer_min_argmin_cuda(b, a)[1]
+            gda, gdb = normal(24, 1028), normal(24, 1028)
+            for args in ((a, b, ia, ib, gda, gdb), (b, a, ib, ia, gdb, gda)):
+                add(total, "K18 per pass", call_ms(lambda: ch.chamfer_grad_cuda(*args)),
+                    kernel_ms(lambda: ch.chamfer_grad_cuda(*args)))
+        for fast in (False, True) if "K9" in passes else ():
+            verts = normal(16, 1028, 3, scale=0.2)
+            idx = knn_indices_cuda(verts, 20, packed=fast)
+            dirs, gb = unit(7 * 128), normal(16, 1028, 128)
+            win = f.hs_surface_fused_fwd(verts, idx, dirs, 7, 128, exact=not fast)[1]
+
+            def bwd():
+                return f.hs_surface_fused_bwd(verts, idx, dirs, win, gb, 7, 128, exact=not fast)
+
+            add(total, f"K9 {'bf16' if fast else 'fp32'} conv_0", call_ms(bwd), kernel_ms(bwd))
     return {"tree": tree, "card": torch.cuda.get_device_name(0), "passes": total}
 
 
@@ -128,13 +156,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", required=True, help="checkout whose hspose_tpu_torch to run")
     ap.add_argument("--out", help="where to write the JSON object")
+    ap.add_argument("--passes", nargs="+", default=["K9", "K10", "K16", "K17", "K18"],
+                    choices=["K9", "K10", "K16", "K17", "K18"], help="what to time")
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("orl_chamfer_split: no CUDA device", file=sys.stderr)
         return 2
-    res = collect(args.tree)
+    res = collect(args.tree, args.passes)
     text = json.dumps(res, indent=1)
     print(text)
     if args.out:

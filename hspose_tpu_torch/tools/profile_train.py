@@ -67,7 +67,7 @@ GROUPS = {"K1": ("(anonymous namespace)::knn_kernel<",),
 # left out), K12 and K15 (csrc/hs_surface_train.cu), by the names of this
 # tree and of the trees before it, and hs::sum_partials_kernel, which K13,
 # K14, K8, K9 and K10 all launch (and K15 in the trees before its own
-# partial sum, sum_tiles_kernel)
+# partial sum, hs::sum_tiles_kernel, which K9 launches too)
 TRAIN_GROUPS = {"K11": ("(anonymous namespace)::support_fwd_kernel<",
                         "hsp::gemm_kernel<float, false, false, false",
                         "hsp::gemm_kernel<__nv_bfloat16, false, false, true",
@@ -85,7 +85,7 @@ TRAIN_GROUPS = {"K11": ("(anonymous namespace)::support_fwd_kernel<",
                        "hsp::gemm_kernel<float, true", "hsp::gemm_kernel<__nv_bfloat16, true"),
                 "K12": ("(anonymous namespace)::surface_fwd_kernel<",),
                 "K15": ("(anonymous namespace)::surface_bwd_kernel<",
-                        "(anonymous namespace)::sum_tiles_kernel("),
+                        "sum_tiles_kernel("),
                 "partial sums (shared)": ("sum_partials_kernel",)}
 
 

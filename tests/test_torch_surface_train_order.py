@@ -37,8 +37,11 @@ torch.set_num_threads(2)  # the suite runs several workers on one host
 
 F32 = np.float32
 SRC = (_build.CSRC / "hs_surface_train.cu").read_text()
-TQ, QB, CC, SUM_ROWS = (int(re.search(rf"constexpr int {n} = (\d+);", SRC).group(1))
-                         for n in ("TQ", "QB", "CC", "SUM_ROWS"))
+TQ, QB, CC = (int(re.search(rf"constexpr int {n} = (\d+);", SRC).group(1))
+              for n in ("TQ", "QB", "CC"))
+# the staged partial sum K15 shares with K9 (hs::sum_tiles_kernel)
+SUM_ROWS = int(re.search(r"constexpr int SUM_ROWS = (\d+);",
+                         (_build.CSRC / "hs_common.cuh").read_text()).group(1))
 CHUNK = 32  # columns per chunk of the replaced backward
 
 
