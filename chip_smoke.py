@@ -179,7 +179,21 @@ not 0:
    launched twice with the same bits;
 22. the relaxed-KNN serving tier (``serve_k=16``, the kernels' generic-K
    branches) in fp32 and bf16: phase 4's and 7's launch counts, poses and
-   card-against-CPU gates on the same seeded weights.
+   card-against-CPU gates on the same seeded weights;
+23. the train loop: ``hspose_tpu_torch/tools/make_synth_nocs.py`` renders a
+   tree of 24 train and 4 test images into a temporary directory; the train
+   entry point (``engine/train.py::train``, the spawned worker pool, fp32)
+   takes 2 epochs of 3 steps at B=16, N=1028 with a checkpoint each epoch,
+   its counters exactly ``TRAIN_LAUNCHES["float32"]`` per step, its decode
+   path numpy and recorded in the checkpoints' ``meta.json``; epoch 0's
+   checkpoint restored into a fresh model and step gives every saved tensor
+   and count back bit for bit; the run resumed from it repeats epoch 1's
+   losses within ``RESUME_LOSS_REL`` (the card's backward adds with float
+   atomics, so bits need not repeat); the eval CLI's ``evaluate`` on the
+   test split from the last checkpoint, decoding the PNGs in numpy (the
+   card's machine has no libpng; the phase asserts that path), with
+   ``SERVE_LAUNCHES["float32"]`` per padded batch; cv2 never imported; the
+   loader's samples/s and the loop's steps/s printed.
 
 Each kernel's ``bound_ms`` is the least time the card could take for its
 calls: per call the larger of the bytes it must move (each input read once,
@@ -2271,6 +2285,131 @@ def kernel_line(rec: dict, launches: dict) -> dict:
     return {"kernels": kernels}
 
 
+LOOP_TRAIN, LOOP_TEST = 24, 4  # phase 23's rendered images
+LOOP_STEPS, LOOP_EPOCHS = 3, 2
+RESUME_LOSS_REL = 1e-3  # a resumed epoch's losses against the unbroken run's
+
+
+def phase_loop(smi: str) -> None:
+    """Phase 23: train entry point -> checkpoints -> resume -> eval CLI on a
+    rendered tree (the module docstring's item 23)."""
+    import math
+    import os
+    import pickle
+    import tempfile
+
+    from hspose_tpu_torch.config import parse_overrides
+    from hspose_tpu_torch.data import dataset as pds
+    from hspose_tpu_torch.engine import train as loop
+    from hspose_tpu_torch.engine.checkpoint import (
+        latest_checkpoint,
+        read_meta,
+        restore_checkpoint,
+    )
+    from hspose_tpu_torch.engine.train_step import build_train_step
+    from hspose_tpu_torch.evaluation.evaluate import evaluate
+    from hspose_tpu_torch.models.hspose import build_model
+
+    phase = "loop"
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, os.path.join(root, "hspose_tpu_torch", "tools",
+                                                     "make_synth_nocs.py"), tmp,
+                        "--train", str(LOOP_TRAIN), "--test", str(LOOP_TEST)],
+                       check=True, capture_output=True, text=True, cwd=root)
+        log(phase, f"rendered {LOOP_TRAIN} train / {LOOP_TEST} test images in "
+                   f"{time.perf_counter() - t0:.1f} s")
+        data = [f"data.dataset_dir={tmp}/NOCS", f"data.detection_dir={tmp}/segmentation_results"]
+
+        def run(out, *extra):
+            cfg = parse_overrides(data + [
+                f"train.batch_size={TRAIN_B}", f"train.train_steps={LOOP_STEPS}",
+                f"train.total_epoch={LOOP_EPOCHS}", "train.save_every=1", "train.log_every=1",
+                f"train.seed={SEED + 13}", f"train.model_save={tmp}/{out}", *extra])
+            counts = {**counters(), **train_counters()}
+            reset_counts(counts)
+            model, step = loop.train(cfg, device=DEVICE)
+            torch.cuda.synchronize()
+            with open(f"{tmp}/{out}/metrics.jsonl") as f:
+                recs = [json.loads(line) for line in f]
+            return cfg, model, step, read_counts(counts), recs
+
+        cfg, model, step, launches, recs = run("run")
+        decode = pds.decode_path(cfg.data)
+        log(phase, f"{LOOP_EPOCHS} epochs of {LOOP_STEPS} steps of ({TRAIN_B}, {N}, 3), "
+                   f"decode {decode}: launches { {k: v for k, v in launches.items() if v} }")
+        if decode != "numpy":
+            raise AssertionError(f"the loader decodes by {decode}; expected numpy (no libpng)")
+        check_counts(launches, TRAIN_LAUNCHES["float32"], LOOP_EPOCHS * LOOP_STEPS,
+                     "train loop step")
+        losses = {r["step"]: r["total_loss"] for r in recs if "total_loss" in r}
+        if len(losses) != LOOP_EPOCHS * LOOP_STEPS or not all(map(math.isfinite,
+                                                                   losses.values())):
+            raise AssertionError(f"train loop losses: {losses}")
+        epoch = [r for r in recs if "steps_per_s" in r][-1]
+        log(phase, f"loader {epoch['loader_samples_per_s']:.1f} samples/s "
+                   f"({int(epoch['num_workers'])} workers, {epoch['worker_samples_per_s']:.1f} "
+                   f"each), epoch 1 {epoch['steps_per_s']:.3f} steps/s "
+                   f"({epoch['data_wait_s']:.2f} s waiting for batches) on {smi}")
+
+        # epoch 0's checkpoint into a fresh model and step, bit for bit
+        first = f"{tmp}/run/model_000"
+        if read_meta(first).get("decode") != decode:
+            raise AssertionError(f"{first}/meta.json: {read_meta(first)}, decode {decode}")
+        saved = torch.load(f"{first}/state.pt", map_location=DEVICE, weights_only=True)
+        torch.manual_seed(SEED + 14)
+        fresh = build_model(cfg.model, device=DEVICE, train_heads=True)
+        fresh_step = build_train_step(cfg, fresh, torch.Generator(device=DEVICE))
+        restore_checkpoint(first, fresh, fresh_step)
+        got = {f"model.{k}": v for k, v in fresh.state_dict().items()}
+        want = {f"model.{k}": v for k, v in saved["model"].items()}
+        opt = fresh_step.optimizer
+        for i, p in enumerate(opt._params()):
+            for k, v in opt.state[p].items():
+                got[f"opt.{i}.{k}"], want[f"opt.{i}.{k}"] = v, saved["optimizer"]["state"][i][k]
+        differ = [k for k in want if not torch.equal(got[k], want[k])]
+        log(phase, f"epoch 0's checkpoint restored: {len(want)} tensors, {len(differ)} differ; "
+                   f"optimizer count {opt.count} (saved {saved['optimizer_count']}), "
+                   f"lr {opt.lr():.6e}")
+        if differ or got.keys() != want.keys() or opt.count != saved["optimizer_count"]:
+            raise AssertionError(f"the restored state is not the saved one: {differ[:5]}")
+
+        _, _, _, launches, recs_b = run("resumed", "train.resume=true",
+                                        f"train.resume_model={first}")
+        check_counts(launches, TRAIN_LAUNCHES["float32"], LOOP_STEPS, "resumed loop step")
+        resumed = {r["step"]: r["total_loss"] for r in recs_b if "total_loss" in r}
+        gap = max(abs(v - losses[k]) / abs(losses[k]) for k, v in resumed.items())
+        log(phase, f"resumed epoch 1 against the unbroken run: steps {sorted(resumed)}, "
+                   f"largest relative loss gap {gap:.3e} (bound {RESUME_LOSS_REL})")
+        if sorted(resumed) != sorted(losses)[LOOP_STEPS:] or not gap <= RESUME_LOSS_REL:
+            raise AssertionError(f"resumed losses {resumed} against {losses}")
+
+        # the eval CLI's evaluate on the test split from the last checkpoint
+        crops = 0
+        for name in os.listdir(f"{tmp}/segmentation_results/REAL275"):
+            with open(f"{tmp}/segmentation_results/REAL275/{name}", "rb") as f:
+                crops += len(pickle.load(f)["pred_class_ids"])
+        ckpt = latest_checkpoint(f"{tmp}/run")
+        eval_cfg = parse_overrides(data + ["eval.eval_seed=5", f"train.resume_model={ckpt}",
+                                           f"train.model_save={tmp}/eval"])
+        counts = counters()
+        reset_counts(counts)
+        summary = evaluate(eval_cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        launches = read_counts(counts)
+        batches = math.ceil(crops / eval_cfg.eval.eval_batch)
+        log(phase, f"eval CLI on {os.path.basename(ckpt)}: {crops} crops in {batches} batches, "
+                   f"launches { {k: v for k, v in launches.items() if v} }; "
+                   f"3D IoU at 25 {summary['IoU25']:.1f}, 10 degree 10cm {summary['10d10cm']:.1f}")
+        check_counts(launches, SERVE_LAUNCHES["float32"], batches, "eval batch")
+        if not all(map(math.isfinite, summary.values())):
+            raise AssertionError(f"eval summary not finite: {summary}")
+    if "cv2" in sys.modules:
+        raise AssertionError("cv2 was imported")
+    log(phase, "cv2 never imported")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -2319,6 +2458,7 @@ def main() -> int:
     phase_k13k14_shapes()
     for dtype in ("float32", "bfloat16"):
         phase_slice(dtype, serve_k=SERVE_K_RELAXED)
+    phase_loop(smi)
     print(json.dumps(kernel_line(rec, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,7 +17,10 @@ by ``ops/_build.py``:
 * both in the bf16 tier too, and the ``bwd_store=False`` /
   ``train_v4_small=True`` training routes (``ops/cuda_hs_fused.py``);
 * the eval harness, ``evaluation/evaluate.py``, with reference ``.pth``
-  loading and the recon-metric tier (``ops/chamfer.py``, ``ops/emd.py``).
+  loading and the recon-metric tier (``ops/chamfer.py``, ``ops/emd.py``);
+* the train loop, ``engine/train.py``: the NOCS train loader
+  (``data/dataset.py``, numpy decode where libpng is missing), the CLI and
+  checkpoints with resume (``engine/checkpoint.py``).
 """
 
 from hspose_tpu_torch.config import ModelConfig

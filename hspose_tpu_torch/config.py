@@ -1,11 +1,14 @@
 """Configuration of the port: only the fields its slices read.
 
 Defaults are copied from ``hspose_tpu/config.py`` (``ModelConfig``, the
-``DataConfig`` and ``EvalConfig`` fields the eval harness reads,
-``AugConfig``, ``LossConfig``, ``OptimConfig``, the ``TrainConfig`` fields
-the train step and the harness read, and ``ParallelConfig``'s axis sizes,
-which the one-device harness refuses above 1), leaving out the fields that
-neither package reads.  ``compute_dtype`` is ``"float32"`` or ``"bfloat16"``;
+``DataConfig`` fields the train loader and the eval harness read, the
+``EvalConfig`` fields the harness reads, ``AugConfig``, ``LossConfig``,
+``OptimConfig``, the ``TrainConfig`` fields the train loop, the step and the
+harness read, and ``ParallelConfig``'s axis sizes, which the one-device
+loop and harness refuse above 1), leaving out the fields that neither
+package reads, except ``data.sample_method`` and ``train.resume_point``: the
+JAX package reads neither, and they are kept only so that its command lines
+parse here unchanged.  ``compute_dtype`` is ``"float32"`` or ``"bfloat16"``;
 ``"f32x2"`` raises where the model is built, and so does a ``gcn_n_num`` or
 ``serve_k`` above 31 (``MAX_K``, the most the KNN kernel keeps).
 ``parse_overrides`` reads the CLI's ``section.key=value`` arguments as the
@@ -21,19 +24,37 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class DataConfig:
-    """Dataset paths and the host input pipeline of the eval harness."""
+    """Dataset paths and the host input pipelines of the train loop and the
+    eval harness."""
 
     dataset: str = "Real"  # 'CAMERA', 'Real', or 'CAMERA+Real'
     dataset_dir: str = "./data/NOCS"
     detection_dir: str = "./data/segmentation_results"
     per_obj: str = ""
+    # dynamic zoom-in crop augmentation (reference config/config.py:13-16)
+    dzi_pad_scale: float = 1.5
+    dzi_type: str = "uniform"
+    dzi_scale_ratio: float = 0.25
+    dzi_shift_ratio: float = 0.25
     img_size: int = 256  # cropped square ROI resolution
+    # 2D mask noise (reference config/config.py:22-23)
+    roi_mask_r: int = 3
+    roi_mask_pro: float = 0.5
     num_points: int = 1028  # points per crop
-    # -1 sizes the loader's thread pool from the host's cores
+    sample_method: str = "basic"  # not read: kept so JAX command lines parse
+    # 'host' only: back-projection and sampling per crop in the loader
+    # workers; 'device' is ROADMAP Queue 1 item 4
+    sample_mode: str = "host"
+    # -1 sizes the loader's worker pool from the host's cores
     # (data/dataset.py::resolve_num_workers)
     num_workers: int = -1
-    # fused C++ decode + crop (native/preproc.cpp), bit-exact against the cv2
-    # path, which it falls back to when the library cannot build or load
+    prefetch: int = 4  # batches in flight beyond one per worker
+    # fused C++ decode + crop (native/preproc.cpp, needs libpng) where the
+    # library builds and loads, else the numpy path of data/image_utils.py.
+    # Both decode losslessly, but their crops can differ at half-pixel source
+    # coordinates (closed-form affine in C++, cv2 5.0's LU solve in numpy), so
+    # the batch stream depends on the path: data/dataset.py::decode_path names
+    # it, and the train loop logs it and writes it into each checkpoint
     native_preproc: bool = True
 
 
@@ -121,14 +142,24 @@ class OptimConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     train_stage: str = "PoseNet_only"
+    seed: int = -1  # -1: the time; a resumed run takes its checkpoint's
     batch_size: int = 16
     total_epoch: int = 150
     train_steps: int = 1500
     accumulate: int = 1  # micro-batches per optimizer step (optax.MultiSteps)
-    # per-family finite flags in the step's metrics (``finite/<family>``)
+    save_every: int = 10  # epochs between checkpoints (and the last epoch)
+    log_every: int = 100  # steps between metric records
+    # checkpoints, metrics and logs of the train loop; the harness's outputs
+    model_save: str = "output/models"
+    resume: bool = False  # the loop restores train.resume_model
+    # a training checkpoint (engine/checkpoint.py) to resume or to evaluate,
+    # or a reference .pth for the harness
+    resume_model: str = ""
+    resume_point: int = 0  # not read: kept so JAX command lines parse
+    # per-family finite flags in the step's metrics (``finite/<family>``); the
+    # loop also turns on autograd's anomaly detection and stops at the first
+    # non-finite family
     debug_nan: bool = False
-    model_save: str = "output/models"  # the harness's outputs and log go here
-    resume_model: str = ""  # the weights the harness loads (a reference .pth)
 
 
 @dataclass(frozen=True)

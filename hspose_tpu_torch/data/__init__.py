@@ -1,2 +1,2 @@
-"""The train step's batched augmentation and the eval harness's host input
-pipeline (counterpart of ``hspose_tpu/data``)."""
+"""The train step's batched augmentation and the host input pipelines of
+the train loop and the eval harness (counterpart of ``hspose_tpu/data``)."""

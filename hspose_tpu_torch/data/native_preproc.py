@@ -3,20 +3,21 @@
 A copy of ``hspose_tpu/data/native_preproc.py``, which the port cannot
 import, that builds the shared source, read and never written, into its own
 ``build/hspose_tpu_torch/native/libpreproc.so`` under the repository root.
-The eval path's entry points only: the train loader's fused sample comes
-with the training loop.
 
 The C++ side fuses what the cv2 path does in five steps (depth-PNG decode,
 mask-PNG decode, three INTER_NEAREST ``warpAffine`` crops — reference
 ``tools/dataset_utils.py:80-136`` / ``tools/eval_utils.py:143-156``) into one
-pass that computes each output pixel's source coordinate once.  The warp
-replicates cv2's fixed-point nearest arithmetic bit-for-bit (asserted by
-``tests/test_native_preproc.py`` against the in-repo cv2 path).
+pass that computes each output pixel's source coordinate once.  Its affine is
+closed-form, where cv2 5.0 LU-solves ``getAffineTransform``, so at a few
+half-pixel source coordinates its crops differ from cv2's and from the numpy
+path's (``tests/test_torch_port_train_data.py`` holds this library to the JAX
+native path and the numpy path to the JAX cv2 path).
 
 Auto-builds ``libpreproc.so`` with g++ on first use (cached); every entry point
 returns ``None`` when the toolchain/library/libpng is missing, so callers fall
-back to the cv2 path — the native library is a pure accelerator, never a
-requirement.
+back to the numpy path of ``data/image_utils.py`` (the same decoded images;
+crops as above) — the native library is never a requirement.  The card's
+machine has no libpng, so there the numpy path runs.
 """
 
 from __future__ import annotations
@@ -83,6 +84,9 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.hsp_png_dims.argtypes = [ctypes.c_char_p, _i32p, _i32p]
         lib.hsp_decode_depth.argtypes = [ctypes.c_char_p, _u16p, ctypes.c_long,
                                          _i32p, _i32p]
+        lib.hsp_train_sample.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_double,
+            ctypes.c_double, ctypes.c_double, ctypes.c_int, _f32p, _f32p, _f32p, _i32p]
         lib.hsp_eval_crops.argtypes = [
             _u16p, ctypes.c_int, ctypes.c_int, _u8p, ctypes.c_int, _i32p,
             ctypes.c_int, _f64p, _f64p, ctypes.c_int, _f32p, _f32p, _f32p, _i32p,
@@ -125,6 +129,31 @@ def decode_depth(path: str) -> Optional[np.ndarray]:
     if rc != 0:
         return None
     return out
+
+
+def train_sample(depth_path: str, mask_path: str, inst_id: int, center,
+                 scale: float, out_size: int):
+    """Fused decode+crop for one training sample.
+
+    Returns (roi_depth (o,o) f32, roi_mask (o,o) f32, roi_coord (2,o,o) f32,
+    n_depth_pos, n_mask_and_depth) or None on any failure (caller falls back
+    to the numpy path, which owns the retry semantics)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    o = int(out_size)
+    roi_depth = np.empty((o, o), np.float32)
+    roi_mask = np.empty((o, o), np.float32)
+    roi_coord = np.empty((2, o, o), np.float32)
+    counts = np.zeros(2, np.int32)
+    rc = lib.hsp_train_sample(
+        depth_path.encode(), mask_path.encode(), int(inst_id),
+        float(center[0]), float(center[1]), float(scale), o,
+        _ptr(roi_depth, ctypes.c_float), _ptr(roi_mask, ctypes.c_float),
+        _ptr(roi_coord, ctypes.c_float), _ptr(counts, ctypes.c_int))
+    if rc != 0:
+        return None
+    return roi_depth, roi_mask, roi_coord, int(counts[0]), int(counts[1])
 
 
 def backproject(roi_depth: np.ndarray, cam_k: np.ndarray, roi_coord: np.ndarray,
@@ -171,7 +200,7 @@ def eval_crops(depth: np.ndarray, masks: np.ndarray, inst_cols, centers, scales,
     masks = np.ascontiguousarray(masks)
     depth = np.ascontiguousarray(depth, np.uint16)
     h, w, n_inst = masks.shape
-    if depth.shape != (h, w):  # incoherent inputs: let the cv2 path decide
+    if depth.shape != (h, w):  # incoherent inputs: let the numpy path decide
         return None
     n = len(inst_cols)
     o = int(out_size)

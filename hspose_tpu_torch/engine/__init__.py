@@ -1,2 +1,2 @@
-"""Train step, optimizer and learning-rate schedules (counterpart of
-``hspose_tpu/engine``)."""
+"""Train loop and checkpoints, train step, optimizer and learning-rate
+schedules (counterpart of ``hspose_tpu/engine``)."""

@@ -1,0 +1,200 @@
+"""Training entry point (counterpart of ``hspose_tpu/engine/train.py``).
+
+Equivalent of ``python -m engine.train`` (engine/train.py:25-165): seed resolution
+(incl. resume-from-checkpoint seed), model/optimizer/schedule build, resume restore,
+the epoch × step loop with NaN-skip and periodic logging, checkpoints every
+``save_every`` epochs and at the last.  The step is ``build_train_step`` on one
+device: the CUDA card, unless ``train`` is given ``device="cpu"`` (the tests)
+or the CLI runs with ``HSPOSE_PLATFORM=cpu``.
+
+    python -m hspose_tpu_torch.engine.train data.dataset_dir=/path/NOCS \\
+        train.batch_size=16 train.seed=1677330429
+
+Randomness: the model is initialised from ``torch.manual_seed(seed)``; the
+batch of step i of epoch e comes from (seed + 997 e, i), as in the JAX loop,
+and the step's own draws (augmentation, pooling, dropout) from a generator
+seeded anew at every step from (seed, e · train_steps + i), the counterpart
+of the JAX loop's ``fold_in(data_key, epoch * train_steps + i)``.  So a
+resumed run needs only the checkpoint's seed and epoch besides its tensors.
+
+``train.debug_nan`` turns on ``torch.autograd.set_detect_anomaly`` for the
+run and stops it with FloatingPointError at the first step whose loss
+family is not finite (``check_finite_metrics``).  ``HSPOSE_PROFILE_DIR``
+traces steps 10-14 of the first epoch with ``torch.profiler`` into
+``<dir>/train_steps_10_14.json``.
+
+Not ported: ``parallel.dp/mp/sp > 1`` (multi-GPU, ROADMAP Queue 1 item 6)
+and ``data.sample_mode=device`` (Queue 1 item 4) raise before anything is
+built.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+from dataclasses import asdict
+
+import numpy as np
+import torch
+
+from hspose_tpu_torch.config import HSPoseConfig, parse_overrides
+from hspose_tpu_torch.utils.logging import MetricWriter, setup_logger
+
+
+def check_trainable(cfg: HSPoseConfig) -> None:
+    """Raise on the settings the one-device, host-sampled loop does not run."""
+    p = cfg.parallel
+    if max(p.dp, p.mp, p.sp) > 1:
+        raise NotImplementedError(
+            f"parallel.dp={p.dp}, mp={p.mp}, sp={p.sp}: the port's train loop runs on one "
+            "device; multi-GPU is ROADMAP Queue 1 item 6")
+    if cfg.data.sample_mode != "host":
+        raise NotImplementedError(
+            f"data.sample_mode={cfg.data.sample_mode!r}: the port samples on the host; "
+            "device sampling is ROADMAP Queue 1 item 4")
+
+
+def step_seed(seed: int, global_step: int) -> int:
+    """The seed of one step's generator, from (seed, global step)."""
+    return int(np.random.SeedSequence([seed, global_step]).generate_state(1, np.uint64)[0] >> 1)
+
+
+def train(cfg: HSPoseConfig, device=None):
+    """Train as the config says; returns (model, step), the model and what
+    ``build_train_step`` returned, as the last step left them."""
+    check_trainable(cfg)
+    from hspose_tpu_torch.data.dataset import (
+        PoseTrainDataset,
+        decode_path,
+        make_worker_pool,
+        resolve_num_workers,
+    )
+    from hspose_tpu_torch.engine.checkpoint import read_meta, restore_checkpoint
+    from hspose_tpu_torch.engine.train_step import build_train_step
+    from hspose_tpu_torch.models.hspose import build_model
+
+    logger = setup_logger("train_log", os.path.join(cfg.train.model_save, "log.txt"))
+    logger.info("config: %s", asdict(cfg))
+    seed = cfg.train.seed if cfg.train.seed != -1 else int(time.time())
+
+    with torch.autograd.set_detect_anomaly(cfg.train.debug_nan):
+        if cfg.train.debug_nan:
+            logger.info("debug_nan: autograd anomaly detection on, finite checks every step")
+        torch.manual_seed(seed)
+        model = build_model(cfg.model, device=device, train_heads=True)
+        device = next(model.parameters()).device
+        generator = torch.Generator(device=device)
+        step = build_train_step(cfg, model, generator)
+
+        s_epoch = 0
+        if cfg.train.resume and cfg.train.resume_model:
+            last_epoch, seed = restore_checkpoint(cfg.train.resume_model, model, step)
+            s_epoch = last_epoch + 1
+            logger.info("resumed from %s at epoch %d (seed %d)",
+                        cfg.train.resume_model, s_epoch, seed)
+
+        dataset = PoseTrainDataset(cfg.data, mode="train")
+        logger.info("%d images found, %d models loaded", len(dataset), len(dataset.models))
+        decode = decode_path(cfg.data)
+        logger.info("decode: %s", decode)
+        saved = read_meta(cfg.train.resume_model).get("decode") if s_epoch else None
+        if saved and saved != decode:
+            # the two paths' crops can differ at half-pixel coordinates
+            logger.warning("resuming a run that decoded on the %s path on the %s "
+                           "path: its batches need not be an unbroken run's", saved, decode)
+        # loader worker processes (the reference's DataLoader workers,
+        # engine/train.py:65-69): one persistent pool for the whole run
+        num_workers = resolve_num_workers(cfg.data.num_workers)
+        logger.info("loader workers: %d", num_workers)
+        pool = make_worker_pool(cfg.data, "train", num_workers) if num_workers > 0 else None
+        writer = MetricWriter(cfg.train.model_save)
+        try:
+            _train_loop(cfg, logger, writer, dataset, pool, model, step, generator, seed,
+                        s_epoch, num_workers)
+        finally:
+            # terminate the worker pool on error paths too (a debug_nan raise or
+            # a checkpoint failure must not leak spawned processes)
+            writer.close()
+            if pool is not None:
+                pool.terminate()
+    return model, step
+
+
+def _train_loop(cfg, logger, writer, dataset, pool, model, step, generator, seed,
+                s_epoch, num_workers):
+    from hspose_tpu_torch.data.dataset import decode_path, resolve_num_workers, train_batches
+    from hspose_tpu_torch.engine.checkpoint import save_checkpoint
+    from hspose_tpu_torch.engine.train_step import check_finite_metrics, to_device
+
+    device = next(model.parameters()).device
+    bs, steps = cfg.train.batch_size, cfg.train.train_steps
+    profile_dir = os.environ.get("HSPOSE_PROFILE_DIR")
+    for epoch in range(s_epoch, cfg.train.total_epoch):
+        stats: dict = {}
+        batches = iter(train_batches(dataset, bs, steps, seed=seed + epoch * 997,
+                                     prefetch=cfg.data.prefetch,
+                                     pool=pool, stats=stats))
+        t0 = time.perf_counter()
+        waited, t_first, prof = 0.0, None, None
+        for i in range(steps):
+            tw = time.perf_counter()
+            batch = next(batches)
+            waited += time.perf_counter() - tw
+            # on-demand device tracing (SURVEY §5.1): steps 10-14 of the first epoch
+            if profile_dir and i == 10 and epoch == s_epoch:
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if device.type == "cuda":
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=acts)
+                prof.start()
+            global_step = epoch * steps + i
+            generator.manual_seed(step_seed(seed, global_step))
+            metrics = step(to_device(batch, device))
+            if cfg.train.debug_nan:
+                check_finite_metrics(metrics)
+            if prof is not None and i in (14, steps - 1):
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                prof.stop()
+                os.makedirs(profile_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(profile_dir, "train_steps_10_14.json"))
+                prof = None
+            if i % cfg.train.log_every == 0:
+                writer.write(global_step, metrics)
+                logger.info("epoch %d step %d total_loss %.4f", epoch, i, metrics["total_loss"])
+            if i == 0:
+                t_first = time.perf_counter()
+
+        # the step's floats synchronise with the card, so the clock is the card's pace
+        seconds = time.perf_counter() - t0
+        rest = time.perf_counter() - t_first
+        rate = steps / seconds
+        rate_rest = (steps - 1) / rest if steps > 1 else rate
+        worker_rate = bs * stats["batches"] / stats["worker_s"]
+        loader_rate = worker_rate * max(num_workers, 1)
+        logger.info("epoch %d done in %.1fs: %.3f steps/s (%.3f after its first step), "
+                    "%.1fs waiting for batches; loader (%s decode, %d workers): %.1f "
+                    "samples/s per worker, %.1f in all, against %.1f consumed",
+                    epoch, seconds, rate, rate_rest, waited, decode_path(cfg.data),
+                    num_workers, worker_rate, loader_rate, rate_rest * bs)
+        writer.write(epoch * steps + steps - 1, {
+            "epoch": epoch, "epoch_s": seconds, "steps_per_s": rate,
+            "steps_per_s_after_first": rate_rest, "data_wait_s": waited,
+            "loader_samples_per_s": loader_rate, "worker_samples_per_s": worker_rate,
+            "num_workers": num_workers})
+        resolve_num_workers(num_workers, rate_rest * bs, logger, worker_rate)
+        if (epoch + 1) % cfg.train.save_every == 0 or (epoch + 1) == cfg.train.total_epoch:
+            path = save_checkpoint(cfg.train.model_save, model, step, epoch, seed,
+                                   decode_path(cfg.data))
+            logger.info("checkpoint saved: %s", path)
+
+
+def main(argv=None):
+    cfg = parse_overrides(sys.argv[1:] if argv is None else argv)
+    os.makedirs(cfg.train.model_save, exist_ok=True)
+    train(cfg, device="cpu" if os.environ.get("HSPOSE_PLATFORM") == "cpu" else None)
+
+
+if __name__ == "__main__":
+    main()

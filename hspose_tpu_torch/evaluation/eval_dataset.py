@@ -2,7 +2,9 @@
 
 A copy of ``hspose_tpu/evaluation/eval_dataset.py`` in host sample mode (the
 port cannot import the JAX package; device sampling waits for ROADMAP Queue 1
-item 4), with cv2 imported only on its fallback path.
+item 4), without cv2: where the native library does not build, the decode
+and the crops run in numpy (``data/image_utils.py``) with cv2's bits; the
+native library's crops can differ from those at half-pixel coordinates.
 
 Equivalent of ``evaluation/load_data_eval.PoseDataset`` (:16-286): per test image,
 load the detection pickle (``results_{test,val}_{scene}_{id}.pkl``), crop each
@@ -112,30 +114,22 @@ class PoseEvalDataset:
         with open(detection_file, "rb") as f:
             detection_dict = pickle.load(f)
 
-        # native fast path: CRC-validated color dims without the pixel decode
-        # (the reference decodes the full RGB just for im_h/im_w,
-        # load_data_eval.py:139-143 — png_color_valid enforces the same
-        # accept/reject on corrupt files), one fused C++ depth decode, and one
-        # threaded batch of fused crops over all instances — bit-exact vs the
-        # cv2 path (tests/test_native_preproc.py)
+        # CRC-validated color dims without the pixel decode (the reference
+        # decodes the full RGB just for im_h/im_w, load_data_eval.py:139-143 —
+        # png_color_valid enforces the same accept/reject on corrupt files),
+        # one depth decode (native C++ where it builds, else numpy), and the
+        # fused crops of every instance (one threaded native batch, else
+        # numpy) — each bit-exact against its JAX twin (native / cv2 path)
         use_native = getattr(self.cfg, "native_preproc", True)
-        depth = None
-        dims = (iu.png_color_valid(img_path + "_color.png")
-                if use_native else None)
-        if dims is not None:
-            im_h, im_w = dims
-            depth = npp.decode_depth(img_path + "_depth.png")
-        else:
-            import cv2
-
-            rgb = cv2.imread(img_path + "_color.png")
-            if rgb is None:
-                return None
-            im_h, im_w = rgb.shape[:2]
+        dims = iu.png_color_valid(img_path + "_color.png")
+        if dims is None:
+            return None
+        im_h, im_w = dims
+        depth = npp.decode_depth(img_path + "_depth.png") if use_native else None
         if depth is None:
             try:
                 depth = iu.load_depth(img_path + "_depth.png")
-            except Exception:
+            except (OSError, ValueError):
                 return None
 
         num_instances = len(detection_dict["pred_class_ids"])
@@ -161,7 +155,6 @@ class PoseEvalDataset:
         native = (npp.eval_crops(depth, detection_dict["pred_masks"], sel,
                                  centers, scales, s)
                   if use_native and sel else None)
-        coord_2d = None if native is not None else iu.get_2d_coord(im_w, im_h)
         for i, j in enumerate(sel):
             cat_id = int(detection_dict["pred_class_ids"][j])
             if native is not None:
@@ -170,15 +163,10 @@ class PoseEvalDataset:
                 if counts[0] <= 1 or counts[1] <= 1:
                     return None
             else:
-                mask = detection_dict["pred_masks"][:, :, j]
-                roi_coord = iu.crop_resize_by_warp_affine(
-                    coord_2d.transpose(1, 2, 0), centers[i], scales[i],
-                    s).transpose(2, 0, 1)
-                roi_mask = iu.crop_resize_by_warp_affine(
-                    mask.astype(np.float32), centers[i], scales[i], s)
-                roi_depth = iu.crop_resize_by_warp_affine(
-                    depth.astype(np.float32), centers[i], scales[i], s)
-                if np.sum(roi_depth > 0) <= 1 or np.sum((roi_mask > 0) & (roi_depth > 0)) <= 1:
+                roi_depth, roi_mask, roi_coord, n_depth, n_both = iu.fused_crop(
+                    depth, detection_dict["pred_masks"][:, :, j] != 0, centers[i],
+                    scales[i], s)
+                if n_depth <= 1 or n_both <= 1:
                     return None
             pcl = host_depth_to_pcl(roi_depth, cam_k, roi_coord, roi_mask) / 1000.0
             pcls.append(host_sample_points(rng, pcl, self.cfg.num_points))

@@ -1,8 +1,11 @@
 """Load weights into the port's modules (counterpart of
 ``hspose_tpu/utils/params_io.py``): a reference HS-Pose torch checkpoint goes
-straight into a ``PoseNet9D``, with no JAX in between."""
+straight into a ``PoseNet9D``, with no JAX in between, and so does a
+checkpoint of the port's own train loop."""
 
 from __future__ import annotations
+
+import os
 
 import torch
 from torch import nn
@@ -30,11 +33,19 @@ def load_torch_checkpoint(model: nn.Module, path: str) -> None:
 
 
 def load_params(model: nn.Module, path: str) -> None:
-    """The harness's weights: a torch checkpoint (``.pth`` / ``.pt``).  The
-    JAX package also restores its own orbax training checkpoints here; the
-    port's checkpoints come with its training loop (ROADMAP Queue 1 item 2)."""
-    if not path.endswith((".pth", ".pt")):
+    """The harness's weights: a reference torch checkpoint (``.pth`` /
+    ``.pt``) or a checkpoint directory of the port's train loop
+    (``engine/checkpoint.py``, ``model_NNN/``).  The JAX package also
+    restores its own orbax checkpoints here; the port does not read them
+    (what is left of ROADMAP Queue 1 item 1)."""
+    from hspose_tpu_torch.engine.checkpoint import is_checkpoint, load_model_state
+
+    if os.path.isdir(path) and is_checkpoint(path):
+        load_model_state(model, path)
+    elif path.endswith((".pth", ".pt")):
+        load_torch_checkpoint(model, path)
+    else:
         raise NotImplementedError(
-            f"{path!r}: the port loads reference torch checkpoints (.pth, .pt); training "
-            "checkpoints come with the training loop (ROADMAP Queue 1 item 2)")
-    load_torch_checkpoint(model, path)
+            f"{path!r}: the port loads reference torch checkpoints (.pth, .pt) and its own "
+            "training checkpoints (model_NNN/ with state.pt); the JAX package's orbax "
+            "checkpoints are what is left of ROADMAP Queue 1 item 1")

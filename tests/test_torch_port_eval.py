@@ -34,6 +34,7 @@ import os
 import pickle
 import subprocess
 import sys
+import zlib
 from pathlib import Path
 
 import flax
@@ -68,7 +69,7 @@ from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
 from hspose_tpu_torch.ops.knn import knn_indices
 from hspose_tpu_torch.utils.convert import load_jax_params
 from hspose_tpu_torch.utils.params_io import load_torch_checkpoint
-from test_data_pipeline import nocs_root  # noqa: F401  (fixture)
+import test_data_pipeline
 
 torch.set_num_threads(2)  # the suite runs several workers on one host
 REPO = Path(__file__).resolve().parents[1]
@@ -254,6 +255,28 @@ def jittered(sample):
     return sample_jittered
 
 
+def stable_hash(obj):
+    return zlib.crc32(repr(obj).encode())
+
+
+@pytest.fixture(scope="module")
+def nocs_root(tmp_path_factory):
+    """The ``nocs_root`` scene of ``tests/test_data_pipeline.py`` with its
+    depth noise drawn from a fixed seed.  Its ``_write_scene`` seeds each
+    image from ``hash((scene, img_id))``, which Python randomises per
+    process, so every run would draw another scene; on a few of them the
+    two packages' fp32 distances pick different neighbours at a near-tie
+    (candidates closer than the rounding of the ||q||^2 + ||c||^2 - 2 q.c
+    expansion both use) and a pose moves by up to about 1e-3, which made
+    ``test_harness_poses_and_recon_metrics_match_jax`` pass or fail by the
+    run (``tests/_harness_knn_splits.py`` shows the candidates for a given
+    ``PYTHONHASHSEED``).  Here the seed is ``zlib.crc32`` of the same key,
+    the same in every process."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(test_data_pipeline, "hash", stable_hash, raising=False)
+        return test_data_pipeline.nocs_root.__wrapped__(tmp_path_factory)
+
+
 def read_preds(out_dir):
     with open(out_dir / "pred_result.pkl", "rb") as f:
         return pickle.load(f)
@@ -360,7 +383,12 @@ def test_harness_refuses_what_it_does_not_run(override, match):
 
 def test_parse_overrides_matches_jax():
     argv = ["data.num_points=2056", "--eval.recon=true", "eval.emd_iters=50",
-            "model.compute_dtype=bfloat16", "train.resume_model=w.pth", "parallel.dp=1"]
+            "model.compute_dtype=bfloat16", "train.resume_model=w.pth", "parallel.dp=1",
+            "data.dzi_pad_scale=1.25", "data.dzi_type=roi10d", "data.dzi_scale_ratio=0.5",
+            "data.dzi_shift_ratio=0.125", "data.roi_mask_r=2", "data.roi_mask_pro=0.75",
+            "data.sample_method=basic", "data.sample_mode=device", "data.prefetch=2",
+            "train.seed=1677330429", "train.save_every=3", "train.log_every=7",
+            "train.resume=true", "train.resume_point=4"]
     got, want = parse_overrides(argv), j_parse_overrides(argv)
     for section in dataclasses.fields(HSPoseConfig):
         for f in dataclasses.fields(getattr(got, section.name)):
@@ -401,7 +429,8 @@ def test_new_modules_import_neither_jax_nor_hspose_tpu():
         "for m in ('evaluation.evaluate', 'evaluation.eval_dataset', 'evaluation.metrics',\n"
         "          'evaluation.native_matcher', 'geometry.boxes', 'geometry.symmetry',\n"
         "          'utils.torch_convert', 'utils.params_io', 'utils.logging', 'ops.chamfer',\n"
-        "          'ops.emd', 'data.image_utils', 'data.native_preproc', 'data.dataset'):\n"
+        "          'ops.emd', 'data.image_utils', 'data.native_preproc', 'data.dataset',\n"
+        "          'engine.train', 'engine.checkpoint'):\n"
         "    importlib.import_module('hspose_tpu_torch.' + m)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'hspose_tpu', 'cv2', 'matplotlib'))\n"
