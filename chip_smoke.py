@@ -193,7 +193,21 @@ not 0:
    test split from the last checkpoint, decoding the PNGs in numpy (the
    card's machine has no libpng; the phase asserts that path), with
    ``SERVE_LAUNCHES["float32"]`` per padded batch; cv2 never imported; the
-   loader's samples/s and the loop's steps/s printed.
+   loader's samples/s and the loop's steps/s printed;
+24. the probes (``hspose_tpu_torch/tools/fast_mode_parity.py``,
+   ``train_sanity.py``) on seeded weights: one B=256 ``predict`` batch of
+   the mAP study's held-out crops in fp32, bf16 and bf16 + ``serve_k=16``,
+   each with exactly ``SERVE_LAUNCHES`` of its tier for the one forward,
+   finite poses and sizes, its first ``PROBE_CPU_CROPS`` crops against the
+   same weights and pools through the plain ops on the CPU (``SLICE_ATOL``,
+   in bf16 ``SLICE_ATOL_BF16``: in eval mode each crop is served alone),
+   and ``assemble`` giving a finite table; then ``PROBE_STEPS`` steps of
+   the sanity recipe in each training route (default, ``bwd_store=False``,
+   ``bwd_store=False, train_v4_small=True``, each in fp32 and bf16) with
+   ``pose_errors`` between the two halves: each half exactly
+   ``TRAIN_LAUNCHES`` of the route per step, the eval forward exactly
+   ``SERVE_LAUNCHES`` of its tier, the model back in train mode after it,
+   every loss finite and no step skipped.
 
 Each kernel's ``bound_ms`` is the least time the card could take for its
 calls: per call the larger of the bytes it must move (each input read once,
@@ -2410,6 +2424,88 @@ def phase_loop(smi: str) -> None:
     log(phase, "cv2 never imported")
 
 
+PROBE_CPU_CROPS = 32  # phase 24: crops of the B=256 batch held to the CPU plain ops
+PROBE_TIERS = (("float32", 0), ("bfloat16", 0), ("bfloat16", SERVE_K_RELAXED))
+PROBE_ROUTES = ("float32", "bfloat16", "recompute", "bf16recompute", "v4", "bf16v4")
+PROBE_STEPS = 20
+
+
+def phase_probes(smi: str) -> None:
+    """Phase 24: the probe machinery on the card (the module docstring's
+    item 24)."""
+    from hspose_tpu_torch.tools import fast_mode_parity as fmp
+    from hspose_tpu_torch.tools import train_sanity as ts
+
+    phase = "probes"
+    batches = fmp.held_out(fmp.EVAL_BS, fmp.EVAL_BS, easy=True)
+    head = [{k: v[:PROBE_CPU_CROPS] for k, v in batches[0].items()}]
+    for dtype, serve_k in PROBE_TIERS:
+        tier = ("fp32" if dtype == "float32" else "bf16") + (f"+k{serve_k}" if serve_k else "")
+        model = build_seeded_model(DEVICE, dtype, serve_k)
+        counts = counters()
+        reset_counts(counts)
+        (RT, s), = fmp.predict(model, batches, pool_device="cpu")
+        launches = read_counts(counts)
+        check_counts(launches, SERVE_LAUNCHES[dtype], 1, f"B={fmp.EVAL_BS} {tier} forward")
+        t0 = time.perf_counter()
+        fmp.predict(model, batches, pool_device="cpu")
+        wall = time.perf_counter() - t0
+        if RT.shape != (fmp.EVAL_BS, 4, 4) or s.shape != (fmp.EVAL_BS, 3) or not (
+                np.isfinite(RT).all() and np.isfinite(s).all()):
+            raise AssertionError(f"{tier}: poses {RT.shape}, sizes {s.shape}, or not finite")
+        (RT_cpu, s_cpu), = fmp.predict(copy.deepcopy(model).to("cpu"), head, pool_device="cpu")
+        diff = max(np.abs(RT[:PROBE_CPU_CROPS] - RT_cpu).max(),
+                   np.abs(s[:PROBE_CPU_CROPS] - s_cpu).max())
+        bound = SLICE_ATOL if dtype == "float32" else SLICE_ATOL_BF16
+        table = fmp.assemble(batches, [(RT, s)])
+        log(phase, f"{tier}: one predict batch of ({fmp.EVAL_BS}, {fmp.N_PTS}, 3), launches "
+                   f"{ {k: v for k, v in launches.items() if v} }; first {PROBE_CPU_CROPS} "
+                   f"crops against the CPU plain ops, max abs diff {diff:.2e} (bound {bound}); "
+                   f"second call {wall * 1e3:.1f} ms (host clock, with the host copies); "
+                   "table " + ", ".join(f"{k} {v:.2f}" for k, v in table.items()))
+        if not diff <= bound:
+            raise AssertionError(f"{tier}: card and CPU disagree beyond {bound}: {diff}")
+        if not all(map(np.isfinite, table.values())):
+            raise AssertionError(f"{tier}: table not finite: {table}")
+
+    half = PROBE_STEPS // 2
+    for tier in PROBE_ROUTES:
+        dt, store, v4 = TRAIN_TIERS[tier]
+        overrides = [f"model.bwd_store={store}", f"model.train_v4_small={v4}"]
+        cfg = ts.sanity_config(PROBE_STEPS, TRAIN_B, dt, overrides)
+        model, step = ts.build_trainer(cfg, SEED, DEVICE)
+        rng = np.random.default_rng(SEED)
+        eval_batch = ts.make_batch(rng, ts.EVAL_CROPS, N, ts.MEAN_SHAPE)
+        counts = {**counters(), **train_counters()}
+        losses, skipped = [], 0
+        for part in range(2):
+            if part:
+                reset_counts(counts)
+                errs = ts.pose_errors(model, eval_batch, torch.Generator(
+                    device=DEVICE).manual_seed(ts.EVAL_POOL_SEED))
+                check_counts(read_counts(counts), SERVE_LAUNCHES[dt], 1,
+                             f"{tier} pose_errors forward")
+                if not (model.training and all(map(np.isfinite, errs))):
+                    raise AssertionError(f"{tier}: pose_errors {errs}, train mode "
+                                         f"{model.training} after it")
+            reset_counts(counts)
+            got, n = ts.train_steps(step, rng, half, TRAIN_B, N, DEVICE, log_every=1,
+                                    log=lambda msg: None)
+            torch.cuda.synchronize()
+            check_counts(read_counts(counts), TRAIN_LAUNCHES[tier], half,
+                         f"{tier} sanity step")
+            losses += [v for _, v in got]
+            skipped += n
+        log(phase, f"{tier} ({dt}, bwd_store={store}, train_v4_small={v4}): {PROBE_STEPS} "
+                   f"steps of ({TRAIN_B}, {N}, 3), {half} + {half} with exact launch counts, "
+                   f"losses {losses[0]:.3f} -> {losses[-1]:.3f}, {skipped} skipped; "
+                   f"pose_errors between the halves: rot {errs[0]:.1f} deg, trans "
+                   f"{errs[1]:.1f} cm, size {errs[2]:.3f}")
+        if skipped or not all(map(np.isfinite, losses)):
+            raise AssertionError(f"{tier}: losses {losses}, {skipped} skipped")
+    log(phase, f"on {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -2459,6 +2555,7 @@ def main() -> int:
     for dtype in ("float32", "bfloat16"):
         phase_slice(dtype, serve_k=SERVE_K_RELAXED)
     phase_loop(smi)
+    phase_probes(smi)
     print(json.dumps(kernel_line(rec, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,16 +14,24 @@ data and released weights, which the repository does not hold.
 
 Recipe (the JAX script's): B=24, bf16, lr 4.5e-4 with 100 warm-up steps,
 one epoch of ``--steps`` steps, seed 7, host sampling; ``--dtype float32``
-trains the fp32 tier instead.  The init table comes from a 2-step run at
-lr · 1e-3 (the warm-up's start), which leaves the net at its initial
-weights.  Pass: trained 3D IoU at 25 above init + 20 and 10 degree, 10cm
-above init + 10.  Also printed: the train wall time, the loop's steps/s,
-the loader's samples/s and worker count (from the run's ``metrics.jsonl``)
-and the card's name and power limit.
+trains the fp32 tier instead.  ``--set section.key=value`` (repeatable) is
+passed to the train CLI after the recipe and chooses the training route
+(``model.bwd_store=false``, ``model.train_v4_small=true``); the run
+directories are named after the dtype and the overrides, so that routes do
+not share checkpoints, and the heading and ``convergence_tables.json``
+record them.  The eval CLI serves the default fp32 tier whatever the
+route: ``bwd_store`` and ``train_v4_small`` act in training only.  The
+init table comes from a 2-step run at lr · 1e-3 (the warm-up's start) on
+the same route, which leaves the net at its initial weights.  Pass:
+trained 3D IoU at 25 above init + 20 and 10 degree, 10cm above init + 10.
+Also printed: the train wall time, the loop's steps/s, the loader's
+samples/s and worker count (from the run's ``metrics.jsonl``) and the
+card's name and power limit.
 
 Usage:
   python hspose_tpu_torch/tools/convergence_artifact.py [--tree DIR] [--runs DIR]
-      [--steps N] [--dtype bfloat16|float32] [--skip-train]
+      [--steps N] [--dtype bfloat16|float32] [--set section.key=value ...]
+      [--skip-train]
 """
 
 import argparse
@@ -52,18 +60,35 @@ def run(cmd, log):
         raise SystemExit(f"command failed rc={p.returncode}: {' '.join(cmd)}")
 
 
-def train_cli(tree, out_dir, steps, dtype, seed=7):
-    cmd = [sys.executable, "-u", "-m", "hspose_tpu_torch.engine.train",
-           f"data.dataset_dir={tree}/NOCS",
-           f"data.detection_dir={tree}/segmentation_results",
-           "train.batch_size=24", f"model.compute_dtype={dtype}",
-           "optim.lr=4.5e-4", "optim.warmup_iters=100",
-           "train.total_epoch=1", f"train.train_steps={steps}",
-           "train.save_every=1", "train.log_every=100",
-           f"train.seed={seed}", f"train.model_save={out_dir}"]
+def train_cmd(tree, out_dir, steps, dtype, overrides=(), seed=7):
+    """The train CLI's command line: the recipe, then ``overrides``."""
+    return [sys.executable, "-u", "-m", "hspose_tpu_torch.engine.train",
+            f"data.dataset_dir={tree}/NOCS",
+            f"data.detection_dir={tree}/segmentation_results",
+            "train.batch_size=24", f"model.compute_dtype={dtype}",
+            "optim.lr=4.5e-4", "optim.warmup_iters=100",
+            "train.total_epoch=1", f"train.train_steps={steps}",
+            "train.save_every=1", "train.log_every=100",
+            f"train.seed={seed}", f"train.model_save={out_dir}", *overrides]
+
+
+def train_cli(tree, out_dir, steps, dtype, overrides=(), seed=7):
     t0 = time.perf_counter()
-    run(cmd, os.path.join(out_dir, "train_cli.log"))
+    run(train_cmd(tree, out_dir, steps, dtype, overrides, seed),
+        os.path.join(out_dir, "train_cli.log"))
     return time.perf_counter() - t0
+
+
+def run_dirs(runs, dtype, overrides=()):
+    """(trained, init) run directories of one route: named after the dtype
+    and the overrides (``model.bwd_store=false`` adds
+    ``_model.bwd_store-false``).  The overrides are checked against the
+    config first, so a misspelt key fails before any run."""
+    from hspose_tpu_torch.config import parse_overrides
+
+    parse_overrides(list(overrides))
+    tag = dtype + "".join("_" + re.sub(r"[^A-Za-z0-9_.-]", "-", o) for o in overrides)
+    return (os.path.join(runs, f"conv_{tag}"), os.path.join(runs, f"conv_init_{tag}"))
 
 
 def eval_cli(tree, ckpt_dir, out_dir):
@@ -105,6 +130,7 @@ def epoch_record(run_dir):
 
 
 def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
     try:
         return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True, text=True,
@@ -120,33 +146,35 @@ def main():
     ap.add_argument("--runs", default=os.path.join(default, "runs"))
     ap.add_argument("--steps", type=int, default=3000)
     ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    ap.add_argument("--set", dest="overrides", action="append", default=[],
+                    metavar="section.key=value",
+                    help="train CLI override after the recipe (the training route)")
     ap.add_argument("--skip-train", action="store_true",
                     help="reuse existing checkpoints/run dirs")
     args = ap.parse_args()
+    trained_dir, init_dir = run_dirs(args.runs, args.dtype, args.overrides)
 
     if not os.path.isdir(os.path.join(args.tree, "NOCS")):
         os.makedirs(args.tree, exist_ok=True)
         run([sys.executable, "hspose_tpu_torch/tools/make_synth_nocs.py", args.tree,
              "--train", "400", "--test", "50"], os.path.join(args.tree, "make_synth_nocs.log"))
 
-    trained_dir = os.path.join(args.runs, f"conv_{args.dtype}")
-    init_dir = os.path.join(args.runs, f"conv_init_{args.dtype}")
     os.makedirs(trained_dir, exist_ok=True)
     os.makedirs(init_dir, exist_ok=True)
 
     wall = None
     if not args.skip_train:
-        wall = train_cli(args.tree, trained_dir, args.steps, args.dtype)
+        wall = train_cli(args.tree, trained_dir, args.steps, args.dtype, args.overrides)
     # init-weights baseline: 2 warmup steps at lr*1e-3 leaves the net at init
     if not any(d.startswith("model_") for d in os.listdir(init_dir)):
-        train_cli(args.tree, init_dir, 2, args.dtype, seed=7)
+        train_cli(args.tree, init_dir, 2, args.dtype, args.overrides, seed=7)
 
     table_trained = eval_cli(args.tree, trained_dir, trained_dir)
     table_init = eval_cli(args.tree, init_dir, init_dir)
     rec = epoch_record(trained_dir)
 
     print(f"\n=== convergence artifact ({args.dtype}, B=24, {args.steps} steps, "
-          f"sample_mode=host) on {card()} ===")
+          f"sample_mode=host, overrides {args.overrides}) on {card()} ===")
     print(f"{'metric':>16s} | {'init':>7s} | {'trained':>7s}")
     for name in HEADLINE:
         print(f"{name:>16s} | {table_init[name]:7.1f} | "
@@ -159,8 +187,8 @@ def main():
           f"({rec['worker_samples_per_s']:.1f} per worker)")
     with open(os.path.join(trained_dir, "convergence_tables.json"), "w") as f:
         json.dump({"init": table_init, "trained": table_trained, "steps": args.steps,
-                   "dtype": args.dtype, "train_wall_s": wall, "epoch": rec,
-                   "card": card()}, f, indent=1)
+                   "dtype": args.dtype, "overrides": args.overrides, "train_wall_s": wall,
+                   "epoch": rec, "card": card()}, f, indent=1)
     # the pass bar: the trained table must dwarf init on the coarse bins
     ok = (table_trained["3D IoU at 25"] > table_init["3D IoU at 25"] + 20
           and table_trained["10 degree, 10cm"]
