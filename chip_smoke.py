@@ -208,6 +208,19 @@ not 0:
    ``TRAIN_LAUNCHES`` of the route per step, the eval forward exactly
    ``SERVE_LAUNCHES`` of its tier, the model back in train mode after it,
    every loss finite and no step skipped.
+25. device sampling (``data.sample_mode=device``, ``eval.sample_mode=
+   device``) on phase 23's tree: ``data/preprocess.py::roi_to_pointcloud``
+   on the card against the CPU with the same scores, bit for bit, on a B=24
+   eval batch and a B=16 train batch of the tree's crops, each with one
+   crop of fewer valid pixels than ``N`` and one of none (its ms per batch
+   printed); the train entry point in device mode, 1 epoch of 3 fp32 steps
+   at B=16, N=1028 with the spawned pool, exactly ``TRAIN_LAUNCHES
+   ["float32"]`` per step and finite losses, its loader samples/s beside
+   phase 23's host-mode figures; the eval CLI's ``evaluate`` in device mode
+   on its checkpoint with ``SERVE_LAUNCHES["float32"]`` per padded batch;
+   then the harness's crops/s at B=24 in device and in host mode on the
+   same test images (``DEVICE_RATE_BATCHES`` batches, exact launch counts);
+   cv2 never imported.
 
 Each kernel's ``bound_ms`` is the least time the card could take for its
 calls: per call the larger of the bytes it must move (each input read once,
@@ -2304,12 +2317,39 @@ LOOP_STEPS, LOOP_EPOCHS = 3, 2
 RESUME_LOSS_REL = 1e-3  # a resumed epoch's losses against the unbroken run's
 
 
-def phase_loop(smi: str) -> None:
-    """Phase 23: train entry point -> checkpoints -> resume -> eval CLI on a
-    rendered tree (the module docstring's item 23)."""
-    import math
+def render_tree(root: str) -> None:
+    """Render phase 23's tree of LOOP_TRAIN / LOOP_TEST images into ``root``."""
+    import os
+
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    subprocess.run([sys.executable, os.path.join(here, "hspose_tpu_torch", "tools",
+                                                 "make_synth_nocs.py"), root,
+                    "--train", str(LOOP_TRAIN), "--test", str(LOOP_TEST)],
+                   check=True, capture_output=True, text=True, cwd=here)
+    log("loop", f"rendered {LOOP_TRAIN} train / {LOOP_TEST} test images in "
+                f"{time.perf_counter() - t0:.1f} s")
+
+
+def test_crops(tree: str) -> int:
+    """The number of detection crops of the tree's test split."""
     import os
     import pickle
+
+    crops = 0
+    for name in os.listdir(f"{tree}/segmentation_results/REAL275"):
+        with open(f"{tree}/segmentation_results/REAL275/{name}", "rb") as f:
+            crops += len(pickle.load(f)["pred_class_ids"])
+    return crops
+
+
+def phase_loop(smi: str, tree: str | None = None) -> dict:
+    """Phase 23: train entry point -> checkpoints -> resume -> eval CLI on a
+    rendered tree (the module docstring's item 23); ``tree`` is rendered
+    here unless given.  Returns the unbroken run's last epoch record
+    (loader and loop rates)."""
+    import math
+    import os
     import tempfile
 
     from hspose_tpu_torch.config import parse_overrides
@@ -2325,16 +2365,12 @@ def phase_loop(smi: str) -> None:
     from hspose_tpu_torch.models.hspose import build_model
 
     phase = "loop"
-    root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable, os.path.join(root, "hspose_tpu_torch", "tools",
-                                                     "make_synth_nocs.py"), tmp,
-                        "--train", str(LOOP_TRAIN), "--test", str(LOOP_TEST)],
-                       check=True, capture_output=True, text=True, cwd=root)
-        log(phase, f"rendered {LOOP_TRAIN} train / {LOOP_TEST} test images in "
-                   f"{time.perf_counter() - t0:.1f} s")
-        data = [f"data.dataset_dir={tmp}/NOCS", f"data.detection_dir={tmp}/segmentation_results"]
+        if tree is None:
+            tree = tmp
+            render_tree(tree)
+        data = [f"data.dataset_dir={tree}/NOCS",
+                f"data.detection_dir={tree}/segmentation_results"]
 
         def run(out, *extra):
             cfg = parse_overrides(data + [
@@ -2400,10 +2436,7 @@ def phase_loop(smi: str) -> None:
             raise AssertionError(f"resumed losses {resumed} against {losses}")
 
         # the eval CLI's evaluate on the test split from the last checkpoint
-        crops = 0
-        for name in os.listdir(f"{tmp}/segmentation_results/REAL275"):
-            with open(f"{tmp}/segmentation_results/REAL275/{name}", "rb") as f:
-                crops += len(pickle.load(f)["pred_class_ids"])
+        crops = test_crops(tree)
         ckpt = latest_checkpoint(f"{tmp}/run")
         eval_cfg = parse_overrides(data + ["eval.eval_seed=5", f"train.resume_model={ckpt}",
                                            f"train.model_save={tmp}/eval"])
@@ -2422,6 +2455,7 @@ def phase_loop(smi: str) -> None:
     if "cv2" in sys.modules:
         raise AssertionError("cv2 was imported")
     log(phase, "cv2 never imported")
+    return epoch
 
 
 PROBE_CPU_CROPS = 32  # phase 24: crops of the B=256 batch held to the CPU plain ops
@@ -2506,6 +2540,148 @@ def phase_probes(smi: str) -> None:
     log(phase, f"on {smi}")
 
 
+DEVICE_RATE_BATCHES = 20  # phase 25: harness batches of B crops timed in each sample mode
+SHORT_CROP = 300  # phase 25: valid pixels of the short crop (fewer than N: it tiles)
+
+
+def crop_checks(batch: dict, rng) -> dict:
+    """``batch``'s crops with crop 1 cut to SHORT_CROP valid pixels and crop
+    2 to none, the mask of the rest as it was."""
+    from hspose_tpu_torch.data.preprocess import CROP_KEYS
+
+    batch = {k: batch[k].copy() for k in CROP_KEYS}
+    mask = batch["roi_mask"]
+    rows, cols = np.nonzero((batch["roi_depth"][1] > 0) & (mask[1] > 0))
+    keep = rng.choice(len(rows), SHORT_CROP, replace=False)
+    mask[1] = 0
+    mask[1, rows[keep], cols[keep]] = 1
+    mask[2] = 0
+    return batch
+
+
+def sample_on_card_and_cpu(phase: str, label: str, batch: dict, seed: int) -> None:
+    """``roi_to_pointcloud`` on the card and on the CPU with the same
+    scores: the clouds and counts bit for bit, and its ms per batch."""
+    from hspose_tpu_torch.data.preprocess import CROP_KEYS, roi_to_pointcloud
+    from hspose_tpu_torch.ops.sampling import draw_sample_scores
+
+    b, s = batch["roi_depth"].shape[:2]
+    scores = draw_sample_scores(torch.Generator().manual_seed(seed), b, s * s)
+    cpu = [torch.from_numpy(batch[k]) for k in CROP_KEYS]
+    card = [x.to(DEVICE) for x in cpu]
+    want, want_n = roi_to_pointcloud(scores, *cpu, N)
+    got, got_n = roi_to_pointcloud(scores.to(DEVICE), *card, N)
+    ms = cuda_ms(lambda: roi_to_pointcloud(scores.to(DEVICE), *card, N))
+    got, got_n = got.cpu(), got_n.cpu()
+    differ = int((got != want).any(-1).sum())
+    log(phase, f"{label}: roi_to_pointcloud ({b}, {s}, {s}) -> ({b}, {N}, 3) on the card "
+               f"against the CPU: {differ} of {b * N} points differ, valid pixels "
+               f"{got_n.tolist()} (CPU {want_n.tolist()}); {ms:.4f} ms a batch")
+    if not (torch.equal(got, want) and torch.equal(got_n, want_n)):
+        raise AssertionError(f"{label}: the card's sampled clouds are not the CPU's")
+    if not (want_n[1] == SHORT_CROP and want_n[2] == 0 and (want_n[3:] > N).all()):
+        raise AssertionError(f"{label}: valid pixels {want_n.tolist()}")
+
+
+def phase_device_sampling(smi: str, tree: str, host: dict) -> None:
+    """Phase 25: device sampling on phase 23's tree (the module docstring's
+    item 25); ``host`` is phase 23's epoch record."""
+    import math
+    import os
+    import tempfile
+
+    from hspose_tpu_torch.config import parse_overrides
+    from hspose_tpu_torch.data import dataset as pds
+    from hspose_tpu_torch.data.preprocess import CROP_KEYS
+    from hspose_tpu_torch.engine import train as loop
+    from hspose_tpu_torch.engine.checkpoint import latest_checkpoint
+    from hspose_tpu_torch.evaluation.evaluate import evaluate, load_eval_images
+    from hspose_tpu_torch.models.hspose import build_model
+    from hspose_tpu_torch.utils.params_io import load_params
+
+    phase = "device-sampling"
+    rng = np.random.default_rng(SEED + 15)
+    data = [f"data.dataset_dir={tree}/NOCS", f"data.detection_dir={tree}/segmentation_results"]
+
+    # 1. the card's sampling against the CPU's on the tree's crops
+    eval_cfg = parse_overrides(data + ["eval.sample_mode=device"])
+    records = load_eval_images(eval_cfg, SEED, num_workers=4)
+    crops = {k: np.concatenate([d[k] for d, _, _ in records]) for k in CROP_KEYS}
+    rows = np.arange(B) % len(crops["roi_depth"])  # the test split's crops, cycled to B
+    sample_on_card_and_cpu(phase, f"B={B} eval batch ({len(crops['roi_depth'])} crops cycled)",
+                           crop_checks({k: v[rows] for k, v in crops.items()}, rng), SEED + 16)
+    train_ds = pds.PoseTrainDataset(eval_cfg.data, sample_mode="device")
+    sample_on_card_and_cpu(phase, f"B={TRAIN_B} train batch",
+                           crop_checks(pds._make_batch_from(train_ds, SEED, 0, TRAIN_B), rng),
+                           SEED + 17)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 2. the train entry point in device mode
+        cfg = parse_overrides(data + [
+            "data.sample_mode=device", f"train.batch_size={TRAIN_B}",
+            f"train.train_steps={LOOP_STEPS}", "train.total_epoch=1", "train.log_every=1",
+            f"train.seed={SEED + 13}", f"train.model_save={tmp}/run"])
+        counts = {**counters(), **train_counters()}
+        reset_counts(counts)
+        loop.train(cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        launches = read_counts(counts)
+        with open(f"{tmp}/run/metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        log(phase, f"train loop, data.sample_mode=device: 1 epoch of {LOOP_STEPS} steps of "
+                   f"({TRAIN_B}, {N}, 3) sampled on the card, launches "
+                   f"{ {k: v for k, v in launches.items() if v} }")
+        check_counts(launches, TRAIN_LAUNCHES["float32"], LOOP_STEPS, "device-mode loop step")
+        losses = [r["total_loss"] for r in recs if "total_loss" in r]
+        if len(losses) != LOOP_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"device-mode train loop losses: {losses}")
+        epoch = [r for r in recs if "steps_per_s" in r][-1]
+        log(phase, f"loader, device mode: {epoch['loader_samples_per_s']:.1f} samples/s "
+                   f"({int(epoch['num_workers'])} workers, {epoch['worker_samples_per_s']:.1f} "
+                   f"each), {epoch['steps_per_s']:.3f} steps/s, {epoch['data_wait_s']:.2f} s "
+                   f"waiting; host mode (phase 23): {host['loader_samples_per_s']:.1f} "
+                   f"samples/s ({int(host['num_workers'])} workers, "
+                   f"{host['worker_samples_per_s']:.1f} each), {host['steps_per_s']:.3f} "
+                   f"steps/s; losses {', '.join(f'{v:.3f}' for v in losses)} on {smi}")
+
+        # 3. the eval CLI's evaluate in device mode on that checkpoint
+        ckpt = latest_checkpoint(f"{tmp}/run")
+        cfg = parse_overrides(data + ["eval.sample_mode=device", "eval.eval_seed=5",
+                                      f"train.resume_model={ckpt}", f"train.model_save={tmp}/eval"])
+        counts = counters()
+        reset_counts(counts)
+        summary = evaluate(cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        launches = read_counts(counts)
+        batches = math.ceil(test_crops(tree) / cfg.eval.eval_batch)
+        log(phase, f"eval CLI, eval.sample_mode=device, on {os.path.basename(ckpt)}: "
+                   f"{batches} batches, launches { {k: v for k, v in launches.items() if v} }; "
+                   f"3D IoU at 25 {summary['IoU25']:.1f}, 10 degree 10cm {summary['10d10cm']:.1f}")
+        check_counts(launches, SERVE_LAUNCHES["float32"], batches, "device-mode eval batch")
+        if not all(map(math.isfinite, summary.values())):
+            raise AssertionError(f"eval summary not finite: {summary}")
+
+        # the harness's crops/s in both sample modes on the same test images
+        model = build_model(cfg.model, device=DEVICE)
+        load_params(model, ckpt)
+        rates = {}
+        for mode in ("device", "host"):
+            rcfg = parse_overrides(data + [f"eval.sample_mode={mode}", f"eval.eval_batch={B}"])
+            base = load_eval_images(rcfg, SEED, num_workers=4)
+            n = sum(len(d["cat_id_0base"]) for d, _, _ in base)
+            reps = math.ceil((DEVICE_RATE_BATCHES + 1) * B / n)
+            run_harness(rcfg, model, base, SEED)  # warm
+            _, rates[mode], launches = run_harness(rcfg, model, base * reps, SEED)
+            check_counts(launches, SERVE_LAUNCHES["float32"], math.ceil(n * reps / B),
+                         f"{mode}-mode harness batch")
+        log(phase, f"harness at B={B}, {DEVICE_RATE_BATCHES}+ batches of the test images' crops: "
+                   f"device mode {rates['device']:.1f} crops/s, host mode {rates['host']:.1f} "
+                   f"crops/s on {smi}")
+    if "cv2" in sys.modules:
+        raise AssertionError("cv2 was imported")
+    log(phase, "cv2 never imported")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -2554,8 +2730,13 @@ def main() -> int:
     phase_k13k14_shapes()
     for dtype in ("float32", "bfloat16"):
         phase_slice(dtype, serve_k=SERVE_K_RELAXED)
-    phase_loop(smi)
-    phase_probes(smi)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tree:
+        render_tree(tree)
+        host_loop = phase_loop(smi, tree)
+        phase_probes(smi)
+        phase_device_sampling(smi, tree, host_loop)
     print(json.dumps(kernel_line(rec, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

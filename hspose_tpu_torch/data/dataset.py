@@ -19,8 +19,14 @@ crop/mask/label processing, and the 12-tensor sample dict.  Differences by desig
   which hide the CUDA card from them, or synchronously without a pool.
   Batches derive from (seed, step) only, so both modes yield the same stream.
 
-Only host sampling is ported (``sample_mode='host'``); device sampling is
-ROADMAP Queue 1 item 4.
+Two sample modes: ``sample_mode='host'`` back-projects and samples each
+cloud here (the reference's ``_depth_to_pcl`` / ``_sample_points``, with its
+rule of at least 50 points) and ships ``pcl_in``; ``sample_mode='device'``
+ships the 256² ``roi_depth`` / ``roi_mask`` (after its noise) /
+``roi_coord`` crops and ``cam_k``, and the train step samples on the card
+(``data/preprocess.py``).  Device mode draws nothing for sampling from the
+sample's generator and has no 50-point rule, as in the JAX package, so the
+two modes' streams part after a worker's first sample.
 """
 
 from __future__ import annotations
@@ -89,6 +95,12 @@ def _model_files(source: str, mode: str) -> List[str]:
     }[(mode, source)]
 
 
+def check_sample_mode(sample_mode: str) -> None:
+    """Raise a ValueError unless ``sample_mode`` is ``"host"`` or ``"device"``."""
+    if sample_mode not in ("host", "device"):
+        raise ValueError(f"sample_mode={sample_mode!r}: expected 'host' or 'device'")
+
+
 def decode_path(cfg: DataConfig) -> str:
     """Which decode and crop the loader runs: ``"native"`` (the C++ library,
     libpng) or ``"numpy"`` (zlib and numpy).  The decoded images are the same
@@ -100,14 +112,12 @@ def decode_path(cfg: DataConfig) -> str:
 class PoseTrainDataset:
     """Training-sample factory over the NOCS directory tree."""
 
-    def __init__(self, cfg: DataConfig, mode: str = "train"):
+    def __init__(self, cfg: DataConfig, mode: str = "train", sample_mode: str = "host"):
         assert cfg.dataset in ("CAMERA", "Real", "CAMERA+Real")
-        if cfg.sample_mode != "host":
-            raise NotImplementedError(
-                f"data.sample_mode={cfg.sample_mode!r}: the port samples on the host; "
-                "device sampling is ROADMAP Queue 1 item 4")
+        check_sample_mode(sample_mode)
         self.cfg = cfg
         self.mode = mode
+        self.sample_mode = sample_mode
         self.data_dir = cfg.dataset_dir
 
         lists = _read_img_lists(self.data_dir, cfg.dataset, mode)
@@ -281,6 +291,12 @@ class PoseTrainDataset:
             "model_point": model,
             "nocs_scale": np.float32(nocs_scale),
         }
+        if self.sample_mode == "device":
+            sample["roi_depth"] = roi_depth.astype(np.float32)
+            sample["roi_mask"] = roi_mask_def.astype(np.float32)
+            sample["roi_coord"] = roi_coord.astype(np.float32)
+            sample["cam_k"] = cam_k
+            return sample
         pcl = host_depth_to_pcl(roi_depth, cam_k, roi_coord, roi_mask_def)
         if len(pcl) < 50:  # load_data.py:276-277
             return retry()
@@ -396,9 +412,9 @@ def resolve_num_workers(num_workers: int,
 _WORKER_DS: Optional[PoseTrainDataset] = None
 
 
-def _worker_init(cfg: DataConfig, mode: str) -> None:
+def _worker_init(cfg: DataConfig, mode: str, sample_mode: str) -> None:
     global _WORKER_DS
-    _WORKER_DS = PoseTrainDataset(cfg, mode)
+    _WORKER_DS = PoseTrainDataset(cfg, mode, sample_mode)
 
 
 def _worker_make_batch(args):
@@ -408,15 +424,16 @@ def _worker_make_batch(args):
     return step, batch, time.perf_counter() - t0
 
 
-def make_worker_pool(cfg: DataConfig, mode: str = "train",
+def make_worker_pool(cfg: DataConfig, mode: str = "train", sample_mode: str = "host",
                      num_workers: Optional[int] = None):
     """Spawn the persistent data-loader worker pool (the reference's
     ``num_workers=20`` DataLoader processes, engine/train.py:65-69).
 
-    Each worker builds its own ``PoseTrainDataset`` once and serves batches for
-    the life of the pool (reuse it across epochs — spawn + dataset construction
-    is paid once).  The workers start with ``CUDA_VISIBLE_DEVICES`` empty, so
-    nothing they import can reach the card.  Close with ``pool.terminate()``.
+    Each worker builds its own ``PoseTrainDataset(cfg, mode, sample_mode)``
+    once and serves batches for the life of the pool (reuse it across epochs
+    — spawn + dataset construction is paid once).  The workers start with
+    ``CUDA_VISIBLE_DEVICES`` empty, so nothing they import can reach the
+    card.  Close with ``pool.terminate()``.
     """
     n = resolve_num_workers(num_workers if num_workers is not None
                             else cfg.num_workers)
@@ -424,7 +441,8 @@ def make_worker_pool(cfg: DataConfig, mode: str = "train",
     saved = os.environ.get("CUDA_VISIBLE_DEVICES")
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     try:
-        return ctx.Pool(max(n, 1), initializer=_worker_init, initargs=(cfg, mode))
+        return ctx.Pool(max(n, 1), initializer=_worker_init,
+                        initargs=(cfg, mode, sample_mode))
     finally:
         if saved is None:
             del os.environ["CUDA_VISIBLE_DEVICES"]

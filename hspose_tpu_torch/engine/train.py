@@ -23,8 +23,11 @@ family is not finite (``check_finite_metrics``).  ``HSPOSE_PROFILE_DIR``
 traces steps 10-14 of the first epoch with ``torch.profiler`` into
 ``<dir>/train_steps_10_14.json``.
 
-Not ported: ``parallel.dp/mp/sp > 1`` (multi-GPU, ROADMAP Queue 1 item 6)
-and ``data.sample_mode=device`` (Queue 1 item 4) raise before anything is
+``data.sample_mode=device`` makes the loader ship each sample's 256² crops
+instead of its cloud, and the step back-projects and samples them on the
+step's device (``models/hspose.py::train_forward``), with scores drawn from
+the step's generator after its other draws.  Not ported: ``parallel.dp/mp/
+sp > 1`` (multi-GPU, ROADMAP Queue 1 item 6) raises before anything is
 built.
 """
 
@@ -43,16 +46,15 @@ from hspose_tpu_torch.utils.logging import MetricWriter, setup_logger
 
 
 def check_trainable(cfg: HSPoseConfig) -> None:
-    """Raise on the settings the one-device, host-sampled loop does not run."""
+    """Raise on the settings the one-device loop does not run."""
+    from hspose_tpu_torch.data.dataset import check_sample_mode
+
     p = cfg.parallel
     if max(p.dp, p.mp, p.sp) > 1:
         raise NotImplementedError(
             f"parallel.dp={p.dp}, mp={p.mp}, sp={p.sp}: the port's train loop runs on one "
             "device; multi-GPU is ROADMAP Queue 1 item 6")
-    if cfg.data.sample_mode != "host":
-        raise NotImplementedError(
-            f"data.sample_mode={cfg.data.sample_mode!r}: the port samples on the host; "
-            "device sampling is ROADMAP Queue 1 item 4")
+    check_sample_mode(cfg.data.sample_mode)
 
 
 def step_seed(seed: int, global_step: int) -> int:
@@ -94,10 +96,11 @@ def train(cfg: HSPoseConfig, device=None):
             logger.info("resumed from %s at epoch %d (seed %d)",
                         cfg.train.resume_model, s_epoch, seed)
 
-        dataset = PoseTrainDataset(cfg.data, mode="train")
+        sample_mode = cfg.data.sample_mode
+        dataset = PoseTrainDataset(cfg.data, mode="train", sample_mode=sample_mode)
         logger.info("%d images found, %d models loaded", len(dataset), len(dataset.models))
         decode = decode_path(cfg.data)
-        logger.info("decode: %s", decode)
+        logger.info("decode: %s, sample mode: %s", decode, sample_mode)
         saved = read_meta(cfg.train.resume_model).get("decode") if s_epoch else None
         if saved and saved != decode:
             # the two paths' crops can differ at half-pixel coordinates
@@ -107,7 +110,8 @@ def train(cfg: HSPoseConfig, device=None):
         # engine/train.py:65-69): one persistent pool for the whole run
         num_workers = resolve_num_workers(cfg.data.num_workers)
         logger.info("loader workers: %d", num_workers)
-        pool = make_worker_pool(cfg.data, "train", num_workers) if num_workers > 0 else None
+        pool = (make_worker_pool(cfg.data, "train", sample_mode, num_workers)
+                if num_workers > 0 else None)
         writer = MetricWriter(cfg.train.model_save)
         try:
             _train_loop(cfg, logger, writer, dataset, pool, model, step, generator, seed,

@@ -1,10 +1,13 @@
 """Evaluation dataset: DualPoseNet detection pickles → per-instance point clouds.
 
-A copy of ``hspose_tpu/evaluation/eval_dataset.py`` in host sample mode (the
-port cannot import the JAX package; device sampling waits for ROADMAP Queue 1
-item 4), without cv2: where the native library does not build, the decode
-and the crops run in numpy (``data/image_utils.py``) with cv2's bits; the
-native library's crops can differ from those at half-pixel coordinates.
+A copy of ``hspose_tpu/evaluation/eval_dataset.py`` (the port cannot import
+the JAX package) without cv2: where the native library does not build, the
+decode and the crops run in numpy (``data/image_utils.py``) with cv2's bits;
+the native library's crops can differ from those at half-pixel coordinates.
+In host sample mode each crop's cloud is sampled here (``pcl_in``); in
+device mode (``eval.sample_mode=device``) the image's crops are stacked as
+``roi_depth``, ``roi_mask``, ``roi_coord`` and ``cam_k``, and the harness
+samples them on the card (``data/preprocess.py``).
 
 Equivalent of ``evaluation/load_data_eval.PoseDataset`` (:16-286): per test image,
 load the detection pickle (``results_{test,val}_{scene}_{id}.pkl``), crop each
@@ -29,6 +32,7 @@ from hspose_tpu_torch.data.dataset import (
     CAMERA_INTRINSICS,
     REAL_INTRINSICS,
     _read_img_lists,
+    check_sample_mode,
     host_depth_to_pcl,
     host_sample_points,
 )
@@ -36,8 +40,10 @@ from hspose_tpu_torch.geometry import symmetry as sym_tab
 
 
 class PoseEvalDataset:
-    def __init__(self, cfg: DataConfig, mode: str = "test"):
+    def __init__(self, cfg: DataConfig, mode: str = "test", sample_mode: str = "host"):
+        check_sample_mode(sample_mode)
         self.cfg = cfg
+        self.sample_mode = sample_mode
         self.data_dir = cfg.dataset_dir
         self.detection_dir = cfg.detection_dir
         lists = _read_img_lists(self.data_dir, cfg.dataset, mode)
@@ -137,6 +143,7 @@ class PoseEvalDataset:
 
         sym_infos, mean_shapes, obj_ids, obj_ids_0, pcls, valid_idx = \
             [], [], [], [], [], []
+        roi_depths, roi_masks, roi_coords, cam_ks = [], [], [], []
         sel, centers, scales = [], [], []
         for j in range(num_instances):
             cat_id = int(detection_dict["pred_class_ids"][j])
@@ -168,8 +175,14 @@ class PoseEvalDataset:
                     scales[i], s)
                 if n_depth <= 1 or n_both <= 1:
                     return None
-            pcl = host_depth_to_pcl(roi_depth, cam_k, roi_coord, roi_mask) / 1000.0
-            pcls.append(host_sample_points(rng, pcl, self.cfg.num_points))
+            if self.sample_mode == "device":
+                roi_depths.append(roi_depth.astype(np.float32))
+                roi_masks.append(roi_mask.astype(np.float32))
+                roi_coords.append(roi_coord.astype(np.float32))
+                cam_ks.append(cam_k)
+            else:
+                pcl = host_depth_to_pcl(roi_depth, cam_k, roi_coord, roi_mask) / 1000.0
+                pcls.append(host_sample_points(rng, pcl, self.cfg.num_points))
 
             cat_name = self.id2cat_name[str(cat_id)]
             sym_infos.append(sym_tab.sym_info(cat_name))
@@ -188,6 +201,13 @@ class PoseEvalDataset:
             "cat_id_0base": np.array(obj_ids_0, np.int32),
             "sym_info": np.array(sym_infos, np.float32).reshape(-1, 4),
             "mean_shape": np.array(mean_shapes, np.float32).reshape(-1, 3),
-            "pcl_in": np.array(pcls, np.float32).reshape(-1, self.cfg.num_points, 3),
         }
+        if self.sample_mode == "device":
+            data_dict["roi_depth"] = np.array(roi_depths, np.float32).reshape(-1, s, s)
+            data_dict["roi_mask"] = np.array(roi_masks, np.float32).reshape(-1, s, s)
+            data_dict["roi_coord"] = np.array(roi_coords, np.float32).reshape(-1, 2, s, s)
+            data_dict["cam_k"] = np.array(cam_ks, np.float32).reshape(-1, 3, 3)
+        else:
+            data_dict["pcl_in"] = np.array(pcls, np.float32).reshape(
+                -1, self.cfg.num_points, 3)
         return data_dict, detection_dict, gts

@@ -16,11 +16,20 @@ IoU 0-1 x 0.01.  ``eval.recon`` also measures, per detection, the chamfer
 distance (``ops/chamfer.py``, K16 under no_grad) and the Sinkhorn EMD
 (``ops/emd.py``) between the recon head's cloud and the observed points.
 
-The pooling samples come from a ``torch.Generator`` seeded from the eval
-seed, one draw per batch, or are given by the caller (``pool_samples``, the
-same for every batch; the tests pass the JAX package's).  Not ported:
-``parallel.dp/mp/sp > 1`` (multi-GPU, ROADMAP Queue 1 item 6) and
-``eval.sample_mode=device`` (Queue 1 item 4) raise.
+With ``eval.sample_mode=device`` the records carry each crop's 256²
+depth, mask and pixel coordinates and its intrinsics in place of a cloud;
+the padded batch of crops goes to the model's device, and the forward
+back-projects and samples it there (``data/preprocess.py::
+roi_to_pointcloud``, ``data.num_points`` points) before the model, as the
+JAX harness does.
+
+The random numbers come from one ``torch.Generator`` seeded from the eval
+seed, which draws per batch the sampling scores (device mode), then the
+pooling samples, as the JAX harness draws both from one key per batch.  The
+caller may give either instead: ``pool_samples``, the same for every
+batch, and ``sample_scores``, one (B, H·W) tensor per batch (the tests pass
+the JAX package's).  Not ported: ``parallel.dp/mp/sp > 1`` (multi-GPU,
+ROADMAP Queue 1 item 6) raises.
 """
 
 from __future__ import annotations
@@ -37,35 +46,44 @@ import numpy as np
 import torch
 
 from hspose_tpu_torch.config import HSPoseConfig, parse_overrides
+from hspose_tpu_torch.data.preprocess import CROP_KEYS, roi_to_pointcloud
 from hspose_tpu_torch.geometry.symmetry import SYNSET_NAMES
 from hspose_tpu_torch.utils.logging import setup_logger
 
 
 def check_one_device(cfg: HSPoseConfig) -> None:
-    """Raise on the settings the one-device, host-sampled harness does not run."""
+    """Raise on the settings the one-device harness does not run."""
     p = cfg.parallel
     if max(p.dp, p.mp, p.sp) > 1:
         raise NotImplementedError(
             f"parallel.dp={p.dp}, mp={p.mp}, sp={p.sp}: the port's harness runs on one "
             "device; multi-GPU is ROADMAP Queue 1 item 6")
-    if cfg.eval.sample_mode != "host":
-        raise NotImplementedError(
-            f"eval.sample_mode={cfg.eval.sample_mode!r}: the port samples on the host; "
-            "device sampling is ROADMAP Queue 1 item 4")
 
 
-def _build_forward(cfg: HSPoseConfig, model, generator: Optional[torch.Generator],
-                   pool_samples: Optional[Sequence[torch.Tensor]]):
-    """One padded batch on the model's device -> (RT, scales[, chamfer, emd])."""
+def _build_forward(cfg: HSPoseConfig, model, generator: torch.Generator,
+                   pool_samples: Optional[Sequence[torch.Tensor]],
+                   sample_scores: Optional[Sequence[torch.Tensor]]):
+    """One padded batch on the model's device -> (RT, scales[, chamfer,
+    emd]).  The batch's crops are a dict: ``pcl_in``, or in device mode the
+    ``CROP_KEYS`` tensors, sampled here to ``data.num_points`` points."""
     from hspose_tpu_torch.geometry.rotations import generate_RT
     from hspose_tpu_torch.models.hspose import draw_pool_samples, eval_forward
     from hspose_tpu_torch.ops.chamfer import chamfer_distance
     from hspose_tpu_torch.ops.emd import emd_distance
+    from hspose_tpu_torch.ops.sampling import draw_sample_scores
 
     with_recon = cfg.eval.recon
 
     @torch.no_grad()
-    def forward(pc, obj_id, sym, mean_shape):
+    def forward(crop, obj_id, sym, mean_shape, batch_no):
+        if "pcl_in" in crop:
+            pc = crop["pcl_in"]
+        else:
+            depth = crop["roi_depth"]
+            scores = (sample_scores[batch_no].to(depth.device) if sample_scores is not None
+                      else draw_sample_scores(generator, depth.shape[0], depth[0].numel()))
+            pc, _ = roi_to_pointcloud(scores, *(crop[k] for k in CROP_KEYS),
+                                      cfg.data.num_points)
         samples = (pool_samples if pool_samples is not None
                    else draw_pool_samples(pc.shape[1], generator, pc.device))
         out = eval_forward(model, pc, obj_id, pool_samples=samples, with_heads=with_recon)
@@ -86,12 +104,16 @@ def _build_forward(cfg: HSPoseConfig, model, generator: Optional[torch.Generator
 
 
 def batched_pose_inference(cfg: HSPoseConfig, model, image_records, seed: int,
-                           pool_samples: Optional[Sequence[torch.Tensor]] = None):
+                           pool_samples: Optional[Sequence[torch.Tensor]] = None,
+                           sample_scores: Optional[Sequence[torch.Tensor]] = None):
     """Run the posenet over all detection crops in fixed-size padded batches
     on the model's device.
 
     image_records: iterable of (data_dict, detection_dict, gts) from
-    ``PoseEvalDataset`` (a generator streams them).  Fills each
+    ``PoseEvalDataset`` (a generator streams them), in either sample mode:
+    records with ``pcl_in`` are served as they are, records of crops are
+    sampled on the model's device.  ``pool_samples`` and ``sample_scores``
+    (batch i's scores at index i) replace the generator's draws.  Fills each
     detection_dict with 'pred_RTs' and 'pred_scales' (with ``eval.recon``
     also 'chamfer_dis_cass' and 'emd_dis_cass'), and the gt_* fields the
     mAP stage needs; returns (pred_results, crops_per_second), the first
@@ -104,17 +126,14 @@ def batched_pose_inference(cfg: HSPoseConfig, model, image_records, seed: int,
         first = next(records)
     except StopIteration:
         return [], 0.0
-    if "pcl_in" not in first[0]:
-        raise NotImplementedError("records without host-sampled 'pcl_in': device sampling "
-                                  "is ROADMAP Queue 1 item 4")
-    generator = (torch.Generator(device=device).manual_seed(seed) if pool_samples is None
-                 else None)
-    forward_fn = _build_forward(cfg, model, generator, pool_samples)
+    crop_keys = ("pcl_in",) if "pcl_in" in first[0] else CROP_KEYS
+    generator = torch.Generator(device=device).manual_seed(seed)
+    forward_fn = _build_forward(cfg, model, generator, pool_samples, sample_scores)
 
-    state = {"t_start": None, "timed_from": 0, "fetched": 0}
+    state = {"t_start": None, "timed_from": 0, "fetched": 0, "batch_no": 0}
     # per-record output holders; records complete in order
     pred_results: List[Dict] = []
-    crops: List = []
+    crops: Dict[str, List] = {k: [] for k in crop_keys}
     ids: List = []
     syms: List = []
     means: List = []
@@ -135,7 +154,8 @@ def batched_pose_inference(cfg: HSPoseConfig, model, image_records, seed: int,
             detection_dict["emd_dis_cass"] = np.zeros(n)
         pred_results.append(detection_dict)
         for j in range(n):
-            crops.append(data["pcl_in"][j])
+            for k in crop_keys:
+                crops[k].append(data[k][j])
             ids.append(data["cat_id_0base"][j])
             syms.append(data["sym_info"][j])
             means.append(data["mean_shape"][j])
@@ -162,12 +182,17 @@ def batched_pose_inference(cfg: HSPoseConfig, model, image_records, seed: int,
     def submit(n_valid):
         nonlocal in_flight
         pad = B - n_valid
-        outs = forward_fn(to_device(crops[:n_valid] + [crops[0]] * pad, np.float32),
+        outs = forward_fn({k: to_device(v[:n_valid] + [v[0]] * pad, np.float32)
+                           for k, v in crops.items()},
                           to_device(ids[:n_valid] + [ids[0]] * pad, np.int32),
                           to_device(syms[:n_valid] + [syms[0]] * pad, np.float32),
-                          to_device(means[:n_valid] + [means[0]] * pad, np.float32))
+                          to_device(means[:n_valid] + [means[0]] * pad, np.float32),
+                          state["batch_no"])
+        state["batch_no"] += 1
         flight_owners = owners[:n_valid]
-        del crops[:n_valid], ids[:n_valid], syms[:n_valid], means[:n_valid], owners[:n_valid]
+        for v in crops.values():
+            del v[:n_valid]
+        del ids[:n_valid], syms[:n_valid], means[:n_valid], owners[:n_valid]
         prev, in_flight = in_flight, (outs, flight_owners, n_valid)
         if prev is not None:
             land(prev)
@@ -192,12 +217,13 @@ def iter_eval_images(cfg: HSPoseConfig, seed: int, num_workers: int = 8,
                      limit: Optional[int] = None, window: int = 32):
     """Stream eval image records with a bounded look-ahead window: a thread
     pool keeps at most ``window`` images in flight.  Image i samples its
-    points from ``SeedSequence([seed, i])``, as the JAX harness does."""
+    points from ``SeedSequence([seed, i])``, as the JAX harness does, or in
+    device mode (``eval.sample_mode``) ships its crops."""
     from collections import deque
 
     from hspose_tpu_torch.evaluation.eval_dataset import PoseEvalDataset
 
-    ds = PoseEvalDataset(cfg.data, mode="test")
+    ds = PoseEvalDataset(cfg.data, mode="test", sample_mode=cfg.eval.sample_mode)
     n = len(ds) if limit is None else min(limit, len(ds))
 
     def load(i):
@@ -248,10 +274,13 @@ def report_lines(iou_aps, pose_aps, degree_thres_list, shift_thres_list,
 
 
 def evaluate(cfg: HSPoseConfig, device=None,
-             pool_samples: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, float]:
+             pool_samples: Optional[Sequence[torch.Tensor]] = None,
+             sample_scores: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, float]:
     """Weights (``train.resume_model``) -> predictions -> the mAP table, on
-    ``device`` (the CUDA card unless the caller names another).  The AP
-    curves are plotted where matplotlib is installed."""
+    ``device`` (the CUDA card unless the caller names another), in the
+    sample mode ``eval.sample_mode`` names; ``pool_samples`` and
+    ``sample_scores`` as in :func:`batched_pose_inference`.  The AP curves
+    are plotted where matplotlib is installed."""
     from hspose_tpu_torch.evaluation.metrics import compute_degree_cm_mAP
 
     check_one_device(cfg)
@@ -276,7 +305,7 @@ def evaluate(cfg: HSPoseConfig, device=None,
         logger.info("streaming eval images through batched inference...")
         pred_results, crops_per_sec = batched_pose_inference(
             cfg, model, iter_eval_images(cfg, seed, resolve_num_workers(cfg.data.num_workers)),
-            seed, pool_samples)
+            seed, pool_samples, sample_scores)
         logger.info(f"{len(pred_results)} images evaluated")
         with open(pred_path, "wb") as f:
             pickle.dump(pred_results, f)

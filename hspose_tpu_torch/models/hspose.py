@@ -3,12 +3,13 @@ losses (counterpart of ``hspose_tpu/models/hspose.py``)."""
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from hspose_tpu_torch.config import HSPoseConfig, ModelConfig
 from hspose_tpu_torch.data.augment import AugmentDraws, augment_batch, draw_augment
+from hspose_tpu_torch.data.preprocess import CROP_KEYS, roi_to_pointcloud
 from hspose_tpu_torch.geometry.rotations import get_gt_v
 from hspose_tpu_torch.losses import (
     control_loss,
@@ -20,6 +21,7 @@ from hspose_tpu_torch.losses import (
 from hspose_tpu_torch.models.heads import KEEP_PROB
 from hspose_tpu_torch.models.posenet import PoseNet9D, PoseNetOutput, PoseNetTrainOutput
 from hspose_tpu_torch.ops.cuda_knn import MAX_K
+from hspose_tpu_torch.ops.sampling import draw_sample_scores
 
 LossDicts = Dict[str, Dict[str, torch.Tensor]]
 
@@ -106,21 +108,29 @@ class TrainDraws(NamedTuple):
     aug: AugmentDraws
     pool_samples: Sequence[torch.Tensor]  # kept rows of the two pools
     dropout_keep: Sequence[torch.Tensor]  # (B, 256) bool for rot_green, rot_red, ts
+    sample_scores: Optional[torch.Tensor] = None  # (B, H·W): device sampling's scores
 
     def to(self, device) -> "TrainDraws":
+        scores = self.sample_scores
         return TrainDraws(AugmentDraws(*(x.to(device) for x in self.aug)),
                           [x.to(device) for x in self.pool_samples],
-                          [x.to(device) for x in self.dropout_keep])
+                          [x.to(device) for x in self.dropout_keep],
+                          None if scores is None else scores.to(device))
 
 
-def draw_train(generator: torch.Generator, bs: int, n: int) -> TrainDraws:
-    """Draw a train forward's randomness from ``generator``, on its device."""
+def draw_train(generator: torch.Generator, bs: int, n: int,
+               crop_pixels: int = 0) -> TrainDraws:
+    """Draw a train forward's randomness from ``generator``, on its device.
+    A batch of crops (device sampling) also needs the sampling scores of its
+    ``crop_pixels`` = H·W pixels a crop; they are drawn last, so the other
+    draws are those of a batch of clouds."""
     device = generator.device
     aug = draw_augment(generator, bs, n)
     pools = draw_pool_samples(n, generator, device)
     keep = tuple(torch.rand((bs, 256), generator=generator, device=device) < KEEP_PROB
                  for _ in range(3))
-    return TrainDraws(aug, pools, keep)
+    scores = draw_sample_scores(generator, bs, crop_pixels) if crop_pixels else None
+    return TrainDraws(aug, pools, keep, scores)
 
 
 def compute_losses(cfg: HSPoseConfig, out: PoseNetTrainOutput, pc, gt_R, gt_t, gt_s,
@@ -184,14 +194,26 @@ def train_forward(cfg: HSPoseConfig, model: PoseNet9D, batch: Dict[str, torch.Te
 
     ``model`` is in train mode and built with ``train_heads``; its BatchNorm
     running statistics update in place.  ``batch`` holds the 12 tensors of
-    ``utils/synthetic.py::synthetic_train_batch``.  The randomness comes from
-    ``draws`` when given, else from ``generator``.  Returns (total loss, loss
-    dicts)."""
-    pc = batch["pcl_in"]
+    ``utils/synthetic.py::synthetic_train_batch``; a device-sampled batch
+    (``data.sample_mode=device``) holds ``roi_depth``, ``roi_mask``,
+    ``roi_coord`` and ``cam_k`` in place of ``pcl_in``, and the cloud of
+    ``cfg.data.num_points`` points is sampled here from the crops
+    (``data/preprocess.py::roi_to_pointcloud``), on the batch's device.  The
+    randomness comes from ``draws`` when given, else from ``generator``.
+    Returns (total loss, loss dicts)."""
+    crops = "pcl_in" not in batch
+    bs = batch["cat_id"].shape[0]
+    n = cfg.data.num_points if crops else batch["pcl_in"].shape[1]
     if draws is None:
         if generator is None:
             raise ValueError("train_forward needs a generator or the draws")
-        draws = draw_train(generator, pc.shape[0], pc.shape[1])
+        draws = draw_train(generator, bs, n, batch["roi_depth"][0].numel() if crops else 0)
+    if crops:
+        if draws.sample_scores is None:
+            raise ValueError("a batch of crops needs draws with sample_scores")
+        pc, _ = roi_to_pointcloud(draws.sample_scores, *(batch[k] for k in CROP_KEYS), n)
+    else:
+        pc = batch["pcl_in"]
     obj_id = batch["cat_id"].to(torch.int32)
     aug = augment_batch(
         cfg.aug, pc.detach(), batch["rotation"], batch["translation"],

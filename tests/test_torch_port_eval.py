@@ -372,8 +372,7 @@ def test_cli_prints_the_jax_harness_table(harness, tmp_path):
 
 
 @pytest.mark.parametrize("override,match", [("parallel.dp=2", "Queue 1 item 6"),
-                                            ("parallel.sp=2", "Queue 1 item 6"),
-                                            ("eval.sample_mode=device", "Queue 1 item 4")])
+                                            ("parallel.sp=2", "Queue 1 item 6")])
 def test_harness_refuses_what_it_does_not_run(override, match):
     cfg = parse_overrides([override])
     model = build_model(ModelConfig(), device="cpu")

@@ -3,7 +3,8 @@ checkpoints (``engine/checkpoint.py``) and the eval CLI on them, on the CPU
 at a small batch and cloud: a checkpoint round trip bit for bit, an
 interrupted run resumed from its checkpoint against an unbroken one bit for
 bit, the train CLI -> checkpoint -> eval CLI chain, the refusals naming
-their ROADMAP items, and ``train.debug_nan`` on a poisoned batch."""
+their ROADMAP items, and ``train.debug_nan`` on a poisoned batch (device
+sampling's loop: tests/test_torch_port_device_sampling.py)."""
 
 import os
 import subprocess
@@ -138,8 +139,7 @@ def test_train_cli_checkpoint_eval_cli(nocs_root, tmp_path):  # noqa: F811
 
 @pytest.mark.parametrize("override,match", [("parallel.dp=2", "Queue 1 item 6"),
                                             ("parallel.mp=2", "Queue 1 item 6"),
-                                            ("parallel.sp=2", "Queue 1 item 6"),
-                                            ("data.sample_mode=device", "Queue 1 item 4")])
+                                            ("parallel.sp=2", "Queue 1 item 6")])
 def test_train_refuses_what_it_does_not_run(override, match, tmp_path):
     """Refused at once: nothing is built or written."""
     cfg = parse_overrides([override, f"train.model_save={tmp_path / 'out'}"])

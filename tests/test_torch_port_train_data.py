@@ -103,9 +103,13 @@ def test_pool_stream_matches_sync_and_hides_the_card(nocs_root):  # noqa: F811
 
 
 def test_refuses_device_sampling(nocs_root):  # noqa: F811
+    """Device sampling is ported (tests/test_torch_port_device_sampling.py
+    holds its batches to the JAX loader's); what the loader still refuses is
+    a sample mode other than host and device."""
     _, cfg = configs(nocs_root, False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        pds.PoseTrainDataset(dataclasses.replace(cfg, sample_mode="device"))
+    assert pds.PoseTrainDataset(cfg, sample_mode="device").sample_mode == "device"
+    with pytest.raises(ValueError, match="'host' or 'device'"):
+        pds.PoseTrainDataset(cfg, sample_mode="cuda")
 
 
 def png_with_filters(path, img, kinds):

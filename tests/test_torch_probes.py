@@ -245,6 +245,27 @@ def test_convergence_artifact_set_pass_through(tmp_path, route):
         ca.run_dirs(str(tmp_path), "bfloat16", ["model.bwd_stor=false"])
 
 
+def test_convergence_artifact_sample_mode(tmp_path):
+    """``--sample-mode device`` reaches the train CLI as data.sample_mode and
+    the eval CLI as eval.sample_mode, and names the run directories; host
+    mode keeps the names it had."""
+    assert ca.run_dirs(str(tmp_path), "float32") == (str(tmp_path / "conv_float32"),
+                                                     str(tmp_path / "conv_init_float32"))
+    trained, init = ca.run_dirs(str(tmp_path), "float32", ["model.bwd_store=false"], "device")
+    assert (trained, init) == (str(tmp_path / "conv_float32_model.bwd_store-false_device"),
+                               str(tmp_path / "conv_init_float32_model.bwd_store-false_device"))
+    for mode in ("host", "device"):
+        cmd = ca.train_cmd("TREE", trained, 3000, "float32", ["model.bwd_store=false"],
+                           sample_mode=mode)
+        cfg = parse_overrides(cmd[4:])
+        assert (cfg.data.sample_mode, cfg.model.bwd_store) == (mode, False)
+        cmd = ca.eval_cmd("TREE", "CKPT", trained, mode)
+        assert cmd[1:4] == ["-u", "-m", "hspose_tpu_torch.evaluation.evaluate"]
+        cfg = parse_overrides(cmd[4:])
+        assert (cfg.eval.sample_mode, cfg.train.resume_model) == (mode, "CKPT")
+    assert not any(tmp_path.iterdir())
+
+
 def test_train_sanity_main_returns_a_verdict(tmp_path):
     out = tmp_path / "sanity.json"
     rec = ts.main(2, batch_size=2, overrides=["data.num_points=256"], device="cpu",
