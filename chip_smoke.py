@@ -221,6 +221,30 @@ not 0:
    then the harness's crops/s at B=24 in device and in host mode on the
    same test images (``DEVICE_RATE_BATCHES`` batches, exact launch counts);
    cv2 never imported.
+26. multi-GPU serving (``parallel.sp``, ``parallel.dp``): the query-sharded
+   branches of K1 (and K5's range), K2, K3 and K4 at the shard shapes of the
+   N = 4096, B = 8 forward for sp = 2 and 4, in both tiers, each against its
+   plain version with phase 3's and 6's gates and against the single-source
+   launch on the gathered cloud (K1's indices, K2's and K3's outputs bit for
+   bit its rows; K4's shard means recombined within ``ORL_RECOMBINE``),
+   timed with their bounds at the sp = 2 shapes; two ranks sharing the card
+   over an explicit gloo group (``sp_rank``; NCCL takes one rank per device
+   and the rig has one card) serve the sp = 2 forward at N = 4096, B = 8 in
+   both tiers: exactly ``SP_LAUNCHES`` query-sharded launches per rank per
+   forward and nothing else, the outputs the same on both ranks, the poses
+   and sizes within ``SLICE_ATOL`` (bf16 ``SLICE_ATOL_BF16``) of the
+   one-process card forward, and the crops/s of the two ranks (not a
+   multi-GPU rate); gloo takes the ranks' CUDA tensors as they are, exactly;
+   where the sp forward parts from the one-process one (``sp_probe``): the
+   forward again with the one-process centre, then with the one-process
+   centre and ORL means, each search's differing rows and map gap printed,
+   the bf16 tier then bit for bit the one-process forward and the fp32 tier
+   reading the one-process maps at its first ``SP_EXACT_SEARCHES`` searches,
+   and each point-row product's gap between all rows and a shard's
+   (``row_split_gaps``); the same ranks run the harness with ``parallel.dp=2``
+   against the one-process harness; then the eval CLI under ``torchrun
+   --standalone --nproc_per_node=<device count>`` with nccl on phase 23's
+   checkpoint and tree gives phase 23's pred_result.pkl.
 
 Each kernel's ``bound_ms`` is the least time the card could take for its
 calls: per call the larger of the bytes it must move (each input read once,
@@ -243,7 +267,8 @@ K12's and K15's ``parts`` likewise.
 ``launches`` is each kernel's count in the main run of its path: phases 4,
 7, 9, 11, 13 and 15, for K2 with winners and K9 the autograd call of phases
 12 and 14, for K16 the recon harness run, for K17 and K18 the autograd call
-of phase 17, and for K5 the N = 2056 harness batch.
+of phase 17, for K5 the N = 2056 harness batch, and for the query-sharded
+branches rank 0's sp = 2 forward of phase 26.
 
 The line before the last is one JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
@@ -252,6 +277,7 @@ exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import re
@@ -619,6 +645,13 @@ def counters() -> dict:
             "hs_surface_bf16": (f.hs_surface_fused, "bf16_launches"),
             "hs_support_bf16": (f.hs_support_fused, "bf16_launches"),
             "orl_global_bf16": (f.orl_global_fused, "bf16_launches"),
+            "knn_qs": (knn, "qs_launches"), "knn_qs_streamed": (knn, "qs_streamed_launches"),
+            "knn_qs_packed": (knn, "qs_packed_launches"),
+            **{name + "_qs" + tag: (fn, "qs_" + attr)
+               for name, fn in (("hs_surface", f.hs_surface_fused),
+                                ("hs_support", f.hs_support_fused),
+                                ("orl_global", f.orl_global_fused))
+               for tag, attr in (("", "launches"), ("_bf16", "bf16_launches"))},
             **{name: (getattr(f, name), "launches") for name in FUSED_TRAIN_KERNELS},
             **{name + "_bf16": (getattr(f, name), "bf16_launches") for name in FUSED_TRAIN_KERNELS}}
 
@@ -2296,6 +2329,17 @@ SOURCES = {
     "chamfer_grad": ("hspose_tpu_torch/csrc/chamfer.cu", "hspose_tpu/ops/chamfer.py:216", None),
     # K5, the streamed search above padded N = 2048: the exact kernel
     "knn_streamed": ("hspose_tpu_torch/csrc/knn.cu", "hspose_tpu/ops/pallas_knn.py:119", None),
+    # the query-sharded branches of sequence-parallel serving (knn_indices_pallas_qs
+    # :426, the vertices_q branches of K2 and K3, K4 with fewer index rows)
+    "knn_qs": ("hspose_tpu_torch/csrc/knn.cu", "hspose_tpu/ops/pallas_knn.py:163", None),
+    "knn_qs_streamed": ("hspose_tpu_torch/csrc/knn.cu", "hspose_tpu/ops/pallas_knn.py:119", None),
+    "knn_qs_packed": ("hspose_tpu_torch/csrc/knn.cu", "hspose_tpu/ops/pallas_knn.py:213", None),
+    **{name + tag: (src, "hspose_tpu/ops/pallas_hs_fused.py:" + line, None)
+       for tag in ("", "_bf16")
+       for name, src, line in [
+           ("hs_surface_qs", "hspose_tpu_torch/csrc/hs_surface.cu", "299"),
+           ("hs_support_qs", "hspose_tpu_torch/csrc/hs_support.cu", "219"),
+           ("orl_global_qs", "hspose_tpu_torch/csrc/orl.cu", "358")]},
 }
 
 
@@ -2343,11 +2387,12 @@ def test_crops(tree: str) -> int:
     return crops
 
 
-def phase_loop(smi: str, tree: str | None = None) -> dict:
+def phase_loop(smi: str, tree: str | None = None, keep: str | None = None) -> dict:
     """Phase 23: train entry point -> checkpoints -> resume -> eval CLI on a
     rendered tree (the module docstring's item 23); ``tree`` is rendered
-    here unless given.  Returns the unbroken run's last epoch record
-    (loader and loop rates)."""
+    here unless given.  ``keep``: a directory that receives the eval CLI's
+    checkpoint (``model``) and its pred_result.pkl, for phase 26.  Returns
+    the unbroken run's last epoch record (loader and loop rates)."""
     import math
     import os
     import tempfile
@@ -2452,6 +2497,12 @@ def phase_loop(smi: str, tree: str | None = None) -> dict:
         check_counts(launches, SERVE_LAUNCHES["float32"], batches, "eval batch")
         if not all(map(math.isfinite, summary.values())):
             raise AssertionError(f"eval summary not finite: {summary}")
+        if keep is not None:
+            import shutil
+
+            shutil.copytree(ckpt, os.path.join(keep, "model"))
+            shutil.copy(os.path.join(tmp, "eval", f"eval_result_{os.path.basename(ckpt)}",
+                                     "pred_result.pkl"), keep)
     if "cv2" in sys.modules:
         raise AssertionError("cv2 was imported")
     log(phase, "cv2 never imported")
@@ -2682,6 +2733,551 @@ def phase_device_sampling(smi: str, tree: str, host: dict) -> None:
     log(phase, "cv2 never imported")
 
 
+SP_N, SP_B = 4096, 8  # phase 26: scripts/bench_large_n.py:38's largest configuration, its batch
+SP_SHARDS = (2, 4)  # phase 26: the sp sizes whose shard shapes the kernels are held at
+SP_RECORD = 2  # phase 26: the sp whose shard shapes the kernel line reports
+# phase 26: query-sharded launches per rank per sp = 2 forward at N = 4096: the
+# three searches of resolution 0 have M = 4096 > 2048 source points (the exact
+# search, K5's range, in both tiers), the six of the pooled resolutions not
+SP_LAUNCHES = {
+    "float32": {"knn_qs_streamed": 3, "knn_qs": 6, "hs_surface_qs": 1, "hs_support_qs": 4,
+                "orl_global_qs": 5},
+    "bfloat16": {"knn_qs_streamed": 3, "knn_qs_packed": 6, "hs_surface_qs_bf16": 1,
+                 "hs_support_qs_bf16": 4, "orl_global_qs_bf16": 5},
+}
+# K4: shard means recombined against the one-device mean, (rtol, atol).  The sum
+# of NQ terms / NQ, then the mean of the sp shard means, is another fp32 order
+# than the sum of N terms / N (32-point tiles, then the tiles, in order).  A
+# numpy model of the kernel's order puts the gap at up to 6.8e-7 relative at
+# these shapes (N = 4096 ... 256, sp = 2 and 4) for JAX's rtol of 2e-7 at N = 64
+# (tests/test_sequence_parallel.py), so the card is held to 2e-6
+ORL_RECOMBINE = (2e-6, 1e-7)
+SP_RATE_REPS = 10  # phase 26: sp forwards timed per tier
+# phase 26: with the one-process centre and ORL means, the fp32 sp forward's
+# first five searches (resolution 0's three, resolution 1's vertex search and
+# rf_2) read the one-process maps bit for bit
+SP_EXACT_SEARCHES = 5
+JOIN_SECONDS = 120  # phase 26: the spawned ranks' process-group timeout
+
+
+@contextlib.contextmanager
+def sp_probe(inject: dict | None = None):
+    """Phase 26: within, the forward's searches (their indices and query
+    maps), its centring mean and its five ORL means are recorded into the yielded
+    dict; with ``inject`` (such a record of another forward), its centre
+    and ORL means take the place of this forward's, in order, after the
+    collectives ran as always."""
+    from hspose_tpu_torch.models import face_recon, layers, posenet
+
+    saved = face_recon.knn, posenet.mean_over_shards, layers.mean_over_shards
+    rec = {"searches": [], "inputs": [], "centre": [], "orl": []}
+    given = {key: iter(v) for key, v in (inject or {}).items() if key in ("centre", "orl")}
+
+    def search(points, *args, **kwargs):
+        idx = saved[0](points, *args, **kwargs)
+        rec["searches"].append(idx.cpu())
+        rec["inputs"].append(points.cpu())
+        return idx
+
+    def mean(key, fn):
+        def wrapped(x, group):
+            out = fn(x, group)
+            if key in given:
+                out = next(given[key]).to(out.device)
+            rec[key].append(out.cpu())
+            return out
+        return wrapped
+
+    face_recon.knn = search
+    posenet.mean_over_shards, layers.mean_over_shards = mean("centre", saved[1]), mean("orl", saved[2])
+    try:
+        yield rec
+    finally:
+        face_recon.knn, posenet.mean_over_shards, layers.mean_over_shards = saved
+
+
+def against_one(rec: dict, one: dict, rank: int, world: int) -> dict:
+    """Phase 26: an sp rank's ``sp_probe`` record against the one-process
+    forward's, on this rank's rows: per search, the rows whose neighbour
+    sets differ and the max abs gap of the searched map; the gaps of the
+    centre and of the ORL means."""
+    def mine(full):
+        nq = full.shape[1] // world
+        return full[:, rank * nq:(rank + 1) * nq]
+
+    return {"rows": [int((a.sort(-1).values != mine(b).sort(-1).values).any(-1).sum())
+                     for a, b in zip(rec["searches"], one["searches"])],
+            "maps": [(a.float() - mine(b).float()).abs().max().item()
+                     for a, b in zip(rec["inputs"], one["inputs"])],
+            "centre": (rec["centre"][0] - one["centre"][0]).abs().max().item(),
+            "orl": [(a - b).abs().max().item() for a, b in zip(rec["orl"], one["orl"])]}
+
+
+def row_split_gaps(model, world: int) -> dict:
+    """Phase 26: each fp32 product that the sp forward runs on point rows,
+    on random inputs at its B * n rows and on each of the ``world`` shards'
+    rows: the max abs gap between the two (0 where cuBLAS takes the same
+    path for both row counts)."""
+    fr, vec = model.face_recon, model.rot_green.vec
+    products = [("head conv1", SP_N, vec.conv1), ("head conv2", SP_N, vec.conv2)]
+    for k, n in enumerate((SP_N, SP_N, SP_N // 4, SP_N // 4, SP_N // 16)):
+        layer = getattr(fr, f"conv_{k}")
+        products += [(f"conv_{k} STE", n, layer.STE_layer), (f"conv_{k} conv2", n, layer.conv2)]
+        if k:
+            products.append((f"conv_{k} centre", n, (layer, layer.out_channel)))
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 33)
+    gaps = {}
+    with torch.no_grad():
+        for name, n, op in products:
+            if isinstance(op, tuple):
+                layer, co = op
+                width = layer.weights.shape[0]
+                fn = lambda x, l=layer, co=co: x @ l.weights[:, :co] + l.bias[:co]  # noqa: E731
+            else:
+                width, fn = op.in_features, op
+            x = torch.randn((SP_B, n, width), generator=g, device=DEVICE)
+            m = n // world
+            parts = torch.cat([fn(x[:, i * m:(i + 1) * m].contiguous()) for i in range(world)], 1)
+            gaps[f"{name} ({SP_B * n} / {SP_B * m} rows)"] = (fn(x) - parts).abs().max().item()
+    return gaps
+
+
+def sp_gate_knn(phase, rec, name, got, plain, full_slice, pts, label, gap_rel, bnd, ms, pms):
+    """A query-sharded search against its plain version (phase 3's gates)
+    and the single-source launch's rows, index for index."""
+    from hspose_tpu_torch.ops.knn import gather_neighbors
+
+    src = pts.double()
+    q = src[:, label["lo"]:label["hi"]]
+    agree = (got[..., :, None] == plain[..., None, :]).any(-1).double().mean().item()
+
+    def sorted_d(idx):
+        diff = gather_neighbors(src, idx) - q[:, :, None]
+        return (diff * diff).sum(-1).sort(-1).values
+
+    dg, dw = sorted_d(got), sorted_d(plain)
+    err = (dg - dw).abs().max().item()
+    rel = ((dg - dw).abs() / dw.clamp_min(1e-30)).max().item()
+    same = torch.equal(got, full_slice)
+    log(phase, f"{name} {label['text']}: agreement {agree:.6f}, max rel distance gap "
+               f"{rel:.3e}, the single-source rows {'bit for bit' if same else 'DIFFER'}, "
+               f"{ms:.4f} ms (plain {pms:.4f} ms, bound {bnd[0]:.4f} {bnd[1]})")
+    if agree < KNN_AGREE or rel > gap_rel or not same:
+        raise AssertionError(f"{name} {label['text']}: agreement {agree}, gap {rel}, "
+                             f"equal to the single-source rows {same}")
+    if rec is not None:
+        record(rec, name, err, ms, pms, bnd)
+
+
+def phase_sp_kernels() -> dict:
+    """Phase 26, part 1: the query-sharded branches of K1/K5, K2, K3 and K4
+    at the shard shapes of the N = 4096, B = 8 forward for sp = 2 and 4, in
+    both tiers, each against its plain version (phase 3's and 6's gates) and
+    the single-source launch on the gathered cloud: K1's indices, K2's and
+    K3's outputs bit for bit its rows, K4's shard means recombined within
+    ORL_RECOMBINE.  Each query tensor is a copy of the last shard of the
+    source, as the rank holding it has it.  Returns the records of the
+    sp = 2 shapes."""
+    from hspose_tpu_torch.ops.cuda_hs_fused import (
+        hs_support_fused, hs_support_plain, hs_surface_fused, hs_surface_plain,
+        orl_global_fused, orl_global_plain)
+    from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
+    from hspose_tpu_torch.ops.knn import PACKED_MAX_N, knn_indices, knn_indices_packed
+
+    phase = "sp-kernels"
+    rec = {}
+    S = 7
+    for dtype in ("float32", "bfloat16"):
+        fast = dtype == "bfloat16"
+        tag = "_bf16" if fast else ""
+        op_dtype = torch.bfloat16 if fast else torch.float32
+        for sp in SP_SHARDS:
+            r = rec if sp == SP_RECORD else None
+            rng = np.random.default_rng(SEED + 20 + sp)
+            sizes = [SP_N, SP_N // 4, SP_N // 16]
+            clouds = {m: cloud_b(rng, SP_B, m) for m in sizes}
+
+            def features(m, c):
+                x = normal(rng, SP_B, m, c)
+                return x.to(torch.bfloat16) if fast else x
+
+            def shard(x):
+                m = x.shape[1]
+                lo = (sp - 1) * m // sp
+                return x[:, lo:].contiguous(), lo
+
+            def text(m, what):
+                return {"text": f"sp={sp} M={m} NQ={m // sp} {what}", "lo": (sp - 1) * m // sp,
+                        "hi": m}
+
+            # the nine searches of a forward
+            idx_of = {}
+            for m, d, k in [(sizes[0], 3, 20), (sizes[0], 128, 20), (sizes[0], 3, 4),
+                            (sizes[1], 3, 20), (sizes[1], 128, 20), (sizes[1], 256, 20),
+                            (sizes[1], 3, 4), (sizes[2], 3, 20), (sizes[2], 256, 20)]:
+                pts = clouds[m] if d == 3 else features(m, d)
+                q, lo = shard(pts)
+                packed = fast and m <= PACKED_MAX_N
+                name = ("knn_qs_streamed" if m > PACKED_MAX_N
+                        else "knn_qs_packed" if packed else "knn_qs")
+                got = knn_indices_cuda(q, k, packed=fast, source=pts)
+                full = knn_indices_cuda(pts, k, packed=fast)
+                plain = (knn_indices_packed(q, k, source=pts) if packed
+                         else knn_indices(q.float(), k, source=pts.float()))
+                ms = cuda_ms(lambda: knn_indices_cuda(q, k, packed=fast, source=pts))
+                pms = cuda_ms(lambda: (knn_indices_packed(q, k, source=pts) if packed
+                                       else knn_indices(q.float(), k, source=pts.float())),
+                              iters=3, warmup=1)
+                bnd = bound([q, pts, got], SP_B * (m // sp) * m * d,
+                            torch.float32 if d == 3 or not packed else op_dtype)
+                # the streamed searches are recorded once, in the fp32 tier: the
+                # bf16 tier runs the same exact kernel on its points widened
+                sp_gate_knn(phase, None if fast and not packed else r, name, got, plain,
+                            full[:, lo:], pts,
+                            text(m, f"D={d} {pts.dtype} k={k}"),
+                            KNN_SWAP_REL if packed else KNN_TIE_REL, bnd, ms, pms)
+                if d == 3 and k == 20:
+                    idx_of[m] = (full, got)
+
+            def close(name, label, got, want, tensors, macs, ms, pms, rows=None):
+                torch.cuda.synchronize()
+                scale = want.abs().max().item()
+                err = (got - want).abs().max().item()
+                same = "" if rows is None else (
+                    ", the single-source rows bit for bit" if torch.equal(got, rows)
+                    else ", the single-source rows DIFFER")
+                bnd = bound(tensors + [got], macs, op_dtype)
+                log(phase, f"{name} {label}: max abs err {err:.3e} (bound {TOL_REL * scale:.3e})"
+                           f"{same}, {ms:.4f} ms (plain {pms:.4f} ms, bound {bnd[0]:.4f} "
+                           f"{bnd[1]})")
+                if not err <= TOL_REL * scale or "DIFFER" in same:
+                    raise AssertionError(f"{name} {label}: error {err} > {TOL_REL} * {scale}"
+                                         f"{same}")
+                if r is not None:
+                    record(r, name, err, ms, pms, bnd)
+
+            # conv_0
+            m = sizes[0]
+            verts = clouds[m]
+            vq, lo = shard(verts)
+            full_idx, idx = idx_of[m]
+            dirs = unit_dirs(rng, S * 128)
+            call = lambda: hs_surface_fused(verts, idx, dirs, S, 128, not fast,  # noqa: E731
+                                            vertices_q=vq)
+            got = call()
+            close("hs_surface_qs" + tag, f"conv_0 sp={sp} M={m} NQ={m // sp} K=20 Co=128", got,
+                  hs_surface_plain(verts, idx, dirs, S, 128, not fast, vertices_q=vq),
+                  [verts, vq, idx, dirs], 3 * idx.numel() * S * 128, cuda_ms(call),
+                  cuda_ms(lambda: hs_surface_plain(verts, idx, dirs, S, 128, not fast,
+                                                   vertices_q=vq), iters=3, warmup=1),
+                  hs_surface_fused(verts, full_idx, dirs, S, 128, not fast)[:, lo:])
+
+            # conv_1 .. conv_4
+            for layer, cin, co, m in [(1, 128, 128, sizes[0]), (2, 128, 256, sizes[1]),
+                                      (3, 256, 256, sizes[1]), (4, 256, 512, sizes[2])]:
+                stdv = 1.0 / (co * (S + 1)) ** 0.5
+                w_full = normal(rng, cin, (S + 1) * co, scale=stdv)
+                b_full = normal(rng, (S + 1) * co, scale=stdv)
+                feat, verts = features(m, cin), clouds[m]
+                vq, lo = shard(verts)
+                full_idx, idx = idx_of[m]
+                args = (feat, verts, idx, w_full[:, co:], b_full[co:], unit_dirs(rng, S * co),
+                        S, co)
+                call = lambda: hs_support_fused(*args, vertices_q=vq)  # noqa: E731
+                got = call()
+                close("hs_support_qs" + tag, f"conv_{layer} {cin}->{co} sp={sp} M={m} "
+                                             f"NQ={m // sp} K=20", got,
+                      hs_support_plain(*args, vertices_q=vq), list(args[:6]) + [vq],
+                      SP_B * m * cin * S * co + 3 * idx.numel() * S * co, cuda_ms(call),
+                      cuda_ms(lambda: hs_support_plain(*args, vertices_q=vq), iters=3,
+                              warmup=1),
+                      hs_support_fused(feat, verts, full_idx, *args[3:])[:, lo:])
+
+            # the ORL branch of each layer: the shard means recombined
+            for layer, c, m in [(0, 128, sizes[0]), (1, 128, sizes[0]), (2, 256, sizes[1]),
+                                (3, 256, sizes[1]), (4, 512, sizes[2])]:
+                feat = features(m, c)
+                full_idx, _ = idx_of[m]
+                nq = m // sp
+                parts = [orl_global_fused(feat, full_idx[:, i * nq:(i + 1) * nq].contiguous(),
+                                          query_sharded=True)
+                         for i in range(sp)]
+                one = orl_global_fused(feat, full_idx)
+                mean = torch.stack(parts).sum(0) / sp
+                ok = torch.allclose(mean, one, rtol=ORL_RECOMBINE[0], atol=ORL_RECOMBINE[1])
+                idx = full_idx[:, -nq:].contiguous()
+                call = lambda: orl_global_fused(feat, idx, query_sharded=True)  # noqa: E731
+                label = (f"conv_{layer} C={c} sp={sp} M={m} NQ={nq} K=20: shard means "
+                         f"recombined {'within' if ok else 'BEYOND'} rtol {ORL_RECOMBINE[0]} "
+                         f"atol {ORL_RECOMBINE[1]} (max gap "
+                         f"{(mean - one).abs().max().item():.3e})")
+                close("orl_global_qs" + tag, label, parts[-1], orl_global_plain(feat, idx),
+                      [feat, idx], 0, cuda_ms(call),
+                      cuda_ms(lambda: orl_global_plain(feat, idx), iters=3, warmup=1))
+                if not ok:
+                    raise AssertionError(f"orl_global_qs{tag} conv_{layer} sp={sp}: the shard "
+                                         "means do not recombine to the one-device mean")
+    return rec
+
+
+def sp_rank(rank: int, world: int, tmp: str, device: str) -> None:
+    """Phase 26: one of the ranks that share the card over an explicit gloo
+    group (the rig has one card, and NCCL takes one rank per device).  It
+    serves the job's crops sequence-parallel in both tiers (its launches
+    per forward, its outputs, crops/s over SP_RATE_REPS forwards between two
+    barriers), then the dp harness on the job's records, and saves what it
+    got to ``tmp``."""
+    import dataclasses
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from hspose_tpu_torch.config import ModelConfig, ParallelConfig
+    from hspose_tpu_torch.evaluation.evaluate import batched_pose_inference
+    from hspose_tpu_torch.models.hspose import build_model
+    from hspose_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from hspose_tpu_torch.parallel.sp import sp_eval_fn
+
+    device = init_distributed(device, backend="gloo", init_method=f"file://{tmp}/store",
+                              rank=rank, world_size=world,
+                              timeout=datetime.timedelta(seconds=JOIN_SECONDS))
+    job = torch.load(os.path.join(tmp, "job.pt"), weights_only=False)
+    mesh = make_mesh(1, world)
+    n = job["pc"].shape[1] // world
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    # gloo takes CUDA tensors as they are (parallel/sp.py passes them so)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.arange(6, device=device) + rank).to(dtype)
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x, group=mesh.sp_group)
+        total, top = x.clone(), x.clone()
+        dist.all_reduce(total, group=mesh.sp_group)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=mesh.sp_group)
+        want = [torch.arange(6, device=device).to(dtype) + r for r in range(world)]
+        if not (all(torch.equal(a, w) for a, w in zip(parts, want))
+                and torch.equal(total, sum(want)) and torch.equal(top, want[-1])):
+            raise AssertionError(f"gloo's all_gather / all_reduce of CUDA {dtype} tensors "
+                                 "are not exact")
+
+    pc = job["pc"][:, rank * n:(rank + 1) * n].contiguous().to(device)
+    obj, sym = job["obj"].to(device), job["sym"].to(device)
+    mean_shape = torch.zeros((pc.shape[0], 3), device=device)
+    samples = [x.to(device) for x in job["samples"]]
+    got = {}
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(ModelConfig(compute_dtype=dtype), device=device)
+        model.load_state_dict(job["state_dict"])
+
+        fn = sp_eval_fn(model, mesh.sp_group)
+
+        def serve():
+            return fn(pc, obj, sym, mean_shape, samples)
+
+        serve()  # warm
+        counts = counters()
+        reset_counts(counts)
+        RT, scales = serve()
+        sync()
+        launches = read_counts(counts)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(SP_RATE_REPS):
+            serve()
+        sync()
+        dist.barrier()
+        rate = SP_RATE_REPS * pc.shape[0] / (time.perf_counter() - t0)
+        got[dtype] = {"RT": RT.cpu(), "scales": scales.cpu(), "launches": launches,
+                      "rate": rate}
+        # where the sp forward parts from the one-process one: served as it
+        # is, with the one-process centre, with the one-process centre and
+        # ORL means in place of the shard means
+        one = job["one"][dtype]
+        for variant, inject in (("sp", None), ("centre", {"centre": one["centre"]}),
+                                ("centre+orl", one)):
+            with sp_probe(inject) as rec:
+                RT_v, s_v = serve()
+            got[dtype][variant] = dict(against_one(rec, one, rank, world), RT=RT_v.cpu(),
+                                       scales=s_v.cpu())
+        if dtype == "float32":
+            cfg = dataclasses.replace(harness_config(), parallel=ParallelConfig(dp=world))
+            counts = counters()
+            reset_counts(counts)
+            preds, _ = batched_pose_inference(cfg, model, job["records"], job["seed"])
+            sync()
+            h_launches = read_counts(counts)
+            got["harness"] = {"RT": np.concatenate([r["pred_RTs"] for r in preds]),
+                              "scales": np.concatenate([r["pred_scales"] for r in preds]),
+                              "launches": h_launches}
+    torch.save(got, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def phase_sp_forward(smi: str) -> dict:
+    """Phase 26, part 2: two ranks on the card over an explicit gloo group
+    (``sp_rank``): the sp = 2 forward at N = 4096, B = 8 in both tiers,
+    exactly SP_LAUNCHES per rank per forward and no other kernel, the
+    outputs the same on both ranks bit for bit, the poses and sizes within
+    SLICE_ATOL (bf16: SLICE_ATOL_BF16) of the one-process card forward on
+    the same weights, crops and pools, and the crops/s of two ranks sharing
+    the card; where the sp forward parts from the one-process one (the
+    module docstring); then the harness with parallel.dp=2 on HARNESS_BATCHES
+    batches of (B, N) against the one-process harness on the same records
+    and seed (cuBLAS may split the heads' products differently at B / 2
+    rows: SLICE_ATOL).  Returns rank 0's launches per forward."""
+    import multiprocessing
+    import tempfile
+
+    from hspose_tpu_torch.geometry.rotations import generate_RT
+    from hspose_tpu_torch.models.hspose import draw_pool_samples, eval_forward
+
+    phase, world = "sp-forward", 2
+    rng = np.random.default_rng(SEED + 30)
+    pc = cloud_b(rng, SP_B, SP_N)
+    obj = torch.arange(SP_B, device=DEVICE) % 6
+    sym = torch.tensor([[0, 1, 0, 0]], dtype=torch.float32, device=DEVICE).repeat(SP_B, 1)
+    samples = draw_pool_samples(SP_N, torch.Generator(device=DEVICE).manual_seed(SEED + 31),
+                                DEVICE)
+    model = build_seeded_model(DEVICE)
+    records, seed = harness_records(np.random.default_rng(SEED + 32), N, HARNESS_BATCHES), SEED
+    launches, want, one = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        m = model if dtype == "float32" else build_seeded_model(DEVICE, dtype)
+        with sp_probe() as one[dtype]:
+            out = eval_forward(m, pc, obj, pool_samples=samples)
+        RT = generate_RT(out.p_green_R, out.p_red_R, out.f_green_R, out.f_red_R, out.pred_T, sym)
+        want[dtype] = {"RT": RT.cpu(), "pred_s": out.pred_s.cpu()}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"state_dict": model.state_dict(), "pc": pc.cpu(), "obj": obj.cpu(),
+                    "sym": sym.cpu(), "samples": [x.cpu() for x in samples],
+                    "records": records, "seed": seed, "one": one}, f"{tmp}/job.pt")
+        ctx = multiprocessing.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=sp_rank, args=(r, world, tmp, f"{DEVICE}:0"))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=4 * JOIN_SECONDS)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if any(p.exitcode for p in procs):
+            raise AssertionError(f"the sp ranks failed: exit codes {[p.exitcode for p in procs]}")
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(world)]
+    log(phase, f"{world} ranks on cuda:0 over gloo: {time.perf_counter() - t0:.1f} s with start-up; "
+               "gloo's all_gather and all_reduce (sum, max) took CUDA fp32 and bf16 tensors, "
+               "exactly")
+
+    for dtype, atol in (("float32", SLICE_ATOL), ("bfloat16", SLICE_ATOL_BF16)):
+        for r, got in enumerate(ranks):
+            check_counts(got[dtype]["launches"], SP_LAUNCHES[dtype], 1, f"rank {r} {dtype} forward")
+        a, b = ranks[0][dtype], ranks[1][dtype]
+        replicated = torch.equal(a["RT"], b["RT"]) and torch.equal(a["scales"], b["scales"])
+        diffs = {"RT": (a["RT"] - want[dtype]["RT"]).abs().max().item(),
+                 "pred_s": (a["scales"] - want[dtype]["pred_s"]).abs().max().item()}
+        log(phase, f"{dtype}: sp=2 forward of ({SP_B}, {SP_N}, 3), launches per rank "
+                   f"{ {k: v for k, v in a['launches'].items() if v} }; outputs the same on both "
+                   f"ranks: {replicated}; against the one-process card forward, max abs "
+                   + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()) + f" (bound {atol})")
+        log(phase, f"{dtype}: {a['rate']:.1f} crops/s of two ranks sharing one card over gloo "
+                   f"(not a multi-GPU rate) on {smi}")
+        if not replicated or not all(v <= atol for v in diffs.values()):
+            raise AssertionError(f"{dtype} sp forward: replicated {replicated}, {diffs}")
+        rows = SP_B * SP_N // world
+        for variant in ("sp", "centre", "centre+orl"):
+            for r, got in enumerate(ranks):
+                v = got[dtype][variant]
+                log(phase, f"{dtype} rank {r}, {variant}: against the one-process forward, "
+                           f"centre {v['centre']:.3e}, ORL means "
+                           + ", ".join(f"{x:.2e}" for x in v["orl"])
+                           + f"; per search, rows of {rows} whose neighbour sets differ "
+                           f"{v['rows']}, max abs gap of the searched map "
+                           + ", ".join(f"{x:.2e}" for x in v["maps"]) + "; max abs RT "
+                           f"{(v['RT'] - want[dtype]['RT']).abs().max().item():.3e}, pred_s "
+                           f"{(v['scales'] - want[dtype]['pred_s']).abs().max().item():.3e}")
+        # the plumbing (gathers, pool slices, upsample, collectives) at full
+        # width: with the one-process centre the bf16 tier, whose roundings
+        # absorb the ORL means' order, serves the one-process bits; with both
+        # means the fp32 tier searches the one-process maps up to conv_2's
+        # output, whose conv2 product cuBLAS forms otherwise at half the rows
+        for r, got in enumerate(ranks):
+            if dtype == "bfloat16":
+                v = got[dtype]["centre"]
+                exact = (torch.equal(v["RT"], want[dtype]["RT"])
+                         and torch.equal(v["scales"], want[dtype]["pred_s"]))
+            else:
+                exact = not any(got[dtype]["centre+orl"]["maps"][:SP_EXACT_SEARCHES])
+            if not exact:
+                raise AssertionError(f"rank {r}: the {dtype} sp forward with the one-process "
+                                     "means is not the one-process forward bit for bit")
+        launches.update({k: a["launches"][k] for k in SP_LAUNCHES[dtype]
+                         if dtype == "float32" or k != "knn_qs_streamed"})
+    log(phase, "fp32 products on point rows, all rows against each sp = 2 shard's rows, max abs "
+               "gap: " + ", ".join(f"{k} {v:.2e}" for k, v in row_split_gaps(model, world).items()))
+
+    preds, _, _ = run_harness(harness_config(), model, records, seed)
+    want_RT = np.concatenate([r["pred_RTs"] for r in preds])
+    want_s = np.concatenate([r["pred_scales"] for r in preds])
+    for r, got in enumerate(ranks):
+        h = got["harness"]
+        check_counts(h["launches"], SERVE_LAUNCHES["float32"], HARNESS_BATCHES,
+                     f"rank {r} dp harness batch")
+        d_rt = np.abs(h["RT"] - want_RT).max()
+        d_s = np.abs(h["scales"] - want_s).max()
+        same = np.array_equal(h["RT"], want_RT) and np.array_equal(h["scales"], want_s)
+        log(phase, f"rank {r}: parallel.dp=2 harness, {HARNESS_BATCHES} batches of ({B}, {N}, 3) "
+                   f"({B // 2} rows a rank), launches per batch "
+                   f"{ {k: v // HARNESS_BATCHES for k, v in h['launches'].items() if v} }; "
+                   f"against the one-process harness: bit for bit {same}, max abs RT {d_rt:.3e}, "
+                   f"scales {d_s:.3e} (bound {SLICE_ATOL})")
+        if not (d_rt <= SLICE_ATOL and d_s <= SLICE_ATOL):
+            raise AssertionError(f"rank {r}: the dp harness's poses are not the one-device ones")
+    return launches
+
+
+def phase_sp_cli(smi: str, tree: str, keep: str) -> None:
+    """Phase 26, part 3: the eval CLI under ``torchrun --standalone
+    --nproc_per_node=<device count>`` with nccl on phase 23's checkpoint and
+    tree (``keep``), its pred_result.pkl equal to the one-process CLI's of
+    phase 23."""
+    import os
+    import pickle
+    import tempfile
+
+    phase = "sp-cli"
+    ckpt = os.path.join(keep, "model")
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={torch.cuda.device_count()}", "-m",
+               "hspose_tpu_torch.evaluation.evaluate", f"data.dataset_dir={tree}/NOCS",
+               f"data.detection_dir={tree}/segmentation_results", "eval.eval_seed=5",
+               f"train.resume_model={ckpt}", f"train.model_save={out}"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode:
+            raise AssertionError(f"torchrun eval CLI failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(os.path.join(out, "eval_result_model", "pred_result.pkl"), "rb") as f:
+            got = pickle.load(f)
+    with open(os.path.join(keep, "pred_result.pkl"), "rb") as f:
+        want = pickle.load(f)
+    keys = ("pred_RTs", "pred_scales")
+    same = len(got) == len(want) and all(np.array_equal(a[k], b[k])
+                                         for a, b in zip(got, want) for k in keys)
+    log(phase, f"torchrun --nproc_per_node={torch.cuda.device_count()} (nccl) eval CLI on "
+               f"phase 23's checkpoint: {time.perf_counter() - t0:.1f} s, {len(got)} images, "
+               f"pred_result.pkl equal to the one-process CLI's: {same} on {smi}")
+    if not same:
+        raise AssertionError("the torchrun eval CLI's predictions are not the one-process CLI's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -2732,11 +3328,16 @@ def main() -> int:
         phase_slice(dtype, serve_k=SERVE_K_RELAXED)
     import tempfile
 
-    with tempfile.TemporaryDirectory() as tree:
+    with tempfile.TemporaryDirectory() as tree, tempfile.TemporaryDirectory() as keep:
         render_tree(tree)
-        host_loop = phase_loop(smi, tree)
+        host_loop = phase_loop(smi, tree, keep)
         phase_probes(smi)
         phase_device_sampling(smi, tree, host_loop)
+        t0 = time.perf_counter()
+        rec.update(phase_sp_kernels())
+        launches.update(phase_sp_forward(smi))
+        phase_sp_cli(smi, tree, keep)
+        log("sp", f"phase 26: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernel_line(rec, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

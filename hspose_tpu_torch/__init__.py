@@ -20,7 +20,13 @@ by ``ops/_build.py``:
   loading and the recon-metric tier (``ops/chamfer.py``, ``ops/emd.py``);
 * the train loop, ``engine/train.py``: the NOCS train loader
   (``data/dataset.py``, numpy decode where libpng is missing), the CLI and
-  checkpoints with resume (``engine/checkpoint.py``).
+  checkpoints with resume (``engine/checkpoint.py``);
+* device sampling (``data/preprocess.py``, ``ops/sampling.py``) and the
+  training and tier probes (``tools/``);
+* multi-GPU serving (``parallel/``): the harness's crops over
+  ``parallel.dp`` ranks and each crop's points over ``parallel.sp`` ranks,
+  one process per GPU under ``torchrun``, with the query-sharded branches
+  of the KNN, HS surface, HS support and ORL kernels.
 """
 
 from hspose_tpu_torch.config import ModelConfig

@@ -4,8 +4,9 @@ Defaults are copied from ``hspose_tpu/config.py`` (``ModelConfig``, the
 ``DataConfig`` fields the train loader and the eval harness read, the
 ``EvalConfig`` fields the harness reads, ``AugConfig``, ``LossConfig``,
 ``OptimConfig``, the ``TrainConfig`` fields the train loop, the step and the
-harness read, and ``ParallelConfig``'s axis sizes, which the one-device
-loop and harness refuse above 1), leaving out the fields that neither
+harness read, and ``ParallelConfig``'s axis sizes: the harness serves dp and
+sp over a process group, ``mp`` and the one-device train loop refuse them
+above 1), leaving out the fields that neither
 package reads, except ``data.sample_method`` and ``train.resume_point``: the
 JAX package reads neither, and they are kept only so that its command lines
 parse here unchanged.  ``compute_dtype`` is ``"float32"`` or ``"bfloat16"``;
@@ -178,10 +179,16 @@ class EvalConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """Device mesh axes; the port's harness runs on one device."""
+    """The (dp, sp) layout of the processes serving the eval harness, one
+    per GPU (``parallel/mesh.py``)."""
 
-    dp: int = -1  # -1: every device on the data axis, here one
+    dp: int = -1  # -1: every process not on the sp axis on the data axis
+    # model (tensor) parallelism, Dense output channels sharded over mp:
+    # not ported (ROADMAP Queue 1 item 6b)
     mp: int = 1
+    # sequence (point-axis) parallelism for serving at large N: each crop's
+    # points shard over sp ranks (parallel/sp.py); needs num_points % (16*sp)
+    # == 0; not with mp; eval only
     sp: int = 1
 
 

@@ -86,16 +86,21 @@ __device__ __forceinline__ void unit_rf(const float* v, const float* c, float* r
 // sum), in the order of the plain version
 // (ops/cuda_hs_fused.py::_rf_fast); centre and neighbour round alike, so a
 // duplicated point still gives exactly 0.
+//
+// The query-sharded form takes the centres from vq (B, NQ, 3) and idx (B, NQ,
+// K), the neighbours from the N source rows of verts; the single-source form
+// is it with vq = verts and NQ = N.
 template <bool FAST = false, bool PACK4 = false>
-__device__ inline void stage_rf(const float* __restrict__ verts, const int* __restrict__ idx,
-                                float* srf, int* sidx, int b, int q0, int tq, int N, int K) {
+__device__ inline void stage_rf(const float* __restrict__ verts, const float* __restrict__ vq,
+                                const int* __restrict__ idx, float* srf, int* sidx, int b, int q0,
+                                int tq, int NQ, int N, int K) {
   for (int e = threadIdx.x; e < tq * K; e += blockDim.x) {
     const int t = e / K, j = e % K, q = q0 + t;
     float raw[3], r[3] = {0.f, 0.f, 0.f};
     int nb = 0;
-    if (q < N) {
-      nb = idx[((size_t)b * N + q) * K + j];
-      unit_rf<FAST>(verts + ((size_t)b * N + nb) * 3, verts + ((size_t)b * N + q) * 3, raw, r);
+    if (q < NQ) {
+      nb = idx[((size_t)b * NQ + q) * K + j];
+      unit_rf<FAST>(verts + ((size_t)b * N + nb) * 3, vq + ((size_t)b * NQ + q) * 3, raw, r);
     }
     if constexpr (PACK4) {
       *reinterpret_cast<float4*>(srf + e * 4) = make_float4(r[0], r[1], r[2], __int_as_float(nb));
@@ -106,6 +111,12 @@ __device__ inline void stage_rf(const float* __restrict__ verts, const int* __re
       if (sidx) sidx[e] = nb;
     }
   }
+}
+
+template <bool FAST = false, bool PACK4 = false>
+__device__ inline void stage_rf(const float* __restrict__ verts, const int* __restrict__ idx,
+                                float* srf, int* sidx, int b, int q0, int tq, int N, int K) {
+  stage_rf<FAST, PACK4>(verts, verts, idx, srf, sidx, b, q0, tq, N, N, K);
 }
 
 // Copy the (3, n) direction matrix into shared memory; FAST rounds each

@@ -2,9 +2,8 @@
 // hs_support.cu), which replaces the body of hspose_tpu/ops/
 // pallas_hs_fused.py::_support_bwd_kernel (:420-490), both branches:
 // exact=True (fp32) and, with FAST, exact=False (the bf16 tier).  The
-// surface reduction's backward (K9, hs_surface.cu) ran on these pieces
-// (SUPPORT false) until it got a kernel of its own; it keeps RED_QC, parts
-// and supported from here.  No other kernel uses the inverse lists: K10
+// surface reduction's backward (K9, hs_surface.cu) has a kernel of its own
+// and takes only RED_QC, parts and supported from here.  No other kernel uses the inverse lists: K10
 // (orl.cu) and K18 (chamfer.cu) find their sources' order themselves.
 //
 // The TPU kernels walk the neighbour slots k of a query tile, select by the
@@ -16,7 +15,7 @@
 //   assigns 32 entries at a time);
 // * route_kernel: per (query, column), theta at the winner recomputed with
 //   the forward's arithmetic, and the routed cotangents dz (into rf and the
-//   directions) and, for the support reduction, dproj (into the projection);
+//   directions) and dproj (into the projection);
 // * rf_grad_kernel: per query, drfn[k] summed over the columns won by k in
 //   column order, the cotangent of rf through the normalisation (masked where
 //   |rf| < 1e-12, so a duplicated point passes nothing), and the query-centre
@@ -144,10 +143,10 @@ static inline cudaError_t inverse_index(const int* idx, int* rowptr, int* ent, i
 
 // Per (query, column): k = win[q, col], theta = relu(rfn[q, k] . d[:, col]) as
 // the forward forms it (stage_rf, the same expression), gs = gb[q, col % Co] / S;
-// SUPPORT: dz = theta > 0 ? gs * proj[idx[q, k], col] : 0 and dproj = gs * theta;
-// else (surface) dz = theta > 0 ? gs : 0, all unrounded.  One block per
-// (batch, TQB queries); a thread per column issues its queries' loads together.
-template <bool SUPPORT, bool FAST, int TQB>
+// dz = theta > 0 ? gs * proj[idx[q, k], col] : 0 and dproj = gs * theta, all
+// unrounded.  One block per (batch, TQB queries); a thread per column issues
+// its queries' loads together.
+template <bool FAST, int TQB>
 __global__ void __launch_bounds__(THREADS)
 route_kernel(const float* __restrict__ verts, const int* __restrict__ idx,
              const float* __restrict__ dirs, const int* __restrict__ win,
@@ -175,11 +174,9 @@ route_kernel(const float* __restrict__ verts, const int* __restrict__ idx,
       k[t] = win[q * SC + c];
       g[t] = gb[q * Co + c % Co];
     }
-    if constexpr (SUPPORT) {
 #pragma unroll
-      for (int t = 0; t < TQB; ++t)
-        p[t] = proj[((size_t)b * N + sidx[min(t, tq - 1) * K + k[t]]) * SC + c];
-    }
+    for (int t = 0; t < TQB; ++t)
+      p[t] = proj[((size_t)b * N + sidx[min(t, tq - 1) * K + k[t]]) * SC + c];
 #pragma unroll
     for (int t = 0; t < TQB; ++t) {
       if (t >= tq) break;
@@ -187,39 +184,33 @@ route_kernel(const float* __restrict__ verts, const int* __restrict__ idx,
       const float* r = srf + (t * K + k[t]) * 3;
       const float theta = fmaxf(r[0] * d0 + r[1] * d1 + r[2] * d2, 0.f);
       const float gs = hs::div_s<FAST>(g[t], S);
-      if constexpr (SUPPORT) {
-        dz[at] = theta > 0.f ? gs * p[t] : 0.f;
-        dproj[at] = gs * theta;
-      } else {
-        dz[at] = theta > 0.f ? gs : 0.f;
-      }
+      dz[at] = theta > 0.f ? gs * p[t] : 0.f;
+      dproj[at] = gs * theta;
     }
   }
 }
 
-template <bool SUPPORT, bool FAST, int TQB>
+template <bool FAST, int TQB>
 cudaError_t route_tq(const float* verts, const int* idx, const float* dirs, const int* win,
                      const float* gb, const float* proj, float* dz, float* dproj, int B, int N,
                      int K, int S, int Co, cudaStream_t st) {
   const size_t smem = sizeof(float) * (3 * (size_t)S * Co + (size_t)TQB * K * 3) +
                       sizeof(int) * (size_t)TQB * K;
-  cudaError_t err = hs::allow_smem(route_kernel<SUPPORT, FAST, TQB>, smem);
+  cudaError_t err = hs::allow_smem(route_kernel<FAST, TQB>, smem);
   if (err != cudaSuccess) return err;
-  route_kernel<SUPPORT, FAST, TQB><<<dim3((N + TQB - 1) / TQB, B), THREADS, smem, st>>>(
+  route_kernel<FAST, TQB><<<dim3((N + TQB - 1) / TQB, B), THREADS, smem, st>>>(
       verts, idx, dirs, win, gb, proj, dz, dproj, N, K, S, Co);
   return cudaGetLastError();
 }
 
 // TQ queries per block, or 2 where the blocks would not fill the card.
-template <bool SUPPORT, bool FAST>
+template <bool FAST>
 cudaError_t route(const float* verts, const int* idx, const float* dirs, const int* win,
                   const float* gb, const float* proj, float* dz, float* dproj, int B, int N, int K,
                   int S, int Co, cudaStream_t st) {
   if ((long)B * ((N + TQ - 1) / TQ) >= 4 * 132)
-    return route_tq<SUPPORT, FAST, TQ>(verts, idx, dirs, win, gb, proj, dz, dproj, B, N, K, S,
-                                       Co, st);
-  return route_tq<SUPPORT, FAST, 2>(verts, idx, dirs, win, gb, proj, dz, dproj, B, N, K, S, Co,
-                                    st);
+    return route_tq<FAST, TQ>(verts, idx, dirs, win, gb, proj, dz, dproj, B, N, K, S, Co, st);
+  return route_tq<FAST, 2>(verts, idx, dirs, win, gb, proj, dz, dproj, B, N, K, S, Co, st);
 }
 
 // drfn, drf and dvq.  Block: RG_TQ warps, one query each; the block stages
@@ -368,11 +359,11 @@ rf_grad_kernel(const float* __restrict__ verts, const int* __restrict__ idx,
   }
 }
 
-// Partial sums over chunks of RED_QC queries, one row of E = (3 or 4) * S*Co
-// per (batch, chunk): dd[d, col] = sum_q rfn[q, win[q, col]][d] * dz[q, col]
-// and (SUPPORT) db[col] = sum_q dproj[q, col].  FAST: rfn (as staged) and dz
-// as bf16 operands; db unrounded.
-template <bool SUPPORT, bool FAST>
+// Partial sums over chunks of RED_QC queries, one row of E = 4 * S*Co per
+// (batch, chunk): dd[d, col] = sum_q rfn[q, win[q, col]][d] * dz[q, col] and
+// db[col] = sum_q dproj[q, col].  FAST: rfn (as staged) and dz as bf16
+// operands; db unrounded.
+template <bool FAST>
 __global__ void __launch_bounds__(THREADS)
 dd_partial_kernel(const float* __restrict__ verts, const int* __restrict__ idx,
                   const int* __restrict__ win, const float* __restrict__ dz,
@@ -395,7 +386,7 @@ dd_partial_kernel(const float* __restrict__ verts, const int* __restrict__ idx,
       const size_t at = ((size_t)b * N + q0 + min(t0 + j, tq - 1)) * SC + c;
       k[j] = win[at];
       u[j] = dz[at];
-      p[j] = SUPPORT ? dproj[at] : 0.f;
+      p[j] = dproj[at];
     }
 #pragma unroll
     for (int j = 0; j < DD_UNROLL; ++j) {
@@ -405,34 +396,33 @@ dd_partial_kernel(const float* __restrict__ verts, const int* __restrict__ idx,
         dd0 += r[0] * uj;
         dd1 += r[1] * uj;
         dd2 += r[2] * uj;
-        if constexpr (SUPPORT) db += p[j];
+        db += p[j];
       }
     }
   }
-  const int E = (SUPPORT ? 4 : 3) * SC;
+  const int E = 4 * SC;
   float* part = partial + ((size_t)b * gridDim.y + chunk) * E;
   part[c] = dd0;
   part[SC + c] = dd1;
   part[2 * SC + c] = dd2;
-  if constexpr (SUPPORT) part[3 * SC + c] = db;
+  part[3 * SC + c] = db;
 }
 
 // Chunks of dd_partial_kernel: the partial-sum scratch is (parts(B, N), E).
 static inline int parts(int B, int N) { return B * ((N + RED_QC - 1) / RED_QC); }
 
-template <bool SUPPORT, bool FAST>
+template <bool FAST>
 cudaError_t dd_db(const float* verts, const int* idx, const int* win, const float* dz,
                   const float* dproj, float* partial, float* red, int B, int N, int K, int SC,
                   cudaStream_t st) {
   const size_t smem = sizeof(float) * (size_t)RED_QC * K * 3;
-  cudaError_t err = hs::allow_smem(dd_partial_kernel<SUPPORT, FAST>, smem);
+  cudaError_t err = hs::allow_smem(dd_partial_kernel<FAST>, smem);
   if (err != cudaSuccess) return err;
-  dd_partial_kernel<SUPPORT, FAST><<<dim3((SC + THREADS - 1) / THREADS, (N + RED_QC - 1) / RED_QC, B),
-                                     THREADS, smem, st>>>(verts, idx, win, dz, dproj, partial, N, K,
-                                                          SC);
+  dd_partial_kernel<FAST><<<dim3((SC + THREADS - 1) / THREADS, (N + RED_QC - 1) / RED_QC, B),
+                            THREADS, smem, st>>>(verts, idx, win, dz, dproj, partial, N, K, SC);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return hs::sum_partials(partial, red, parts(B, N), (SUPPORT ? 4 : 3) * SC, st);
+  return hs::sum_partials(partial, red, parts(B, N), 4 * SC, st);
 }
 
 // dproj_src (B, N, S*Co): see source_proj_kernel above.  Block: SRC_CT
@@ -527,11 +517,11 @@ dverts_kernel(const int* __restrict__ rowptr, const int* __restrict__ ent,
   dverts[e] = s + dvq[e];
 }
 
-// The steps both backwards share, up to the source rows: the inverse lists,
-// the routed cotangents, drf and dvq, dd (and db) into red, then dverts (and
-// dproj_src).  Scratch: rowptr (B, N + 1), ent (B, N*K), dz (and dproj)
-// (B, N, S*Co), drf (B, N, K, 3), dvq (B, N, 3), partial (parts(B, N), E).
-template <bool SUPPORT, bool FAST>
+// K8's steps up to the source rows' products: the inverse lists, the routed
+// cotangents, drf and dvq, dd and db into red, dproj_src, then dverts.
+// Scratch: rowptr (B, N + 1), ent (B, N*K), dz and dproj (B, N, S*Co), drf
+// (B, N, K, 3), dvq (B, N, 3), partial (parts(B, N), 4 * S*Co).
+template <bool FAST>
 cudaError_t fused_bwd(const float* verts, const int* idx, const float* dirs, const int* win,
                       const float* gb, const float* proj, int* rowptr, int* ent, float* dz,
                       float* dproj, float* drf, float* dvq, float* partial, float* red,
@@ -540,7 +530,7 @@ cudaError_t fused_bwd(const float* verts, const int* idx, const float* dirs, con
   const int SC = S * Co;
   cudaError_t err = inverse_index(idx, rowptr, ent, B, N, N * K, st);
   if (err == cudaSuccess)
-    err = route<SUPPORT, FAST>(verts, idx, dirs, win, gb, proj, dz, dproj, B, N, K, S, Co, st);
+    err = route<FAST>(verts, idx, dirs, win, gb, proj, dz, dproj, B, N, K, S, Co, st);
   if (err == cudaSuccess) {
     // the directions beside the kernel's static shared memory: opt in at any size
     const size_t smem = (FAST ? sizeof(double) : sizeof(float)) * 3 * (size_t)SC;
@@ -553,8 +543,8 @@ cudaError_t fused_bwd(const float* verts, const int* idx, const float* dirs, con
     }
   }
   if (err == cudaSuccess)
-    err = dd_db<SUPPORT, FAST>(verts, idx, win, dz, dproj, partial, red, B, N, K, SC, st);
-  if (SUPPORT && err == cudaSuccess)
+    err = dd_db<FAST>(verts, idx, win, dz, dproj, partial, red, B, N, K, SC, st);
+  if (err == cudaSuccess)
     err = source_proj<FAST>(idx, win, dproj, dproj_src, B, N, K, SC, st);
   if (err == cudaSuccess) {
     dverts_kernel<FAST><<<(B * N * 3 + THREADS - 1) / THREADS, THREADS, 0, st>>>(

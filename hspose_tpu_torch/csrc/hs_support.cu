@@ -37,6 +37,13 @@
 // the gather gives each gathered row the same value as the TPU kernel's
 // gather-then-project.
 //
+// The query-sharded branch (hs_support_reduce_qs; sequence-parallel serving,
+// pallas_hs_fused.py's vertices_q, _support_prep :621-661): the projection
+// runs over the M gathered source rows, each row getting the bits the
+// one-device call gives it, and the reduction over the NQ local queries,
+// their centres from a second pointer; so the output equals the one-device
+// output's rows bit for bit.
+//
 // The differentiable op (K3 with want_win, and its backward K8), both tiers:
 // * hs_support_reduce_win is the reduction with WIN: it also records, per
 //   (point, support column), the first k reaching the max of theta * P (a
@@ -200,14 +207,14 @@ constexpr int RTHREADS = 128;
 template <bool FAST, bool WIN, int KT>
 __global__ void __launch_bounds__(RTHREADS)
 reduce_kernel(const float* __restrict__ proj, const float* __restrict__ verts,
-              const int* __restrict__ idx, const float* __restrict__ dirs,
-              float* __restrict__ out, int* __restrict__ win, int N, int K_arg, int S, int Co,
-              int TQ) {
+              const float* __restrict__ vq, const int* __restrict__ idx,
+              const float* __restrict__ dirs, float* __restrict__ out, int* __restrict__ win,
+              int NQ, int N, int K_arg, int S, int Co, int TQ) {
   extern __shared__ __align__(16) float srf[];  // (TQ, K) float4: rf, index bits
   const int K = KT ? KT : K_arg;
   const int SC = S * Co, C4 = Co / 4;
   const int b = blockIdx.y, q0 = blockIdx.x * TQ;
-  hs::stage_rf<FAST, true>(verts, idx, srf, nullptr, b, q0, TQ, N, K);
+  hs::stage_rf<FAST, true>(verts, vq, idx, srf, nullptr, b, q0, TQ, NQ, N, K);
   __syncthreads();
 
   const int lanes_c = min(C4, RTHREADS), QPB = RTHREADS / lanes_c;
@@ -215,10 +222,10 @@ reduce_kernel(const float* __restrict__ proj, const float* __restrict__ verts,
   if (ql >= QPB) return;
   const float* Pb = proj + (size_t)b * N * SC;
   const float4* rf4 = reinterpret_cast<const float4*>(srf);
-  const int tq = min(TQ, N - q0);
+  const int tq = min(TQ, NQ - q0);
   for (int c4 = threadIdx.x % lanes_c; c4 < C4; c4 += lanes_c) {
     for (int t = ql; t < tq; t += QPB) {
-      const size_t row = (size_t)b * N + q0 + t;
+      const size_t row = (size_t)b * NQ + q0 + t;
       float total[4] = {0.f, 0.f, 0.f, 0.f};
       for (int s = 0; s < S; ++s) {
         const int col = s * Co + c4 * 4;
@@ -282,32 +289,37 @@ int project(const TA* feat, const float* w, int ldw, const float* b, float* proj
   }
 }
 
+// proj (B, N, S*Co) and verts (B, N, 3) are the source rows that idx (B, NQ,
+// K) names; vq (B, NQ, 3) holds the query centres (vq = verts, NQ = N but in
+// the query-sharded branch).
 template <bool FAST, bool WIN, int KT>
-int reduce_k(const float* proj, const float* verts, const int* idx, const float* dirs, float* out,
-             int* win, int B, int N, int K, int S, int Co, cudaStream_t stream) {
+int reduce_k(const float* proj, const float* verts, const float* vq, const int* idx,
+             const float* dirs, float* out, int* win, int B, int NQ, int N, int K, int S, int Co,
+             cudaStream_t stream) {
   // two queries per thread and column group
   const int TQ = 2 * (RTHREADS / min(Co / 4, RTHREADS));
   const size_t smem = sizeof(float4) * (size_t)TQ * K;
   auto kernel = reduce_kernel<FAST, WIN, KT>;
   cudaError_t err = hs::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((N + TQ - 1) / TQ, B), RTHREADS, smem, stream>>>(proj, verts, idx, dirs, out, win,
-                                                                 N, K, S, Co, TQ);
+  kernel<<<dim3((NQ + TQ - 1) / TQ, B), RTHREADS, smem, stream>>>(proj, verts, vq, idx, dirs, out,
+                                                                  win, NQ, N, K, S, Co, TQ);
   return (int)cudaGetLastError();
 }
 
 template <bool FAST, bool WIN = false>
-int reduce(const float* proj, const float* verts, const int* idx, const float* dirs, float* out,
-           int* win, int B, int N, int K, int S, int Co, cudaStream_t stream) {
+int reduce(const float* proj, const float* verts, const float* vq, const int* idx,
+           const float* dirs, float* out, int* win, int B, int NQ, int N, int K, int S, int Co,
+           cudaStream_t stream) {
   if (Co % 4 || !hs::aligned16(proj) || !hs::aligned16(out) || (WIN && !hs::aligned16(win)))
     return (int)cudaErrorInvalidValue;
   switch (K) {  // the model's K = 20 and 8 unrolled
-    case 20: return reduce_k<FAST, WIN, 20>(proj, verts, idx, dirs, out, win, B, N, K, S, Co,
-                                            stream);
-    case 8: return reduce_k<FAST, WIN, 8>(proj, verts, idx, dirs, out, win, B, N, K, S, Co,
-                                          stream);
-    default: return reduce_k<FAST, WIN, 0>(proj, verts, idx, dirs, out, win, B, N, K, S, Co,
-                                           stream);
+    case 20: return reduce_k<FAST, WIN, 20>(proj, verts, vq, idx, dirs, out, win, B, NQ, N, K, S,
+                                            Co, stream);
+    case 8: return reduce_k<FAST, WIN, 8>(proj, verts, vq, idx, dirs, out, win, B, NQ, N, K, S,
+                                          Co, stream);
+    default: return reduce_k<FAST, WIN, 0>(proj, verts, vq, idx, dirs, out, win, B, NQ, N, K, S,
+                                           Co, stream);
   }
 }
 
@@ -498,8 +510,21 @@ extern "C" int hs_support_reduce(const float* proj, const float* verts, const in
                                  const float* dirs, float* out, int B, int N, int K, int S,
                                  int Co, int fast, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fast ? reduce<true>(proj, verts, idx, dirs, out, nullptr, B, N, K, S, Co, s)
-              : reduce<false>(proj, verts, idx, dirs, out, nullptr, B, N, K, S, Co, s);
+  return fast ? reduce<true>(proj, verts, verts, idx, dirs, out, nullptr, B, N, N, K, S, Co, s)
+              : reduce<false>(proj, verts, verts, idx, dirs, out, nullptr, B, N, N, K, S, Co, s);
+}
+
+// The query-sharded branch (sequence-parallel serving, pallas_hs_fused.py's
+// vertices_q): proj (B, M, S*Co) projected by hs_support_project over the M
+// source rows, verts (B, M, 3), centres vq (B, NQ, 3), idx (B, NQ, K) into the
+// source -> out (B, NQ, Co).  Each query is reduced as hs_support_reduce
+// reduces the same row of the source.
+extern "C" int hs_support_reduce_qs(const float* proj, const float* verts, const float* vq,
+                                    const int* idx, const float* dirs, float* out, int B, int NQ,
+                                    int M, int K, int S, int Co, int fast, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return fast ? reduce<true>(proj, verts, vq, idx, dirs, out, nullptr, B, NQ, M, K, S, Co, s)
+              : reduce<false>(proj, verts, vq, idx, dirs, out, nullptr, B, NQ, M, K, S, Co, s);
 }
 
 // The forward of the differentiable op: as hs_support_reduce, and win
@@ -509,8 +534,9 @@ extern "C" int hs_support_reduce_win(const float* proj, const float* verts, cons
                                      int S, int Co, int fast, void* stream) {
   if (hsb::supported(N, K)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fast ? reduce<true, true>(proj, verts, idx, dirs, out, win, B, N, K, S, Co, s)
-              : reduce<false, true>(proj, verts, idx, dirs, out, win, B, N, K, S, Co, s);
+  return fast ? reduce<true, true>(proj, verts, verts, idx, dirs, out, win, B, N, N, K, S, Co, s)
+              : reduce<false, true>(proj, verts, verts, idx, dirs, out, win, B, N, N, K, S, Co,
+                                    s);
 }
 
 // Slices of the dW product: its partial-sum scratch is (hs_support_fused_dw_parts(B * N),
@@ -537,12 +563,10 @@ extern "C" int hs_support_fused_bwd(const void* feat, const float* w, int ldw,
   if (hsb::supported(N, K) || Cin % 4) return (int)cudaErrorInvalidValue;
   const int SC = S * Co, rows = B * N;
   cudaError_t err =
-      fast ? hsb::fused_bwd<true, true>(verts, idx, dirs, win, gb, proj, rowptr, ent, dz, dproj,
-                                        drf, dvq, partial, red, dproj_src, dverts, B, N, K, S, Co,
-                                        st)
-           : hsb::fused_bwd<true, false>(verts, idx, dirs, win, gb, proj, rowptr, ent, dz, dproj,
-                                         drf, dvq, partial, red, dproj_src, dverts, B, N, K, S, Co,
-                                         st);
+      fast ? hsb::fused_bwd<true>(verts, idx, dirs, win, gb, proj, rowptr, ent, dz, dproj, drf,
+                                  dvq, partial, red, dproj_src, dverts, B, N, K, S, Co, st)
+           : hsb::fused_bwd<false>(verts, idx, dirs, win, gb, proj, rowptr, ent, dz, dproj, drf,
+                                   dvq, partial, red, dproj_src, dverts, B, N, K, S, Co, st);
   if (err != cudaSuccess) return (int)err;
   const int parts = (rows + DW_KC - 1) / DW_KC;
   if (fast) {

@@ -28,6 +28,12 @@
 // rows and the directions are rounded as hs_common.cuh says, the rest is
 // unchanged; every product is then exact, accumulation and output stay fp32.
 //
+// The query-sharded branch (hs_surface_qs; sequence-parallel serving,
+// pallas_hs_fused.py's vertices_q, _surface_prep :738-762) stages the centres
+// from a second pointer of NQ rows and the neighbours from the M gathered
+// source rows; only addresses change, so each query's output has the bits
+// the one-device launch gives the same row.
+//
 // WIN is the forward of the differentiable op, either tier (want_win=True of
 // the same TPU kernel, pallas_hs_fused.py:318-330): it also records, per
 // (point, support column), the first k that reaches the max of relu(theta),
@@ -58,36 +64,40 @@ constexpr int THREADS = 128;
 // (0: read at run time).
 template <bool FAST, bool WIN, int KT, int ST>
 __global__ void __launch_bounds__(THREADS)
-surface_kernel(const float* __restrict__ verts, const int* __restrict__ idx,
-               const float* __restrict__ dirs, float* __restrict__ out, int* __restrict__ win,
-               int N, int K_arg, int S_arg, int Co) {
+surface_kernel(const float* __restrict__ verts, const float* __restrict__ vq,
+               const int* __restrict__ idx, const float* __restrict__ dirs,
+               float* __restrict__ out, int* __restrict__ win, int NQ, int N, int K_arg,
+               int S_arg, int Co) {
   extern __shared__ __align__(16) float4 srf[];  // (TQ, K): unit rf, index bits
   const int K = KT ? KT : K_arg;
   const int b = blockIdx.y, q0 = blockIdx.x * TQ;
-  hs::stage_rf<FAST, true>(verts, idx, reinterpret_cast<float*>(srf), nullptr, b, q0, TQ, N, K);
+  hs::stage_rf<FAST, true>(verts, vq, idx, reinterpret_cast<float*>(srf), nullptr, b, q0, TQ, NQ,
+                           N, K);
   __syncthreads();
-  hss::reduce_rows<FAST, WIN, KT, ST, THREADS>(srf, dirs, out, win, (size_t)b * N + q0,
-                                               min(TQ, N - q0), K, S_arg, Co);
+  hss::reduce_rows<FAST, WIN, KT, ST, THREADS>(srf, dirs, out, win, (size_t)b * NQ + q0,
+                                               min(TQ, NQ - q0), K, S_arg, Co);
 }
 
+// vq (B, NQ, 3) holds the query centres; verts (B, N, 3) the source rows
+// that idx names (vq = verts, NQ = N but in the query-sharded branch).
 template <bool FAST, bool WIN, int KT, int ST>
-int launch_k(const float* verts, const int* idx, const float* dirs, float* out, int* win, int B,
-             int N, int K, int S, int Co, cudaStream_t stream) {
+int launch_k(const float* verts, const float* vq, const int* idx, const float* dirs, float* out,
+             int* win, int B, int NQ, int N, int K, int S, int Co, cudaStream_t stream) {
   auto kernel = surface_kernel<FAST, WIN, KT, ST>;
   const size_t smem = sizeof(float4) * (size_t)TQ * K;
   cudaError_t err = hs::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((N + TQ - 1) / TQ, B), THREADS, smem, stream>>>(verts, idx, dirs, out, win, N, K,
-                                                                S, Co);
+  kernel<<<dim3((NQ + TQ - 1) / TQ, B), THREADS, smem, stream>>>(verts, vq, idx, dirs, out, win,
+                                                                 NQ, N, K, S, Co);
   return (int)cudaGetLastError();
 }
 
 template <bool FAST, bool WIN = false>
-int launch(const float* verts, const int* idx, const float* dirs, float* out, int* win, int B,
-           int N, int K, int S, int Co, cudaStream_t stream) {
+int launch(const float* verts, const float* vq, const int* idx, const float* dirs, float* out,
+           int* win, int B, int NQ, int N, int K, int S, int Co, cudaStream_t stream) {
   if (K == 20 && S == 7)  // the model's conv_0
-    return launch_k<FAST, WIN, 20, 7>(verts, idx, dirs, out, win, B, N, K, S, Co, stream);
-  return launch_k<FAST, WIN, 0, 0>(verts, idx, dirs, out, win, B, N, K, S, Co, stream);
+    return launch_k<FAST, WIN, 20, 7>(verts, vq, idx, dirs, out, win, B, NQ, N, K, S, Co, stream);
+  return launch_k<FAST, WIN, 0, 0>(verts, vq, idx, dirs, out, win, B, NQ, N, K, S, Co, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -589,8 +599,20 @@ cudaError_t surface_bwd(const float* verts, const int* idx, const float* dirs, c
 extern "C" int hs_surface(const float* verts, const int* idx, const float* dirs, float* out,
                           int B, int N, int K, int S, int Co, int fast, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fast ? launch<true>(verts, idx, dirs, out, nullptr, B, N, K, S, Co, s)
-              : launch<false>(verts, idx, dirs, out, nullptr, B, N, K, S, Co, s);
+  return fast ? launch<true>(verts, verts, idx, dirs, out, nullptr, B, N, N, K, S, Co, s)
+              : launch<false>(verts, verts, idx, dirs, out, nullptr, B, N, N, K, S, Co, s);
+}
+
+// The query-sharded branch (sequence-parallel serving, pallas_hs_fused.py's
+// vertices_q): centres vq (B, NQ, 3), idx (B, NQ, K) into the M source rows of
+// verts (B, M, 3) -> out (B, NQ, Co).  Each query's rows are staged and reduced
+// as hs_surface does the same row of the source.
+extern "C" int hs_surface_qs(const float* verts, const float* vq, const int* idx,
+                             const float* dirs, float* out, int B, int NQ, int M, int K, int S,
+                             int Co, int fast, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return fast ? launch<true>(verts, vq, idx, dirs, out, nullptr, B, NQ, M, K, S, Co, s)
+              : launch<false>(verts, vq, idx, dirs, out, nullptr, B, NQ, M, K, S, Co, s);
 }
 
 // The forward of the differentiable op: as hs_surface, and win (B, N, S*Co)
@@ -600,8 +622,8 @@ extern "C" int hs_surface_win(const float* verts, const int* idx, const float* d
                               void* stream) {
   if (hsb::supported(N, K)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fast ? launch<true, true>(verts, idx, dirs, out, win, B, N, K, S, Co, s)
-              : launch<false, true>(verts, idx, dirs, out, win, B, N, K, S, Co, s);
+  return fast ? launch<true, true>(verts, verts, idx, dirs, out, win, B, N, N, K, S, Co, s)
+              : launch<false, true>(verts, verts, idx, dirs, out, win, B, N, N, K, S, Co, s);
 }
 
 // K9: verts (B, N, 3), idx (B, N, K), dirs (3, S*Co), win (B, N, S*Co), gb (B, N, Co)

@@ -55,6 +55,15 @@
 //   kk smallest in that order, as in the replaced kernel.
 //
 // No distance matrix reaches device memory and no library is called.
+//
+// The query-sharded branch (hs_knn_qs, hs_knn_packed_qs; sequence-parallel
+// serving, replacing pallas_knn.py::knn_indices_pallas_qs and its streamed
+// and packed variants) is the same kernel with its query tile staged from a
+// second pointer of NQ rows, while the source tiles stream from the M rows
+// of the gathered cloud; only addresses change, so a query's list is the one
+// the single-source launch gives the same row of the source.  The packed
+// keys hold the source index, so that search takes M <= 2048, and the
+// wrapper picks the exact search by M (ops/cuda_knn.py).
 
 #include <climits>
 #include <cmath>
@@ -144,7 +153,8 @@ __device__ __forceinline__ int pack_key(float d, int index) {
 
 template <int KMAX, bool EXACT_K, int LANES, int MODE, bool PACKED, typename T>
 __global__ void __launch_bounds__(THREADS, EXACT_K && !PACKED ? 2 : 1)
-knn_kernel(const T* __restrict__ pts, int* __restrict__ out, int N, int D, int kk_arg) {
+knn_kernel(const T* __restrict__ qpts, const T* __restrict__ pts, int* __restrict__ out, int NQ,
+           int N, int D, int kk_arg) {
   constexpr int TQ = THREADS / LANES;  // queries per block
   constexpr int RI = TQ / 16;          // query rows per thread in the CUDA-core product
   constexpr int DSTR = TS + LANES;     // row stride of the distance tile (conflict-free selection)
@@ -163,8 +173,9 @@ knn_kernel(const T* __restrict__ pts, int* __restrict__ out, int N, int D, int k
   const int b = blockIdx.y, q0 = blockIdx.x * TQ, tid = threadIdx.x;
   const int sq = tid / LANES, part = tid % LANES;  // selection: query and lane within it
   const int ty = tid / 16, tx = tid % 16;  // CUDA-core product: rows ty + 16 i, cols tx + 16 j
-  const T* P = pts + (size_t)b * N * D;
-  const bool vec = MODE == MMA || (D % 4 == 0 && hs::aligned16(pts));
+  const T* P = pts + (size_t)b * N * D;  // the N source rows
+  const T* Q = qpts + (size_t)b * NQ * D;  // the NQ query rows
+  const bool vec = MODE == MMA || (D % 4 == 0 && hs::aligned16(pts) && hs::aligned16(qpts));
 
   // this lane's sorted list: (distance, index) pairs, or packed keys
   float ld[KMAX];
@@ -177,7 +188,7 @@ knn_kernel(const T* __restrict__ pts, int* __restrict__ out, int N, int D, int k
   float wd = INFINITY, td = INFINITY;  // exact: this lane's kk-th distance; the query's bound
   int wk = INT_MAX, tk = INT_MAX;      // packed: the same for keys (the keys live in li)
 
-  stage(qs, geo.qs, P, N, D, q0, TQ, 0, MODE == EXPAND ? geo.dch * geo.nc : geo.dch, vec);
+  stage(qs, geo.qs, Q, NQ, D, q0, TQ, 0, MODE == EXPAND ? geo.dch * geo.nc : geo.dch, vec);
   const int total = (N + TS - 1) / TS * geo.nc;  // chunks over all tiles
   auto issue = [&](int c) {
     if (c < total)
@@ -378,7 +389,7 @@ knn_kernel(const T* __restrict__ pts, int* __restrict__ out, int N, int D, int k
   // merge the LANES lists of each query in order: kk rounds, each taking the
   // smallest head among the query's lanes and popping it
   const int q = q0 + sq;
-  int* o = out + ((size_t)b * N + q) * (kk - 1);
+  int* o = out + ((size_t)b * NQ + q) * (kk - 1);
   for (int r = 0; r < kk; ++r) {
     float bd = ld[0];
     int bi = li[0];
@@ -405,45 +416,66 @@ knn_kernel(const T* __restrict__ pts, int* __restrict__ out, int N, int D, int k
       ld[KMAX - 1] = INFINITY;
       li[KMAX - 1] = INT_MAX;
     }
-    if (part == 0 && r > 0 && q < N) o[r - 1] = PACKED ? bi & IDX_MASK : bi;
+    if (part == 0 && r > 0 && q < NQ) o[r - 1] = PACKED ? bi & IDX_MASK : bi;
   }
 }
 
 template <int KMAX, bool EXACT_K, int LANES, int MODE, bool PACKED, typename T>
-cudaError_t launch(const T* pts, int* out, int B, int N, int D, int kk, cudaStream_t s) {
+cudaError_t launch(const T* q, const T* pts, int* out, int B, int NQ, int N, int D, int kk,
+                   cudaStream_t s) {
   constexpr int TQ = THREADS / LANES;
   const size_t smem = smem_bytes(MODE, D, TQ, LANES);
   auto kernel = knn_kernel<KMAX, EXACT_K, LANES, MODE, PACKED, T>;
   cudaError_t err = hs::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((N + TQ - 1) / TQ, B), THREADS, smem, s>>>(pts, out, N, D, kk);
+  kernel<<<dim3((NQ + TQ - 1) / TQ, B), THREADS, smem, s>>>(q, pts, out, NQ, N, D, kk);
   return cudaGetLastError();
 }
 
 // the model's list lengths (k = 20, 4, 8) get lists of exactly kk entries;
 // any other kk <= 32 a list of 32 with kk read at run time
 template <int LANES, int MODE, bool PACKED, typename T>
-cudaError_t launch_k(const T* pts, int* out, int B, int N, int D, int kk, cudaStream_t s) {
+cudaError_t launch_k(const T* q, const T* pts, int* out, int B, int NQ, int N, int D, int kk,
+                     cudaStream_t s) {
   switch (kk) {
-    case 5: return launch<5, true, LANES, MODE, PACKED>(pts, out, B, N, D, kk, s);
-    case 9: return launch<9, true, LANES, MODE, PACKED>(pts, out, B, N, D, kk, s);
-    case 21: return launch<21, true, LANES, MODE, PACKED>(pts, out, B, N, D, kk, s);
-    default: return launch<32, false, LANES, MODE, PACKED>(pts, out, B, N, D, kk, s);
+    case 5: return launch<5, true, LANES, MODE, PACKED>(q, pts, out, B, NQ, N, D, kk, s);
+    case 9: return launch<9, true, LANES, MODE, PACKED>(q, pts, out, B, NQ, N, D, kk, s);
+    case 21: return launch<21, true, LANES, MODE, PACKED>(q, pts, out, B, NQ, N, D, kk, s);
+    default: return launch<32, false, LANES, MODE, PACKED>(q, pts, out, B, NQ, N, D, kk, s);
   }
 }
 
 template <int MODE, bool PACKED, typename T>
-cudaError_t launch_lanes(const T* pts, int* out, int B, int N, int D, int kk, int lanes,
-                         cudaStream_t s) {
+cudaError_t launch_lanes(const T* q, const T* pts, int* out, int B, int NQ, int N, int D, int kk,
+                         int lanes, cudaStream_t s) {
   switch (lanes) {
-    case 4: return launch_k<4, MODE, PACKED>(pts, out, B, N, D, kk, s);
-    case 8: return launch_k<8, MODE, PACKED>(pts, out, B, N, D, kk, s);
-    default: return launch_k<16, MODE, PACKED>(pts, out, B, N, D, kk, s);
+    case 4: return launch_k<4, MODE, PACKED>(q, pts, out, B, NQ, N, D, kk, s);
+    case 8: return launch_k<8, MODE, PACKED>(q, pts, out, B, NQ, N, D, kk, s);
+    default: return launch_k<16, MODE, PACKED>(q, pts, out, B, NQ, N, D, kk, s);
   }
 }
 
-bool bad_args(int B, int N, int D, int kk, int lanes) {
-  return B < 1 || kk < 2 || kk > 32 || kk > N || D < 1 || (lanes != 4 && lanes != 8 && lanes != 16);
+bool bad_args(int B, int NQ, int N, int D, int kk, int lanes) {
+  return B < 1 || NQ < 1 || kk < 2 || kk > 32 || kk > N || D < 1 ||
+         (lanes != 4 && lanes != 8 && lanes != 16);
+}
+
+cudaError_t exact(const float* q, const float* pts, int* out, int B, int NQ, int N, int D, int kk,
+                  int lanes, cudaStream_t s) {
+  return D <= 8 ? launch_lanes<DIRECT, false>(q, pts, out, B, NQ, N, D, kk, lanes, s)
+                : launch_lanes<EXPAND, false>(q, pts, out, B, NQ, N, D, kk, lanes, s);
+}
+
+cudaError_t packed(const void* q, const void* pts, int is_bf16, int* out, int B, int NQ, int N,
+                   int D, int kk, int lanes, cudaStream_t s) {
+  if (is_bf16)
+    return launch_lanes<MMA, true>(static_cast<const __nv_bfloat16*>(q),
+                                   static_cast<const __nv_bfloat16*>(pts), out, B, NQ, N, D, kk,
+                                   lanes, s);
+  const float* qf = static_cast<const float*>(q);
+  const float* p = static_cast<const float*>(pts);
+  return D <= 8 ? launch_lanes<DIRECT, true>(qf, p, out, B, NQ, N, D, kk, lanes, s)
+                : launch_lanes<EXPAND, true>(qf, p, out, B, NQ, N, D, kk, lanes, s);
 }
 
 }  // namespace
@@ -452,10 +484,8 @@ bool bad_args(int B, int N, int D, int kk, int lanes) {
 // dropped; lanes (4, 8 or 16) selecting lanes per query.
 extern "C" int hs_knn(const float* pts, int* out, int B, int N, int D, int kk, int lanes,
                       void* stream) {
-  if (bad_args(B, N, D, kk, lanes)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(D <= 8 ? launch_lanes<DIRECT, false>(pts, out, B, N, D, kk, lanes, s)
-                      : launch_lanes<EXPAND, false>(pts, out, B, N, D, kk, lanes, s));
+  if (bad_args(B, N, N, D, kk, lanes)) return (int)cudaErrorInvalidValue;
+  return (int)exact(pts, pts, out, B, N, N, D, kk, lanes, static_cast<cudaStream_t>(stream));
 }
 
 // points (B, N, D), fp32 or (is_bf16 != 0) bf16 with D % 16 == 0 -> out (B, N,
@@ -463,13 +493,31 @@ extern "C" int hs_knn(const float* pts, int* out, int B, int N, int D, int kk, i
 // the index fits the key.
 extern "C" int hs_knn_packed(const void* pts, int is_bf16, int* out, int B, int N, int D,
                              int kk, int lanes, void* stream) {
-  if (bad_args(B, N, D, kk, lanes) || N > IDX_MASK + 1 || (is_bf16 && D % 16 != 0))
+  if (bad_args(B, N, N, D, kk, lanes) || N > IDX_MASK + 1 || (is_bf16 && D % 16 != 0))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)launch_lanes<MMA, true>(static_cast<const __nv_bfloat16*>(pts), out, B, N, D, kk,
-                                        lanes, s);
-  const float* p = static_cast<const float*>(pts);
-  return (int)(D <= 8 ? launch_lanes<DIRECT, true>(p, out, B, N, D, kk, lanes, s)
-                      : launch_lanes<EXPAND, true>(p, out, B, N, D, kk, lanes, s));
+  return (int)packed(pts, pts, is_bf16, out, B, N, N, D, kk, lanes,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The query-sharded branch (sequence-parallel serving; replaces
+// pallas_knn.py::knn_indices_pallas_qs): queries q (B, NQ, D) against the
+// source points (B, M, D), which contain every query row -> out (B, NQ, kk - 1)
+// int32, indices into the source, the kk smallest by (distance, index), column
+// 0 dropped.  A query is a block's staged row as in hs_knn; only the source
+// tiles come from the other pointer, so each query's list is the one hs_knn
+// gives that row of the source (the same fp32 distances in the same order).
+extern "C" int hs_knn_qs(const float* q, const float* pts, int* out, int B, int NQ, int M,
+                         int D, int kk, int lanes, void* stream) {
+  if (bad_args(B, NQ, M, D, kk, lanes)) return (int)cudaErrorInvalidValue;
+  return (int)exact(q, pts, out, B, NQ, M, D, kk, lanes, static_cast<cudaStream_t>(stream));
+}
+
+// The packed-key search of the query-sharded branch: as hs_knn_packed, the
+// key's index bits holding the source row, so M <= 2048.
+extern "C" int hs_knn_packed_qs(const void* q, const void* pts, int is_bf16, int* out, int B,
+                                int NQ, int M, int D, int kk, int lanes, void* stream) {
+  if (bad_args(B, NQ, M, D, kk, lanes) || M > IDX_MASK + 1 || (is_bf16 && D % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  return (int)packed(q, pts, is_bf16, out, B, NQ, M, D, kk, lanes,
+                     static_cast<cudaStream_t>(stream));
 }

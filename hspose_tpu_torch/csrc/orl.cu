@@ -40,6 +40,11 @@
 // values and every sum stays fp32, as the TPU kernel's exact one-hot gather
 // of bf16 rows with fp32 accumulation.
 //
+// The query-sharded branch (hs_orl_qs; sequence-parallel serving,
+// pallas_hs_fused.py:830-869 with nq_valid = idx.shape[1]) stages the M
+// gathered source rows and walks and averages the NQ local query rows; the
+// cross-shard mean is then the caller's all-reduce.
+//
 // The differentiable op, either tier: hs_orl_win is the same kernel with WIN,
 // which also records, per (point, channel), the first k reaching the max (a
 // strict > from -FLT_MAX in increasing k, pallas_hs_fused.py:381-389); the
@@ -66,10 +71,11 @@ constexpr int TQ = 32;           // points per tile: the first sum's unit
 constexpr int MAX_THREADS = 512;
 constexpr int SMEM_MAX = 232448;  // shared memory a block may use (227 KB)
 
-// The shared memory of one block: N rows of Cs values and the (tiles, Cs)
-// tile sums; the (N, K) indices, when staged, lie between them.
-inline size_t smem_bytes(int N, int Cs, int elem) {
-  return (size_t)N * Cs * elem + sizeof(float) * (size_t)((N + TQ - 1) / TQ) * Cs;
+// The shared memory of one block: N source rows of Cs values and the NQ
+// query rows' (tiles, Cs) tile sums; the (NQ, K) indices, when staged, lie
+// between them.
+inline size_t smem_bytes(int NQ, int N, int Cs, int elem) {
+  return (size_t)N * Cs * elem + sizeof(float) * (size_t)((NQ + TQ - 1) / TQ) * Cs;
 }
 
 // The launch plan: a slice's row is 128 bytes down to 16 (ROW_BYTES).
@@ -84,12 +90,12 @@ constexpr double ROW_COST[] = {1.0, 0.75, 0.51, 0.33};
 // wavefronts on the busiest SM (ROW_COST per row times the blocks each SM
 // takes), the widest on a tie; 0 where no width divides C with N rows and
 // the tile sums in shared memory.
-inline int slice_width(int B, int N, int C, int elem, int sms) {
+inline int slice_width(int B, int NQ, int N, int C, int elem, int sms) {
   int best = 0;
   double best_cost = 0.0;
   for (int i = 0; i < 4; ++i) {
     const int cs = ROW_BYTES[i] / elem;
-    if (C % cs || smem_bytes(N, cs, elem) > SMEM_MAX) continue;
+    if (C % cs || smem_bytes(NQ, N, cs, elem) > SMEM_MAX) continue;
     const double cost = (double)((B * (C / cs) + sms - 1) / sms) * ROW_COST[i];
     if (!best || cost < best_cost) {
       best = cs;
@@ -141,21 +147,21 @@ __device__ __forceinline__ void load_row(const int* __restrict__ p, int (&nb)[KT
 template <typename T, bool WIN, int KT, bool SIDX>
 __global__ void __launch_bounds__(MAX_THREADS)
 orl_kernel(const T* __restrict__ feat, const int* __restrict__ idx, float* __restrict__ out,
-           int* __restrict__ win, int N, int K_arg, int C, int Cs) {
+           int* __restrict__ win, int NQ, int N, int K_arg, int C, int Cs) {
   constexpr int VEC = 16 / sizeof(T);  // channels per 16 bytes
   extern __shared__ __align__(16) uint4 srow[];  // (N, Q): feat[b, :, c0:c0+Cs]
   const int K = KT ? KT : K_arg;
-  const int Q = Cs / VEC, tiles = (N + TQ - 1) / TQ;
+  const int Q = Cs / VEC, tiles = (NQ + TQ - 1) / TQ;
   const int b = blockIdx.y, c0 = blockIdx.x * Cs;
-  int* sidx = reinterpret_cast<int*>(srow + (size_t)N * Q);                // (N, K) if SIDX
-  float* tsum = reinterpret_cast<float*>(sidx + (SIDX ? (size_t)N * K : 0));  // (tiles, Cs)
+  int* sidx = reinterpret_cast<int*>(srow + (size_t)N * Q);                 // (NQ, K) if SIDX
+  float* tsum = reinterpret_cast<float*>(sidx + (SIDX ? (size_t)NQ * K : 0));  // (tiles, Cs)
 
   const T* Fb = feat + (size_t)b * N * C + c0;
   for (int e = threadIdx.x; e < N * Q; e += blockDim.x)
     hs::cp_async16(srow + e, Fb + (size_t)(e / Q) * C + (e % Q) * VEC, true);
-  const int* Ib = idx + (size_t)b * N * K;
+  const int* Ib = idx + (size_t)b * NQ * K;
   if constexpr (SIDX) {
-    for (int e = threadIdx.x; e < N * K / 4; e += blockDim.x)
+    for (int e = threadIdx.x; e < NQ * K / 4; e += blockDim.x)
       hs::cp_async16(sidx + 4 * e, Ib + 4 * e, true);
     Ib = sidx;
   }
@@ -164,7 +170,7 @@ orl_kernel(const T* __restrict__ feat, const int* __restrict__ idx, float* __res
   __syncthreads();
 
   for (int item = threadIdx.x; item < tiles * Q; item += blockDim.x) {
-    const int tile = item / Q, v = item % Q, q0 = tile * TQ, tq = min(TQ, N - q0);
+    const int tile = item / Q, v = item % Q, q0 = tile * TQ, tq = min(TQ, NQ - q0);
     float sum[VEC];
 #pragma unroll
     for (int c = 0; c < VEC; ++c) sum[c] = 0.f;
@@ -206,7 +212,7 @@ orl_kernel(const T* __restrict__ feat, const int* __restrict__ idx, float* __res
         }
       }
       if constexpr (WIN) {
-        int4* w = reinterpret_cast<int4*>(win + ((size_t)b * N + q0 + t) * C + c0 + v * VEC);
+        int4* w = reinterpret_cast<int4*>(win + ((size_t)b * NQ + q0 + t) * C + c0 + v * VEC);
 #pragma unroll
         for (int i = 0; i < VEC / 4; ++i)
           w[i] = make_int4(kb[4 * i], kb[4 * i + 1], kb[4 * i + 2], kb[4 * i + 3]);
@@ -222,46 +228,49 @@ orl_kernel(const T* __restrict__ feat, const int* __restrict__ idx, float* __res
   for (int c = threadIdx.x; c < Cs; c += blockDim.x) {
     float total = 0.f;
     for (int tile = 0; tile < tiles; ++tile) total += tsum[tile * Cs + c];
-    out[(size_t)b * C + c0 + c] = total / N;
+    out[(size_t)b * C + c0 + c] = total / NQ;
   }
 }
 
+// feat (B, N, C) holds the source rows that idx (B, NQ, K) names; the mean is
+// over the NQ query rows (NQ = N but in the query-sharded branch).
 template <typename T, bool WIN, int KT, bool SIDX>
-int launch_k(const T* feat, const int* idx, float* out, int* win, int B, int N, int K, int C,
-             int Cs, cudaStream_t s) {
+int launch_k(const T* feat, const int* idx, float* out, int* win, int B, int NQ, int N, int K,
+             int C, int Cs, cudaStream_t s) {
   auto kernel = orl_kernel<T, WIN, KT, SIDX>;
-  const size_t smem = smem_bytes(N, Cs, sizeof(T)) + (SIDX ? sizeof(int) * (size_t)N * K : 0);
+  const size_t smem =
+      smem_bytes(NQ, N, Cs, sizeof(T)) + (SIDX ? sizeof(int) * (size_t)NQ * K : 0);
   cudaError_t err = hs::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const int items = (N + TQ - 1) / TQ * (Cs * (int)sizeof(T) / 16);
+  const int items = (NQ + TQ - 1) / TQ * (Cs * (int)sizeof(T) / 16);
   const int threads = min(MAX_THREADS, (items + 31) / 32 * 32);
-  kernel<<<dim3(C / Cs, B), threads, smem, s>>>(feat, idx, out, win, N, K, C, Cs);
+  kernel<<<dim3(C / Cs, B), threads, smem, s>>>(feat, idx, out, win, NQ, N, K, C, Cs);
   return (int)cudaGetLastError();
 }
 
 // The indices go to shared memory beside the features where they fit.
 template <typename T, bool WIN, int KT>
-int launch_kt(const T* feat, const int* idx, float* out, int* win, int B, int N, int K, int C,
-              int Cs, cudaStream_t s) {
-  if (smem_bytes(N, Cs, sizeof(T)) + sizeof(int) * (size_t)N * K <= SMEM_MAX)
-    return launch_k<T, WIN, KT, true>(feat, idx, out, win, B, N, K, C, Cs, s);
-  return launch_k<T, WIN, KT, false>(feat, idx, out, win, B, N, K, C, Cs, s);
+int launch_kt(const T* feat, const int* idx, float* out, int* win, int B, int NQ, int N, int K,
+              int C, int Cs, cudaStream_t s) {
+  if (smem_bytes(NQ, N, Cs, sizeof(T)) + sizeof(int) * (size_t)NQ * K <= SMEM_MAX)
+    return launch_k<T, WIN, KT, true>(feat, idx, out, win, B, NQ, N, K, C, Cs, s);
+  return launch_k<T, WIN, KT, false>(feat, idx, out, win, B, NQ, N, K, C, Cs, s);
 }
 
 template <typename T, bool WIN = false>
-int launch(const T* feat, const int* idx, float* out, int* win, int B, int N, int K, int C,
-           cudaStream_t s) {
+int launch(const T* feat, const int* idx, float* out, int* win, int B, int NQ, int N, int K,
+           int C, cudaStream_t s) {
   int dev, sms;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const int Cs = slice_width(B, N, C, sizeof(T), sms);
-  if (!Cs || !hs::aligned16(feat) || (WIN && !hs::aligned16(win)))
+  const int Cs = slice_width(B, NQ, N, C, sizeof(T), sms);
+  if (!Cs || NQ < 1 || !hs::aligned16(feat) || (WIN && !hs::aligned16(win)))
     return (int)cudaErrorInvalidValue;
   switch (hs::aligned16(idx) ? K : 0) {  // the model's K = 20 and 8 unrolled
-    case 20: return launch_kt<T, WIN, 20>(feat, idx, out, win, B, N, K, C, Cs, s);
-    case 8: return launch_kt<T, WIN, 8>(feat, idx, out, win, B, N, K, C, Cs, s);
-    default: return launch_k<T, WIN, 0, false>(feat, idx, out, win, B, N, K, C, Cs, s);
+    case 20: return launch_kt<T, WIN, 20>(feat, idx, out, win, B, NQ, N, K, C, Cs, s);
+    case 8: return launch_kt<T, WIN, 8>(feat, idx, out, win, B, NQ, N, K, C, Cs, s);
+    default: return launch_k<T, WIN, 0, false>(feat, idx, out, win, B, NQ, N, K, C, Cs, s);
   }
 }
 
@@ -448,8 +457,21 @@ int launch_bwd(const int* idx, const int* win, const float* gb, T* dfeat, int B,
 extern "C" int hs_orl(const void* feat, int fast, const int* idx, float* out, int B, int N, int K,
                       int C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fast ? launch(static_cast<const __nv_bfloat16*>(feat), idx, out, nullptr, B, N, K, C, s)
-              : launch(static_cast<const float*>(feat), idx, out, nullptr, B, N, K, C, s);
+  return fast ? launch(static_cast<const __nv_bfloat16*>(feat), idx, out, nullptr, B, N, N, K, C,
+                       s)
+              : launch(static_cast<const float*>(feat), idx, out, nullptr, B, N, N, K, C, s);
+}
+
+// The query-sharded branch (sequence-parallel serving, pallas_hs_fused.py's
+// nq_valid = idx.shape[1]): feat (B, M, C) the gathered source rows, idx (B, NQ,
+// K) into them -> out (B, 1, C) = mean over the NQ query rows of max_k
+// feat[idx]; the block stages the M rows and walks the NQ queries as hs_orl.
+extern "C" int hs_orl_qs(const void* feat, int fast, const int* idx, float* out, int B, int NQ,
+                         int M, int K, int C, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return fast ? launch(static_cast<const __nv_bfloat16*>(feat), idx, out, nullptr, B, NQ, M, K,
+                       C, s)
+              : launch(static_cast<const float*>(feat), idx, out, nullptr, B, NQ, M, K, C, s);
 }
 
 // The forward of the differentiable op: as hs_orl, and win (B, N, C) int32, the
@@ -459,9 +481,9 @@ extern "C" int hs_orl_win(const void* feat, int fast, const int* idx, float* out
   if (hsb::supported(N, K)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return fast ? launch<__nv_bfloat16, true>(static_cast<const __nv_bfloat16*>(feat), idx, out,
-                                            win, B, N, K, C, s)
-              : launch<float, true>(static_cast<const float*>(feat), idx, out, win, B, N, K, C,
-                                    s);
+                                            win, B, N, N, K, C, s)
+              : launch<float, true>(static_cast<const float*>(feat), idx, out, win, B, N, N, K,
+                                    C, s);
 }
 
 // K10: idx (B, N, K), win (B, N, C), gb (B, C) the cotangent of out -> dfeat (B, N, C),

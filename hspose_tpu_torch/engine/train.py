@@ -27,8 +27,8 @@ traces steps 10-14 of the first epoch with ``torch.profiler`` into
 instead of its cloud, and the step back-projects and samples them on the
 step's device (``models/hspose.py::train_forward``), with scores drawn from
 the step's generator after its other draws.  Not ported: ``parallel.dp/mp/
-sp > 1`` (multi-GPU, ROADMAP Queue 1 item 6) raises before anything is
-built.
+sp > 1`` (multi-GPU training, ROADMAP Queue 1 item 6b; multi-GPU serving is
+the eval harness's) raises before anything is built.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def check_trainable(cfg: HSPoseConfig) -> None:
     if max(p.dp, p.mp, p.sp) > 1:
         raise NotImplementedError(
             f"parallel.dp={p.dp}, mp={p.mp}, sp={p.sp}: the port's train loop runs on one "
-            "device; multi-GPU is ROADMAP Queue 1 item 6")
+            "device; multi-GPU training (DDP, mp) is ROADMAP Queue 1 item 6b")
     check_sample_mode(cfg.data.sample_mode)
 
 

@@ -1,5 +1,6 @@
 """The eval harness of the port (counterpart of ``hspose_tpu/evaluation``):
-``evaluate.py`` (batched inference, the CLI), ``eval_dataset.py``,
+``evaluate.py`` (batched inference on one GPU or, under ``torchrun``, over
+``parallel.dp`` / ``parallel.sp`` ranks; the CLI), ``eval_dataset.py``,
 ``metrics.py`` and the native matchers, the legacy mAP ``metrics_legacy.py``
 and the drawing helpers ``visualize.py``."""
 

@@ -6,11 +6,31 @@
 
 Detection crops are batched across images into fixed-size batches of
 ``eval.eval_batch``, a short batch padded with copies of its crop 0, and go
-through ``eval_forward`` and ``generate_RT`` on one device: the CUDA card,
-unless a function is given ``device="cpu"`` (the tests) or the CLI runs
-with ``HSPOSE_PLATFORM=cpu``, the variable the JAX CLI reads to pick its
+through ``eval_forward`` and ``generate_RT`` on the CUDA card, unless a
+function is given ``device="cpu"`` (the tests) or the CLI runs with
+``HSPOSE_PLATFORM=cpu``, the variable the JAX CLI reads to pick its
 platform.  A batch's results are fetched only after the next batch has been
-submitted.  A cached ``pred_result.pkl`` is reused; then the NOCS
+submitted.
+
+Several GPUs serve as the JAX harness's (dp, sp) mesh does
+(hspose_tpu/evaluation/evaluate.py:58-132), one process per GPU:
+
+    torchrun --standalone --nproc_per_node=<dp*sp> -m hspose_tpu_torch.evaluation.evaluate \
+        parallel.dp=<dp> parallel.sp=<sp> data.num_points=4096 ...
+
+The CLI joins the process group (``nccl``, one card per rank; ``gloo`` with
+``HSPOSE_PLATFORM=cpu``).  Every rank batches the same records and draws
+the same random numbers, so each crop sees the draws of the one-device
+run; each dp row serves its ``B / dp`` rows of every batch, and with
+``parallel.sp`` each rank of the row its ``N / sp`` contiguous points of
+them (``parallel/sp.py``; N must divide by 16 * sp).  The rows' results are
+gathered to every rank; rank 0 alone writes ``pred_result.pkl``, the log
+and the mAP table.  dp shrinks until it divides ``eval.eval_batch``, with
+the JAX harness's warning; ``parallel.dp=-1`` puts every rank not on the
+sp axis on the data axis.  Refused, with the JAX harness's messages where
+it has them: sp with mp, sp with ``eval.recon``, sp in device mode, an N
+that does not shard, and ``parallel.mp > 1`` (ROADMAP Queue 1 item 6b);
+dp or sp above 1 without a process group raises and names ``torchrun``.  A cached ``pred_result.pkl`` is reused; then the NOCS
 degree/cm mAP table is computed on thresholds 0-60 deg x 1 / 0-10 cm x 0.5 /
 IoU 0-1 x 0.01.  ``eval.recon`` also measures, per detection, the chamfer
 distance (``ops/chamfer.py``, K16 under no_grad) and the Sinkhorn EMD
@@ -28,13 +48,14 @@ seed, which draws per batch the sampling scores (device mode), then the
 pooling samples, as the JAX harness draws both from one key per batch.  The
 caller may give either instead: ``pool_samples``, the same for every
 batch, and ``sample_scores``, one (B, H·W) tensor per batch (the tests pass
-the JAX package's).  Not ported: ``parallel.dp/mp/sp > 1`` (multi-GPU,
-ROADMAP Queue 1 item 6) raises.
+the JAX package's).  With dp or sp, every rank draws a whole batch's
+scores and takes its rows.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import logging
 import os
 import pickle
 import sys
@@ -44,28 +65,72 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hspose_tpu_torch.config import HSPoseConfig, parse_overrides
 from hspose_tpu_torch.data.preprocess import CROP_KEYS, roi_to_pointcloud
 from hspose_tpu_torch.geometry.symmetry import SYNSET_NAMES
+from hspose_tpu_torch.parallel.mesh import Mesh, batch_sharding, make_mesh
+from hspose_tpu_torch.parallel.sp import sp_points_per_device
 from hspose_tpu_torch.utils.logging import setup_logger
 
+TORCHRUN = ("torchrun --standalone --nproc_per_node=<dp*sp> -m "
+            "hspose_tpu_torch.evaluation.evaluate parallel.dp=<dp> parallel.sp=<sp> ...")
+# a batch's outputs, in the forward's order, as the detection dicts name them
+RESULT_KEYS = ("pred_RTs", "pred_scales", "chamfer_dis_cass", "emd_dis_cass")
 
-def check_one_device(cfg: HSPoseConfig) -> None:
-    """Raise on the settings the one-device harness does not run."""
+
+def check_parallel(cfg: HSPoseConfig) -> None:
+    """Raise on the parallel settings the harness does not run."""
     p = cfg.parallel
-    if max(p.dp, p.mp, p.sp) > 1:
+    if p.sp > 1 and p.mp > 1:
+        raise ValueError("parallel.sp and parallel.mp are mutually exclusive")
+    if p.mp > 1:
         raise NotImplementedError(
-            f"parallel.dp={p.dp}, mp={p.mp}, sp={p.sp}: the port's harness runs on one "
-            "device; multi-GPU is ROADMAP Queue 1 item 6")
+            f"parallel.mp={p.mp}: the Dense-output sharding is not ported; it is "
+            "ROADMAP Queue 1 item 6b")
+    if p.sp > 1 and cfg.eval.recon:
+        raise ValueError("eval.recon is not supported with parallel.sp")
+    if p.sp > 1:
+        sp_points_per_device(cfg.data.num_points, p.sp)
+    if max(p.dp, p.sp) > 1 and not dist.is_initialized():
+        raise RuntimeError(
+            f"parallel.dp={p.dp}, sp={p.sp}: the harness serves several GPUs with one process "
+            f"each and found no process group; run it under torchrun: {TORCHRUN}")
+
+
+def serving_mesh(cfg: HSPoseConfig) -> Mesh:
+    """The (dp, sp) layout of the harness over the process group's ranks
+    (one rank without a group): dp = ``parallel.dp``, or every rank not on
+    the sp axis for -1, shrunk until it divides ``eval.eval_batch``."""
+    check_parallel(cfg)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    sp, B = max(cfg.parallel.sp, 1), cfg.eval.eval_batch
+    dp_req = cfg.parallel.dp if cfg.parallel.dp > 0 else world // sp
+    if dp_req < 1 or dp_req * sp > world:
+        raise ValueError(f"parallel.dp={cfg.parallel.dp} x parallel.sp={sp} does not fit "
+                         f"{world} process(es)")
+    dp = dp_req
+    while B % dp:
+        dp -= 1
+    logger = logging.getLogger("eval_log")
+    if dp < dp_req:
+        logger.warning("data axis shrunk dp=%d -> dp=%d (eval_batch %d not divisible by %d)",
+                       dp_req, dp, B, dp_req)
+    if dp * sp < world:
+        logger.warning("mesh dp=%d x sp=%d uses %d of the %d processes; the rest sit idle",
+                       dp, sp, dp * sp, world)
+    return make_mesh(dp, sp)
 
 
 def _build_forward(cfg: HSPoseConfig, model, generator: torch.Generator,
                    pool_samples: Optional[Sequence[torch.Tensor]],
-                   sample_scores: Optional[Sequence[torch.Tensor]]):
-    """One padded batch on the model's device -> (RT, scales[, chamfer,
-    emd]).  The batch's crops are a dict: ``pcl_in``, or in device mode the
-    ``CROP_KEYS`` tensors, sampled here to ``data.num_points`` points."""
+                   sample_scores: Optional[Sequence[torch.Tensor]], mesh: Mesh):
+    """This rank's rows of one padded batch (and with sp its points) on the
+    model's device -> (RT, scales[, chamfer, emd]).  The batch's crops are a
+    dict: ``pcl_in``, or in device mode the ``CROP_KEYS`` tensors, sampled
+    here to ``data.num_points`` points from the rows' scores of the whole
+    batch's draw."""
     from hspose_tpu_torch.geometry.rotations import generate_RT
     from hspose_tpu_torch.models.hspose import draw_pool_samples, eval_forward
     from hspose_tpu_torch.ops.chamfer import chamfer_distance
@@ -73,6 +138,7 @@ def _build_forward(cfg: HSPoseConfig, model, generator: torch.Generator,
     from hspose_tpu_torch.ops.sampling import draw_sample_scores
 
     with_recon = cfg.eval.recon
+    rows = batch_sharding(mesh, cfg.eval.eval_batch)
 
     @torch.no_grad()
     def forward(crop, obj_id, sym, mean_shape, batch_no):
@@ -81,12 +147,13 @@ def _build_forward(cfg: HSPoseConfig, model, generator: torch.Generator,
         else:
             depth = crop["roi_depth"]
             scores = (sample_scores[batch_no].to(depth.device) if sample_scores is not None
-                      else draw_sample_scores(generator, depth.shape[0], depth[0].numel()))
-            pc, _ = roi_to_pointcloud(scores, *(crop[k] for k in CROP_KEYS),
+                      else draw_sample_scores(generator, cfg.eval.eval_batch, depth[0].numel()))
+            pc, _ = roi_to_pointcloud(scores[rows], *(crop[k] for k in CROP_KEYS),
                                       cfg.data.num_points)
         samples = (pool_samples if pool_samples is not None
-                   else draw_pool_samples(pc.shape[1], generator, pc.device))
-        out = eval_forward(model, pc, obj_id, pool_samples=samples, with_heads=with_recon)
+                   else draw_pool_samples(pc.shape[1] * mesh.sp, generator, pc.device))
+        out = eval_forward(model, pc, obj_id, pool_samples=samples, with_heads=with_recon,
+                           sp_group=mesh.sp_group)
         RT = generate_RT(out.p_green_R, out.p_red_R, out.f_green_R, out.f_red_R,
                          out.pred_T, sym)
         outs = (RT, out.pred_s + mean_shape)
@@ -117,9 +184,14 @@ def batched_pose_inference(cfg: HSPoseConfig, model, image_records, seed: int,
     detection_dict with 'pred_RTs' and 'pred_scales' (with ``eval.recon``
     also 'chamfer_dis_cass' and 'emd_dis_cass'), and the gt_* fields the
     mAP stage needs; returns (pred_results, crops_per_second), the first
-    batch left out of the timing."""
-    check_one_device(cfg)
+    batch left out of the timing.
+
+    With ``parallel.dp`` / ``parallel.sp`` every rank of the process group
+    calls it on the same records and seed (module docstring): this rank
+    serves its rows and points, and every rank returns all the results."""
+    mesh = serving_mesh(cfg)
     B = cfg.eval.eval_batch
+    rows = batch_sharding(mesh, B)
     device = next(model.parameters()).device
     records = iter(image_records)
     try:
@@ -127,8 +199,16 @@ def batched_pose_inference(cfg: HSPoseConfig, model, image_records, seed: int,
     except StopIteration:
         return [], 0.0
     crop_keys = ("pcl_in",) if "pcl_in" in first[0] else CROP_KEYS
+    if mesh.sp > 1 and crop_keys != ("pcl_in",):
+        raise ValueError("parallel.sp needs host-sampled point clouds (eval.sample_mode=host)")
+    points = slice(None)
+    if mesh.sp > 1:  # this rank's contiguous points of each crop
+        n_local = sp_points_per_device(first[0]["pcl_in"].shape[1], mesh.sp)[0]
+        points = slice(mesh.sp_index * n_local, (mesh.sp_index + 1) * n_local)
     generator = torch.Generator(device=device).manual_seed(seed)
-    forward_fn = _build_forward(cfg, model, generator, pool_samples, sample_scores)
+    forward_fn = _build_forward(cfg, model, generator, pool_samples, sample_scores, mesh)
+    # the rows this rank reports when results are exchanged (one rank of each dp row)
+    reports = [] if dist.is_initialized() and mesh.active and mesh.sp_index == 0 else None
 
     state = {"t_start": None, "timed_from": 0, "fetched": 0, "batch_no": 0}
     # per-record output holders; records complete in order
@@ -138,7 +218,7 @@ def batched_pose_inference(cfg: HSPoseConfig, model, image_records, seed: int,
     syms: List = []
     means: List = []
     owners: List = []
-    in_flight = None  # (outputs on the device, owners, n_valid)
+    in_flight = None  # (outputs on the device, owners of this rank's rows, n_valid)
 
     def ingest(rec):
         data, detection_dict, gts = rec
@@ -161,41 +241,50 @@ def batched_pose_inference(cfg: HSPoseConfig, model, image_records, seed: int,
             means.append(data["mean_shape"][j])
             owners.append((rec_idx, j))
 
+    def fill(rec_idx, j, values):
+        for key, v in zip(RESULT_KEYS, values):
+            pred_results[rec_idx][key][j] = v
+
     def land(flight):
         outs, flight_owners, n_valid = flight
-        RT, sc, *recon = (o.cpu().numpy() for o in outs)  # the synchronisation point
-        for i, (rec_idx, j) in enumerate(flight_owners[:n_valid]):
-            pred_results[rec_idx]["pred_RTs"][j] = RT[i]
-            pred_results[rec_idx]["pred_scales"][j] = sc[i]
-            if recon:
-                pred_results[rec_idx]["chamfer_dis_cass"][j] = recon[0][i]
-                pred_results[rec_idx]["emd_dis_cass"][j] = recon[1][i]
+        outs = [o.cpu().numpy() for o in outs]  # the synchronisation point
+        for i, (rec_idx, j) in enumerate(flight_owners):
+            values = [o[i] for o in outs]
+            fill(rec_idx, j, values)
+            if reports is not None:
+                reports.append((rec_idx, j, values))
         state["fetched"] += n_valid
         if state["t_start"] is None:
             # the first batch (kernel builds, allocator warm-up) is not timed
             state["t_start"] = time.time()
             state["timed_from"] = state["fetched"]
 
-    def to_device(rows, dtype):
-        return torch.from_numpy(np.stack(rows).astype(dtype)).to(device)
+    def to_device(v, n_valid, dtype, cut=None):
+        """This rank's rows of the padded batch (and ``cut`` of each row)."""
+        batch = np.stack(v[:n_valid] + [v[0]] * (B - n_valid))[rows]
+        if cut is not None:
+            batch = batch[:, cut]
+        return torch.from_numpy(batch.astype(dtype)).to(device)
 
     def submit(n_valid):
         nonlocal in_flight
-        pad = B - n_valid
-        outs = forward_fn({k: to_device(v[:n_valid] + [v[0]] * pad, np.float32)
-                           for k, v in crops.items()},
-                          to_device(ids[:n_valid] + [ids[0]] * pad, np.int32),
-                          to_device(syms[:n_valid] + [syms[0]] * pad, np.float32),
-                          to_device(means[:n_valid] + [means[0]] * pad, np.float32),
-                          state["batch_no"])
+        if mesh.active:
+            outs = forward_fn({k: to_device(v, n_valid, np.float32,
+                                            points if k == "pcl_in" else None)
+                               for k, v in crops.items()},
+                              to_device(ids, n_valid, np.int32),
+                              to_device(syms, n_valid, np.float32),
+                              to_device(means, n_valid, np.float32),
+                              state["batch_no"])
+            mine = owners[rows.start:min(rows.stop, n_valid)]
         state["batch_no"] += 1
-        flight_owners = owners[:n_valid]
         for v in crops.values():
             del v[:n_valid]
         del ids[:n_valid], syms[:n_valid], means[:n_valid], owners[:n_valid]
-        prev, in_flight = in_flight, (outs, flight_owners, n_valid)
-        if prev is not None:
-            land(prev)
+        if mesh.active:
+            prev, in_flight = in_flight, (outs, mine, n_valid)
+            if prev is not None:
+                land(prev)
 
     ingest(first)
     for rec in records:
@@ -210,6 +299,13 @@ def batched_pose_inference(cfg: HSPoseConfig, model, image_records, seed: int,
     elapsed = (time.time() - state["t_start"]) if state["t_start"] else 0.0
     timed = state["fetched"] - state["timed_from"]
     crops_per_sec = timed / elapsed if timed > 0 and elapsed > 0 else 0.0
+    if dist.is_initialized():
+        # every dp row's results to every rank
+        everyone = [None] * dist.get_world_size()
+        dist.all_gather_object(everyone, reports or [])
+        for part in everyone:
+            for rec_idx, j, values in part:
+                fill(rec_idx, j, values)
     return pred_results, crops_per_sec
 
 
@@ -280,15 +376,23 @@ def evaluate(cfg: HSPoseConfig, device=None,
     ``device`` (the CUDA card unless the caller names another), in the
     sample mode ``eval.sample_mode`` names; ``pool_samples`` and
     ``sample_scores`` as in :func:`batched_pose_inference`.  The AP curves
-    are plotted where matplotlib is installed."""
+    are plotted where matplotlib is installed.  In a process group every
+    rank serves its share and rank 0 alone writes the predictions, the log
+    file and the table; the other ranks return their crops/s only."""
     from hspose_tpu_torch.evaluation.metrics import compute_degree_cm_mAP
 
-    check_one_device(cfg)
-    seed = cfg.eval.eval_seed if cfg.eval.eval_seed != -1 else int(time.time())
+    check_parallel(cfg)
+    seed = [cfg.eval.eval_seed if cfg.eval.eval_seed != -1 else int(time.time())]
+    rank = 0
+    if dist.is_initialized():
+        dist.broadcast_object_list(seed)  # one seed: rank 0's clock
+        rank = dist.get_rank()
+    seed = seed[0]
     model_name = os.path.basename(cfg.train.resume_model).split(".")[0] or "model"
     output_path = os.path.join(cfg.train.model_save, f"eval_result_{model_name}")
     os.makedirs(output_path, exist_ok=True)
-    logger = setup_logger("eval_log", os.path.join(cfg.train.model_save, "log_eval.txt"))
+    logger = setup_logger("eval_log", os.path.join(cfg.train.model_save, "log_eval.txt")
+                          if rank == 0 else None)
 
     pred_path = os.path.join(output_path, "pred_result.pkl")
     crops_per_sec = 0.0
@@ -307,11 +411,12 @@ def evaluate(cfg: HSPoseConfig, device=None,
             cfg, model, iter_eval_images(cfg, seed, resolve_num_workers(cfg.data.num_workers)),
             seed, pool_samples, sample_scores)
         logger.info(f"{len(pred_results)} images evaluated")
-        with open(pred_path, "wb") as f:
-            pickle.dump(pred_results, f)
+        if rank == 0:
+            with open(pred_path, "wb") as f:
+                pickle.dump(pred_results, f)
         logger.info(f"inference throughput: {crops_per_sec:.1f} crops/s")
 
-    if cfg.eval.eval_inference_only:
+    if cfg.eval.eval_inference_only or rank != 0:
         return {"crops_per_sec": crops_per_sec}
 
     degree_thres_list = list(range(0, 61, 1))
@@ -359,8 +464,21 @@ def evaluate(cfg: HSPoseConfig, device=None,
 
 
 def main(argv=None):
+    """The CLI.  Under ``torchrun`` (``WORLD_SIZE`` set) it first joins the
+    process group: ``nccl`` on ``cuda:LOCAL_RANK``, or ``gloo`` on the CPU
+    with ``HSPOSE_PLATFORM=cpu``."""
     cfg = parse_overrides(sys.argv[1:] if argv is None else argv)
-    evaluate(cfg, device="cpu" if os.environ.get("HSPOSE_PLATFORM") == "cpu" else None)
+    device = "cpu" if os.environ.get("HSPOSE_PLATFORM") == "cpu" else None
+    joined = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if joined:
+        from hspose_tpu_torch.parallel.mesh import init_distributed
+
+        device = init_distributed(device)
+    try:
+        evaluate(cfg, device=device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

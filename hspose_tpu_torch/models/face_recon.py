@@ -22,6 +22,9 @@ BatchNorm too.
 
 ``bwd_store`` and ``train_v4_small`` reach conv_1 .. conv_4, as
 hspose_tpu/models/face_recon.py:146-202 passes them, in both tiers.
+
+In eval mode the forward also serves with the point axis sharded over an sp
+process group (``sp_group``, ``parallel/sp.py``), in both tiers.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import functools
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -41,6 +45,7 @@ from hspose_tpu_torch.models.layers import (
     receptive_field_indices as knn,
 )
 from hspose_tpu_torch.ops.knn import gather_neighbors, nearest_index
+from hspose_tpu_torch.parallel.sp import all_gather_points
 
 FEAT_C = 128 + 128 + 256 + 256 + 512  # backbone channels before the one-hot
 
@@ -141,46 +146,80 @@ class FaceRecon(nn.Module):
                                      device=device)
 
     def forward(self, vertices: torch.Tensor, cat_id: torch.Tensor,
-                pool_samples: Sequence[torch.Tensor], with_heads: bool = False):
+                pool_samples: Sequence[torch.Tensor], with_heads: bool = False,
+                sp_group=None):
         """vertices (B, N, 3) centred points; cat_id (B,) 0-based; pool_samples
         the kept-row indices of the two pools.  Returns feat (B, N, 1286) in
         eval mode and (recon (B, N, 3), face (B, N, 30), feat) in train mode,
-        or in eval mode with ``with_heads``."""
+        or in eval mode with ``with_heads``.
+
+        ``sp_group``: sequence-parallel serving (hspose_tpu/models/
+        face_recon.py:101-218).  ``vertices`` is this rank's shard of the
+        points and ``pool_samples`` are drawn over the global cloud; before
+        each search and layer the source side is gathered over the group,
+        the pooled k rule reads the global pooled size, the 1-NN upsample
+        searches the gathered pooled clouds, and the local rows of feat
+        come back."""
         cfg = self.cfg
         fast = self.dtype == torch.bfloat16
         # the relaxed-KNN tier serves only: training keeps gcn_n_num
         k = cfg.serve_k if cfg.serve_k > 0 and not self.training else cfg.gcn_n_num
         B, N, _ = vertices.shape
+        if sp_group is not None and (self.training or with_heads):
+            raise NotImplementedError(
+                "sequence parallelism is an inference path (train/with_heads "
+                "shard over the batch axis instead)")
+        sp = 1 if sp_group is None else dist.get_world_size(sp_group)
         one_hot = F.one_hot(cat_id.long().reshape(B), cfg.obj_c).to(self.dtype)
+
+        def ag(x):
+            """The gathered source of a local map (None without sp)."""
+            return None if sp_group is None else all_gather_points(x, sp_group)
+
         # the bf16 tier runs every search on packed keys
-        search = functools.partial(knn, packed=True) if fast else knn
+        packed = {"packed": True} if fast else {}
+
+        def search(p, kk, src):
+            return knn(p, kk, **packed) if src is None else knn(p, kk, source=src, **packed)
 
         # resolution 0: N points
-        vert_idx_0 = search(vertices, k)
-        fm_0 = torch.relu(self.conv_0(vertices, vert_idx_0, vert_idx_0))
-        rf_1 = search(fm_0, k)
-        fm_1 = self.conv_1(vertices, fm_0, rf_1, vert_idx_0)
+        verts_g = ag(vertices)
+        vert_idx_0 = search(vertices, k, verts_g)
+        fm_0 = torch.relu(self.conv_0(vertices, vert_idx_0, vert_idx_0, sp_group, verts_g))
+        fm_0_g = ag(fm_0)
+        rf_1 = search(fm_0, k, fm_0_g)
+        fm_1 = self.conv_1(vertices, fm_0, rf_1, vert_idx_0, sp_group, verts_g, fm_0_g)
         fm_1 = torch.relu(batch_norm(self.bn1, fm_1))
-        pool_idx_0 = search(vertices, 4)
-        v_pool_1, fm_pool_1 = pool_layer(vertices, fm_1, pool_idx_0, pool_samples[0])
+        pool_idx_0 = search(vertices, 4, verts_g)
+        v_pool_1, fm_pool_1 = pool_layer(vertices, fm_1, pool_idx_0, pool_samples[0], sp_group,
+                                         verts_g, ag(fm_1))
 
-        # resolution 1: N // 4 points
-        k1 = min(k, v_pool_1.shape[1] // 8)
-        vert_idx_1 = search(v_pool_1, k1)
-        rf_2 = search(fm_pool_1, k1)
-        fm_2 = self.conv_2(v_pool_1, fm_pool_1, rf_2, vert_idx_1)
+        # resolution 1: N // 4 points (the k rule reads the global pooled size)
+        k1 = min(k, v_pool_1.shape[1] * sp // 8)
+        vp1_g, fmp1_g = ag(v_pool_1), ag(fm_pool_1)
+        vert_idx_1 = search(v_pool_1, k1, vp1_g)
+        rf_2 = search(fm_pool_1, k1, fmp1_g)
+        fm_2 = self.conv_2(v_pool_1, fm_pool_1, rf_2, vert_idx_1, sp_group, vp1_g, fmp1_g)
         fm_2 = torch.relu(batch_norm(self.bn2, fm_2))
-        rf_3 = search(fm_2, k1)
-        fm_3 = self.conv_3(v_pool_1, fm_2, rf_3, vert_idx_1)
+        fm_2_g = ag(fm_2)
+        rf_3 = search(fm_2, k1, fm_2_g)
+        fm_3 = self.conv_3(v_pool_1, fm_2, rf_3, vert_idx_1, sp_group, vp1_g, fm_2_g)
         fm_3 = torch.relu(batch_norm(self.bn3, fm_3))
-        pool_idx_1 = search(v_pool_1, 4)
-        v_pool_2, fm_pool_2 = pool_layer(v_pool_1, fm_3, pool_idx_1, pool_samples[1])
+        fm_3_g = ag(fm_3)
+        pool_idx_1 = search(v_pool_1, 4, vp1_g)
+        v_pool_2, fm_pool_2 = pool_layer(v_pool_1, fm_3, pool_idx_1, pool_samples[1], sp_group,
+                                         vp1_g, fm_3_g)
 
         # resolution 2: N // 16 points
-        k2 = min(k, v_pool_2.shape[1] // 8)
-        vert_idx_2 = search(v_pool_2, k2)
-        rf_4 = search(fm_pool_2, k2)
-        fm_4 = self.conv_4(v_pool_2, fm_pool_2, rf_4, vert_idx_2)
+        k2 = min(k, v_pool_2.shape[1] * sp // 8)
+        vp2_g, fmp2_g = ag(v_pool_2), ag(fm_pool_2)
+        vert_idx_2 = search(v_pool_2, k2, vp2_g)
+        rf_4 = search(fm_pool_2, k2, fmp2_g)
+        fm_4 = self.conv_4(v_pool_2, fm_pool_2, rf_4, vert_idx_2, sp_group, vp2_g, fmp2_g)
+        if sp_group is not None:
+            # the local rows upsample from the gathered pooled clouds
+            v_pool_1, v_pool_2 = vp1_g, vp2_g
+            fm_2, fm_3, fm_4 = fm_2_g, fm_3_g, ag(fm_4)
 
         # 1-NN upsample back to N points
         up_1 = nearest_index(vertices, v_pool_1)[..., None]

@@ -4,7 +4,10 @@ translation/size head (1289 -> ... -> 6), channel-last.  In train mode each
 head applies dropout 0.2 after its third block, with an injected keep-mask
 when one is given.  With ``dtype=torch.bfloat16`` (the bf16 tier) the
 products, BatchNorm and dropout run in bf16 and the output is cast to fp32,
-as the JAX heads with ``dtype=bfloat16`` (hspose_tpu/models/heads.py:39-94)."""
+as the JAX heads with ``dtype=bfloat16`` (hspose_tpu/models/heads.py:39-94).
+With an sp group (sequence-parallel serving) each rank holds a shard of the
+points, and the max-pool over points finishes as the max over the group
+(heads.py:83-84)."""
 
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from torch import nn
 
 from hspose_tpu_torch.models.face_recon import _bn, batch_norm
 from hspose_tpu_torch.models.layers import dense
+from hspose_tpu_torch.parallel.sp import max_over_shards
 
 KEEP_PROB = 1.0 - 0.2  # dropout 0.2 after bn3
 
@@ -35,7 +39,7 @@ class VecHead(nn.Module):
         self.conv4 = nn.Linear(256, out_c, device=device)
 
     def forward(self, x: torch.Tensor, xyz: torch.Tensor | None = None,
-                keep: torch.Tensor | None = None) -> torch.Tensor:
+                keep: torch.Tensor | None = None, sp_group=None) -> torch.Tensor:
         """x (B, N, C) per-point features -> (B, out_c).  ``keep`` (B, 256)
         bool is the dropout keep-mask in train mode (drawn from torch's
         global generator when None)."""
@@ -50,6 +54,7 @@ class VecHead(nn.Module):
         h = torch.relu(batch_norm(self.bn1, h))
         h = torch.relu(batch_norm(self.bn2, dense(self.conv2, h, dt)))
         h = h.amax(dim=1, keepdim=True)  # global max over points (B, 1, 256)
+        h = max_over_shards(h, sp_group)
         h = torch.relu(batch_norm(self.bn3, dense(self.conv3, h, dt)))[:, 0, :]
         if self.training:
             if keep is None:
@@ -67,8 +72,9 @@ class RotationHead(nn.Module):
         super().__init__()
         self.vec = VecHead(in_c, 4, device=device, dtype=dtype)
 
-    def forward(self, feat: torch.Tensor, keep: torch.Tensor | None = None) -> torch.Tensor:
-        return self.vec(feat, keep=keep)
+    def forward(self, feat: torch.Tensor, keep: torch.Tensor | None = None,
+                sp_group=None) -> torch.Tensor:
+        return self.vec(feat, keep=keep, sp_group=sp_group)
 
 
 class PoseTsHead(nn.Module):
@@ -80,6 +86,6 @@ class PoseTsHead(nn.Module):
         self.vec = VecHead(in_c + 3, 6, device=device, dtype=dtype)
 
     def forward(self, feat: torch.Tensor, xyz: torch.Tensor,
-                keep: torch.Tensor | None = None):
-        x = self.vec(feat, xyz, keep)
+                keep: torch.Tensor | None = None, sp_group=None):
+        x = self.vec(feat, xyz, keep, sp_group)
         return x[:, 0:3], x[:, 3:6]

@@ -6,6 +6,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed
 
 from hspose_tpu_torch.config import HSPoseConfig, ModelConfig
 from hspose_tpu_torch.data.augment import AugmentDraws, augment_batch, draw_augment
@@ -87,7 +88,8 @@ def draw_pool_samples(n: int, generator: torch.Generator | None = None,
 def eval_forward(model: PoseNet9D, pc: torch.Tensor, obj_id: torch.Tensor,
                  generator: torch.Generator | None = None,
                  pool_samples: Sequence[torch.Tensor] | None = None,
-                 with_heads: bool = False) -> PoseNetOutput | PoseNetTrainOutput:
+                 with_heads: bool = False,
+                 sp_group=None) -> PoseNetOutput | PoseNetTrainOutput:
     """Inference forward: pc (B, N, 3) float32, obj_id (B,) 0-based.
 
     The pooling permutations are drawn from ``generator`` unless
@@ -96,10 +98,18 @@ def eval_forward(model: PoseNet9D, pc: torch.Tensor, obj_id: torch.Tensor,
     ``with_heads`` also runs the conv1d, recon and face heads in eval mode
     and returns a ``PoseNetTrainOutput`` whose ``recon`` is the world-frame
     cloud, as the JAX ``eval_forward(..., with_heads=True)``; the model
-    needs ``build_model(..., train_heads=True)``."""
+    needs ``build_model(..., train_heads=True)``.
+
+    ``sp_group`` (a process group, ``parallel/mesh.py::make_mesh``) serves
+    sequence-parallel, as the JAX ``eval_forward(..., sp_axis=)``: ``pc``
+    holds this rank's contiguous shard of the points, the pools' kept rows
+    are drawn (or given) over the global cloud of ``pc.shape[1] * sp``
+    points, the same on every rank, and the outputs are the same on every
+    rank of the group.  None is the one-device forward."""
     if pool_samples is None:
-        pool_samples = draw_pool_samples(pc.shape[1], generator, pc.device)
-    return model(pc, obj_id, pool_samples, with_heads=with_heads)
+        sp = 1 if sp_group is None else torch.distributed.get_world_size(sp_group)
+        pool_samples = draw_pool_samples(pc.shape[1] * sp, generator, pc.device)
+    return model(pc, obj_id, pool_samples, with_heads=with_heads, sp_group=sp_group)
 
 
 class TrainDraws(NamedTuple):

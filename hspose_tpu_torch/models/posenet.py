@@ -3,7 +3,10 @@ centred, go through the backbone, and the rotation and translation/size heads
 read the per-point features.  In train mode, and in eval mode with
 ``with_heads``, the recon cloud is moved back by the centre and the 30-d face
 tensor splits into unit normals (18), distances (6) and sigmoid confidences
-(6)."""
+(6).  With an sp group (sequence-parallel serving) ``points`` is this rank's
+shard: the centring mean finishes as the mean over the group
+(hspose_tpu/models/posenet.py:50-51), the heads' max-pools as the max, and
+every output comes out the same on all of its ranks."""
 
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from torch import nn
 from hspose_tpu_torch.config import ModelConfig
 from hspose_tpu_torch.models.face_recon import FEAT_C, FaceRecon, compute_dtype
 from hspose_tpu_torch.models.heads import PoseTsHead, RotationHead
+from hspose_tpu_torch.parallel.sp import mean_over_shards
 
 
 class PoseNetOutput(NamedTuple):
@@ -52,22 +56,25 @@ class PoseNet9D(nn.Module):
     def forward(self, points: torch.Tensor, obj_id: torch.Tensor,
                 pool_samples: Sequence[torch.Tensor],
                 dropout_keep: Sequence[torch.Tensor] | None = None,
-                with_heads: bool = False):
+                with_heads: bool = False, sp_group=None):
         """PoseNetOutput in eval mode, PoseNetTrainOutput in train mode or
         with ``with_heads`` (the heads then run in eval mode: running
         BatchNorm statistics, no dropout).  ``dropout_keep``: the keep-masks
-        of rot_green, rot_red and ts (train mode; drawn when None)."""
+        of rot_green, rot_red and ts (train mode; drawn when None).
+        ``sp_group``: sequence-parallel serving (module docstring)."""
         keep = dropout_keep if dropout_keep is not None else (None, None, None)
-        center = points.mean(dim=1, keepdim=True)
+        # equal shards: the mean of the shard means is the mean
+        center = mean_over_shards(points.mean(dim=1, keepdim=True), sp_group)
         centred = points - center
         heads = self.training or with_heads
         if heads:
-            recon, face, feat = self.face_recon(centred, obj_id, pool_samples, with_heads)
+            recon, face, feat = self.face_recon(centred, obj_id, pool_samples, with_heads,
+                                                sp_group)
         else:
-            feat = self.face_recon(centred, obj_id, pool_samples)
+            feat = self.face_recon(centred, obj_id, pool_samples, sp_group=sp_group)
 
-        green_vec = self.rot_green(feat, keep[0])  # (B, 4)
-        red_vec = self.rot_red(feat, keep[1])
+        green_vec = self.rot_green(feat, keep[0], sp_group)  # (B, 4)
+        red_vec = self.rot_red(feat, keep[1], sp_group)
         # the + 1e-6 in the denominators is the reference's, not a clamp
         p_green_R = green_vec[:, 1:] / (torch.linalg.vector_norm(
             green_vec[:, 1:], dim=-1, keepdim=True) + 1e-6)
@@ -78,7 +85,7 @@ class PoseNet9D(nn.Module):
 
         # the bf16 tier feeds the centred points to the Ts head in bf16
         # (hspose_tpu/models/posenet.py:82-83)
-        T, s = self.ts(feat, centred.to(feat.dtype), keep[2])
+        T, s = self.ts(feat, centred.to(feat.dtype), keep[2], sp_group)
         pose = (p_green_R, p_red_R, f_green_R, f_red_R, T + center[:, 0, :], s)
         if not heads:
             return PoseNetOutput(*pose)

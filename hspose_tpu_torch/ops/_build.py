@@ -35,6 +35,18 @@ SIGNATURES = {
     "hs_knn": [_P, _P, _I, _I, _I, _I, _I, _P],
     # points, is_bf16, out, B, N, D, kk, lanes, stream
     "hs_knn_packed": [_P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # the query-sharded branches (sequence-parallel serving): queries against
+    # the M source rows that contain them
+    # queries, points, out, B, NQ, M, D, kk, lanes, stream
+    "hs_knn_qs": [_P, _P, _P] + [_I] * 6 + [_P],
+    # queries, points, is_bf16, out, B, NQ, M, D, kk, lanes, stream
+    "hs_knn_packed_qs": [_P, _P, _I, _P] + [_I] * 6 + [_P],
+    # verts, vq, idx, dirs, out, B, NQ, M, K, S, Co, fast, stream
+    "hs_surface_qs": [_P] * 5 + [_I] * 7 + [_P],
+    # proj, verts, vq, idx, dirs, out, B, NQ, M, K, S, Co, fast, stream
+    "hs_support_reduce_qs": [_P] * 6 + [_I] * 7 + [_P],
+    # feat, fast, idx, out, B, NQ, M, K, C, stream
+    "hs_orl_qs": [_P, _I, _P, _P] + [_I] * 5 + [_P],
     # verts, idx, dirs, out, B, N, K, S, Co, fast, stream
     "hs_surface": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # feat, fast, w, ldw, b, proj, rows, Cin, Cout, stream

@@ -2,9 +2,9 @@
 
 Counterpart of ``hspose_tpu/ops/pallas_hs_fused.py`` (the forward of
 ``hs_surface_fused``, ``hs_support_fused`` and ``orl_global_fused``), with the
-TPU-only arguments (``tq``, ``exact``, ``interpret``, ``slots``,
-``vertices_q``) gone.  Each wrapper runs its plain version, in this module, on
-CPU tensors, and on CUDA tensors launches its kernel or raises:
+TPU-only arguments (``tq``, ``exact``, ``interpret``, ``slots``) gone.  Each
+wrapper runs its plain version, in this module, on CPU tensors, and on CUDA
+tensors launches its kernel or raises:
 
 * ``hs_surface_fused`` -> ``csrc/hs_surface.cu``;
 * ``hs_support_fused`` -> ``csrc/hs_support.cu`` (a tiled GEMM for the
@@ -12,7 +12,20 @@ CPU tensors, and on CUDA tensors launches its kernel or raises:
   gather-theta-max-mean reduction);
 * ``orl_global_fused`` -> ``csrc/orl.cu``.
 
-Inputs are fp32 and ``idx`` int32, with values in [0, N).  The bf16 tier
+Inputs are fp32 and ``idx`` int32, with values in [0, N).
+
+The query-sharded branch of sequence-parallel serving (the JAX ops'
+``vertices_q``, pallas_hs_fused.py:982-1047, and ORL with fewer index rows
+than feature rows, :830-869) searches and reduces NQ local query rows
+against the M gathered source rows, which contain them: ``vertices`` and
+``feature_map`` / ``feature`` are the source, ``vertices_q`` the query
+centres, ``idx`` (B, NQ, K) points into the source, and the outputs have NQ
+rows (ORL: the mean over the NQ rows).  Each query gets the bits the
+one-device call gives its row of the source; the support projection runs
+over the M source rows.  It serves only (no autograd), and its launches
+count in ``.qs_launches`` and ``.qs_bf16_launches`` of the three wrappers.
+
+The bf16 tier
 (the TPU kernels' ``exact=False``) takes bf16 ``feature_map`` / ``feature``
 in the support and ORL reductions and ``exact=False`` in the surface one;
 its kernels are the same sources instantiated for bf16 operands, with fp32
@@ -61,23 +74,39 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def _rf_chain_fast(vertices: torch.Tensor, idx: torch.Tensor):
+def _rf_chain_fast(vertices: torch.Tensor, idx: torch.Tensor,
+                   source: torch.Tensor | None = None):
     """rf = v[idx] - v (B, N, K, 3) on xyz rounded to bf16
     (pallas_hs_fused.py::_xyz_parts), its norm sqrt((x^2 + y^2) + z^2)
     (B, N, K, 1) and rf * (1 / max(norm, 1e-12)), in fp32, each operation
-    correctly rounded in this order (``_rf_chain``)."""
+    correctly rounded in this order (``_rf_chain``); the neighbours are rows
+    of ``source`` where it is given."""
     xyz = _bf16(vertices)
-    rf = gather_neighbors(xyz, idx) - xyz[:, :, None, :]
+    src = xyz if source is None else _bf16(source)
+    rf = gather_neighbors(src, idx) - xyz[:, :, None, :]
     x, y, z = rf.unbind(-1)
     norm = torch.sqrt((x * x + y * y) + z * z)[..., None]
     return rf, norm, rf * torch.reciprocal(torch.clamp(norm, min=1e-12))
 
 
-def _rf_fast(vertices: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def _rf_fast(vertices: torch.Tensor, idx: torch.Tensor,
+             source: torch.Tensor | None = None) -> torch.Tensor:
     """Unit receptive-field directions of the bf16 tier, (B, N, K, 3):
     ``_rf_chain_fast``'s, rounded to bf16 for theta (``_theta_relu``).  The
     kernels stage the same values (csrc/hs_common.cuh::stage_rf)."""
-    return _bf16(_rf_chain_fast(vertices, idx)[2])
+    return _bf16(_rf_chain_fast(vertices, idx, source)[2])
+
+
+def _unit_rf(vertices: torch.Tensor, idx: torch.Tensor, vertices_q: torch.Tensor | None,
+             exact: bool) -> torch.Tensor:
+    """The unit rf rows of a reduction over the ``vertices`` (the source),
+    centred on ``vertices_q`` where it is given: fp32, or ``exact=False``
+    the bf16 tier's (``_rf_fast``)."""
+    if vertices_q is None:
+        vertices_q, vertices = vertices, None
+    if exact:
+        return neighbor_directions_normalized(vertices_q, idx, vertices)
+    return _rf_fast(vertices_q, idx, vertices)
 
 
 def _theta_fast(rfn: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -97,13 +126,15 @@ def _per_support(gb: torch.Tensor, support_num: int, fast: bool) -> torch.Tensor
 
 
 def hs_surface_plain(vertices: torch.Tensor, idx: torch.Tensor, dirs: torch.Tensor,
-                     support_num: int, out_channel: int, exact: bool = True) -> torch.Tensor:
+                     support_num: int, out_channel: int, exact: bool = True,
+                     vertices_q: torch.Tensor | None = None) -> torch.Tensor:
     """mean_s max_k relu(normalize(v[idx] - v) . dir_s): (B, N, 3), (B, N, K),
-    (3, S*Co) -> (B, N, Co).  ``exact=False``: the bf16 tier's roundings."""
-    if exact:
-        rf = neighbor_directions_normalized(vertices, idx)  # (B, N, K, 3)
-    else:
-        rf, dirs = _rf_fast(vertices, idx), _bf16(dirs)
+    (3, S*Co) -> (B, N, Co).  ``exact=False``: the bf16 tier's roundings.
+    ``vertices_q`` (B, NQ, 3): the query-sharded branch (module docstring),
+    idx (B, NQ, K) -> (B, NQ, Co)."""
+    rf = _unit_rf(vertices, idx, vertices_q, exact)  # (B, N, K, 3)
+    if not exact:
+        dirs = _bf16(dirs)
     total = 0.0
     for s in range(support_num):
         d = dirs[:, s * out_channel:(s + 1) * out_channel]
@@ -114,21 +145,23 @@ def hs_surface_plain(vertices: torch.Tensor, idx: torch.Tensor, dirs: torch.Tens
 
 def hs_support_plain(feature_map: torch.Tensor, vertices: torch.Tensor,
                      idx: torch.Tensor, weights: torch.Tensor, bias: torch.Tensor,
-                     dirs: torch.Tensor, support_num: int,
-                     out_channel: int) -> torch.Tensor:
+                     dirs: torch.Tensor, support_num: int, out_channel: int,
+                     vertices_q: torch.Tensor | None = None) -> torch.Tensor:
     """mean_s max_k relu(rf . dir_s) * (feat @ W_s + b_s)[idx], projecting
     before the gather as the reference does: (B, N, Cin), (B, N, 3),
     (B, N, K), (Cin, S*Co), (S*Co,), (3, S*Co) -> (B, N, Co).
 
     bf16 ``feature_map`` is the bf16 tier: the projection multiplies the bf16
     features by the weights rounded to bf16, exactly, and sums in fp32
-    (``_mm``); rf and directions take the tier's roundings."""
+    (``_mm``); rf and directions take the tier's roundings.  ``vertices_q``
+    (B, NQ, 3): the query-sharded branch (module docstring), the projection
+    over the N source rows, idx (B, NQ, K) -> (B, NQ, Co)."""
     exact = feature_map.dtype != torch.bfloat16
+    rf = _unit_rf(vertices, idx, vertices_q, exact)
     if exact:
-        rf = neighbor_directions_normalized(vertices, idx)
         proj = feature_map @ weights + bias  # (B, N, S*Co)
     else:
-        rf, dirs = _rf_fast(vertices, idx), _bf16(dirs)
+        dirs = _bf16(dirs)
         proj = feature_map.float() @ _bf16(weights) + bias
     total = 0.0
     for s in range(support_num):
@@ -140,7 +173,8 @@ def hs_support_plain(feature_map: torch.Tensor, vertices: torch.Tensor,
 
 def orl_global_plain(feature: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """mean_n max_k feat[idx]: (B, N, C), (B, N, K) -> (B, 1, C) fp32 (for
-    bf16 features the maxima are bf16 values, the mean fp32)."""
+    bf16 features the maxima are bf16 values, the mean fp32).  idx (B, NQ,
+    K) with NQ < N is the query-sharded branch: the mean over its NQ rows."""
     return gather_neighbors(feature, idx).amax(dim=2).float().mean(dim=1, keepdim=True)
 
 
@@ -165,30 +199,45 @@ def _check_idx(idx: torch.Tensor, B: int, N: int) -> int:
     return idx.shape[2]
 
 
-def _count(wrapper, fast: bool) -> None:
-    if fast:
-        wrapper.bf16_launches += 1
-    else:
-        wrapper.launches += 1
+def _count(wrapper, fast: bool, qs: bool = False) -> None:
+    attr = ("qs_" if qs else "") + ("bf16_launches" if fast else "launches")
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
+def _serving_only(name: str, *tensors: torch.Tensor) -> None:
+    if _needs_grad(*tensors):
+        raise NotImplementedError(f"{name}: the query-sharded branch serves only; "
+                                  "it has no backward")
 
 
 def hs_surface_fused(vertices: torch.Tensor, idx: torch.Tensor, dirs: torch.Tensor,
-                     support_num: int, out_channel: int, exact: bool = True) -> torch.Tensor:
+                     support_num: int, out_channel: int, exact: bool = True,
+                     vertices_q: torch.Tensor | None = None) -> torch.Tensor:
     """HS surface reduction (conv_0); see ``hs_surface_plain``.  ``exact=False``
     is the bf16 tier; inputs stay fp32 either way.  Differentiable in
-    vertices and dirs."""
-    if _needs_grad(vertices, dirs):
+    vertices and dirs, but for the query-sharded branch (``vertices_q``)."""
+    qs = vertices_q is not None
+    if qs:
+        _serving_only("hs_surface_fused", vertices, vertices_q, dirs)
+    elif _needs_grad(vertices, dirs):
         return HSSurfaceFused.apply(vertices, idx, dirs, support_num, out_channel, exact)
-    if _build.on_cpu(vertices, idx, dirs):
-        return hs_surface_plain(vertices, idx, dirs, support_num, out_channel, exact)
+    vq = vertices_q if qs else vertices
+    if _build.on_cpu(vertices, vq, idx, dirs):
+        return hs_surface_plain(vertices, idx, dirs, support_num, out_channel, exact, vertices_q)
     S, co = support_num, out_channel
     _build.check(vertices, "vertices", torch.float32, (None, None, 3))
-    B, N, _ = vertices.shape
+    B, M, _ = vertices.shape
+    _build.check(vq, "vertices_q", torch.float32, (B, None, 3))
+    N = vq.shape[1]
     K = _check_idx(idx, B, N)
     _build.check(dirs, "dirs", torch.float32, (3, S * co))
     out = torch.empty((B, N, co), dtype=torch.float32, device=vertices.device)
-    _build.launch("hs_surface", vertices, idx, dirs, out, B, N, K, S, co, int(not exact))
-    _count(hs_surface_fused, not exact)
+    if qs:
+        _build.launch("hs_surface_qs", vertices, vq, idx, dirs, out, B, N, M, K, S, co,
+                      int(not exact))
+    else:
+        _build.launch("hs_surface", vertices, idx, dirs, out, B, N, K, S, co, int(not exact))
+    _count(hs_surface_fused, not exact, qs)
     return out
 
 
@@ -211,41 +260,52 @@ def _support_project(feature_map: torch.Tensor, weights: torch.Tensor, bias: tor
 
 def hs_support_fused(feature_map: torch.Tensor, vertices: torch.Tensor,
                      idx: torch.Tensor, weights: torch.Tensor, bias: torch.Tensor,
-                     dirs: torch.Tensor, support_num: int,
-                     out_channel: int) -> torch.Tensor:
+                     dirs: torch.Tensor, support_num: int, out_channel: int,
+                     vertices_q: torch.Tensor | None = None) -> torch.Tensor:
     """HS support reduction (conv_1 .. conv_4); see ``hs_support_plain``.
     bf16 ``feature_map`` runs the bf16 tier; the other inputs stay fp32.
 
     ``weights`` may be a column slice of a wider matrix (rows need not be
-    adjacent, but each row must be).  Differentiable in every float input."""
+    adjacent, but each row must be).  Differentiable in every float input,
+    but for the query-sharded branch (``vertices_q``)."""
     tensors = (feature_map, vertices, idx, weights, bias, dirs)
-    if _needs_grad(feature_map, vertices, weights, bias, dirs):
+    qs = vertices_q is not None
+    if qs:
+        _serving_only("hs_support_fused", feature_map, vertices, vertices_q, weights, bias, dirs)
+    elif _needs_grad(feature_map, vertices, weights, bias, dirs):
         return HSSupportFused.apply(*tensors, support_num, out_channel)
-    if _build.on_cpu(*tensors):
-        return hs_support_plain(*tensors, support_num, out_channel)
+    vq = vertices_q if qs else vertices
+    if _build.on_cpu(*tensors, vq):
+        return hs_support_plain(*tensors, support_num, out_channel, vertices_q)
     S, co = support_num, out_channel
     fast = feature_map.dtype == torch.bfloat16
     _build.check(feature_map, "feature_map", torch.bfloat16 if fast else torch.float32,
                  (None, None, None))
-    B, N, cin = feature_map.shape
-    _build.check(vertices, "vertices", torch.float32, (B, N, 3))
+    B, M, cin = feature_map.shape
+    _build.check(vertices, "vertices", torch.float32, (B, M, 3))
+    _build.check(vq, "vertices_q", torch.float32, (B, None, 3))
+    N = vq.shape[1]
     K = _check_idx(idx, B, N)
     _build.check_rows(weights, "weights", (cin, S * co))
     _build.check(bias, "bias", torch.float32, (S * co,))
     _build.check(dirs, "dirs", torch.float32, (3, S * co))
-    proj = _support_project(feature_map, weights, bias, S, co, fast)
+    proj = _support_project(feature_map, weights, bias, S, co, fast)  # the M source rows
     out = torch.empty((B, N, co), dtype=torch.float32, device=feature_map.device)
-    _build.launch("hs_support_reduce", proj, vertices, idx, dirs, out, B, N, K, S, co,
-                  int(fast))
-    _count(hs_support_fused, fast)
+    if qs:
+        _build.launch("hs_support_reduce_qs", proj, vertices, vq, idx, dirs, out, B, N, M, K,
+                      S, co, int(fast))
+    else:
+        _build.launch("hs_support_reduce", proj, vertices, idx, dirs, out, B, N, K, S, co,
+                      int(fast))
+    _count(hs_support_fused, fast, qs)
     return out
 
 
 # What the ORL kernel (csrc/orl.cu) takes on the card; it picks its own
 # slice of channels and returns an error for anything else.
 ORL_LIMITS = ("the ORL kernel takes C a multiple of 16 bytes, 16-byte aligned features and "
-              "N rows of a 16-byte slice of channels with their tile sums in 227 KB of shared "
-              "memory (N <= 14087 in fp32, 13672 in bf16)")
+              "N source rows of a 16-byte slice of channels with the query rows' tile sums in "
+              "227 KB of shared memory (N <= 14087 in fp32, 13672 in bf16 with as many queries)")
 
 
 def _launch_orl(name: str, feature: torch.Tensor, *args) -> None:
@@ -256,28 +316,46 @@ def _launch_orl(name: str, feature: torch.Tensor, *args) -> None:
                            f"{feature.dtype}") from err
 
 
-def orl_global_fused(feature: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def orl_global_fused(feature: torch.Tensor, idx: torch.Tensor,
+                     query_sharded: bool = False) -> torch.Tensor:
     """ORL global branch; see ``orl_global_plain``.  bf16 ``feature`` runs
     the bf16 tier; the output is fp32 either way.  Differentiable in
-    ``feature``."""
-    if _needs_grad(feature):
+    ``feature``.  ``query_sharded``: ``idx`` holds 0 < NQ < N query rows
+    of the N feature rows (sequence-parallel serving, forward only), and
+    the output is the mean over those NQ rows; otherwise ``idx`` has one
+    row per feature row."""
+    NQ, M = idx.shape[1], feature.shape[1]
+    if query_sharded:
+        if not 0 < NQ < M:
+            raise ValueError(f"orl_global_fused: the query-sharded branch takes 0 < NQ < N "
+                             f"index rows; got NQ={NQ}, N={M}")
+        _serving_only("orl_global_fused", feature)
+    elif NQ != M:
+        raise ValueError(f"orl_global_fused: idx has {NQ} rows for {M} feature rows "
+                         "(query_sharded=True takes a shard of them)")
+    elif _needs_grad(feature):
         return ORLGlobalFused.apply(feature, idx)
     if _build.on_cpu(feature, idx):
         return orl_global_plain(feature, idx)
     fast = feature.dtype == torch.bfloat16
     _build.check(feature, "feature", torch.bfloat16 if fast else torch.float32,
                  (None, None, None))
-    B, N, C = feature.shape
-    K = _check_idx(idx, B, N)
+    B, _, C = feature.shape
+    K = _check_idx(idx, B, NQ)
     out = torch.empty((B, 1, C), dtype=torch.float32, device=feature.device)
-    _launch_orl("hs_orl", feature, int(fast), idx, out, B, N, K, C)
-    _count(orl_global_fused, fast)
+    if query_sharded:
+        _launch_orl("hs_orl_qs", feature, int(fast), idx, out, B, NQ, M, K, C)
+    else:
+        _launch_orl("hs_orl", feature, int(fast), idx, out, B, M, K, C)
+    _count(orl_global_fused, fast, query_sharded)
     return out
 
 
 for _wrapper in (hs_surface_fused, hs_support_fused, orl_global_fused):
     _wrapper.launches = 0
     _wrapper.bf16_launches = 0
+    _wrapper.qs_launches = 0
+    _wrapper.qs_bf16_launches = 0
 
 
 # --------------------------------------------------------------------------- #

@@ -23,15 +23,22 @@ def pairwise_sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a_sq[..., :, None] + b_sq[..., None, :] - 2.0 * inner
 
 
-def knn_indices(points: torch.Tensor, k: int) -> torch.Tensor:
+def knn_indices(points: torch.Tensor, k: int,
+                source: torch.Tensor | None = None) -> torch.Tensor:
     """Indices of the k nearest neighbours: (B, N, D) -> int32 (B, N, k).
 
     Takes the k+1 smallest distances and drops column 0 (which is the query
     itself unless a duplicate with a lower index ties with it).  Ties go to the
     lowest index: a stable sort keeps equal distances in index order, which
     ``torch.topk`` does not promise.
+
+    ``source`` (B, M, D) searches another candidate set, as the JAX
+    package's ``knn_indices(..., source=)`` (hspose_tpu/ops/knn.py:42-61):
+    indices point into ``source``, which must contain every query row (the
+    sequence-parallel path passes a shard of the gathered cloud), so column 0
+    is still the query itself.
     """
-    d = pairwise_sq_dist(points, points)
+    d = pairwise_sq_dist(points, points if source is None else source)
     order = torch.sort(d, dim=-1, stable=True).indices
     return order[..., 1:k + 1].to(torch.int32)
 
@@ -40,10 +47,12 @@ IDX_BITS = 11  # the packed key's index bits (hspose_tpu/ops/pallas_knn.py:32)
 PACKED_MAX_N = 1 << IDX_BITS
 
 
-def knn_indices_packed(points: torch.Tensor, k: int) -> torch.Tensor:
+def knn_indices_packed(points: torch.Tensor, k: int,
+                       source: torch.Tensor | None = None) -> torch.Tensor:
     """Indices of the k nearest neighbours by packed keys, the bf16 tier's
     search (``hspose_tpu/ops/pallas_knn.py``, ``fast=True``): (B, N, D) fp32
-    or bf16 -> int32 (B, N, k), N <= 2048.
+    or bf16 -> int32 (B, N, k), N <= 2048.  ``source`` (B, M, D), M <= 2048,
+    as in ``knn_indices``: the keys then hold the source index.
 
     Distances are fp32 from the input's values: for D <= 8 the sum over the
     dimensions, in order, of squared differences (pallas_knn.py:204-209),
@@ -52,19 +61,21 @@ def knn_indices_packed(points: torch.Tensor, k: int) -> torch.Tensor:
     distance truncated to 12 mantissa bits, ties to the lower index
     (:213-215).  The k+1 smallest keys are taken and column 0 dropped.  Keys
     are unique, so the order is total and ``topk`` returns it exactly."""
-    B, N, D = points.shape
-    if N > PACKED_MAX_N:
-        raise ValueError(f"packed keys hold indices below {PACKED_MAX_N}, got N={N}")
-    x = points.float()
+    q = points.float()
+    x = q if source is None else source.float()
+    B, N, D = q.shape
+    M = x.shape[1]
+    if M > PACKED_MAX_N:
+        raise ValueError(f"packed keys hold indices below {PACKED_MAX_N}, got {M} source points")
     if D <= 8:
-        d = torch.zeros((B, N, N), dtype=torch.float32, device=x.device)
+        d = torch.zeros((B, N, M), dtype=torch.float32, device=x.device)
         for dim in range(D):
-            diff = x[:, None, :, dim] - x[:, :, None, dim]
+            diff = x[:, None, :, dim] - q[:, :, None, dim]
             d = d + diff * diff
     else:
-        sq = (x * x).sum(-1)
-        d = (sq[:, None, :] + sq[:, :, None]) - 2.0 * torch.matmul(x, x.transpose(-1, -2))
-    col = torch.arange(N, dtype=torch.int32, device=x.device)
+        sq_x, sq_q = (x * x).sum(-1), (q * q).sum(-1)
+        d = (sq_x[:, None, :] + sq_q[:, :, None]) - 2.0 * torch.matmul(q, x.transpose(-1, -2))
+    col = torch.arange(M, dtype=torch.int32, device=x.device)
     key = (d.clamp_min(0.0).view(torch.int32) & ~(PACKED_MAX_N - 1)) | col
     smallest = torch.topk(key, k + 1, dim=-1, largest=False, sorted=True).values
     return smallest[..., 1:] & (PACKED_MAX_N - 1)
@@ -111,9 +122,11 @@ def gather_neighbors(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _gather(features, idx)
 
 
-def neighbor_directions_normalized(vertices: torch.Tensor,
-                                   idx: torch.Tensor) -> torch.Tensor:
-    """Unit directions to each neighbour: (B, N, 3), (B, N, K) -> (B, N, K, 3).
+def neighbor_directions_normalized(vertices: torch.Tensor, idx: torch.Tensor,
+                                   source: torch.Tensor | None = None) -> torch.Tensor:
+    """Unit directions to each neighbour: (B, N, 3), (B, N, K) -> (B, N, K, 3);
+    with ``source`` (B, M, 3) the neighbours are its rows (the
+    sequence-parallel path's gathered cloud).
 
     The norm is clamped at 1e-12, so a duplicated point gives exactly 0.
     bf16 vertices (the bf16 train step) take the JAX package's bf16
@@ -121,7 +134,8 @@ def neighbor_directions_normalized(vertices: torch.Tensor,
     root and the division round to bf16; the squares and their sum are
     fp32, rounded once (jnp.linalg.norm's upcast sum, into which XLA fuses
     the squares: this matches the JAX function bit for bit on the CPU)."""
-    direction = gather_neighbors(vertices, idx) - vertices[:, :, None, :]
+    src = vertices if source is None else source
+    direction = gather_neighbors(src, idx) - vertices[:, :, None, :]
     if direction.dtype == torch.bfloat16:
         sq = direction.float().square().sum(-1, keepdim=True).to(torch.bfloat16)
         norm = torch.sqrt(sq)

@@ -1,0 +1,135 @@
+"""One rank of the port's multi-process CPU tests: a ``gloo`` process group
+joined through a file store, so parallel test workers never race for a port.
+
+    python tests/_torch_dist_worker.py <dir> <rank> <world>
+
+Reads ``<dir>/job.pt`` (``launch`` writes it), joins the group with a
+timeout, builds the port's model on the CPU from the job's state dict, runs
+the job's tasks in order and writes ``<dir>/out_<rank>.pt``.  Imports torch
+and the port only.  Tasks:
+
+* ``forward``: ``sp_eval_fn``'s raw head outputs for this rank's rows and
+  points of a batch under the (dp, sp) layout of ``make_mesh``, with the
+  job's pool samples;
+* ``harness``: ``batched_pose_inference`` on in-memory records under the
+  task's overrides (``parallel.dp``, ``parallel.sp``, ``eval.eval_batch``);
+* ``collectives``: ``parallel/sp.py``'s gather, mean and max over all ranks
+  of the task's tensor plus the rank, in fp32 and bf16.
+"""
+
+import os
+import subprocess
+import sys
+import time
+from datetime import timedelta
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+JOIN_TIMEOUT = timedelta(seconds=60)  # every rank must join and answer within this
+RUN_TIMEOUT = 180  # seconds a whole group may take
+
+
+def forward(model, task):
+    from hspose_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+    from hspose_tpu_torch.parallel.sp import sp_eval_fn
+
+    mesh = make_mesh(task["dp"], task["sp"])
+    if not mesh.active:
+        return None
+    pc = task["pc"]
+    rows = batch_sharding(mesh, pc.shape[0])
+    n = pc.shape[1] // mesh.sp
+    local = pc[rows, mesh.sp_index * n:(mesh.sp_index + 1) * n].contiguous()
+    out = sp_eval_fn(model, mesh.sp_group, with_rt=False)(local, task["obj"][rows], None, None,
+                                                          task["samples"])
+    return {"rows": (rows.start, rows.stop), "out": out}
+
+
+def harness(model, task):
+    from hspose_tpu_torch.config import parse_overrides
+    from hspose_tpu_torch.evaluation.evaluate import batched_pose_inference
+
+    cfg = parse_overrides(task["overrides"])
+    preds, _ = batched_pose_inference(cfg, model, task["records"], task["seed"],
+                                      pool_samples=task["samples"])
+    return preds
+
+
+def collectives(model, task):
+    import torch.distributed as dist
+
+    from hspose_tpu_torch.parallel.mesh import make_mesh
+    from hspose_tpu_torch.parallel.sp import (
+        all_gather_points,
+        max_over_shards,
+        mean_over_shards,
+    )
+
+    group = make_mesh(1, dist.get_world_size()).sp_group
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (task["x"] + dist.get_rank()).to(dtype)
+        out[dtype] = {"gather": all_gather_points(x, group), "max": max_over_shards(x, group),
+                      "mean": mean_over_shards(x, group)}
+    return out
+
+
+TASKS = {"forward": forward, "harness": harness, "collectives": collectives}
+
+
+def main(d: str, rank: int, world: int) -> None:
+    sys.path.insert(0, str(REPO))
+    import torch.distributed as dist
+
+    from hspose_tpu_torch.config import ModelConfig
+    from hspose_tpu_torch.models.hspose import build_model
+    from hspose_tpu_torch.parallel.mesh import init_distributed
+
+    init_distributed("cpu", backend="gloo", init_method=f"file://{d}/store", rank=rank,
+                     world_size=world, timeout=JOIN_TIMEOUT)
+    job = torch.load(os.path.join(d, "job.pt"), weights_only=False)
+    # the launching process's thread count: the CPU products' blocking, and so
+    # their bits, may depend on it
+    torch.set_num_threads(job["threads"])
+    model = build_model(ModelConfig(**job["model"]), device="cpu")
+    model.load_state_dict(job["state_dict"])
+    out = {name: TASKS[task["kind"]](model, task) for name, task in job["tasks"].items()}
+    torch.save(out, os.path.join(d, f"out_{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def launch(d: Path, world: int, job: dict) -> list:
+    """Run ``job`` on ``world`` ranks in ``d``; the ranks' outputs in rank
+    order.  A group that does not finish within RUN_TIMEOUT is killed and the
+    call fails, with each rank's error output."""
+    torch.save(dict(job, threads=torch.get_num_threads()), d / "job.pt")
+    env = dict(os.environ)
+    procs = []
+    for r in range(world):
+        with open(d / f"err_{r}.txt", "w") as err:
+            procs.append(subprocess.Popen([sys.executable, __file__, str(d), str(r), str(world)],
+                                          stdout=subprocess.DEVNULL, stderr=err, env=env,
+                                          cwd=REPO))
+    deadline = time.monotonic() + RUN_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        errs = "\n".join(f"rank {r} ({c}): {(d / f'err_{r}.txt').read_text()[-3000:]}"
+                         for r, c in enumerate(codes) if c)
+        raise AssertionError(f"the process group failed or timed out:\n{errs}")
+    return [torch.load(d / f"out_{r}.pt", weights_only=False) for r in range(world)]
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))

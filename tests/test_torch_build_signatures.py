@@ -66,11 +66,13 @@ def test_signature_matches_the_source(name):
 
 def test_every_source_was_read():
     """The parser finds the entry points of every kernel source: each file
-    has one, and ORL's are its forward, with winners and backward."""
+    has one, and ORL's are its forward, its query-sharded branch, the
+    forward with winners and the backward."""
     files = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert files == {"chamfer", "hs_support", "hs_support_train", "hs_surface",
                      "hs_surface_train", "knn", "orl"}
     for path in _build.CSRC.glob("*.cu"):
         assert ENTRY.search(path.read_text()), f"no entry point found in {path.name}"
-    assert {n for n in SOURCES if n.startswith("hs_orl")} == {"hs_orl", "hs_orl_win", "hs_orl_bwd"}
+    assert {n for n in SOURCES if n.startswith("hs_orl")} == {"hs_orl", "hs_orl_qs", "hs_orl_win",
+                                                             "hs_orl_bwd"}
     assert len(SOURCES) >= 26

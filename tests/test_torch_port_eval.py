@@ -371,12 +371,20 @@ def test_cli_prints_the_jax_harness_table(harness, tmp_path):
     assert (tmp_path / "eval_result_hspose" / "pred_result.pkl").exists()
 
 
-@pytest.mark.parametrize("override,match", [("parallel.dp=2", "Queue 1 item 6"),
-                                            ("parallel.sp=2", "Queue 1 item 6")])
-def test_harness_refuses_what_it_does_not_run(override, match):
-    cfg = parse_overrides([override])
+@pytest.mark.parametrize("overrides,error,match", [
+    (["parallel.mp=2"], NotImplementedError, "Queue 1 item 6b"),
+    (["parallel.dp=2"], RuntimeError, "torchrun --standalone"),
+    (["parallel.sp=2", "data.num_points=4096"], RuntimeError, "torchrun --standalone"),
+    (["parallel.sp=2", "data.num_points=4096", "eval.recon=true"], ValueError,
+     "eval.recon is not supported with parallel.sp"),
+    (["parallel.sp=2", "parallel.mp=2"], ValueError, "mutually exclusive"),
+    (["parallel.sp=2"], ValueError, r"num_points % \(16\*sp\)")])
+def test_harness_refuses_what_it_does_not_run(overrides, error, match):
+    """The refusals of the JAX harness (with its messages), mp (the next
+    slice), and dp or sp without a process group: no one-device run instead."""
+    cfg = parse_overrides(overrides)
     model = build_model(ModelConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         port_eval.batched_pose_inference(cfg, model, [], seed=0)
 
 
