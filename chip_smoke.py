@@ -245,6 +245,33 @@ not 0:
    against the one-process harness; then the eval CLI under ``torchrun
    --standalone --nproc_per_node=<device count>`` with nccl on phase 23's
    checkpoint and tree gives phase 23's pred_result.pkl.
+27. multi-GPU training (``parallel.dp``, ``parallel.mp``): the ranks of
+   each of ``DP_JOBS`` share the card over an explicit gloo group
+   (``dp_rank``) and train from one set of weights on global batches of
+   (16, 1028) with the draws pinned: two ranks run dp = 2 (8 rows a rank)
+   for ``DP_STEPS`` fp32 and bf16 steps and one step of ``bwd_store=False,
+   train_v4_small=True``, and mp = 2 for one fp32 step; four ranks run dp =
+   4 (4 rows a rank) and dp = 2 x mp = 2 for one fp32 step each.  Each rank
+   launches exactly ``TRAIN_LAUNCHES`` of its route per step (the
+   one-process step's at its own rows), all ranks' parameters, BatchNorm
+   buffers and Ranger state are bit for bit equal after every step, and
+   each step (from the run's checkpoint before it) is read against the
+   one-process step on the card from that checkpoint on the same global
+   batch and draws (``step_readings``: each loss term relative, the loss as
+   a share of the total, BatchNorm, the gradient's 1 - cosine, per leaf its
+   1 - cosine and norm ratio, and Ranger's first moment, the update before
+   rounding): fp32 dp steps within ``DP_GATES`` (dp = 4: ``DP4_GATES``), the
+   mp step within the tighter ``MP_GATES``, bf16 within ``SPREAD_MULT`` x the card's own spread
+   (the one-process step with the clouds moved by ``SPREAD_EPS``), which is
+   every fp32 step's second witness; the fp32 dp = 2, dp = 4 and mp = 2
+   runs' checkpoints restore in one process bit for bit; the dp steps/s of
+   the two ranks (not a multi-GPU rate); the harness with
+   ``parallel.mp=2`` within ``MP_RT_ATOL`` / ``MP_S_ATOL`` of the
+   one-process harness; then the train CLI under ``torchrun --standalone
+   --nproc_per_node=<device count>`` with nccl on phase 23's tree and
+   recipe (with one card, phase 23's losses bit for bit), its epoch-0
+   checkpoint resumed by the one-process train CLI within
+   ``RESUME_LOSS_REL`` and its last served by the one-process eval CLI.
 
 Each kernel's ``bound_ms`` is the least time the card could take for its
 calls: per call the larger of the bytes it must move (each input read once,
@@ -2506,7 +2533,7 @@ def phase_loop(smi: str, tree: str | None = None, keep: str | None = None) -> di
     if "cv2" in sys.modules:
         raise AssertionError("cv2 was imported")
     log(phase, "cv2 never imported")
-    return epoch
+    return dict(epoch, losses=losses)
 
 
 PROBE_CPU_CROPS = 32  # phase 24: crops of the B=256 batch held to the CPU plain ops
@@ -3278,6 +3305,488 @@ def phase_sp_cli(smi: str, tree: str, keep: str) -> None:
         raise AssertionError("the torchrun eval CLI's predictions are not the one-process CLI's")
 
 
+DP_STEPS = 3  # phase 27: steps of each tier's dp = 2 run
+DP_RATE_STEPS = 5  # phase 27: dp = 2 fp32 steps timed
+DP_SAVED = ("float32", "mp", "dp4")  # phase 27: runs whose last state is restored in one process
+MP_RT_ATOL, MP_S_ATOL = 1e-5, 1e-6  # phase 27: mp = 2 harness (tests/test_parallel.py:271-272)
+# phase 27: fixed gates of a step against the one-process step on the card from
+# the same state (``step_readings``' keys).  A dp step sums BatchNorm's moments
+# and the gradient in another order than one process, and at B = 16 that flips
+# near-tie KNN and max selections.  The card's fp32 dp = 2 readings (PERF.md
+# §6; the card is deterministic here): loss_rel <= 1.63e-3, loss <= 4.5e-4,
+# bn <= 3.4e-4, grad <= 9.8e-4, leaf_cos <= 3.9e-3, leaf_ratio <= 1.6e-2,
+# update <= 9.7e-4, update_rel <= 4.4e-2 (phase 9's 1e-3 per term and 0.9995
+# cosine hold one B = 4 forward).  The per-leaf gates are phase 9's (cosine
+# 0.98, norm ratio 0.9-1.1: a gradient scaled by dp or mp fails them), the
+# update's (Ranger's first moment, the update before it is rounded into the
+# parameters) tests/test_torch_port_step.py's norm_rel 5e-2 and cosine 0.999.
+# An mp step differs by the gathered products alone (loss_rel 6.9e-6, loss
+# 4.9e-7, bn 1.3e-6, grad 1.0e-9, leaf_cos 1.3e-5, leaf_ratio 3.6e-4, update
+# 1.0e-9, update_rel 4.5e-5), so it is held far tighter.
+DP_GATES = {"loss_rel": 5e-3, "loss": 1e-3, "bn": 1e-3, "grad": 5e-3, "leaf_cos": 2e-2,
+            "leaf_ratio": 0.1, "update": 1e-3, "update_rel": 5e-2}
+MP_GATES = {"loss_rel": 1e-4, "loss": 1e-5, "bn": 1e-4, "grad": 1e-6, "leaf_cos": 1e-4,
+            "leaf_ratio": 1e-3, "update": 1e-6, "update_rel": 1e-3}
+# dp = 4 at 4 rows a rank flips more near-ties (readings: grad 1.5e-3, update
+# 1.53e-3, update_rel 5.5e-2).  At a first step the update is the clipped,
+# centred gradient, so it takes the gradient's gate: 1 - cos 5e-3, and the
+# norm_rel of two equal norms at that cosine, sqrt(2 * 5e-3) = 0.1
+DP4_GATES = {**DP_GATES, "update": DP_GATES["grad"], "update_rel": 0.1}
+# phase 27's jobs: (ranks sharing the card, its runs: (name, training tier, dp,
+# mp, steps, the fp32 gates or None for bf16's spread bound)); the first job
+# also times DP_RATE_STEPS fp32 dp steps and runs the harness with parallel.mp=2
+DP_JOBS = ((2, (("float32", "float32", 2, 1, DP_STEPS, DP_GATES),
+                ("bfloat16", "bfloat16", 2, 1, DP_STEPS, None),
+                ("v4", "v4", 2, 1, 1, DP_GATES), ("mp", "float32", 1, 2, 1, MP_GATES))),
+           (4, (("dp4", "float32", 4, 1, 1, DP4_GATES),
+                ("dp2mp2", "float32", 2, 2, 1, DP_GATES))))
+SPREAD_KEYS = ("loss_rel", "loss", "bn", "grad")  # phase 27's second witness (bf16's gate)
+
+
+def dp_state(model, step, values: bool) -> dict:
+    """The full training state of a rank (mp shards gathered; every rank of
+    the mp group calls it): a digest of each tensor, the counts, and with
+    ``values`` the model's parameters and BatchNorm buffers, the last
+    step's (reduced) gradients and Ranger's first moments on the host."""
+    import hashlib
+
+    from hspose_tpu_torch.parallel import mp
+
+    weights = model.state_dict()
+    for name, p in model.named_parameters():
+        weights[name] = mp.full(p, p.detach())
+    tensors = {f"model.{k}": v for k, v in weights.items()}
+    params = step.optimizer._params()
+    for i, p in enumerate(params):
+        tensors.update({f"opt.{i}.{k}": mp.full(p, v) for k, v in step.optimizer.state[p].items()})
+    digest = {k: hashlib.blake2b(v.detach().cpu().contiguous().numpy().tobytes(),
+                                 digest_size=16).hexdigest() for k, v in tensors.items()}
+    named = list(model.named_parameters())
+    grads = {k: mp.full(p, p.grad) for k, p in named}
+    moments = {k: mp.full(p, step.optimizer.state[p]["exp_avg"]) for k, p in named}
+    out = {"digest": digest, "count": step.optimizer.count}
+    if values:
+        out["model"] = {k: v.detach().cpu().clone() for k, v in weights.items()}
+        out["grad"] = {k: g.cpu().clone() for k, g in grads.items()}
+        out["moment"] = {k: m.cpu().clone() for k, m in moments.items()}
+    return out
+
+
+def dp_rank(rank: int, job: int, tmp: str, device: str) -> None:
+    """Phase 27: one of the ranks of ``DP_JOBS[job]`` sharing the card over
+    an explicit gloo group.  Each run trains from the job's weights on this
+    rank's rows of the job's global batches with their global draws,
+    recording per step the metrics, this rank's launches and its full state
+    (rank 0 also the values); the first job's fp32 dp run then times
+    DP_RATE_STEPS steps between two barriers, and the ``DP_SAVED`` runs save
+    a checkpoint.  The first job then runs the harness with parallel.mp=2 on
+    the job's records."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from hspose_tpu_torch.config import HSPoseConfig
+    from hspose_tpu_torch.engine.checkpoint import save_checkpoint
+    from hspose_tpu_torch.engine.train_step import build_train_step, to_device
+    from hspose_tpu_torch.evaluation.evaluate import batched_pose_inference
+    from hspose_tpu_torch.parallel.mesh import batch_sharding, init_distributed, make_mesh
+
+    world, runs = DP_JOBS[job]
+    device = init_distributed(device, backend="gloo", init_method=f"file://{tmp}/store{job}",
+                              rank=rank, world_size=world,
+                              timeout=datetime.timedelta(seconds=JOIN_SECONDS))
+    spec = torch.load(os.path.join(tmp, "job.pt"), weights_only=False)
+    counts = {**counters(), **train_counters()}
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    got = {}
+    for name, tier, dp, mp_size, steps, _ in runs:
+        mesh = make_mesh(dp, 1, mp_size)
+        cfg = HSPoseConfig(model=train_config(tier))
+        model = build_train_model(device, cfg.model)
+        model.load_state_dict(spec["start"])
+        step = build_train_step(cfg, model, torch.Generator(device=device), mesh)
+        rows = batch_sharding(mesh, len(spec["steps"][0][0]["cat_id"]))
+        recs = []
+        for i, (batch, draws) in enumerate(spec["steps"][:steps]):
+            # the state before each step, for the one-process step from it
+            save_checkpoint(os.path.join(tmp, name), model, step, epoch=i, seed=SEED)
+            local = to_device({k: v[rows] for k, v in batch.items()}, device)
+            reset_counts(counts)
+            metrics = step(local, draws.to(device))
+            sync()
+            recs.append({"metrics": metrics, "launches": read_counts(counts),
+                         **dp_state(model, step, rank == 0)})
+        got[name] = {"steps": recs}
+        if name == "float32":
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(DP_RATE_STEPS):
+                step(local, draws.to(device))
+            sync()
+            dist.barrier()
+            got[name]["rate"] = DP_RATE_STEPS / (time.perf_counter() - t0)
+        if name in DP_SAVED:
+            save_checkpoint(os.path.join(tmp, name), model, step, epoch=steps, seed=SEED)
+            got[name]["final"] = dp_state(model, step, False)["digest"]
+    if job == 0:
+        counts = counters()
+        reset_counts(counts)
+        preds, _ = batched_pose_inference(spec["harness"], build_seeded_model(device),
+                                          spec["records"], spec["seed"])
+        sync()
+        got["harness"] = {"RT": np.concatenate([r["pred_RTs"] for r in preds]),
+                          "scales": np.concatenate([r["pred_scales"] for r in preds]),
+                          "launches": read_counts(counts)}
+    torch.save(got, os.path.join(tmp, f"job{job}_rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def one_process_step(cfg, ckpt: str, batch: dict, draws, moved: float = 0.0) -> tuple:
+    """The one-process train step on the card from the training state of
+    ``ckpt`` on the global ``batch`` and ``draws``; with ``moved`` the input
+    clouds are scaled by 1 + moved * z (z fixed normal draws).  Returns
+    (metrics, parameters and BatchNorm buffers after the step, the
+    gradients, Ranger's first moments, on the host)."""
+    from hspose_tpu_torch.engine.checkpoint import restore_checkpoint
+    from hspose_tpu_torch.engine.train_step import build_train_step, to_device
+
+    model = build_train_model(DEVICE, cfg.model)
+    step = build_train_step(cfg, model, torch.Generator(device=DEVICE))
+    restore_checkpoint(ckpt, model, step)
+    if moved:
+        z = np.random.default_rng(SEED + 50).standard_normal(batch["pcl_in"].shape)
+        batch = dict(batch, pcl_in=(batch["pcl_in"] * (1.0 + moved * z)).astype(np.float32))
+    metrics = step(to_device(batch, DEVICE), draws.to(DEVICE))
+    named = list(model.named_parameters())
+    return (metrics, {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+            {k: p.grad.cpu() for k, p in named},
+            {k: step.optimizer.state[p]["exp_avg"].cpu().clone() for k, p in named})
+
+
+def step_readings(got: tuple, want: tuple) -> dict:
+    """Two steps' (metrics, state after, gradients, Ranger's first moments)
+    apart: the worst loss term's relative gap (``loss_rel``) and as a share
+    of the total loss (``loss``); the worst BatchNorm statistic's gap as a
+    share of its buffer's largest value (``bn``); 1 - the cosine of all
+    gradients as one vector (``grad``); per leaf (those above ZERO_LEAF of
+    the largest; the others must be as small on both sides, as phase 9
+    holds them) the worst 1 - cosine (``leaf_cos``) and the worst |norm
+    ratio - 1| (``leaf_ratio``); and of the first moments as one vector
+    1 - the cosine (``update``) and the norm of the difference over the
+    norm (``update_rel``).  The parameters themselves are not compared: at
+    the warm-up's first rates (about 1e-7) an update lies a few fp32 steps
+    from its parameter, and rounding moves it by 10-15 %."""
+    (gm, gs, gg, gu), (wm, ws, wg, wu) = got, want
+
+    def flat(x, keys):
+        return torch.cat([x[k].double().ravel() for k in keys])
+
+    def one_minus_cos(a, b):
+        return 1.0 - (a @ b / (a.norm() * b.norm()).clamp_min(1e-300)).item()
+
+    top = max(w.double().norm().item() for w in wg.values())
+    leaf_cos, leaf_ratio, gated = 0.0, 0.0, []
+    for k, w in wg.items():
+        ng, nw = gg[k].double().norm().item(), w.double().norm().item()
+        if nw <= ZERO_LEAF * top:
+            # a bias that a train-mode BatchNorm follows: rounding noise on both sides
+            leaf_ratio = max(leaf_ratio, 0.0 if ng <= ZERO_LEAF * top else float("inf"))
+            continue
+        gated.append(k)
+        leaf_cos = max(leaf_cos, one_minus_cos(gg[k].double().ravel(), w.double().ravel()))
+        leaf_ratio = max(leaf_ratio, abs(ng / nw - 1.0))
+    g, w = flat(gg, wg), flat(wg, wg)
+    u, v = flat(gu, wu), flat(wu, wu)
+    return {"loss_rel": max(abs(gm[k] - x) / max(abs(x), 1e-12) for k, x in wm.items()
+                            if k != "skipped_nan"),
+            "loss": max(abs(gm[k] - x) for k, x in wm.items()) / abs(wm["total_loss"]),
+            "bn": max(((gs[k] - x).abs().max() / x.abs().max().clamp_min(1e-30)).item()
+                      for k, x in ws.items() if "running" in k),
+            "grad": one_minus_cos(g, w), "leaf_cos": leaf_cos, "leaf_ratio": leaf_ratio,
+            "update": one_minus_cos(u, v), "update_rel": ((u - v).norm() / v.norm()).item()}
+
+
+def start_dp_job(job: int, tmp: str) -> list:
+    """Phase 27: the ranks of ``DP_JOBS[job]`` spawned on ``cuda:0``."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=dp_rank, args=(r, job, tmp, f"{DEVICE}:0"))
+             for r in range(DP_JOBS[job][0])]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join_dp_job(job: int, tmp: str, procs: list) -> list:
+    """Phase 27: wait for ``start_dp_job``'s ranks; their records."""
+    for p in procs:
+        p.join(timeout=4 * JOIN_SECONDS)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if any(p.exitcode for p in procs):
+        raise AssertionError(f"the ranks of phase 27's job {job} failed: exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    return [torch.load(f"{tmp}/job{job}_rank{r}.pt", weights_only=False)
+            for r in range(len(procs))]
+
+
+def check_dp_job(phase: str, job: int, tmp: str, ranks: list, steps: list, bad: list) -> None:
+    """Phase 27: the runs of ``DP_JOBS[job]``: the launches and the ranks'
+    equal states (raised at once), then each step against the one-process
+    step from the same state, read in full and gated by the run's fp32
+    gates, or in bf16 by SPREAD_MULT x the card's own spread;
+    the spread is read for every run (in fp32 a second witness).  A gate
+    missed is appended to ``bad``."""
+    import os
+
+    from hspose_tpu_torch.config import HSPoseConfig
+    from hspose_tpu_torch.engine.checkpoint import restore_checkpoint
+    from hspose_tpu_torch.engine.train_step import build_train_step
+
+    for name, tier, dp, mp_size, n_steps, gates in DP_JOBS[job][1]:
+        cfg = HSPoseConfig(model=train_config(tier))
+        what = f"{name} (dp={dp}, mp={mp_size}, {TRAIN_B // dp} rows a rank)"
+        for r, got in enumerate(ranks):
+            for i, rec in enumerate(got[name]["steps"]):
+                check_counts(rec["launches"], TRAIN_LAUNCHES[tier], 1,
+                             f"rank {r} {name} step {i}")
+                same = rec["digest"] == ranks[0][name]["steps"][i]["digest"]
+                if not same or rec["count"] != i + 1 or rec["metrics"]["skipped_nan"]:
+                    raise AssertionError(f"rank {r} {what} step {i}: state the same as rank "
+                                         f"0's {same}, count {rec['count']}")
+        launched = {k: v for k, v in ranks[0][name]["steps"][0]["launches"].items() if v}
+        log(phase, f"{what}: launches per step on each of {len(ranks)} ranks {launched}; all "
+                   f"ranks' parameters, BatchNorm buffers and Ranger state bit for bit equal "
+                   f"after each of {n_steps} steps")
+        # each step against the one-process step from the same state (the
+        # run's checkpoint before it): chained runs part through selection flips
+        for i, rec in enumerate(ranks[0][name]["steps"]):
+            ckpt = os.path.join(tmp, name, f"model_{i:03d}")
+            m, after, grads, moments = one_process_step(cfg, ckpt, *steps[i])
+            g = step_readings((rec["metrics"], rec["model"], rec["grad"], rec["moment"]),
+                              (m, after, grads, moments))
+            # the card's own spread: the one-process step from the same state
+            # with the input clouds moved by SPREAD_EPS relative, both ways
+            spread = {k: 0.0 for k in g}
+            for sign in (1.0, -1.0):
+                d = step_readings(one_process_step(cfg, ckpt, *steps[i], sign * SPREAD_EPS),
+                                  (m, after, grads, moments))
+                spread = {k: max(spread[k], d[k]) for k in g}
+            log(phase, f"{what} step {i} against the one-process step from its state: "
+                       + ", ".join(f"{k} {g[k]:.3e}" for k in g)
+                       + "; the card's own spread: "
+                       + ", ".join(f"{k} {spread[k]:.3e}" for k in g)
+                       + ("; gates " + ", ".join(f"{k} {v:g}" for k, v in gates.items())
+                          if gates else "")
+                       + f"; bound {SPREAD_MULT} x spread on {', '.join(SPREAD_KEYS)}")
+            missed = {k: g[k] for k in SPREAD_KEYS if not g[k] <= SPREAD_MULT * spread[k]}
+            if gates:
+                missed.update({k: g[k] for k, v in gates.items() if not g[k] <= v})
+            if missed:
+                bad.append(f"{what} step {i}: {missed}")
+        if name in DP_SAVED:
+            model = build_train_model(DEVICE, cfg.model)
+            step = build_train_step(cfg, model, torch.Generator(device=DEVICE))
+            restore_checkpoint(os.path.join(tmp, name, f"model_{n_steps:03d}"), model, step)
+            same = dp_state(model, step, False)["digest"] == ranks[0][name]["final"]
+            log(phase, f"{what} checkpoint restored in one process: the run's full state "
+                       f"bit for bit {same}")
+            if not same:
+                raise AssertionError(f"{what}: the restored checkpoint is not the run's state")
+
+
+def phase_dp_train(smi: str, ranks_done=None) -> None:
+    """Phase 27, part 1: the ranks of each of ``DP_JOBS`` on the card over
+    an explicit gloo group (``dp_rank``) train their runs from one set of
+    weights on global batches of (TRAIN_B, N) with the draws pinned, each
+    rank on its rows; ``check_dp_job`` holds each run to the one-process
+    step; the harness with parallel.mp=2 against the one-process harness.
+    The second job runs beside the first's comparisons; ``ranks_done`` is
+    called once the first job's ranks have ended.  Every reading is printed
+    before a missed gate raises."""
+    import dataclasses
+    import tempfile
+
+    from hspose_tpu_torch.config import ParallelConfig
+    from hspose_tpu_torch.models.hspose import draw_train
+    from hspose_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    phase = "dp-train"
+    start = {k: v.cpu() for k, v in build_train_model(DEVICE, train_config("float32"))
+             .state_dict().items()}
+    steps = [(synthetic_train_batch(TRAIN_B, N, seed=SEED + 40 + i),
+              draw_train(torch.Generator().manual_seed(SEED + 45 + i), TRAIN_B, N))
+             for i in range(DP_STEPS)]
+    records, seed = harness_records(np.random.default_rng(SEED + 32), N, HARNESS_BATCHES), SEED
+    mp_harness = dataclasses.replace(harness_config(), parallel=ParallelConfig(dp=1, mp=2))
+    bad: list = []
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"start": start, "steps": steps, "records": records, "seed": seed,
+                    "harness": mp_harness}, f"{tmp}/job.pt")
+        t0 = time.perf_counter()
+        ranks = join_dp_job(0, tmp, start_dp_job(0, tmp))
+        log(phase, f"{DP_JOBS[0][0]} ranks on cuda:0 over gloo: {time.perf_counter() - t0:.1f} s "
+                   "with start-up")
+        if ranks_done is not None:  # what may run beside the one-process comparisons
+            ranks_done()
+        t0, second = time.perf_counter(), start_dp_job(1, tmp)
+        try:
+            check_dp_job(phase, 0, tmp, ranks, steps, bad)
+            log(phase, f"{ranks[0]['float32']['rate']:.3f} steps/s at B={TRAIN_B} fp32, dp=2 on "
+                       f"two ranks sharing one card over gloo (not a multi-GPU rate) on {smi}")
+            four = join_dp_job(1, tmp, second)
+        finally:
+            for p in second:
+                if p.is_alive():
+                    p.kill()
+        log(phase, f"{DP_JOBS[1][0]} ranks on cuda:0 over gloo beside the comparisons: "
+                   f"{time.perf_counter() - t0:.1f} s with start-up")
+        check_dp_job(phase, 1, tmp, four, steps, bad)
+
+    preds, _, _ = run_harness(harness_config(), build_seeded_model(DEVICE), records, seed)
+    want_RT = np.concatenate([r["pred_RTs"] for r in preds])
+    want_s = np.concatenate([r["pred_scales"] for r in preds])
+    for r, got in enumerate(ranks):
+        h = got["harness"]
+        check_counts(h["launches"], SERVE_LAUNCHES["float32"], HARNESS_BATCHES,
+                     f"rank {r} mp harness batch")
+        d_rt, d_s = np.abs(h["RT"] - want_RT).max(), np.abs(h["scales"] - want_s).max()
+        log(phase, f"rank {r}: parallel.mp=2 harness, {HARNESS_BATCHES} batches of ({B}, {N}, 3), "
+                   f"against the one-process harness: max abs RT {d_rt:.3e} (bound {MP_RT_ATOL}), "
+                   f"scales {d_s:.3e} (bound {MP_S_ATOL})")
+        if not (d_rt <= MP_RT_ATOL and d_s <= MP_S_ATOL):
+            bad.append(f"rank {r}: the mp harness's poses are not the one-process ones")
+    if bad:
+        raise AssertionError("phase 27 missed its gates:\n" + "\n".join(bad))
+
+
+class Cli:
+    """A CLI run in the background from the repo's root, its output in
+    files under ``out``; ``wait`` returns (stdout, seconds) or raises with
+    the run's output when it failed."""
+
+    def __init__(self, out: str, name: str, args: list):
+        import os
+
+        self.path, self.args = os.path.join(out, name), args
+        self.t0 = time.perf_counter()
+        with open(self.path + ".out", "w") as o, open(self.path + ".err", "w") as e:
+            self.proc = subprocess.Popen([sys.executable, *args], stdout=o, stderr=e,
+                                         cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def wait(self, timeout: float = 600) -> tuple:
+        try:
+            code = self.proc.wait(timeout=timeout)
+        finally:
+            self.stop()
+        seconds = time.perf_counter() - self.t0
+        with open(self.path + ".out") as o, open(self.path + ".err") as e:
+            stdout, stderr = o.read(), e.read()
+        if code:
+            raise AssertionError(f"{' '.join(self.args[:6])} failed ({code}):\n"
+                                 f"{stdout[-3000:]}\n{stderr[-3000:]}")
+        return stdout, seconds
+
+
+def run_losses(path: str) -> dict:
+    """Step -> total loss from a train run's ``metrics.jsonl``."""
+    with open(f"{path}/metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    return {r["step"]: r["total_loss"] for r in recs if "total_loss" in r}
+
+
+def dp_cli_args(tree: str) -> tuple:
+    """Phase 27's CLI arguments on phase 23's tree: (data, phase 23's recipe)."""
+    data = [f"data.dataset_dir={tree}/NOCS", f"data.detection_dir={tree}/segmentation_results"]
+    recipe = [f"train.batch_size={TRAIN_B}", f"train.train_steps={LOOP_STEPS}",
+              f"train.total_epoch={LOOP_EPOCHS}", "train.save_every=1", "train.log_every=1",
+              f"train.seed={SEED + 13}"]
+    return data, recipe
+
+
+def start_dp_cli(tree: str, out: str) -> Cli:
+    """Phase 27, part 2 begins: the train CLI under ``torchrun --standalone
+    --nproc_per_node=<device count>`` with nccl on phase 23's tree and
+    recipe, a checkpoint every epoch, in the background."""
+    data, recipe = dp_cli_args(tree)
+    return Cli(out, "dist", ["-m", "torch.distributed.run", "--standalone",
+                             f"--nproc_per_node={torch.cuda.device_count()}", "-m",
+                             "hspose_tpu_torch.engine.train", *data, *recipe,
+                             f"train.model_save={out}/dist"])
+
+
+def phase_dp_cli(smi: str, tree: str, out: str, losses: dict, dist_cli: Cli) -> None:
+    """Phase 27, part 2: ``start_dp_cli``'s run (with one card its losses are
+    phase 23's unbroken run's, ``losses``); then, side by side, the
+    one-process train CLI resumes its epoch-0 checkpoint for epoch 1 within
+    RESUME_LOSS_REL of its losses, and the one-process eval CLI serves its
+    last checkpoint."""
+    phase = "dp-cli"
+    cards = torch.cuda.device_count()
+    data, recipe = dp_cli_args(tree)
+
+    _, seconds = dist_cli.wait()
+    got = run_losses(f"{out}/dist")
+    gap = max(abs(got[k] - v) / abs(v) for k, v in losses.items())
+    log(phase, f"torchrun --nproc_per_node={cards} (nccl) train CLI, {LOOP_EPOCHS} epochs of "
+               f"{LOOP_STEPS} steps at B={TRAIN_B}, phase 23's recipe: {seconds:.1f} s from its "
+               f"start; its losses against phase 23's unbroken run: bit for bit {got == losses}, "
+               f"largest relative gap {gap:.3e}" + (" (one card: the same run)" if cards == 1
+                                                    else ""))
+    if sorted(got) != sorted(losses) or (cards == 1 and not gap <= RESUME_LOSS_REL):
+        raise AssertionError(f"torchrun train CLI losses {got} against {losses}")
+    ckpt = f"{out}/dist/model_{LOOP_EPOCHS - 1:03d}"
+    resume = Cli(out, "resumed", ["-m", "hspose_tpu_torch.engine.train", *data, *recipe,
+                                  "train.resume=true", f"train.resume_model={out}/dist/model_000",
+                                  f"train.model_save={out}/resumed"])
+    serve = Cli(out, "eval", ["-m", "hspose_tpu_torch.evaluation.evaluate", *data,
+                              "eval.eval_seed=5", f"train.resume_model={ckpt}",
+                              f"train.model_save={out}/eval"])
+    try:
+        check_resume_and_serve(smi, out, ckpt, got, resume, serve)
+    finally:
+        resume.stop()
+        serve.stop()
+
+
+def check_resume_and_serve(smi: str, out: str, ckpt: str, got: dict, resume: Cli,
+                           serve: Cli) -> None:
+    """Phase 27, part 2's last checks: the resumed run's losses and the
+    eval CLI's predictions."""
+    import os
+
+    phase = "dp-cli"
+
+    _, seconds = resume.wait()
+    resumed = run_losses(f"{out}/resumed")
+    gap = max(abs(v - got[k]) / abs(got[k]) for k, v in resumed.items())
+    log(phase, f"one-process train CLI resumed the torchrun run's epoch-0 checkpoint: "
+               f"{seconds:.1f} s, steps {sorted(resumed)}, largest relative loss gap to the "
+               f"torchrun run's {gap:.3e} (bound {RESUME_LOSS_REL})")
+    if sorted(resumed) != sorted(got)[LOOP_STEPS:] or not gap <= RESUME_LOSS_REL:
+        raise AssertionError(f"the resumed run's losses {resumed} against {got}")
+    stdout, seconds = serve.wait()
+    pkl = os.path.join(out, "eval", f"eval_result_{os.path.basename(ckpt)}", "pred_result.pkl")
+    log(phase, f"one-process eval CLI served the torchrun run's last checkpoint beside the "
+               f"resume: {seconds:.1f} s, pred_result.pkl written {os.path.exists(pkl)}, mAP "
+               f"table printed {'3D IoU at 25:' in stdout} on {smi}")
+    if not os.path.exists(pkl) or "3D IoU at 25:" not in stdout:
+        raise AssertionError("the eval CLI did not serve the torchrun checkpoint")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -3338,6 +3847,15 @@ def main() -> int:
         launches.update(phase_sp_forward(smi))
         phase_sp_cli(smi, tree, keep)
         log("sp", f"phase 26: {time.perf_counter() - t0:.1f} s")
+        t0, cli = time.perf_counter(), []
+        with tempfile.TemporaryDirectory() as out:
+            try:
+                phase_dp_train(smi, lambda: cli.append(start_dp_cli(tree, out)))
+                phase_dp_cli(smi, tree, out, host_loop["losses"], cli[0])
+            finally:
+                for c in cli:
+                    c.stop()
+        log("dp", f"phase 27: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernel_line(rec, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -179,12 +179,14 @@ class EvalConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The (dp, sp) layout of the processes serving the eval harness, one
-    per GPU (``parallel/mesh.py``)."""
+    """The (dp, sp) or (dp, mp) layout of the processes, one per GPU
+    (``parallel/mesh.py``): training on (dp, mp), the eval harness on
+    either."""
 
-    dp: int = -1  # -1: every process not on the sp axis on the data axis
-    # model (tensor) parallelism, Dense output channels sharded over mp:
-    # not ported (ROADMAP Queue 1 item 6b)
+    dp: int = -1  # -1: every process not on the sp or mp axis on the data axis
+    # model (tensor) parallelism: the output channels of every Dense layer
+    # at least 256 wide that divides by mp sharded over mp ranks, in training
+    # and in the eval harness (parallel/mp.py); not with sp
     mp: int = 1
     # sequence (point-axis) parallelism for serving at large N: each crop's
     # points shard over sp ranks (parallel/sp.py); needs num_points % (16*sp)

@@ -377,14 +377,16 @@ def _make_batch_from(dataset: PoseTrainDataset, seed: int, step: int,
 def resolve_num_workers(num_workers: int,
                         step_samples_per_sec: Optional[float] = None,
                         logger=None,
-                        worker_samples_per_sec: Optional[float] = None) -> int:
+                        worker_samples_per_sec: Optional[float] = None,
+                        local_ranks: int = 1) -> int:
     """Resolve ``data.num_workers`` (-1 = auto-size from host cores).
 
-    Auto mode uses ``os.cpu_count() - 1`` (one core stays with the main
-    process for dispatch/collation), floored at 1 — the analog of the
-    reference's hardcoded ``num_workers=20`` (engine/train.py:65-69) that
-    actually fits the machine it runs on.  An explicit value is honored
-    verbatim.  Warns when the pool's projected throughput (workers × the
+    Auto mode uses ``os.cpu_count() // local_ranks - 1`` (the host's cores
+    shared among the ``local_ranks`` training processes on it, one core of
+    each share staying with its process for dispatch/collation), floored at
+    1 — the analog of the reference's hardcoded ``num_workers=20``
+    (engine/train.py:65-69) that actually fits the machine it runs on.  An
+    explicit value is honored verbatim, per process.  Warns when the pool's projected throughput (workers × the
     per-worker rate) cannot feed the step's consumption, both in samples/s;
     the train loop measures both rates during the run and passes them (the
     JAX package's rates were measured on its TPU rig and do not carry over).
@@ -393,7 +395,7 @@ def resolve_num_workers(num_workers: int,
         resolved = num_workers
     else:
         cores = os.cpu_count() or 1
-        resolved = max(cores - 1, 1)
+        resolved = max(cores // max(local_ranks, 1) - 1, 1)
     if step_samples_per_sec and worker_samples_per_sec and logger is not None:
         projected = max(resolved, 1) * worker_samples_per_sec
         if projected < step_samples_per_sec:
@@ -499,6 +501,11 @@ def train_batches(dataset: PoseTrainDataset, batch_size: int, steps: int,
     With a :func:`make_worker_pool` ``pool`` the workers make the batches (the
     train loop's mode when ``data.num_workers > 0``); without one they are made
     here, synchronously.  ``stats`` as in :func:`pool_batches`, in both modes.
+
+    Data-parallel training (``parallel.dp``) calls it on every rank with the
+    same seed: each rank makes the whole batch and keeps its rows, since
+    :func:`_make_batch_from` draws the samples one after another from one
+    rng, with rejections, and a rank cannot make only its own.
     """
     if pool is not None:
         yield from pool_batches(pool, batch_size, steps, seed, prefetch, stats=stats)

@@ -4,7 +4,10 @@ lookahead, in the JAX package's chain order (counterpart of
 RAdam -> -lr(t) -> lookahead).
 
 * Clip by global norm as optax does: g * max_norm / |g| when |g| >= max_norm,
-  with no +1e-6.
+  with no +1e-6.  The gradients are the global batch's (reduced over dp by
+  the train step); a parameter sharded over an mp group
+  (``parallel/mp.py``) adds its shard's square to the sum over the group,
+  so each shard counts once and every rank takes the same decision.
 * GC subtracts each gradient's mean over every dim but 0, for ndim >= 2.
   The port keeps torch layouts (Linear weights (out, in), the HS layers'
   ``weights`` / ``directions`` as in the flax tree), which is the axis choice
@@ -24,6 +27,8 @@ import torch
 
 from hspose_tpu_torch.config import OptimConfig
 from hspose_tpu_torch.engine.schedule import learning_rate
+from hspose_tpu_torch.parallel.dp import all_reduce_sum
+from hspose_tpu_torch.parallel.mp import group_of
 
 
 class Ranger(torch.optim.Optimizer):
@@ -78,7 +83,16 @@ class Ranger(torch.optim.Optimizer):
         states = [self.state[p] for p in params]
 
         # clip by global norm (optax.clip_by_global_norm)
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norms = torch.stack(torch._foreach_norm(grads))
+        groups = [group_of(p) for p in params]
+        mp_group = next((g for g in groups if g is not None), None)
+        if mp_group is None:
+            norm = torch.linalg.vector_norm(norms)
+        else:
+            # each mp shard counted once: the shards' squares summed over the group
+            sq = norms.square()
+            sharded = torch.tensor([g is not None for g in groups], device=sq.device)
+            norm = torch.sqrt(all_reduce_sum(sq[sharded].sum(), mp_group) + sq[~sharded].sum())
         if bool(norm >= cfg.clip_grad_norm):
             grads = torch._foreach_mul(torch._foreach_div(grads, norm), cfg.clip_grad_norm)
         if cfg.use_gc:

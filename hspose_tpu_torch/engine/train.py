@@ -26,13 +26,32 @@ traces steps 10-14 of the first epoch with ``torch.profiler`` into
 ``data.sample_mode=device`` makes the loader ship each sample's 256² crops
 instead of its cloud, and the step back-projects and samples them on the
 step's device (``models/hspose.py::train_forward``), with scores drawn from
-the step's generator after its other draws.  Not ported: ``parallel.dp/mp/
-sp > 1`` (multi-GPU training, ROADMAP Queue 1 item 6b; multi-GPU serving is
-the eval harness's) raises before anything is built.
+the step's generator after its other draws.
+
+Several GPUs train as the JAX package's (dp, mp) mesh does
+(hspose_tpu/engine/train.py:38-80), one process per GPU:
+
+    torchrun --standalone --nproc_per_node=<dp*mp> -m hspose_tpu_torch.engine.train \
+        parallel.dp=<dp> parallel.mp=<mp> data.dataset_dir=/path/NOCS ...
+
+The CLI joins the process group (``nccl``, one card per rank; ``gloo`` with
+``HSPOSE_PLATFORM=cpu``).  A step on dp ranks over the global batch of
+``train.batch_size`` rows is the one-process step on those rows
+(``engine/train_step.py``): every rank makes the whole batch of (seed,
+step) and keeps its ``B / dp`` rows, and draws the whole batch's
+randomness; ``parallel.mp`` shards the wide Dense layers' output channels
+(``parallel/mp.py``).  dp = -1 takes every rank not on the mp axis, and dp
+shrinks until it divides ``train.batch_size``, with the JAX package's
+warnings.  Rank 0 alone logs to ``log.txt``, writes ``metrics.jsonl`` and
+writes the checkpoints, which hold full tensors whatever the layout, so any
+layout resumes them (``engine/checkpoint.py``).  ``parallel.sp > 1`` is an
+eval-only layout and raises, as in the JAX package; dp or mp above 1
+without a process group raises and names ``torchrun``.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import sys
 import time
@@ -40,20 +59,28 @@ from dataclasses import asdict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hspose_tpu_torch.config import HSPoseConfig, parse_overrides
 from hspose_tpu_torch.utils.logging import MetricWriter, setup_logger
 
 
+TORCHRUN = ("torchrun --standalone --nproc_per_node=<dp*mp> -m hspose_tpu_torch.engine.train "
+            "parallel.dp=<dp> parallel.mp=<mp> ...")
+
+
 def check_trainable(cfg: HSPoseConfig) -> None:
-    """Raise on the settings the one-device loop does not run."""
+    """Raise on the settings the train loop does not run."""
     from hspose_tpu_torch.data.dataset import check_sample_mode
 
     p = cfg.parallel
-    if max(p.dp, p.mp, p.sp) > 1:
-        raise NotImplementedError(
-            f"parallel.dp={p.dp}, mp={p.mp}, sp={p.sp}: the port's train loop runs on one "
-            "device; multi-GPU training (DDP, mp) is ROADMAP Queue 1 item 6b")
+    if max(p.sp, 1) > 1:
+        raise ValueError("parallel.sp (point-axis sharding) is eval-only; training uses a "
+                         "(dp, mp) mesh")
+    if max(p.dp, p.mp) > 1 and not dist.is_initialized():
+        raise RuntimeError(
+            f"parallel.dp={p.dp}, mp={p.mp}: the train loop trains on several GPUs with one "
+            f"process each and found no process group; run it under torchrun: {TORCHRUN}")
     check_sample_mode(cfg.data.sample_mode)
 
 
@@ -75,10 +102,21 @@ def train(cfg: HSPoseConfig, device=None):
     from hspose_tpu_torch.engine.checkpoint import read_meta, restore_checkpoint
     from hspose_tpu_torch.engine.train_step import build_train_step
     from hspose_tpu_torch.models.hspose import build_model
+    from hspose_tpu_torch.parallel.mesh import resolve_mesh
 
-    logger = setup_logger("train_log", os.path.join(cfg.train.model_save, "log.txt"))
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    logger = (setup_logger("train_log", os.path.join(cfg.train.model_save, "log.txt"))
+              if rank == 0 else setup_logger("train_log", level=logging.WARNING))
     logger.info("config: %s", asdict(cfg))
-    seed = cfg.train.seed if cfg.train.seed != -1 else int(time.time())
+    seed = [cfg.train.seed if cfg.train.seed != -1 else int(time.time())]
+    if dist.is_initialized():
+        dist.broadcast_object_list(seed)  # one seed: rank 0's clock
+    seed = seed[0]
+    mesh = resolve_mesh(cfg.parallel, cfg.train.batch_size, logger)
+    if not mesh.active:
+        logger.warning("rank %d lies outside the mesh and trains on nothing", rank)
+        return None, None
+    logger.info("mesh: dp=%d x mp=%d", mesh.dp, mesh.mp)
 
     with torch.autograd.set_detect_anomaly(cfg.train.debug_nan):
         if cfg.train.debug_nan:
@@ -87,7 +125,8 @@ def train(cfg: HSPoseConfig, device=None):
         model = build_model(cfg.model, device=device, train_heads=True)
         device = next(model.parameters()).device
         generator = torch.Generator(device=device)
-        step = build_train_step(cfg, model, generator)
+        step = build_train_step(cfg, model, generator,
+                                mesh if mesh.dp * mesh.mp > 1 else None)
 
         s_epoch = 0
         if cfg.train.resume and cfg.train.resume_model:
@@ -108,31 +147,42 @@ def train(cfg: HSPoseConfig, device=None):
                            "path: its batches need not be an unbroken run's", saved, decode)
         # loader worker processes (the reference's DataLoader workers,
         # engine/train.py:65-69): one persistent pool for the whole run
-        num_workers = resolve_num_workers(cfg.data.num_workers)
+        # every rank makes the whole batch of (seed, step) and keeps its rows,
+        # so the host's cores are shared among its ranks' pools
+        num_workers = resolve_num_workers(cfg.data.num_workers, local_ranks=local_ranks())
         logger.info("loader workers: %d", num_workers)
         pool = (make_worker_pool(cfg.data, "train", sample_mode, num_workers)
                 if num_workers > 0 else None)
-        writer = MetricWriter(cfg.train.model_save)
+        writer = MetricWriter(cfg.train.model_save) if rank == 0 else None
         try:
             _train_loop(cfg, logger, writer, dataset, pool, model, step, generator, seed,
-                        s_epoch, num_workers)
+                        s_epoch, num_workers, mesh)
         finally:
             # terminate the worker pool on error paths too (a debug_nan raise or
             # a checkpoint failure must not leak spawned processes)
-            writer.close()
+            if writer is not None:
+                writer.close()
             if pool is not None:
                 pool.terminate()
     return model, step
 
 
+def local_ranks() -> int:
+    """The processes of the process group on this host (torchrun's
+    ``LOCAL_WORLD_SIZE``; 1 without a group)."""
+    return int(os.environ.get("LOCAL_WORLD_SIZE", 1)) if dist.is_initialized() else 1
+
+
 def _train_loop(cfg, logger, writer, dataset, pool, model, step, generator, seed,
-                s_epoch, num_workers):
+                s_epoch, num_workers, mesh):
     from hspose_tpu_torch.data.dataset import decode_path, resolve_num_workers, train_batches
     from hspose_tpu_torch.engine.checkpoint import save_checkpoint
     from hspose_tpu_torch.engine.train_step import check_finite_metrics, to_device
+    from hspose_tpu_torch.parallel.mesh import batch_sharding
 
     device = next(model.parameters()).device
     bs, steps = cfg.train.batch_size, cfg.train.train_steps
+    rows = batch_sharding(mesh, bs)
     profile_dir = os.environ.get("HSPOSE_PROFILE_DIR")
     for epoch in range(s_epoch, cfg.train.total_epoch):
         stats: dict = {}
@@ -154,7 +204,7 @@ def _train_loop(cfg, logger, writer, dataset, pool, model, step, generator, seed
                 prof.start()
             global_step = epoch * steps + i
             generator.manual_seed(step_seed(seed, global_step))
-            metrics = step(to_device(batch, device))
+            metrics = step(to_device({k: v[rows] for k, v in batch.items()}, device))
             if cfg.train.debug_nan:
                 check_finite_metrics(metrics)
             if prof is not None and i in (14, steps - 1):
@@ -164,7 +214,7 @@ def _train_loop(cfg, logger, writer, dataset, pool, model, step, generator, seed
                 os.makedirs(profile_dir, exist_ok=True)
                 prof.export_chrome_trace(os.path.join(profile_dir, "train_steps_10_14.json"))
                 prof = None
-            if i % cfg.train.log_every == 0:
+            if i % cfg.train.log_every == 0 and writer is not None:
                 writer.write(global_step, metrics)
                 logger.info("epoch %d step %d total_loss %.4f", epoch, i, metrics["total_loss"])
             if i == 0:
@@ -182,11 +232,12 @@ def _train_loop(cfg, logger, writer, dataset, pool, model, step, generator, seed
                     "samples/s per worker, %.1f in all, against %.1f consumed",
                     epoch, seconds, rate, rate_rest, waited, decode_path(cfg.data),
                     num_workers, worker_rate, loader_rate, rate_rest * bs)
-        writer.write(epoch * steps + steps - 1, {
-            "epoch": epoch, "epoch_s": seconds, "steps_per_s": rate,
-            "steps_per_s_after_first": rate_rest, "data_wait_s": waited,
-            "loader_samples_per_s": loader_rate, "worker_samples_per_s": worker_rate,
-            "num_workers": num_workers})
+        if writer is not None:
+            writer.write(epoch * steps + steps - 1, {
+                "epoch": epoch, "epoch_s": seconds, "steps_per_s": rate,
+                "steps_per_s_after_first": rate_rest, "data_wait_s": waited,
+                "loader_samples_per_s": loader_rate, "worker_samples_per_s": worker_rate,
+                "num_workers": num_workers})
         resolve_num_workers(num_workers, rate_rest * bs, logger, worker_rate)
         if (epoch + 1) % cfg.train.save_every == 0 or (epoch + 1) == cfg.train.total_epoch:
             path = save_checkpoint(cfg.train.model_save, model, step, epoch, seed,
@@ -195,9 +246,22 @@ def _train_loop(cfg, logger, writer, dataset, pool, model, step, generator, seed
 
 
 def main(argv=None):
+    """The CLI.  Under ``torchrun`` (``WORLD_SIZE`` set) it first joins the
+    process group: ``nccl`` on ``cuda:LOCAL_RANK``, or ``gloo`` on the CPU
+    with ``HSPOSE_PLATFORM=cpu``."""
     cfg = parse_overrides(sys.argv[1:] if argv is None else argv)
-    os.makedirs(cfg.train.model_save, exist_ok=True)
-    train(cfg, device="cpu" if os.environ.get("HSPOSE_PLATFORM") == "cpu" else None)
+    device = "cpu" if os.environ.get("HSPOSE_PLATFORM") == "cpu" else None
+    joined = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if joined:
+        from hspose_tpu_torch.parallel.mesh import init_distributed
+
+        device = init_distributed(device)
+    try:
+        os.makedirs(cfg.train.model_save, exist_ok=True)
+        train(cfg, device=device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -13,6 +13,23 @@ moves the running mean of the gradients, acc + (g - acc) / (m + 1) at
 micro-step m, and the BatchNorm statistics; every k-th one hands that mean
 to the optimizer (clip, GC, RAdam, lookahead) and resets it, and only then
 do the parameters move.  The schedule counts optimizer steps.
+
+On a (dp, mp) mesh (``parallel/mesh.py``) the step is the one-process step
+on the global batch, as the JAX package's GSPMD step is: ``distribute``
+lays the model out (BatchNorm over the dp group, the wide Dense layers'
+output channels over the mp group), the train forward draws the global
+batch's randomness and computes the global losses on every rank
+(``models/hspose.py::train_forward``), and after the backward each
+parameter's gradient is summed over its dp group (``parallel/dp.py::
+reduce_gradients``; a sharded parameter's group holds the ranks with the
+same shard).  Every rank's loss is the global one, so the NaN skip takes the
+same branch on every rank, and every rank then puts its BatchNorm buffers
+back.  The replicated parameters' gradients then go from the first rank of
+each mp group to the others (``parallel/dp.py::broadcast_gradients``: a
+backward whose scatters add in a run-dependent order would let the mp
+ranks' copies drift apart).  The accumulator's running mean is over the
+reduced gradients, and the optimizer clips by the global norm
+(``engine/optimizer.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +43,9 @@ from hspose_tpu_torch.config import HSPoseConfig
 from hspose_tpu_torch.engine.optimizer import Ranger
 from hspose_tpu_torch.models.hspose import TrainDraws, train_forward
 from hspose_tpu_torch.models.posenet import PoseNet9D
+from hspose_tpu_torch.parallel.dp import broadcast_gradients, reduce_gradients
+from hspose_tpu_torch.parallel.mesh import Mesh
+from hspose_tpu_torch.parallel.mp import distribute, group_of
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -44,8 +64,8 @@ def check_finite_metrics(metrics: Dict[str, float]) -> None:
             f"non-finite loss detected in families: {', '.join(sorted(bad))}")
 
 
-def build_train_step(cfg: HSPoseConfig, model: PoseNet9D, generator: torch.Generator
-                     ) -> Callable[..., Dict[str, float]]:
+def build_train_step(cfg: HSPoseConfig, model: PoseNet9D, generator: torch.Generator,
+                     mesh: Mesh | None = None) -> Callable[..., Dict[str, float]]:
     """Returns ``step(batch, draws=None) -> metrics``, with the optimizer as
     ``step.optimizer``.  ``model`` is built with ``train_heads`` and is put
     in train mode; the randomness of each step comes from ``generator``
@@ -54,14 +74,24 @@ def build_train_step(cfg: HSPoseConfig, model: PoseNet9D, generator: torch.Gener
     ``train.debug_nan`` ``finite/<family>`` (1.0 when every term of the
     family is finite, else 0.0).  With ``train.accumulate`` > 1 the
     micro-step count is ``step.mini_step`` and the running mean of the
-    gradients ``step.accumulator`` (one tensor per parameter)."""
+    gradients ``step.accumulator`` (one tensor per parameter).
+
+    ``mesh`` trains on a (dp, mp) layout (module docstring): ``model`` is
+    laid out on it here, before the optimizer takes its parameters, and
+    each ``batch`` is this rank's rows (``parallel/mesh.py::
+    batch_sharding``) of the global batch, ``draws`` the global batch's."""
     k_steps = cfg.train.accumulate
     if k_steps < 1:
         raise ValueError(f"train.accumulate must be >= 1, got {k_steps}")
+    dp_group = mp_group = None
+    if mesh is not None:
+        distribute(model, mesh)
+        dp_group, mp_group = mesh.dp_group, mesh.mp_group
     total_iters = cfg.train.train_steps * cfg.train.total_epoch // k_steps
     optimizer = Ranger(model.parameters(), cfg.optim, total_iters)
     model.train()
     params = list(model.parameters())
+    replicated = [p for p in params if group_of(p) is None]
     bn_buffers = [b for name, b in model.named_buffers()
                   if name.endswith(("running_mean", "running_var"))]
     acc = [torch.zeros_like(p) for p in params] if k_steps > 1 else []
@@ -85,10 +115,12 @@ def build_train_step(cfg: HSPoseConfig, model: PoseNet9D, generator: torch.Gener
              ) -> Dict[str, float]:
         saved = [b.clone() for b in bn_buffers]
         optimizer.zero_grad(set_to_none=True)
-        total, loss_dicts = train_forward(cfg, model, batch, generator, draws)
+        total, loss_dicts = train_forward(cfg, model, batch, generator, draws, dp_group)
         ok = bool(torch.isfinite(total))
         if ok:
             total.backward()
+            reduce_gradients(params, dp_group)
+            broadcast_gradients(replicated, mp_group)
             if k_steps > 1:
                 accumulate()
             else:

@@ -12,25 +12,30 @@ function is given ``device="cpu"`` (the tests) or the CLI runs with
 platform.  A batch's results are fetched only after the next batch has been
 submitted.
 
-Several GPUs serve as the JAX harness's (dp, sp) mesh does
+Several GPUs serve as the JAX harness's (dp, sp) or (dp, mp) mesh does
 (hspose_tpu/evaluation/evaluate.py:58-132), one process per GPU:
 
     torchrun --standalone --nproc_per_node=<dp*sp> -m hspose_tpu_torch.evaluation.evaluate \
         parallel.dp=<dp> parallel.sp=<sp> data.num_points=4096 ...
+    torchrun --standalone --nproc_per_node=<dp*mp> -m hspose_tpu_torch.evaluation.evaluate \
+        parallel.dp=<dp> parallel.mp=<mp> ...
 
 The CLI joins the process group (``nccl``, one card per rank; ``gloo`` with
 ``HSPOSE_PLATFORM=cpu``).  Every rank batches the same records and draws
 the same random numbers, so each crop sees the draws of the one-device
 run; each dp row serves its ``B / dp`` rows of every batch, and with
 ``parallel.sp`` each rank of the row its ``N / sp`` contiguous points of
-them (``parallel/sp.py``; N must divide by 16 * sp).  The rows' results are
-gathered to every rank; rank 0 alone writes ``pred_result.pkl``, the log
-and the mAP table.  dp shrinks until it divides ``eval.eval_batch``, with
-the JAX harness's warning; ``parallel.dp=-1`` puts every rank not on the
-sp axis on the data axis.  Refused, with the JAX harness's messages where
-it has them: sp with mp, sp with ``eval.recon``, sp in device mode, an N
-that does not shard, and ``parallel.mp > 1`` (ROADMAP Queue 1 item 6b);
-dp or sp above 1 without a process group raises and names ``torchrun``.  A cached ``pred_result.pkl`` is reused; then the NOCS
+them (``parallel/sp.py``; N must divide by 16 * sp).  With ``parallel.mp``
+the ranks of a dp row serve the same rows on a copy of the model whose
+wide Dense layers keep each rank's output channels (``parallel/mp.py``).
+The rows' results are gathered to every rank; rank 0 alone writes
+``pred_result.pkl``, the log and the mAP table.  dp shrinks until it
+divides ``eval.eval_batch``, with the JAX harness's warning;
+``parallel.dp=-1`` puts every rank not on the sp or mp axis on the data
+axis.  Refused, with the JAX harness's messages where it has them: sp with
+mp, sp with ``eval.recon``, sp in device mode and an N that does not shard;
+dp, sp or mp above 1 without a process group raises and names
+``torchrun``.  A cached ``pred_result.pkl`` is reused; then the NOCS
 degree/cm mAP table is computed on thresholds 0-60 deg x 1 / 0-10 cm x 0.5 /
 IoU 0-1 x 0.01.  ``eval.recon`` also measures, per detection, the chamfer
 distance (``ops/chamfer.py``, K16 under no_grad) and the Sinkhorn EMD
@@ -54,6 +59,7 @@ scores and takes its rows.
 
 from __future__ import annotations
 
+import copy
 import importlib.util
 import logging
 import os
@@ -70,12 +76,14 @@ import torch.distributed as dist
 from hspose_tpu_torch.config import HSPoseConfig, parse_overrides
 from hspose_tpu_torch.data.preprocess import CROP_KEYS, roi_to_pointcloud
 from hspose_tpu_torch.geometry.symmetry import SYNSET_NAMES
-from hspose_tpu_torch.parallel.mesh import Mesh, batch_sharding, make_mesh
+from hspose_tpu_torch.parallel.mesh import Mesh, batch_sharding, resolve_mesh
+from hspose_tpu_torch.parallel.mp import distribute
 from hspose_tpu_torch.parallel.sp import sp_points_per_device
 from hspose_tpu_torch.utils.logging import setup_logger
 
-TORCHRUN = ("torchrun --standalone --nproc_per_node=<dp*sp> -m "
-            "hspose_tpu_torch.evaluation.evaluate parallel.dp=<dp> parallel.sp=<sp> ...")
+TORCHRUN = ("torchrun --standalone --nproc_per_node=<dp*sp*mp> -m "
+            "hspose_tpu_torch.evaluation.evaluate parallel.dp=<dp> parallel.sp=<sp> "
+            "parallel.mp=<mp> ...")
 # a batch's outputs, in the forward's order, as the detection dicts name them
 RESULT_KEYS = ("pred_RTs", "pred_scales", "chamfer_dis_cass", "emd_dis_cass")
 
@@ -85,42 +93,22 @@ def check_parallel(cfg: HSPoseConfig) -> None:
     p = cfg.parallel
     if p.sp > 1 and p.mp > 1:
         raise ValueError("parallel.sp and parallel.mp are mutually exclusive")
-    if p.mp > 1:
-        raise NotImplementedError(
-            f"parallel.mp={p.mp}: the Dense-output sharding is not ported; it is "
-            "ROADMAP Queue 1 item 6b")
     if p.sp > 1 and cfg.eval.recon:
         raise ValueError("eval.recon is not supported with parallel.sp")
     if p.sp > 1:
         sp_points_per_device(cfg.data.num_points, p.sp)
-    if max(p.dp, p.sp) > 1 and not dist.is_initialized():
+    if max(p.dp, p.sp, p.mp) > 1 and not dist.is_initialized():
         raise RuntimeError(
-            f"parallel.dp={p.dp}, sp={p.sp}: the harness serves several GPUs with one process "
-            f"each and found no process group; run it under torchrun: {TORCHRUN}")
+            f"parallel.dp={p.dp}, sp={p.sp}, mp={p.mp}: the harness serves several GPUs with "
+            f"one process each and found no process group; run it under torchrun: {TORCHRUN}")
 
 
 def serving_mesh(cfg: HSPoseConfig) -> Mesh:
-    """The (dp, sp) layout of the harness over the process group's ranks
-    (one rank without a group): dp = ``parallel.dp``, or every rank not on
-    the sp axis for -1, shrunk until it divides ``eval.eval_batch``."""
+    """The harness's (dp, sp) or (dp, mp) layout (``parallel/mesh.py::
+    resolve_mesh``), dp shrunk until it divides ``eval.eval_batch``."""
     check_parallel(cfg)
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    sp, B = max(cfg.parallel.sp, 1), cfg.eval.eval_batch
-    dp_req = cfg.parallel.dp if cfg.parallel.dp > 0 else world // sp
-    if dp_req < 1 or dp_req * sp > world:
-        raise ValueError(f"parallel.dp={cfg.parallel.dp} x parallel.sp={sp} does not fit "
-                         f"{world} process(es)")
-    dp = dp_req
-    while B % dp:
-        dp -= 1
-    logger = logging.getLogger("eval_log")
-    if dp < dp_req:
-        logger.warning("data axis shrunk dp=%d -> dp=%d (eval_batch %d not divisible by %d)",
-                       dp_req, dp, B, dp_req)
-    if dp * sp < world:
-        logger.warning("mesh dp=%d x sp=%d uses %d of the %d processes; the rest sit idle",
-                       dp, sp, dp * sp, world)
-    return make_mesh(dp, sp)
+    return resolve_mesh(cfg.parallel, cfg.eval.eval_batch, logging.getLogger("eval_log"),
+                        "eval_batch")
 
 
 def _build_forward(cfg: HSPoseConfig, model, generator: torch.Generator,
@@ -188,8 +176,12 @@ def batched_pose_inference(cfg: HSPoseConfig, model, image_records, seed: int,
 
     With ``parallel.dp`` / ``parallel.sp`` every rank of the process group
     calls it on the same records and seed (module docstring): this rank
-    serves its rows and points, and every rank returns all the results."""
+    serves its rows and points, and every rank returns all the results.
+    With ``parallel.mp`` the ranks serve a copy of ``model`` laid out on the
+    mesh, unless ``model`` already is (``parallel/mp.py::distribute``)."""
     mesh = serving_mesh(cfg)
+    if mesh.mp > 1 and getattr(model, "mesh", None) is None:
+        model = distribute(copy.deepcopy(model), mesh)
     B = cfg.eval.eval_batch
     rows = batch_sharding(mesh, B)
     device = next(model.parameters()).device
@@ -208,7 +200,8 @@ def batched_pose_inference(cfg: HSPoseConfig, model, image_records, seed: int,
     generator = torch.Generator(device=device).manual_seed(seed)
     forward_fn = _build_forward(cfg, model, generator, pool_samples, sample_scores, mesh)
     # the rows this rank reports when results are exchanged (one rank of each dp row)
-    reports = [] if dist.is_initialized() and mesh.active and mesh.sp_index == 0 else None
+    reports = ([] if dist.is_initialized() and mesh.active and mesh.sp_index == 0
+               and mesh.mp_index == 0 else None)
 
     state = {"t_start": None, "timed_from": 0, "fetched": 0, "batch_no": 0}
     # per-record output holders; records complete in order

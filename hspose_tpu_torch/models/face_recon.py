@@ -41,10 +41,12 @@ from hspose_tpu_torch.config import ModelConfig
 from hspose_tpu_torch.models.layers import (
     HSLayer,
     HSLayerSurface,
+    dense,
     pool_layer,
     receptive_field_indices as knn,
 )
 from hspose_tpu_torch.ops.knn import gather_neighbors, nearest_index
+from hspose_tpu_torch.parallel.dp import all_reduce_sum
 from hspose_tpu_torch.parallel.sp import all_gather_points
 
 FEAT_C = 128 + 128 + 256 + 256 + 512  # backbone channels before the one-hot
@@ -62,7 +64,14 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
 
     bf16 x in train mode is flax's BatchNorm(dtype=bf16) (flax
     _compute_stats, _normalize): the statistics come from x widened to fp32,
-    y is formed in fp32 and rounded to bf16 once."""
+    y is formed in fp32 and rounded to bf16 once.
+
+    A layer given a dp group (``parallel/mp.py::distribute``) takes the sums
+    of x and x^2 over the group's ranks in train mode, through a
+    differentiable all-reduce (``parallel/dp.py``), and divides by the
+    group's row count (every rank holds as many rows): the global batch's
+    statistics, the same on every rank, as the JAX package's GSPMD step
+    takes them."""
     x2 = x.reshape(-1, x.shape[-1])
     if not bn.training and x.dtype == torch.bfloat16:
         # flax's BatchNorm(dtype=bf16) in eval mode (hspose_tpu/models/
@@ -74,8 +83,14 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     if not bn.training:
         return bn(x2).reshape(x.shape)
     xf = x2.float()
-    mean = xf.mean(0)
-    var = torch.clamp((xf * xf).mean(0) - mean * mean, min=0.0)
+    group = getattr(bn, "dp_group", None)
+    if group is None:
+        mean, mean_sq = xf.mean(0), (xf * xf).mean(0)
+    else:
+        n = xf.shape[0] * dist.get_world_size(group)
+        mean, mean_sq = (all_reduce_sum(torch.cat([xf.sum(0), (xf * xf).sum(0)]), group)
+                         / n).chunk(2)
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
     y = (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
     with torch.no_grad():
         m = bn.momentum
@@ -113,8 +128,8 @@ class MLPHead(nn.Module):
         x = x.float()  # flax promotes a bf16 input against the fp32 parameters
         for i in range(self.n_hidden):
             x = torch.relu(batch_norm(getattr(self, f"bn_{i}"),
-                                      getattr(self, f"dense_{i}")(x)))
-        x = self.dense_out(x)
+                                      dense(getattr(self, f"dense_{i}"), x, torch.float32)))
+        x = dense(self.dense_out, x, torch.float32)
         if self.bn_out is not None:
             x = torch.relu(batch_norm(self.bn_out, x))
         return x

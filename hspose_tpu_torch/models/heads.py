@@ -7,7 +7,8 @@ products, BatchNorm and dropout run in bf16 and the output is cast to fp32,
 as the JAX heads with ``dtype=bfloat16`` (hspose_tpu/models/heads.py:39-94).
 With an sp group (sequence-parallel serving) each rank holds a shard of the
 points, and the max-pool over points finishes as the max over the group
-(heads.py:83-84)."""
+(heads.py:83-84).  Under mp (``parallel/mp.py``) conv1, conv2 and conv3
+form their own output columns and gather the rest."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from torch import nn
 
 from hspose_tpu_torch.models.face_recon import _bn, batch_norm
 from hspose_tpu_torch.models.layers import dense
+from hspose_tpu_torch.parallel.mp import columns
 from hspose_tpu_torch.parallel.sp import max_over_shards
 
 KEEP_PROB = 1.0 - 0.2  # dropout 0.2 after bn3
@@ -47,10 +49,11 @@ class VecHead(nn.Module):
         if xyz is None:
             h = dense(self.conv1, x, dt)
         else:
-            w = self.conv1.weight.to(dt)  # (1024, Cx + 3)
+            w = self.conv1.weight.to(dt)  # (1024, Cx + 3), or this rank's rows under mp
             cx = x.shape[-1]
-            h = (x.to(dt) @ w[:, :cx].t() + xyz.to(dt) @ w[:, cx:].t()
-                 + self.conv1.bias.to(dt))
+            h = columns(self.conv1, lambda a, b: (a @ w[:, :cx].t() + b @ w[:, cx:].t()
+                                                  + self.conv1.bias.to(dt)),
+                        x.to(dt), xyz.to(dt))
         h = torch.relu(batch_norm(self.bn1, h))
         h = torch.relu(batch_norm(self.bn2, dense(self.conv2, h, dt)))
         h = h.amax(dim=1, keepdim=True)  # global max over points (B, 1, 256)

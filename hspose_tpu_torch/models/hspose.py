@@ -23,6 +23,7 @@ from hspose_tpu_torch.models.heads import KEEP_PROB
 from hspose_tpu_torch.models.posenet import PoseNet9D, PoseNetOutput, PoseNetTrainOutput
 from hspose_tpu_torch.ops.cuda_knn import MAX_K
 from hspose_tpu_torch.ops.sampling import draw_sample_scores
+from hspose_tpu_torch.parallel.dp import gather
 
 LossDicts = Dict[str, Dict[str, torch.Tensor]]
 
@@ -120,6 +121,16 @@ class TrainDraws(NamedTuple):
     dropout_keep: Sequence[torch.Tensor]  # (B, 256) bool for rot_green, rot_red, ts
     sample_scores: Optional[torch.Tensor] = None  # (B, H·W): device sampling's scores
 
+    def rows(self, rows: slice) -> "TrainDraws":
+        """The draws of the batch rows ``rows``: the per-row draws cut, the
+        pool samples (shared by the batch) whole."""
+        a = self.aug
+        scores = self.sample_scores
+        return TrainDraws(AugmentDraws(a.flags[:, rows], a.ey_up[rows], a.ey_down[rows],
+                                       a.defor[rows]),
+                          self.pool_samples, [k[rows] for k in self.dropout_keep],
+                          None if scores is None else scores[rows])
+
     def to(self, device) -> "TrainDraws":
         scores = self.sample_scores
         return TrainDraws(AugmentDraws(*(x.to(device) for x in self.aug)),
@@ -199,7 +210,8 @@ def total_loss(loss_dicts: LossDicts) -> torch.Tensor:
 
 def train_forward(cfg: HSPoseConfig, model: PoseNet9D, batch: Dict[str, torch.Tensor],
                   generator: torch.Generator | None = None,
-                  draws: TrainDraws | None = None) -> Tuple[torch.Tensor, LossDicts]:
+                  draws: TrainDraws | None = None,
+                  dp_group=None) -> Tuple[torch.Tensor, LossDicts]:
     """One differentiable train forward: augmentation, posenet, losses.
 
     ``model`` is in train mode and built with ``train_heads``; its BatchNorm
@@ -210,14 +222,31 @@ def train_forward(cfg: HSPoseConfig, model: PoseNet9D, batch: Dict[str, torch.Te
     ``cfg.data.num_points`` points is sampled here from the crops
     (``data/preprocess.py::roi_to_pointcloud``), on the batch's device.  The
     randomness comes from ``draws`` when given, else from ``generator``.
-    Returns (total loss, loss dicts)."""
+    Returns (total loss, loss dicts).
+
+    ``dp_group`` (``parallel/mesh.py::make_mesh``) trains data-parallel:
+    ``batch`` holds this rank's rows of a global batch, rank r of the group
+    the r-th equal part.  The draws are the global batch's (``draws``, or
+    drawn from ``generator`` at the global batch size, the same on every
+    rank), and this rank keeps its rows of them; the model's BatchNorm
+    layers take their statistics over the group (``parallel/mp.py::
+    distribute``); the loss inputs are gathered over the group
+    (``parallel/dp.py::gather``), so that every rank computes the losses of
+    the global batch, those of the one-process forward on it, and each
+    rank's backward gives its rows' share of the gradient."""
     crops = "pcl_in" not in batch
     bs = batch["cat_id"].shape[0]
     n = cfg.data.num_points if crops else batch["pcl_in"].shape[1]
+    world, rank = ((1, 0) if dp_group is None else
+                   (torch.distributed.get_world_size(dp_group),
+                    torch.distributed.get_rank(dp_group)))
     if draws is None:
         if generator is None:
             raise ValueError("train_forward needs a generator or the draws")
-        draws = draw_train(generator, bs, n, batch["roi_depth"][0].numel() if crops else 0)
+        draws = draw_train(generator, bs * world, n,
+                           batch["roi_depth"][0].numel() if crops else 0)
+    if dp_group is not None:
+        draws = draws.rows(slice(rank * bs, (rank + 1) * bs))
     if crops:
         if draws.sample_scores is None:
             raise ValueError("a batch of crops needs draws with sample_scores")
@@ -231,6 +260,10 @@ def train_forward(cfg: HSPoseConfig, model: PoseNet9D, batch: Dict[str, torch.Te
         batch["aug_rt_t"], batch["aug_rt_R"], batch["model_point"], batch["nocs_scale"],
         obj_id, draws.aug)
     out = model(aug.pc, obj_id, draws.pool_samples, draws.dropout_keep)
-    loss_dicts = compute_losses(cfg, out, aug.pc, aug.gt_R, aug.gt_t, aug.gt_s,
-                                batch["mean_shape"], batch["sym_info"], obj_id)
+    targets = (aug.pc, aug.gt_R, aug.gt_t, aug.gt_s, batch["mean_shape"], batch["sym_info"],
+               obj_id)
+    if dp_group is not None:
+        out = PoseNetTrainOutput(*gather(out, dp_group))
+        targets = gather(targets, dp_group)
+    loss_dicts = compute_losses(cfg, out, *targets)
     return total_loss(loss_dicts), loss_dicts

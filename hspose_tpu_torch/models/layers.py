@@ -51,17 +51,20 @@ from hspose_tpu_torch.ops.cuda_hs_fused import (
 )
 from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda
 from hspose_tpu_torch.ops.knn import gather_neighbors, neighbor_directions_normalized
+from hspose_tpu_torch.parallel.mp import columns
 from hspose_tpu_torch.parallel.sp import all_gather_points, mean_over_shards
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=dtype)``: input and fp32 parameters cast to
     ``dtype``, the product in ``dtype`` (fp32 accumulation inside the matrix
-    product).  For fp32 it is ``layer(x)``."""
+    product).  For fp32 it is ``layer(x)``.  A layer whose output channels
+    are sharded over an mp group (``parallel/mp.py``) forms its own columns
+    and gathers the rest."""
     if dtype == torch.float32:
-        return layer(x)
+        return columns(layer, layer, x)
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    return columns(layer, lambda v: F.linear(v, layer.weight.to(dtype), bias), x.to(dtype))
 
 
 def _uniform(shape, bound: float, device) -> nn.Parameter:

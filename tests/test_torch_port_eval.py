@@ -372,7 +372,8 @@ def test_cli_prints_the_jax_harness_table(harness, tmp_path):
 
 
 @pytest.mark.parametrize("overrides,error,match", [
-    (["parallel.mp=2"], NotImplementedError, "Queue 1 item 6b"),
+    (["parallel.mp=2"], RuntimeError, "torchrun --standalone"),
+    (["parallel.dp=2", "parallel.mp=2"], RuntimeError, "torchrun --standalone"),
     (["parallel.dp=2"], RuntimeError, "torchrun --standalone"),
     (["parallel.sp=2", "data.num_points=4096"], RuntimeError, "torchrun --standalone"),
     (["parallel.sp=2", "data.num_points=4096", "eval.recon=true"], ValueError,
@@ -380,8 +381,9 @@ def test_cli_prints_the_jax_harness_table(harness, tmp_path):
     (["parallel.sp=2", "parallel.mp=2"], ValueError, "mutually exclusive"),
     (["parallel.sp=2"], ValueError, r"num_points % \(16\*sp\)")])
 def test_harness_refuses_what_it_does_not_run(overrides, error, match):
-    """The refusals of the JAX harness (with its messages), mp (the next
-    slice), and dp or sp without a process group: no one-device run instead."""
+    """The refusals of the JAX harness (with its messages: sp with mp, sp
+    with recon, an N that does not shard), and dp, sp or mp without a
+    process group: no one-device run instead."""
     cfg = parse_overrides(overrides)
     model = build_model(ModelConfig(), device="cpu")
     with pytest.raises(error, match=match):

@@ -2,9 +2,10 @@
 checkpoints (``engine/checkpoint.py``) and the eval CLI on them, on the CPU
 at a small batch and cloud: a checkpoint round trip bit for bit, an
 interrupted run resumed from its checkpoint against an unbroken one bit for
-bit, the train CLI -> checkpoint -> eval CLI chain, the refusals naming
-their ROADMAP items, and ``train.debug_nan`` on a poisoned batch (device
-sampling's loop: tests/test_torch_port_device_sampling.py)."""
+bit, the train CLI -> checkpoint -> eval CLI chain, the refusals, and
+``train.debug_nan`` on a poisoned batch (device sampling's loop:
+tests/test_torch_port_device_sampling.py; the loop under dp and mp:
+tests/test_torch_dp_train.py and tests/test_torch_mp.py)."""
 
 import os
 import subprocess
@@ -137,13 +138,17 @@ def test_train_cli_checkpoint_eval_cli(nocs_root, tmp_path):  # noqa: F811
     assert (tmp_path / "eval" / "eval_result_model_000" / "pred_result.pkl").exists()
 
 
-@pytest.mark.parametrize("override,match", [("parallel.dp=2", "Queue 1 item 6"),
-                                            ("parallel.mp=2", "Queue 1 item 6"),
-                                            ("parallel.sp=2", "Queue 1 item 6")])
-def test_train_refuses_what_it_does_not_run(override, match, tmp_path):
-    """Refused at once: nothing is built or written."""
-    cfg = parse_overrides([override, f"train.model_save={tmp_path / 'out'}"])
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("overrides,error,match", [
+    (["parallel.dp=2"], RuntimeError, "torchrun --standalone"),
+    (["parallel.mp=2"], RuntimeError, "torchrun --standalone"),
+    (["parallel.dp=2", "parallel.mp=2"], RuntimeError, "torchrun --standalone"),
+    (["parallel.sp=2"], ValueError, "eval-only; training uses a \\(dp, mp\\) mesh")])
+def test_train_refuses_what_it_does_not_run(overrides, error, match, tmp_path):
+    """Refused at once, nothing built or written: sp, as the JAX loop
+    refuses it, and dp or mp above 1 without a process group, naming the
+    torchrun command instead of training on one device."""
+    cfg = parse_overrides([*overrides, f"train.model_save={tmp_path / 'out'}"])
+    with pytest.raises(error, match=match):
         port_train.train(cfg, device="cpu")
     assert not (tmp_path / "out").exists()
 

@@ -111,16 +111,17 @@ def train_batch(seed: int = 3):
 
 
 class Pinned:
-    """The numpy draws of one train forward, for both packages."""
+    """The numpy draws of one train forward of ``bs`` rows, for both packages."""
 
-    def __init__(self, seed: int, flags_on: bool):
+    def __init__(self, seed: int, flags_on: bool, bs: int = B):
         rng = np.random.default_rng(seed)
-        self.flags = np.full((4, B, 1), 0.0 if flags_on else 0.999, np.float32)
-        self.ey_up = rng.uniform(0.8, 1.2, (B, 1)).astype(np.float32)
-        self.ey_down = rng.uniform(0.8, 1.2, (B, 1)).astype(np.float32)
-        self.defor = rng.uniform(0, 1, (B, N, 3)).astype(np.float32)
+        self.bs = bs
+        self.flags = np.full((4, bs, 1), 0.0 if flags_on else 0.999, np.float32)
+        self.ey_up = rng.uniform(0.8, 1.2, (bs, 1)).astype(np.float32)
+        self.ey_down = rng.uniform(0.8, 1.2, (bs, 1)).astype(np.float32)
+        self.defor = rng.uniform(0, 1, (bs, N, 3)).astype(np.float32)
         self.perms = {N: rng.permutation(N), N // 4: rng.permutation(N // 4)}
-        self.keep = [rng.uniform(size=(B, 1, 256)) < 0.8 for _ in range(3)]
+        self.keep = [rng.uniform(size=(bs, 1, 256)) < 0.8 for _ in range(3)]
 
     def port(self) -> TrainDraws:
         return TrainDraws(
@@ -136,7 +137,7 @@ class Pinned:
         keep = itertools.cycle(self.keep)
 
         def uniform(key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
-            if tuple(shape) == (B, N, 3):
+            if tuple(shape) == (self.bs, N, 3):
                 return jnp.asarray(self.defor)
             if minval == 0.8:
                 return jnp.asarray(next(ey))
@@ -148,7 +149,7 @@ class Pinned:
         monkeypatch.setattr(jaugment, "jax", SimpleNamespace(
             random=SimpleNamespace(split=jax.random.split, uniform=uniform)))
         def bernoulli(key, p=0.5, shape=None):  # model.init draws at its own batch size
-            if tuple(shape) != (B, 1, 256):
+            if tuple(shape) != (self.bs, 1, 256):
                 return jax.random.bernoulli(key, p, shape)
             return jnp.asarray(next(keep))
 
