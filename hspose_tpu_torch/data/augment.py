@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from hspose_tpu_torch.config import AugConfig
+from hspose_tpu_torch.utils.spans import span
 
 
 class AugmentedBatch(NamedTuple):
@@ -52,7 +53,9 @@ def defor_bb(pc, model_point, R, t, s, sym, aug_bb):
     """Anisotropic box rescale, x/z averaged for axis-symmetric objects.
     ``s`` is the full size (gt_s + mean_shape)."""
     pc_obj = _to_object(R, t, pc)
-    sym_aug = (aug_bb + aug_bb[:, [2, 1, 0]]) / 2.0
+    with span("sync.upload"):  # the list index is copied to the device first
+        swapped = aug_bb[:, [2, 1, 0]]
+    sym_aug = (aug_bb + swapped) / 2.0
     ex = torch.where((sym[:, 0] == 1)[:, None], sym_aug, aug_bb)
     pc_new = _to_world(R, t, pc_obj * ex[:, None, :])
     return pc_new, s * ex, model_point * ex[:, None, :]

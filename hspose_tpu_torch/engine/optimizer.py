@@ -29,6 +29,7 @@ from hspose_tpu_torch.config import OptimConfig
 from hspose_tpu_torch.engine.schedule import learning_rate
 from hspose_tpu_torch.parallel.dp import all_reduce_sum
 from hspose_tpu_torch.parallel.mp import group_of
+from hspose_tpu_torch.utils.spans import span
 
 
 class Ranger(torch.optim.Optimizer):
@@ -93,7 +94,9 @@ class Ranger(torch.optim.Optimizer):
             sq = norms.square()
             sharded = torch.tensor([g is not None for g in groups], device=sq.device)
             norm = torch.sqrt(all_reduce_sum(sq[sharded].sum(), mp_group) + sq[~sharded].sum())
-        if bool(norm >= cfg.clip_grad_norm):
+        with span("sync.clip"):
+            clip = bool(norm >= cfg.clip_grad_norm)
+        if clip:
             grads = torch._foreach_mul(torch._foreach_div(grads, norm), cfg.clip_grad_norm)
         if cfg.use_gc:
             grads = [g - g.mean(dim=tuple(range(1, g.dim())), keepdim=True) if g.dim() >= 2

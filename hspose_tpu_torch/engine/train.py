@@ -21,7 +21,8 @@ resumed run needs only the checkpoint's seed and epoch besides its tensors.
 run and stops it with FloatingPointError at the first step whose loss
 family is not finite (``check_finite_metrics``).  ``HSPOSE_PROFILE_DIR``
 traces steps 10-14 of the first epoch with ``torch.profiler`` into
-``<dir>/train_steps_10_14.json``.
+``<dir>/train_steps_10_14.json``, the step's own spans
+(``utils/spans.py``) among the host's ranges.
 
 ``data.sample_mode=device`` makes the loader ship each sample's 256² crops
 instead of its cloud, and the step back-projects and samples them on the

@@ -46,11 +46,18 @@ from hspose_tpu_torch.models.posenet import PoseNet9D
 from hspose_tpu_torch.parallel.dp import broadcast_gradients, reduce_gradients
 from hspose_tpu_torch.parallel.mesh import Mesh
 from hspose_tpu_torch.parallel.mp import distribute, group_of
+from hspose_tpu_torch.utils.spans import span
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """The numpy batch of ``synthetic_train_batch`` as tensors on ``device``."""
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _finite(v: torch.Tensor) -> bool:
+    """Whether every entry of ``v`` is finite: a read that waits for the device."""
+    with span("sync.finite"):
+        return bool(torch.isfinite(v).all())
 
 
 def check_finite_metrics(metrics: Dict[str, float]) -> None:
@@ -111,14 +118,15 @@ def build_train_step(cfg: HSPoseConfig, model: PoseNet9D, generator: torch.Gener
                 a.zero_()
         step.mini_step = (step.mini_step + 1) % k_steps
 
-    def step(batch: Dict[str, torch.Tensor], draws: TrainDraws | None = None
-             ) -> Dict[str, float]:
+    def run(batch: Dict[str, torch.Tensor], draws: TrainDraws | None) -> Dict[str, float]:
         saved = [b.clone() for b in bn_buffers]
         optimizer.zero_grad(set_to_none=True)
-        total, loss_dicts = train_forward(cfg, model, batch, generator, draws, dp_group)
-        ok = bool(torch.isfinite(total))
+        with span("train.forward"):
+            total, loss_dicts = train_forward(cfg, model, batch, generator, draws, dp_group)
+        ok = _finite(total)
         if ok:
-            total.backward()
+            with span("train.backward"):
+                total.backward()
             reduce_gradients(params, dp_group)
             broadcast_gradients(replicated, mp_group)
             if k_steps > 1:
@@ -129,15 +137,22 @@ def build_train_step(cfg: HSPoseConfig, model: PoseNet9D, generator: torch.Gener
             with torch.no_grad():
                 for b, s in zip(bn_buffers, saved):
                     b.copy_(s)
-        metrics = {"total_loss": float(total.detach()), "skipped_nan": float(not ok)}
-        for fam, d in loss_dicts.items():
-            for k, v in d.items():
-                metrics[f"{fam}/{k}"] = float(v.detach())
-        if cfg.train.debug_nan:
+        with span("train.metrics"):
+            with span("sync.total"):
+                metrics = {"total_loss": float(total.detach()), "skipped_nan": float(not ok)}
             for fam, d in loss_dicts.items():
-                metrics[f"finite/{fam}"] = float(all(bool(torch.isfinite(v).all())
-                                                     for v in d.values()))
+                for k, v in d.items():
+                    with span("sync.term"):
+                        metrics[f"{fam}/{k}"] = float(v.detach())
+            if cfg.train.debug_nan:
+                for fam, d in loss_dicts.items():
+                    metrics[f"finite/{fam}"] = float(all(_finite(v) for v in d.values()))
         return metrics
+
+    def step(batch: Dict[str, torch.Tensor], draws: TrainDraws | None = None
+             ) -> Dict[str, float]:
+        with span("train.step"):  # the step's autograd graph is freed inside it too
+            return run(batch, draws)
 
     step.optimizer = optimizer
     step.mini_step = 0

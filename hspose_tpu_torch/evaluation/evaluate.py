@@ -80,6 +80,7 @@ from hspose_tpu_torch.parallel.mesh import Mesh, batch_sharding, resolve_mesh
 from hspose_tpu_torch.parallel.mp import distribute
 from hspose_tpu_torch.parallel.sp import sp_points_per_device
 from hspose_tpu_torch.utils.logging import setup_logger
+from hspose_tpu_torch.utils.spans import span
 
 TORCHRUN = ("torchrun --standalone --nproc_per_node=<dp*sp*mp> -m "
             "hspose_tpu_torch.evaluation.evaluate parallel.dp=<dp> parallel.sp=<sp> "
@@ -179,6 +180,12 @@ def batched_pose_inference(cfg: HSPoseConfig, model, image_records, seed: int,
     serves its rows and points, and every rank returns all the results.
     With ``parallel.mp`` the ranks serve a copy of ``model`` laid out on the
     mesh, unless ``model`` already is (``parallel/mp.py::distribute``)."""
+    with span("harness.request"):
+        return _serve(cfg, model, image_records, seed, pool_samples, sample_scores)
+
+
+def _serve(cfg, model, image_records, seed, pool_samples, sample_scores):
+    """``batched_pose_inference``'s body, inside its request span."""
     mesh = serving_mesh(cfg)
     if mesh.mp > 1 and getattr(model, "mesh", None) is None:
         model = distribute(copy.deepcopy(model), mesh)
@@ -211,7 +218,8 @@ def batched_pose_inference(cfg: HSPoseConfig, model, image_records, seed: int,
     syms: List = []
     means: List = []
     owners: List = []
-    in_flight = None  # (outputs on the device, owners of this rank's rows, n_valid)
+    # (outputs on the device, owners of this rank's rows, n_valid, batch number)
+    in_flight = None
 
     def ingest(rec):
         data, detection_dict, gts = rec
@@ -238,50 +246,67 @@ def batched_pose_inference(cfg: HSPoseConfig, model, image_records, seed: int,
         for key, v in zip(RESULT_KEYS, values):
             pred_results[rec_idx][key][j] = v
 
+    def pull():
+        """The next record, ingested; None at the end of the records."""
+        with span("harness.ingest"):
+            rec = next(records, None)
+            if rec is not None:
+                ingest(rec)
+        return rec
+
     def land(flight):
-        outs, flight_owners, n_valid = flight
-        outs = [o.cpu().numpy() for o in outs]  # the synchronisation point
-        for i, (rec_idx, j) in enumerate(flight_owners):
-            values = [o[i] for o in outs]
-            fill(rec_idx, j, values)
-            if reports is not None:
-                reports.append((rec_idx, j, values))
-        state["fetched"] += n_valid
-        if state["t_start"] is None:
-            # the first batch (kernel builds, allocator warm-up) is not timed
-            state["t_start"] = time.time()
-            state["timed_from"] = state["fetched"]
+        outs, flight_owners, n_valid, batch_no = flight
+        with span("harness.land", batch_no):
+            fetched = []
+            for o in outs:
+                with span("sync.fetch"):  # the synchronisation point
+                    fetched.append(o.cpu().numpy())
+            for i, (rec_idx, j) in enumerate(flight_owners):
+                values = [o[i] for o in fetched]
+                fill(rec_idx, j, values)
+                if reports is not None:
+                    reports.append((rec_idx, j, values))
+            state["fetched"] += n_valid
+            if state["t_start"] is None:
+                # the first batch (kernel builds, allocator warm-up) is not timed
+                state["t_start"] = time.time()
+                state["timed_from"] = state["fetched"]
 
     def to_device(v, n_valid, dtype, cut=None):
         """This rank's rows of the padded batch (and ``cut`` of each row)."""
         batch = np.stack(v[:n_valid] + [v[0]] * (B - n_valid))[rows]
         if cut is not None:
             batch = batch[:, cut]
-        return torch.from_numpy(batch.astype(dtype)).to(device)
+        batch = torch.from_numpy(batch.astype(dtype))
+        with span("sync.upload"):  # a pageable copy waits for the card's queue
+            return batch.to(device)
 
     def submit(n_valid):
         nonlocal in_flight
+        batch_no = state["batch_no"]
         if mesh.active:
-            outs = forward_fn({k: to_device(v, n_valid, np.float32,
-                                            points if k == "pcl_in" else None)
-                               for k, v in crops.items()},
-                              to_device(ids, n_valid, np.int32),
-                              to_device(syms, n_valid, np.float32),
-                              to_device(means, n_valid, np.float32),
-                              state["batch_no"])
+            with span("harness.to_device", batch_no):
+                inputs = ({k: to_device(v, n_valid, np.float32,
+                                        points if k == "pcl_in" else None)
+                           for k, v in crops.items()},
+                          to_device(ids, n_valid, np.int32),
+                          to_device(syms, n_valid, np.float32),
+                          to_device(means, n_valid, np.float32))
+            with span("harness.forward", batch_no):
+                outs = forward_fn(*inputs, batch_no)
             mine = owners[rows.start:min(rows.stop, n_valid)]
         state["batch_no"] += 1
         for v in crops.values():
             del v[:n_valid]
         del ids[:n_valid], syms[:n_valid], means[:n_valid], owners[:n_valid]
         if mesh.active:
-            prev, in_flight = in_flight, (outs, mine, n_valid)
+            prev, in_flight = in_flight, (outs, mine, n_valid, batch_no)
             if prev is not None:
                 land(prev)
 
-    ingest(first)
-    for rec in records:
-        ingest(rec)
+    with span("harness.ingest"):
+        ingest(first)
+    while pull() is not None:
         while len(ids) >= B:
             submit(B)
     while ids:

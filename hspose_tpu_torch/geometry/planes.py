@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from hspose_tpu_torch.utils.spans import span
+
 
 def fit_plane_weighted(pc: torch.Tensor, w: torch.Tensor):
     """Fit z = a*x + b*y + c to weighted points pc (..., P, 3), w (..., P).
@@ -18,7 +20,8 @@ def fit_plane_weighted(pc: torch.Tensor, w: torch.Tensor):
     Aw = A * w[..., None]
     AtWA = A.transpose(-1, -2) @ Aw
     AtWb = A.transpose(-1, -2) @ (b * w[..., None])
-    X = torch.linalg.solve(AtWA, AtWb)[..., 0]
+    with span("sync.solve"):  # the solver's error check reads its status on the host
+        X = torch.linalg.solve(AtWA, AtWb)[..., 0]
 
     x0, x1, x2 = X[..., 0:1], X[..., 1:2], X[..., 2:3]
     dn_up = torch.cat([x0 * x2, x1 * x2, -x2], dim=-1)

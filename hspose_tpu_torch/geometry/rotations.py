@@ -7,6 +7,8 @@ import math
 
 import torch
 
+from hspose_tpu_torch.utils.spans import span
+
 
 def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     """L2-normalise along ``dim`` with the norm clamped at ``eps``."""
@@ -72,12 +74,13 @@ def generate_RT(green_vec: torch.Tensor, red_vec: torch.Tensor, f_green: torch.T
     """Homogeneous poses (B, 4, 4) from the two axis heads.  For
     axis-symmetric objects (sym[:, 0] == 1) the red confidence is zeroed, so
     the y axis trusts the green head alone."""
-    f_red = torch.where(sym[:, 0] == 1, torch.zeros_like(f_red), f_red)
-    Rs = to_R_matrices(f_green, f_red, green_vec, red_vec)
-    res = torch.eye(4, dtype=T.dtype, device=T.device).repeat(T.shape[0], 1, 1)
-    res[:, :3, :3] = Rs
-    res[:, :3, 3] = T
-    return res
+    with span("model.generate_RT"):
+        f_red = torch.where(sym[:, 0] == 1, torch.zeros_like(f_red), f_red)
+        Rs = to_R_matrices(f_green, f_red, green_vec, red_vec)
+        res = torch.eye(4, dtype=T.dtype, device=T.device).repeat(T.shape[0], 1, 1)
+        res[:, :3, :3] = Rs
+        res[:, :3, 3] = T
+        return res
 
 
 def get_gt_v(Rs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -12,6 +12,7 @@ from hspose_tpu_torch.geometry.rotations import (
     get_vertical_rot_vec,
 )
 from hspose_tpu_torch.losses.fs_net_loss import l1
+from hspose_tpu_torch.utils.spans import span
 
 _Y_REF = (-1.0, 1.0, -1.0)
 _YX_REF = (1.0, 1.0, -1.0)
@@ -58,8 +59,12 @@ def prop_sym_matching_loss(PC, PC_re, p_g_vec, p_r_vec, p_t, gt_R, gt_t, sym):
     yx_flag = _yx_reflection_flag(sym)[:, None, None]
     no_flag = ((sym[:, 0] == 0) & (sym[:, 1] != 1))[:, None, None]
 
-    y_ref = cano * cano.new_tensor(_Y_REF)
-    yx_ref = cano * cano.new_tensor(_YX_REF)
+    with span("sync.upload"):  # a pageable copy waits for the device's queue
+        y_sign = cano.new_tensor(_Y_REF)
+    with span("sync.upload"):
+        yx_sign = cano.new_tensor(_YX_REF)
+    y_ref = cano * y_sign
+    yx_ref = cano * yx_sign
     gt_pc = (torch.where(y_flag, _to_world(gt_R, gt_t, y_ref), 0.0)
              + torch.where(yx_flag, _to_world(gt_R, gt_t, yx_ref), 0.0)
              + torch.where(no_flag, PC, 0.0))

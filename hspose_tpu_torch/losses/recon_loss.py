@@ -20,8 +20,19 @@ import torch
 from hspose_tpu_torch.config import LossConfig
 from hspose_tpu_torch.geometry.planes import fit_plane_weighted
 from hspose_tpu_torch.geometry.rotations import batch_dot, get_vertical_rot_vec
+from hspose_tpu_torch.utils.spans import span
 
 FACE_REMAP = (1, 0, 2, 3, 5, 4)
+
+
+def _remapped(*faces):
+    """Each (B, N, 6, ...) face tensor with its faces in ``FACE_REMAP`` order;
+    each index is a list the host copies to the device first, a sync."""
+    out = []
+    for f in faces:
+        with span("sync.upload"):
+            out.append(f[:, :, list(FACE_REMAP)])
+    return out
 
 
 def _select_sum(res, sym_flag, obj_ids, xz_only: bool = False):
@@ -78,10 +89,7 @@ def recon_loss_point(pc, face_normal, face_dis, face_f, gt_R, gt_t, gt_s, mean_s
                      sym, obj_ids):
     """Returns (res_normal, res_dis, res_f)."""
     bs = pc.shape[0]
-    remap = list(FACE_REMAP)
-    f_n = face_normal[:, :, remap]
-    f_d = face_dis[:, :, remap]
-    f_f = face_f[:, :, remap]
+    f_n, f_d, f_f = _remapped(face_normal, face_dis, face_f)
 
     pc_proj = (pc - gt_t[:, None, :]) @ gt_R
     re_s = gt_s + mean_shape
@@ -150,8 +158,10 @@ def _geo_recon_loss_s(pre_s, dis_up, dis_down, sym_flag, obj_ids):
 
 def _geo_recon_loss_self_cal(n_up, n_down, sym_flag, obj_ids):
     res_parallel = _select_sum((n_up + n_down).abs().mean(-1), sym_flag, obj_ids)
-    y_up = n_up[:, [1, 1, 1]]
-    y_down = n_down[:, [1, 1, 1]]
+    with span("sync.upload"):  # the list index is copied to the device first
+        y_up = n_up[:, [1, 1, 1]]
+    with span("sync.upload"):
+        y_down = n_down[:, [1, 1, 1]]
     res_v_up = _select_sum(batch_dot(y_up, n_up).abs(), sym_flag, obj_ids, xz_only=True)
     res_v_down = _select_sum(batch_dot(y_down, n_down).abs(), sym_flag, obj_ids,
                              xz_only=True)
@@ -165,10 +175,7 @@ def recon_loss_vote(pc, face_normal, face_dis, face_c, p_rot_g, f_rot_g, p_rot_r
     re_s = gt_s + mean_shape
     pre_s = p_s + mean_shape
 
-    remap = list(FACE_REMAP)
-    f_n = face_normal[:, :, remap]
-    f_d = face_dis[:, :, remap]
-    f_c = face_c[:, :, remap]
+    f_n, f_d, f_c = _remapped(face_normal, face_dis, face_c)
 
     pc_on_plane = pc[:, :, None, :] + f_d[..., None] * f_n  # (B, N, 6, 3)
 

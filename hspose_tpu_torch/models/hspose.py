@@ -24,6 +24,7 @@ from hspose_tpu_torch.models.posenet import PoseNet9D, PoseNetOutput, PoseNetTra
 from hspose_tpu_torch.ops.cuda_knn import MAX_K
 from hspose_tpu_torch.ops.sampling import draw_sample_scores
 from hspose_tpu_torch.parallel.dp import gather
+from hspose_tpu_torch.utils.spans import span
 
 LossDicts = Dict[str, Dict[str, torch.Tensor]]
 
@@ -107,10 +108,11 @@ def eval_forward(model: PoseNet9D, pc: torch.Tensor, obj_id: torch.Tensor,
     are drawn (or given) over the global cloud of ``pc.shape[1] * sp``
     points, the same on every rank, and the outputs are the same on every
     rank of the group.  None is the one-device forward."""
-    if pool_samples is None:
-        sp = 1 if sp_group is None else torch.distributed.get_world_size(sp_group)
-        pool_samples = draw_pool_samples(pc.shape[1] * sp, generator, pc.device)
-    return model(pc, obj_id, pool_samples, with_heads=with_heads, sp_group=sp_group)
+    with span("model.eval_forward"):
+        if pool_samples is None:
+            sp = 1 if sp_group is None else torch.distributed.get_world_size(sp_group)
+            pool_samples = draw_pool_samples(pc.shape[1] * sp, generator, pc.device)
+        return model(pc, obj_id, pool_samples, with_heads=with_heads, sp_group=sp_group)
 
 
 class TrainDraws(NamedTuple):
