@@ -24,7 +24,7 @@ not 0:
 4. slice: ``PoseNet9D`` at full width with seeded random weights serves a few
    (24, 1028, 3) requests through ``eval_forward`` and ``generate_RT``; the
    launch counters must show 9 KNN, 1 surface, 4 support and 5 ORL launches
-   per forward, the poses must be finite and orthonormal, and the same
+   and 1 heads epilogue per forward, the poses must be finite and orthonormal, and the same
    weights, input and pooling samples through the plain ops on the CPU must
    agree within 1e-3;
 5. throughput: crops/s at B=24, fp32, best of 3 windows;
@@ -36,8 +36,8 @@ not 0:
    searches, K4's five layers and K3's parts kept as in phase 3;
 7. bf16 slice: the same model built with ``compute_dtype="bfloat16"``
    serves the same requests; the launch counters must show 9 packed-key
-   KNN, no exact KNN, 1 surface, 4 support and 5 ORL bf16 launches and no
-   fp32 HS launch per forward, the poses must be finite and orthonormal,
+   KNN, no exact KNN, 1 surface, 4 support and 5 ORL bf16 launches, 1 bf16
+   heads epilogue and no fp32 HS launch per forward, the poses must be finite and orthonormal,
    the plain ops on the CPU must agree within 3e-2, and the deviation from
    the fp32 tier is printed; then crops/s at B=24 in bf16, best of 3;
 8. training kernels: K12, K15, K11 and K13 against their plain versions at
@@ -145,8 +145,9 @@ not 0:
    batches of 24 crops of 1028 points; no PNG, cv2 or matplotlib) in fp32,
    bf16, and fp32 with ``eval.recon`` on a model with the train heads:
    exact launch counts per batch (recon: 2 K16, no K17/K18), the fp32 poses
-   bit for bit those of ``eval_forward`` + ``generate_RT`` on the same crops
-   and pool samples, chamfer and EMD finite and positive, then
+   bit for bit those of ``eval_forward`` + ``generate_RT`` on the same
+   crops and pool samples and the recon run's those of the fp32 run,
+   chamfer and EMD finite and positive, then
    ``compute_degree_cm_mAP``; crops/s over 20 batches beside the forward
    alone's (phases 5 and 7), and the recon tier's chamfer and EMD ms per
    batch;
@@ -267,11 +268,36 @@ not 0:
    runs' checkpoints restore in one process bit for bit; the dp steps/s of
    the two ranks (not a multi-GPU rate); the harness with
    ``parallel.mp=2`` within ``MP_RT_ATOL`` / ``MP_S_ATOL`` of the
-   one-process harness; then the train CLI under ``torchrun --standalone
+   one-process harness on the concatenated route (which mp takes); then the
+   train CLI under ``torchrun --standalone
    --nproc_per_node=<device count>`` with nccl on phase 23's tree and
    recipe (with one card, phase 23's losses bit for bit), its epoch-0
    checkpoint resumed by the one-process train CLI within
    ``RESUME_LOSS_REL`` and its last served by the one-process eval CLI.
+28. the serving heads' first block (``models/heads.py::FirstLayers``) at
+   B = 96, N = 1028, the serving cells' batch, in both tiers: the epilogue
+   kernel (``csrc/heads_epilogue.cu``) against its plain version (fp32
+   within ``TOL_REL`` of the largest value, bf16 within one bf16 ulp of each
+   element) with its time beside its bound, the three products per
+   backbone resolution beside the three 1286-K conv1 products of the
+   concatenated route, the whole block both ways, and the B = 96
+   ``eval_forward`` both ways with its largest pose gap.  It also runs
+   alone: ``python3 chip_smoke.py --phase heads``.  The block's gap between
+   the routes must stay within the CPU test's bounds
+   (tests/test_torch_port_heads_factored.py: fp32 ``FP32_REL`` of each
+   head's largest value against the concatenated route; bf16 per element
+   one ulp of every rounding the sums went through, carried by bn1's scale,
+   plus one of the output, and half an ulp more at the factored sum's
+   rounding and at the output for a value that rounds into the binade
+   above, against that test's reference, conv1 as fp32 sums of its bf16
+   products rounded once, the gap to cuBLAS's bf16 products printed beside
+   it), and
+   the forward's pose gap within ``FP32_REL`` (fp32) or ``FORWARD_ATOL``
+   (bf16; tests/test_torch_port_bf16.py).
+
+``python3 chip_smoke.py --phase <name> ...`` runs only the named phases, in
+order, after the environment and the build: ``heads`` (28), ``harness``
+(18) and ``sp-forward`` (26's two-rank forward).
 
 Each kernel's ``bound_ms`` is the least time the card could take for its
 calls: per call the larger of the bytes it must move (each input read once,
@@ -660,8 +686,10 @@ def counters() -> dict:
     from hspose_tpu_torch.ops import chamfer as ch
     from hspose_tpu_torch.ops import cuda_hs_fused as f
     from hspose_tpu_torch.ops.cuda_knn import knn_indices_cuda as knn
+    from hspose_tpu_torch.ops.heads_epilogue import heads_epilogue as he
 
     return {"knn": (knn, "launches"), "knn_streamed": (knn, "streamed_launches"),
+            "heads_epilogue": (he, "launches"), "heads_epilogue_bf16": (he, "bf16_launches"),
             "chamfer_min": (ch.chamfer_min_cuda, "launches"),
             "chamfer_min_argmin": (ch.chamfer_min_argmin_cuda, "launches"),
             "chamfer_grad": (ch.chamfer_grad_cuda, "launches"),
@@ -702,10 +730,26 @@ def check_counts(launches: dict, per_run: dict, runs: int, what: str) -> None:
 
 
 SERVE_LAUNCHES = {
-    "float32": {"knn": 9, "hs_surface": 1, "hs_support": 4, "orl_global": 5},
+    "float32": {"knn": 9, "hs_surface": 1, "hs_support": 4, "orl_global": 5,
+                "heads_epilogue": 1},
     "bfloat16": {"knn_packed": 9, "hs_surface_bf16": 1, "hs_support_bf16": 4,
-                 "orl_global_bf16": 5},
+                 "orl_global_bf16": 5, "heads_epilogue_bf16": 1},
 }
+# the forwards that multiply the concatenated feature in the heads (a head layer
+# sharded over mp) launch no epilogue
+CONCAT_HEADS = {"heads_epilogue": 0, "heads_epilogue_bf16": 0}
+
+
+def concatenated_forward(model, pc, obj, samples):
+    """``eval_forward`` with every head on the concatenated feature, the route
+    that gradients and mp take (phase 28's other side)."""
+    from hspose_tpu_torch.models.hspose import eval_forward
+
+    model.factored = lambda: False
+    try:
+        return eval_forward(model, pc, obj, pool_samples=samples)
+    finally:
+        del model.factored
 
 
 def serve_requests(model, requests, samples, obj, sym) -> list:
@@ -1915,7 +1959,7 @@ def run_harness(cfg, model, records, seed: int):
     return preds, rate, read_counts(counts)
 
 
-def phase_harness(smi: str, rates: dict) -> dict:
+def phase_harness(smi: str, rates: dict | None = None) -> dict:
     """The eval harness on in-memory records, HARNESS_BATCHES batches of
     (B, N): fp32, bf16, and fp32 with ``eval.recon`` on a model with the
     train heads (the same backbone and pose-head weights).  Gates: exact
@@ -1924,7 +1968,7 @@ def phase_harness(smi: str, rates: dict) -> dict:
     crops and pool samples, and the recon run's poses those of the fp32 run;
     chamfer and EMD finite and positive; then ``compute_degree_cm_mAP``.
     Prints the harness's crops/s over HARNESS_RATE_BATCHES batches beside
-    the forward alone's (``rates``) and the recon tier's chamfer and EMD ms
+    the forward alone's (``rates``, when given) and the recon tier's chamfer and EMD ms
     per batch.  Returns the recon
     run's launches."""
     from hspose_tpu_torch.evaluation.evaluate import report_lines
@@ -1959,8 +2003,9 @@ def phase_harness(smi: str, rates: dict) -> dict:
                    f"{ {k: v for k, v in launches.items() if v} }")
         check_counts(launches, per_batch, HARNESS_BATCHES, f"{tier} harness batch")
         _, rate, _ = run_harness(cfg, m, rate_records, seed)
-        log(phase, f"{tier}: {rate} crops/s over {HARNESS_RATE_BATCHES} batches of ({B}, {N}, 3) "
-                   f"(forward alone {rates[dtype]:.1f} crops/s) on {smi}")
+        alone = f" (forward alone {rates[dtype]:.1f} crops/s)" if rates else ""
+        log(phase, f"{tier}: {rate} crops/s over {HARNESS_RATE_BATCHES} batches of ({B}, {N}, 3)"
+                   f"{alone} on {smi}")
         if recon:
             recon_launches = launches
 
@@ -2071,7 +2116,7 @@ def phase_k5(smi: str) -> tuple[dict, dict]:
     log(phase, f"one fp32 harness batch of ({B}, {N_LARGE}, 3): launches "
                f"{ {k: v for k, v in launches.items() if v} }")
     check_counts(launches, {"knn": 6, "knn_streamed": 3, "hs_surface": 1, "hs_support": 4,
-                            "orl_global": 5}, 1, f"N={N_LARGE} harness batch")
+                            "orl_global": 5, "heads_epilogue": 1}, 1, f"N={N_LARGE} harness batch")
     RT = np.concatenate([r["pred_RTs"] for r in preds])
     if not np.isfinite(RT).all():
         raise AssertionError(f"N={N_LARGE}: poses not finite")
@@ -2768,9 +2813,9 @@ SP_RECORD = 2  # phase 26: the sp whose shard shapes the kernel line reports
 # search, K5's range, in both tiers), the six of the pooled resolutions not
 SP_LAUNCHES = {
     "float32": {"knn_qs_streamed": 3, "knn_qs": 6, "hs_surface_qs": 1, "hs_support_qs": 4,
-                "orl_global_qs": 5},
+                "orl_global_qs": 5, "heads_epilogue": 1},
     "bfloat16": {"knn_qs_streamed": 3, "knn_qs_packed": 6, "hs_surface_qs_bf16": 1,
-                 "hs_support_qs_bf16": 4, "orl_global_qs_bf16": 5},
+                 "hs_support_qs_bf16": 4, "orl_global_qs_bf16": 5, "heads_epilogue_bf16": 1},
 }
 # K4: shard means recombined against the one-device mean, (rtol, atol).  The sum
 # of NQ terms / NQ, then the mean of the sp shard means, is another fp32 order
@@ -3244,7 +3289,8 @@ def phase_sp_forward(smi: str) -> dict:
                 raise AssertionError(f"rank {r}: the {dtype} sp forward with the one-process "
                                      "means is not the one-process forward bit for bit")
         launches.update({k: a["launches"][k] for k in SP_LAUNCHES[dtype]
-                         if dtype == "float32" or k != "knn_qs_streamed"})
+                         if (dtype == "float32" or k != "knn_qs_streamed")
+                         and not k.startswith("heads_epilogue")})
     log(phase, "fp32 products on point rows, all rows against each sp = 2 shard's rows, max abs "
                "gap: " + ", ".join(f"{k} {v:.2e}" for k, v in row_split_gaps(model, world).items()))
 
@@ -3651,13 +3697,17 @@ def phase_dp_train(smi: str, ranks_done=None) -> None:
                    f"{time.perf_counter() - t0:.1f} s with start-up")
         check_dp_job(phase, 1, tmp, four, steps, bad)
 
-    preds, _, _ = run_harness(harness_config(), build_seeded_model(DEVICE), records, seed)
+    # the mp ranks multiply the concatenated feature in the heads: so does the
+    # one-process harness they are held to
+    one = build_seeded_model(DEVICE)
+    one.factored = lambda: False
+    preds, _, _ = run_harness(harness_config(), one, records, seed)
     want_RT = np.concatenate([r["pred_RTs"] for r in preds])
     want_s = np.concatenate([r["pred_scales"] for r in preds])
     for r, got in enumerate(ranks):
         h = got["harness"]
-        check_counts(h["launches"], SERVE_LAUNCHES["float32"], HARNESS_BATCHES,
-                     f"rank {r} mp harness batch")
+        check_counts(h["launches"], dict(SERVE_LAUNCHES["float32"], **CONCAT_HEADS),
+                     HARNESS_BATCHES, f"rank {r} mp harness batch")
         d_rt, d_s = np.abs(h["RT"] - want_RT).max(), np.abs(h["scales"] - want_s).max()
         log(phase, f"rank {r}: parallel.mp=2 harness, {HARNESS_BATCHES} batches of ({B}, {N}, 3), "
                    f"against the one-process harness: max abs RT {d_rt:.3e} (bound {MP_RT_ATOL}), "
@@ -3787,12 +3837,245 @@ def check_resume_and_serve(smi: str, out: str, ckpt: str, got: dict, resume: Cli
         raise AssertionError("the eval CLI did not serve the torchrun checkpoint")
 
 
+HEADS_B = 96  # phase 28: the serving cells' eval.eval_batch
+# phase 28's gates, the CPU tests' (tests/test_torch_port_heads_factored.py; bf16 poses
+# tests/test_torch_port_bf16.py): the routes add the same products in another order
+HEADS_FP32_REL = 1e-5  # fp32: of each head's largest block output, and of the poses
+HEADS_ORDER_REL = 2.0 ** -16  # bf16: a K = 1286 fp32 sum's order, of the largest sum
+HEADS_POSE_ATOL_BF16 = 1e-2  # bf16 poses
+
+
+def heads_maps(rng, dt: torch.dtype, b: int, n: int):
+    """Phase 28's inputs: ReLU'd random maps of the backbone's widths in the
+    tier's type, uniform 1-NN indices, categories and centred points."""
+    from hspose_tpu_torch.models.face_recon import BackboneMaps
+
+    n1, n2 = n // 4, n // 16
+
+    def fm(m, c):
+        return torch.relu(normal(rng, b, m, c)).to(dt)
+
+    def up(m):
+        return torch.from_numpy(rng.integers(0, m, size=(b, n)).astype(np.int32)).to(DEVICE)
+
+    maps = BackboneMaps(fm(n, 128), fm(n, 128), fm(n1, 256), fm(n1, 256), fm(n2, 512), up(n1),
+                        up(n2))
+    cat = torch.from_numpy(rng.integers(0, 6, size=b).astype(np.int32)).to(DEVICE)
+    return maps, cat, cloud_b(rng, b, n)
+
+
+def phase_heads(smi: str) -> dict:
+    """Phase 28: the serving heads' first block at B=96, N=1028 in both tiers.
+    The epilogue kernel against its plain version on the card (fp32: within
+    TOL_REL of the largest value, and written over P0 as the serving route
+    writes it with the same bits; bf16: within one bf16 ulp of each element),
+    its time beside its bound (P0 and P1, P2 read once, h written once), the
+    three products per resolution beside the three 1286-K products of the
+    concatenated route, the whole block both ways (the factored route: two
+    concats, three products, the epilogue; the concatenated: the feature's
+    gathers and concat, three conv1 products, bn1 and ReLU) and their
+    outputs' gap, and the B=96 ``eval_forward`` both ways and its pose gap,
+    both gaps held to the CPU tests' bounds (HEADS_*).  Raises after both
+    tiers have printed every reading."""
+    phase, rec, failed = "heads", {}, []
+    rng = np.random.default_rng(SEED + 28)
+    for dtype in ("float32", "bfloat16"):
+        with torch.no_grad():
+            heads_tier(phase, rec, rng, dtype, smi, failed)
+    if failed:
+        raise AssertionError("heads: " + "; ".join(failed))
+    return rec
+
+
+def heads_tier(phase: str, rec: dict, rng, dtype: str, smi: str, failed: list) -> None:
+    """Phase 28 in one tier; what fails its gate is appended to ``failed``."""
+    from hspose_tpu_torch.models.face_recon import batch_norm
+    from hspose_tpu_torch.models.heads import _product
+    from hspose_tpu_torch.models.hspose import eval_forward
+    from hspose_tpu_torch.models.layers import dense
+    from hspose_tpu_torch.ops.heads_epilogue import heads_epilogue, heads_epilogue_plain
+    from hspose_tpu_torch.ops.knn import gather_neighbors
+
+    dt = getattr(torch, dtype)
+    bf16 = dt == torch.bfloat16
+    tag = "_bf16" if bf16 else ""
+    model = build_seeded_model(DEVICE, dtype)
+    fl = model.first_layers
+    w0, w1, w2, wcat, wxyz, params = fl.consts()
+    maps, cat, xyz = heads_maps(rng, dt, HEADS_B, N)
+    xyz = xyz.to(dt)
+    a = (torch.cat([maps.fm_0, maps.fm_1], -1), torch.cat([maps.fm_2, maps.fm_3], -1),
+         maps.fm_4)
+    p = [_product(x, w) for x, w in zip(a, (w0, w1, w2))]
+    rest = (*p[1:], maps.up_1, maps.up_2, cat, xyz, wcat, wxyz, params)
+    got, want = heads_epilogue(p[0], *rest), heads_epilogue_plain(p[0], *rest)
+    same_in_place = True
+    if not bf16:  # the serving route's form: h over P0
+        buf = p[0].clone()
+        same_in_place = bool(torch.equal(heads_epilogue(buf, *rest, out=buf), got))
+    torch.cuda.synchronize()
+    gap = (got.float() - want.float()).abs()
+    if bf16:
+        ok = bool((gap <= bf16_ulp(want.float())).all())
+    else:
+        ok = float(gap.max()) <= TOL_REL * float(want.abs().max())
+    err = float(gap.max())
+    if bf16:
+        ms = cuda_ms(lambda: heads_epilogue(p[0], *rest))
+    else:
+        ms = cuda_ms(lambda: heads_epilogue(buf, *rest, out=buf))
+    plain_ms = cuda_ms(lambda: heads_epilogue_plain(p[0], *rest), iters=5)
+    bnd = bound((p[0], got), 0, torch.float32, nbytes=sum(
+        t.numel() * t.element_size() for t in (p[1], p[2], maps.up_1, maps.up_2, xyz)))
+    record(rec, "heads_epilogue" + tag, err, ms, plain_ms, bnd)
+    log(phase, f"{dtype} epilogue at B={HEADS_B}, N={N}: max |kernel - plain| {err:.3e} "
+               f"(bits equal {bool((got == want).all())}"
+               + ("" if bf16 else f"; over P0 the same bits {same_in_place}")
+               + f"), {ms:.3f} ms{'' if bf16 else ' over P0'}, plain {plain_ms:.3f} ms, bound "
+               f"{bnd[0]:.3f} ms ({bnd[1]}, {ms / bnd[0]:.2f}x) on {smi}")
+    if not (ok and same_in_place):
+        failed.append(f"{dtype} epilogue against plain {err:.3e}, over P0 the same bits "
+                      f"{same_in_place}")
+
+    # the three products per resolution, then the 1286-K products they replace
+    prod_ms = [cuda_ms(lambda x=x, w=w: _product(x, w)) for x, w in zip(a, (w0, w1, w2))]
+    heads = [head.vec for head in model.pose_heads()]
+
+    def feat():
+        return torch.cat([maps.fm_0, maps.fm_1,
+                          gather_neighbors(maps.fm_2, maps.up_1[..., None])[:, :, 0],
+                          gather_neighbors(maps.fm_3, maps.up_1[..., None])[:, :, 0],
+                          gather_neighbors(maps.fm_4, maps.up_2[..., None])[:, :, 0],
+                          torch.nn.functional.one_hot(cat.long(), 6).to(dt)[:, None, :]
+                          .expand(HEADS_B, N, 6)], -1)
+
+    def conv1(v, x, fp32_sums=False):
+        """A head's conv1 as ``VecHead.forward`` runs it, and the tensors its
+        sum was rounded as (bf16).  ``fp32_sums``: each bf16 product summed
+        in fp32 and rounded once with its bias, as the CPU's ``F.linear``
+        does (the CPU test's reference), instead of by cuBLAS."""
+        if fp32_sums:
+            b = v.conv1.bias.to(dt).float()
+            if v is not heads[-1]:
+                pre = torch.addmm(b, x.float().reshape(-1, x.shape[-1]),
+                                  v.conv1.weight.to(dt).float().t()).reshape(
+                    *x.shape[:-1], -1).to(dt)
+                return pre, [pre]
+            w = v.conv1.weight.to(dt).float()
+            q = (x.float() @ w[:, :1286].t()).to(dt)
+            r = (xyz.float() @ w[:, 1286:].t()).to(dt)
+            pre = ((q.float() + r.float()).to(dt).float() + b).to(dt)
+            return pre, [q, r, (q.float() + r.float()).to(dt), pre]
+        if v is not heads[-1]:
+            pre = dense(v.conv1, x, dt)
+            return pre, [pre]
+        w = v.conv1.weight.to(dt)
+        q, r = x @ w[:, :1286].t(), xyz @ w[:, 1286:].t()
+        pre = q + r + v.conv1.bias.to(dt)
+        return pre, [q, r, q + r, pre]
+
+    f = feat()
+    old_ms = [cuda_ms(lambda v=v: conv1(v, f)[0]) for v in heads]
+    log(phase, f"{dtype} products per resolution (K = 256, 512, 512; 3072 columns, fp32 "
+               f"out): {' + '.join(f'{t:.3f}' for t in prod_ms)} = {sum(prod_ms):.3f} ms; "
+               f"the concatenated route's conv1 (K = 1286, 1286, 1289; 1024 columns): "
+               f"{' + '.join(f'{t:.3f}' for t in old_ms)} = {sum(old_ms):.3f} ms")
+    del f
+
+    # the whole first block both ways, and its outputs' gap
+    def factored():
+        return fl(maps, cat, xyz)
+
+    def concatenated():
+        f = feat()
+        return [torch.relu(batch_norm(v.bn1, conv1(v, f)[0])) for v in heads]
+
+    f_ms, c_ms = cuda_ms(factored), cuda_ms(concatenated)
+    f = feat()
+
+    def against(fp32_sums):
+        """Each head's largest gap over its largest value and over its bound;
+        bf16 also over the CPU test's bound."""
+        gaps, worst, cpu = [], [], []
+        for v, hg in zip(heads, factored()):
+            pre, parts = conv1(v, f, fp32_sums)
+            hw = torch.relu(batch_norm(v.bn1, pre)).float()
+            gap = (hg.float() - hw).abs()
+            gaps.append(float(gap.max() / hw.abs().max()))
+            if bf16:  # per element
+                scale = (torch.rsqrt(v.bn1.running_var + v.bn1.eps) * v.bn1.weight).abs()
+                order = HEADS_ORDER_REL * float(parts[-1].float().abs().max())
+                ulps = sum(bf16_ulp(x) for x in parts)
+                cpu.append(float((gap / (scale * (ulps + order) + bf16_ulp(hw))).max()))
+                half = 0.5 * scale * bf16_ulp(parts[-1]) + 0.5 * bf16_ulp(hw)
+                worst.append(float((gap / (scale * (ulps + order) + bf16_ulp(hw) + half)).max()))
+            else:
+                worst.append(gaps[-1] / HEADS_FP32_REL)
+            del pre, parts, hw, gap
+        return gaps, worst, cpu
+
+    def show(gaps, worst, cpu):
+        return (f"largest gap of each head's output over its largest value "
+                f"{', '.join(f'{g:.2e}' for g in gaps)}, over its bound "
+                f"{', '.join(f'{w:.3f}' for w in worst)}"
+                + (f" (over the CPU test's {', '.join(f'{w:.3f}' for w in cpu)})" if cpu else ""))
+
+    # bf16: the gate holds the factored route to the CPU test's reference,
+    # conv1 as fp32 sums of the bf16 products rounded once with the bias, not
+    # to cuBLAS's bf16 products (printed), and to the CPU test's bound (one
+    # ulp of every rounding, carried by bn1's scale, plus one of the output)
+    # with half an ulp more at the factored route's own rounding and at the
+    # output: where the factored value rounds into the binade above the
+    # reference's, its half ulp is a whole one of the reference's, which the
+    # 3e8 elements of a B = 96 block meet and the CPU test's 8e5 need not
+    gaps, worst, cpu = against(False)
+    log(phase, f"{dtype} first block at B={HEADS_B}: factored {f_ms:.3f} ms, concatenated "
+               f"{c_ms:.3f} ms ({c_ms / f_ms:.2f}x); against the concatenated route: "
+               + show(gaps, worst, cpu))
+    if bf16:
+        gaps, worst, cpu = against(True)
+        log(phase, f"{dtype} first block against conv1 as fp32 sums of its bf16 products "
+                   f"(reduced-precision bf16 reductions allowed in cuBLAS: "
+                   f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}): "
+                   + show(gaps, worst, cpu))
+    del f
+    if max(worst) > 1:
+        failed.append(f"{dtype} first block: gap over its bound {max(worst):.3f}")
+
+    # the served forward both ways
+    pc = cloud_b(rng, HEADS_B, N)
+    obj = torch.from_numpy(rng.integers(0, 6, size=HEADS_B).astype(np.int32)).to(DEVICE)
+    smp = [torch.from_numpy(rng.permutation(N)[:N // 4]).to(DEVICE)]
+    smp.append(torch.from_numpy(rng.permutation(N // 4)[:N // 16]).to(DEVICE))
+    fwd_ms = cuda_ms(lambda: eval_forward(model, pc, obj, pool_samples=smp), iters=10)
+    out = eval_forward(model, pc, obj, pool_samples=smp)
+    cat_ms = cuda_ms(lambda: concatenated_forward(model, pc, obj, smp), iters=10)
+    ref = concatenated_forward(model, pc, obj, smp)
+    pose_gap = max(float((x - y).abs().max()) for x, y in zip(out, ref))
+    # per output: bf16 an absolute bound, fp32 relative to the output's largest value or 1
+    over = max(float((x - y).abs().max()) / (HEADS_POSE_ATOL_BF16 if bf16 else HEADS_FP32_REL
+                                             * max(float(y.abs().max()), 1.0))
+               for x, y in zip(out, ref))
+    log(phase, f"{dtype} eval_forward at B={HEADS_B}, N={N}: factored {fwd_ms:.3f} ms, "
+               f"concatenated {cat_ms:.3f} ms ({cat_ms / fwd_ms:.2f}x); largest pose gap "
+               f"{pose_gap:.3e}, largest over its bound {over:.3f}")
+    if not all(bool(torch.isfinite(x).all()) for x in out):
+        failed.append(f"{dtype}: non-finite poses on the factored route")
+    if not over <= 1:
+        failed.append(f"{dtype} pose gap over its bound {over:.3f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
         return 2
     smi = phase_env()
     phase_build()
+    if sys.argv[1:2] == ["--phase"]:
+        phases = {"heads": phase_heads, "harness": phase_harness, "sp-forward": phase_sp_forward}
+        for name in sys.argv[2:]:
+            print(json.dumps(phases[name](smi)))
+        return 0
     rec = phase_kernels()
     launches, fp32_results = phase_slice()
     fp32_rate = phase_throughput(smi)
@@ -3828,6 +4111,7 @@ def main() -> int:
     launches.update({name: carrier[name] for name in ("chamfer_min_argmin", "chamfer_grad")})
     launches["chamfer_min"] = phase_harness(smi, {"float32": fp32_rate,
                                                   "bfloat16": bf16_rate})["chamfer_min"]
+    rec.update(phase_heads(smi))
     k5_rec, k5_launches = phase_k5(smi)
     rec.update(k5_rec)
     launches["knn_streamed"] = k5_launches["knn_streamed"]

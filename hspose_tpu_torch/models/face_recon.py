@@ -25,12 +25,22 @@ hspose_tpu/models/face_recon.py:146-202 passes them, in both tiers.
 
 In eval mode the forward also serves with the point axis sharded over an sp
 process group (``sp_group``, ``parallel/sp.py``), in both tiers.
+
+``maps`` returns the five maps at their own resolutions and the 1-NN
+indices of the N points into the two pooled clouds (``BackboneMaps``);
+``forward`` upsamples and concatenates them into feat.  A forward without
+gradients in eval mode and with no head layer sharded over mp
+(``posenet.py::PoseNet9D.factored``; serving, sp serving too) runs the
+pose heads' first layer per resolution on ``maps`` (``heads.py::
+FirstLayers``); with ``with_heads`` it also hands those maps to ``forward``,
+whose feat then feeds the conv1d block alone.  Training, every forward with
+gradients and mp read feat in the pose heads too.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
@@ -49,7 +59,10 @@ from hspose_tpu_torch.ops.knn import gather_neighbors, nearest_index
 from hspose_tpu_torch.parallel.dp import all_reduce_sum
 from hspose_tpu_torch.parallel.sp import all_gather_points
 
-FEAT_C = 128 + 128 + 256 + 256 + 512  # backbone channels before the one-hot
+# feat's backbone columns per resolution: [fm_0 | fm_1] at N points, [fm_2 | fm_3]
+# at N // 4 and fm_4 at N // 16, upsampled; then the one-hot
+RES_C = (128 + 128, 256 + 256, 512)
+FEAT_C = sum(RES_C)  # backbone channels before the one-hot
 
 
 def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
@@ -135,6 +148,19 @@ class MLPHead(nn.Module):
         return x
 
 
+class BackboneMaps(NamedTuple):
+    """``FaceRecon.maps``: the five maps at their own resolutions, in the tier's
+    type, and the 1-NN indices that carry the pooled ones to the N points."""
+
+    fm_0: torch.Tensor  # (B, N, 128)
+    fm_1: torch.Tensor  # (B, N, 128)
+    fm_2: torch.Tensor  # (B, N1, 256), N1 = N // 4 (gathered over an sp group)
+    fm_3: torch.Tensor  # (B, N1, 256)
+    fm_4: torch.Tensor  # (B, N2, 512), N2 = N1 // 4
+    up_1: torch.Tensor  # (B, N) int32 rows of fm_2 and fm_3
+    up_2: torch.Tensor  # (B, N) int32 rows of fm_4
+
+
 class FaceRecon(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None, train_heads: bool = False):
         super().__init__()
@@ -160,32 +186,24 @@ class FaceRecon(nn.Module):
             self.face_head = MLPHead(512 + 256 + 3, (512, 256, 128), cfg.face_recon_c,
                                      device=device)
 
-    def forward(self, vertices: torch.Tensor, cat_id: torch.Tensor,
-                pool_samples: Sequence[torch.Tensor], with_heads: bool = False,
-                sp_group=None):
-        """vertices (B, N, 3) centred points; cat_id (B,) 0-based; pool_samples
-        the kept-row indices of the two pools.  Returns feat (B, N, 1286) in
-        eval mode and (recon (B, N, 3), face (B, N, 30), feat) in train mode,
-        or in eval mode with ``with_heads``.
+    def maps(self, vertices: torch.Tensor, pool_samples: Sequence[torch.Tensor],
+             sp_group=None) -> BackboneMaps:
+        """The backbone's maps at their own resolutions and the 1-NN indices
+        that upsample the pooled ones: vertices (B, N, 3) centred points,
+        pool_samples the kept-row indices of the two pools.
 
         ``sp_group``: sequence-parallel serving (hspose_tpu/models/
         face_recon.py:101-218).  ``vertices`` is this rank's shard of the
         points and ``pool_samples`` are drawn over the global cloud; before
         each search and layer the source side is gathered over the group,
-        the pooled k rule reads the global pooled size, the 1-NN upsample
-        searches the gathered pooled clouds, and the local rows of feat
-        come back."""
+        the pooled k rule reads the global pooled size, and the pooled maps
+        come back gathered, with the 1-NN indices of the local rows into
+        them."""
         cfg = self.cfg
         fast = self.dtype == torch.bfloat16
         # the relaxed-KNN tier serves only: training keeps gcn_n_num
         k = cfg.serve_k if cfg.serve_k > 0 and not self.training else cfg.gcn_n_num
-        B, N, _ = vertices.shape
-        if sp_group is not None and (self.training or with_heads):
-            raise NotImplementedError(
-                "sequence parallelism is an inference path (train/with_heads "
-                "shard over the batch axis instead)")
         sp = 1 if sp_group is None else dist.get_world_size(sp_group)
-        one_hot = F.one_hot(cat_id.long().reshape(B), cfg.obj_c).to(self.dtype)
 
         def ag(x):
             """The gathered source of a local map (None without sp)."""
@@ -236,14 +254,32 @@ class FaceRecon(nn.Module):
             v_pool_1, v_pool_2 = vp1_g, vp2_g
             fm_2, fm_3, fm_4 = fm_2_g, fm_3_g, ag(fm_4)
 
-        # 1-NN upsample back to N points
-        up_1 = nearest_index(vertices, v_pool_1)[..., None]
-        up_2 = nearest_index(vertices, v_pool_2)[..., None]
-        fm_2_up = gather_neighbors(fm_2, up_1)[:, :, 0]
-        fm_3_up = gather_neighbors(fm_3, up_1)[:, :, 0]
-        fm_4_up = gather_neighbors(fm_4, up_2)[:, :, 0]
+        # 1-NN indices of the N points into the pooled clouds
+        return BackboneMaps(fm_0, fm_1, fm_2, fm_3, fm_4, nearest_index(vertices, v_pool_1),
+                            nearest_index(vertices, v_pool_2))
+
+    def forward(self, vertices: torch.Tensor, cat_id: torch.Tensor,
+                pool_samples: Sequence[torch.Tensor], with_heads: bool = False,
+                sp_group=None, maps: BackboneMaps | None = None):
+        """vertices (B, N, 3) centred points; cat_id (B,) 0-based; pool_samples
+        the kept-row indices of the two pools.  Returns feat (B, N, 1286) in
+        eval mode and (recon (B, N, 3), face (B, N, 30), feat) in train mode,
+        or in eval mode with ``with_heads``.  ``sp_group``: as ``maps``; the
+        local rows of feat come back.  ``maps``: this forward's ``maps``, when
+        the caller has them already."""
+        cfg = self.cfg
+        B, N, _ = vertices.shape
+        if sp_group is not None and (self.training or with_heads):
+            raise NotImplementedError(
+                "sequence parallelism is an inference path (train/with_heads "
+                "shard over the batch axis instead)")
+        m = maps if maps is not None else self.maps(vertices, pool_samples, sp_group)
+        one_hot = F.one_hot(cat_id.long().reshape(B), cfg.obj_c).to(self.dtype)
+        fm_2_up = gather_neighbors(m.fm_2, m.up_1[..., None])[:, :, 0]
+        fm_3_up = gather_neighbors(m.fm_3, m.up_1[..., None])[:, :, 0]
+        fm_4_up = gather_neighbors(m.fm_4, m.up_2[..., None])[:, :, 0]
         one_hot_tiled = one_hot[:, None, :].expand(B, N, cfg.obj_c)
-        feat = torch.cat([fm_0, fm_1, fm_2_up, fm_3_up, fm_4_up, one_hot_tiled], dim=-1)
+        feat = torch.cat([m.fm_0, m.fm_1, fm_2_up, fm_3_up, fm_4_up, one_hot_tiled], dim=-1)
         if not (self.training or with_heads):
             return feat
         if not self.train_heads:
@@ -252,7 +288,7 @@ class FaceRecon(nn.Module):
 
         conv1d_out = self.conv1d_block(feat)
         recon = self.recon_head(conv1d_out)
-        f_global = fm_4.amax(dim=1)  # (B, 512)
+        f_global = m.fm_4.amax(dim=1)  # (B, 512)
         face_in = torch.cat([f_global[:, None, :].expand(B, N, f_global.shape[-1]).float(),
                              conv1d_out, vertices], dim=-1)  # 771, fp32 as flax promotes it
         return recon, self.face_head(face_in), feat

@@ -17,7 +17,7 @@ from torch import nn
 
 from hspose_tpu_torch.config import ModelConfig
 from hspose_tpu_torch.models.face_recon import FEAT_C, FaceRecon, compute_dtype
-from hspose_tpu_torch.models.heads import PoseTsHead, RotationHead
+from hspose_tpu_torch.models.heads import FirstLayers, PoseTsHead, RotationHead
 from hspose_tpu_torch.parallel.sp import mean_over_shards
 
 
@@ -52,6 +52,22 @@ class PoseNet9D(nn.Module):
         self.rot_green = RotationHead(feat_c, device=device, dtype=dt)
         self.rot_red = RotationHead(feat_c, device=device, dtype=dt)
         self.ts = PoseTsHead(feat_c, device=device, dtype=dt)
+        self.first_layers = FirstLayers(tuple(head.vec for head in self.pose_heads()))
+
+    def pose_heads(self) -> tuple[nn.Module, ...]:
+        return self.rot_green, self.rot_red, self.ts
+
+    def factored(self) -> bool:
+        """Whether the forward serves the pose heads' first block per backbone
+        resolution (``heads.py::FirstLayers``): in eval mode without
+        gradients and with no head layer sharded over mp; ``with_heads`` and
+        an sp group too.  Otherwise every head multiplies the concatenated
+        feature (``VecHead.forward``): training, gradients (the backward of
+        the per-resolution gather would be a scatter-add) and mp, whose
+        head layers form their own output columns."""
+        return not (self.training or torch.is_grad_enabled()
+                    or any(getattr(m, "mp_group", None) is not None
+                           for head in self.pose_heads() for m in head.modules()))
 
     def forward(self, points: torch.Tensor, obj_id: torch.Tensor,
                 pool_samples: Sequence[torch.Tensor],
@@ -67,14 +83,26 @@ class PoseNet9D(nn.Module):
         center = mean_over_shards(points.mean(dim=1, keepdim=True), sp_group)
         centred = points - center
         heads = self.training or with_heads
-        if heads:
-            recon, face, feat = self.face_recon(centred, obj_id, pool_samples, with_heads,
-                                                sp_group)
+        if self.factored():
+            maps = self.face_recon.maps(centred, pool_samples, sp_group)
+            if with_heads:
+                recon, face, _ = self.face_recon(centred, obj_id, pool_samples, with_heads,
+                                                 sp_group, maps)
+            h = self.first_layers(maps, obj_id, centred)
+            green_vec, red_vec, ts_vec = (head.vec.tail(x, sp_group=sp_group)
+                                          for head, x in zip(self.pose_heads(), h))
+            T, s = ts_vec[:, 0:3], ts_vec[:, 3:6]
         else:
-            feat = self.face_recon(centred, obj_id, pool_samples, sp_group=sp_group)
-
-        green_vec = self.rot_green(feat, keep[0], sp_group)  # (B, 4)
-        red_vec = self.rot_red(feat, keep[1], sp_group)
+            if heads:
+                recon, face, feat = self.face_recon(centred, obj_id, pool_samples, with_heads,
+                                                    sp_group)
+            else:
+                feat = self.face_recon(centred, obj_id, pool_samples, sp_group=sp_group)
+            green_vec = self.rot_green(feat, keep[0], sp_group)  # (B, 4)
+            red_vec = self.rot_red(feat, keep[1], sp_group)
+            # the bf16 tier feeds the centred points to the Ts head in bf16
+            # (hspose_tpu/models/posenet.py:82-83)
+            T, s = self.ts(feat, centred.to(feat.dtype), keep[2], sp_group)
         # the + 1e-6 in the denominators is the reference's, not a clamp
         p_green_R = green_vec[:, 1:] / (torch.linalg.vector_norm(
             green_vec[:, 1:], dim=-1, keepdim=True) + 1e-6)
@@ -82,10 +110,6 @@ class PoseNet9D(nn.Module):
             red_vec[:, 1:], dim=-1, keepdim=True) + 1e-6)
         f_green_R = torch.sigmoid(green_vec[:, 0])
         f_red_R = torch.sigmoid(red_vec[:, 0])
-
-        # the bf16 tier feeds the centred points to the Ts head in bf16
-        # (hspose_tpu/models/posenet.py:82-83)
-        T, s = self.ts(feat, centred.to(feat.dtype), keep[2], sp_group)
         pose = (p_green_R, p_red_R, f_green_R, f_red_R, T + center[:, 0, :], s)
         if not heads:
             return PoseNetOutput(*pose)

@@ -102,6 +102,9 @@ SIGNATURES = {
     "hs_chamfer_min_argmin": [_P] * 4 + [_I] * 3 + [_P],
     # a, b, ia, ib, gda, gdb, ga, B, N, M, stream
     "hs_chamfer_grad": [_P] * 7 + [_I] * 3 + [_P],
+    # the serving heads' first-layer epilogue: p0, p1, p2, up1, up2, cat, cat64, xyz, wcat,
+    # wxyz, params, out, B, N, N1, N2, C, obj_c, fast, stream
+    "hs_heads_epilogue": [_P] * 6 + [_I] + [_P] * 5 + [_I] * 7 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -10,7 +10,7 @@ and the port only.  Tasks:
 
 * ``forward``: ``sp_eval_fn``'s raw head outputs for this rank's rows and
   points of a batch under the (dp, sp) layout of ``make_mesh``, with the
-  job's pool samples;
+  job's pool samples, and the heads epilogues it ran;
 * ``harness``: ``batched_pose_inference`` on in-memory records under the
   task's overrides (``parallel.dp``, ``parallel.sp``, ``eval.eval_batch``);
 * ``collectives``: ``parallel/sp.py``'s gather, mean and max over all ranks
@@ -41,6 +41,8 @@ RUN_TIMEOUT = 180  # seconds a whole group may take
 
 
 def forward(model, task):
+    from hspose_tpu_torch.models import heads
+    from hspose_tpu_torch.ops.heads_epilogue import heads_epilogue
     from hspose_tpu_torch.parallel.mesh import batch_sharding, make_mesh
     from hspose_tpu_torch.parallel.sp import sp_eval_fn
 
@@ -51,9 +53,19 @@ def forward(model, task):
     rows = batch_sharding(mesh, pc.shape[0])
     n = pc.shape[1] // mesh.sp
     local = pc[rows, mesh.sp_index * n:(mesh.sp_index + 1) * n].contiguous()
-    out = sp_eval_fn(model, mesh.sp_group, with_rt=False)(local, task["obj"][rows], None, None,
-                                                          task["samples"])
-    return {"rows": (rows.start, rows.stop), "out": out}
+    calls = []
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return heads_epilogue(*args, **kwargs)
+
+    heads.heads_epilogue = counted
+    try:
+        out = sp_eval_fn(model, mesh.sp_group, with_rt=False)(local, task["obj"][rows], None,
+                                                              None, task["samples"])
+    finally:
+        heads.heads_epilogue = heads_epilogue
+    return {"rows": (rows.start, rows.stop), "out": out, "epilogues": len(calls)}
 
 
 def harness(model, task):

@@ -306,6 +306,8 @@ def jax_sp(setup):
 @pytest.mark.parametrize("layout", [f"{dp}x{sp}" for dp, sp in LAYOUTS])
 def test_sp_forward_matches_one_device_and_jax(setup, jax_sp, layout):
     _, _, _, model, pc, obj, p, outs = setup
+    # the heads' first block served per backbone resolution: one epilogue a rank
+    assert {o[layout]["epilogues"] for o in outs if o[layout] is not None} == {1}
     got = gathered(outs, layout)
     ref = eval_forward(model, t(pc), t(obj), pool_samples=samples_of(p))
     names = ("green", "red", "f_green", "f_red", "T", "s")
