@@ -294,10 +294,33 @@ not 0:
    it), and
    the forward's pose gap within ``FP32_REL`` (fp32) or ``FORWARD_ATOL``
    (bf16; tests/test_torch_port_bf16.py).
+29. the served forward as one CUDA graph replay (``models/graphed.py``)
+   against the eager route, in both tiers at B = 96 and 24, N = 1028: the
+   poses of both routes (bit for bit, or the largest gap within phase 28's
+   pose bounds), the capture's time, two replays' outputs unaliased, a
+   recapture after ``load_state_dict`` serving the new weights in place of
+   the old weights' graph, host and
+   wall time a forward on each route, and the kernels that a profiler
+   session started after the capture sees (every eager kernel, the serving
+   kernels ``SERVE_LAUNCHES`` names, device time within
+   ``GRAPH_DEVICE_REL``); then the harness (pinned uploads, graph replays)
+   against the harness on the eager route (``eager_route``).  It also runs
+   alone: ``python3 chip_smoke.py --phase graph``.
+
+A served forward on the card is a graph replay, which calls no op wrapper:
+the phases that count a served path's launches (5-7, 18, 19, 23-26) count
+its kernels by name in a ``torch.profiler`` session around it (``served``,
+``check_served``): one ``hspose.model.graph_replay`` span a forward, the
+kernels of ``SERVE_LAUNCHES`` (``KERNEL_NAMES``, ``LAUNCH_KERNELS``) once a
+forward and once for each of a capture's ``WARMUP`` eager forwards, and the
+wrappers' counters at those of the captures' eager forwards alone.  The
+slice and harness phases capture before the session, so that every kernel
+counted ran in a replay.  The eager paths (training, ``eval.recon``, sp,
+mp) keep the wrappers' counters.
 
 ``python3 chip_smoke.py --phase <name> ...`` runs only the named phases, in
-order, after the environment and the build: ``heads`` (28), ``harness``
-(18) and ``sp-forward`` (26's two-rank forward).
+order, after the environment and the build: ``heads`` (28), ``graph`` (29),
+``harness`` (18) and ``sp-forward`` (26's two-rank forward).
 
 Each kernel's ``bound_ms`` is the least time the card could take for its
 calls: per call the larger of the bytes it must move (each input read once,
@@ -332,11 +355,13 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import re
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -739,6 +764,103 @@ SERVE_LAUNCHES = {
 # sharded over mp) launch no epilogue
 CONCAT_HEADS = {"heads_epilogue": 0, "heads_epilogue_bf16": 0}
 
+# The kernels of the serving wrappers' launches, by the names torch.profiler
+# gives them.  A forward served as a CUDA graph replay (models/graphed.py)
+# runs its kernels without calling a wrapper, so the wrappers' counters see
+# only the eager forwards of a capture; the served route is counted here.
+KERNEL_NAMES = (("knn", "::knn_kernel<"), ("surface", "::surface_kernel<"),
+                ("support_projection", "hsp::gemm_kernel<float"),
+                ("support_projection_bf16", "::project_bf16_kernel("),
+                ("support_reduction", "(anonymous namespace)::reduce_kernel<"),
+                ("orl", "::orl_kernel<"), ("heads_epilogue", "heads_epilogue_kernel<false>"),
+                ("heads_epilogue_bf16", "heads_epilogue_kernel<true>"))
+LAUNCH_KERNELS = {"knn": ("knn",), "knn_streamed": ("knn",), "knn_packed": ("knn",),
+                  "hs_surface": ("surface",), "hs_surface_bf16": ("surface",),
+                  "hs_support": ("support_projection", "support_reduction"),
+                  "hs_support_bf16": ("support_projection_bf16", "support_reduction"),
+                  "orl_global": ("orl",), "orl_global_bf16": ("orl",),
+                  "heads_epilogue": ("heads_epilogue",),
+                  "heads_epilogue_bf16": ("heads_epilogue_bf16",)}
+
+
+def kernels_of(launches: dict) -> dict:
+    """The kernels, by KERNEL_NAMES, that the wrappers' ``launches`` run."""
+    out = {}
+    for name, n in launches.items():
+        for kernel in LAUNCH_KERNELS[name]:
+            out[kernel] = out.get(kernel, 0) + n
+    return out
+
+
+def kernel_counts(events) -> dict:
+    """The profiler's device ``events`` counted by KERNEL_NAMES."""
+    counts = dict.fromkeys((name for name, _ in KERNEL_NAMES), 0)
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
+            name = next((k for k, pattern in KERNEL_NAMES if pattern in e.name), None)
+            if name is not None:
+                counts[name] += 1
+    return counts
+
+
+class Served(NamedTuple):
+    """What ``served`` saw of a call."""
+
+    result: object
+    launches: dict  # the wrappers' counters: the eager forwards, a capture's among them
+    kernels: dict  # the serving kernels that ran, by KERNEL_NAMES
+    replays: int  # hspose.model.graph_replay spans
+    captures: int  # hspose.model.graph_capture spans
+
+
+def session_start() -> None:
+    """The first device work of a counting profiler session: a sleep kernel
+    that holds the card while the host queues the calls, between a few
+    small kernels that no count reads.  Sessions have dropped the record of
+    the first kernel queued behind the sleep (the first KNN launch of a
+    forward)."""
+    x = torch.zeros(256, device=torch.cuda.current_device())
+    x.add_(1)
+    torch.cuda._sleep(QUEUE_CYCLES)
+    for _ in range(4):
+        x.add_(1)
+
+
+def served(fn) -> Served:
+    """``fn()`` inside a torch.profiler session, with every wrapper counter
+    set to 0 just before, behind ``session_start``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = counters()
+    reset_counts(counts)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        session_start()
+        result = fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    return Served(result, read_counts(counts), kernel_counts(events),
+                  spans.count("hspose.model.graph_replay"),
+                  spans.count("hspose.model.graph_capture"))
+
+
+def check_served(s: Served, per_forward: dict, forwards: int, what: str,
+                 warm: bool = False) -> None:
+    """``forwards`` forwards served as graph replays: one replay each, whose
+    kernels ran (``per_forward``'s launches, counted by name), and the
+    wrappers' counts those of the captures' eager forwards alone (WARMUP + 1
+    a capture: a replay calls no wrapper).  ``warm``: the graph was captured
+    before the call, so every kernel counted ran in a replay."""
+    from hspose_tpu_torch.models.graphed import WARMUP
+
+    if s.replays != forwards or (warm and s.captures):
+        raise AssertionError(f"{what}: {s.replays} graph replays and {s.captures} captures, "
+                             f"expected {forwards} and {0 if warm else 'any'}")
+    check_counts(s.launches, per_forward, (WARMUP + 1) * s.captures,
+                 f"{what}'s capture (eager forwards)")
+    check_counts(s.kernels, kernels_of(per_forward), forwards + WARMUP * s.captures,
+                 f"{what} (kernels run, {WARMUP} warm-up forwards a capture)")
+
 
 def concatenated_forward(model, pc, obj, samples):
     """``eval_forward`` with every head on the concatenated feature, the route
@@ -785,12 +907,15 @@ def phase_slice(dtype: str = "float32", fp32_results: list | None = None, serve_
     requests = [cloud(rng, N) for _ in range(REQUESTS)]
     samples = [draw_pool_samples(N, gen, DEVICE) for _ in range(REQUESTS)]
 
-    counts = counters()
-    reset_counts(counts)
-    results = serve_requests(model, requests, samples, obj, sym)
-    launches = read_counts(counts)
-    log(phase, f"{REQUESTS} requests of ({B}, {N}, 3): launches {launches}")
-    check_counts(launches, SERVE_LAUNCHES[dtype], REQUESTS, "forward")
+    serve_requests(model, requests[:1], samples[:1], obj, sym)  # warm: the graph's capture
+    s = served(lambda: serve_requests(model, requests, samples, obj, sym))
+    results = s.result
+    launches = {k: v // REQUESTS for k, v in s.kernels.items() if v}
+    log(phase, f"{REQUESTS} requests of ({B}, {N}, 3), graph replays {s.replays}: kernels a "
+               f"forward {launches}")
+    check_served(s, SERVE_LAUNCHES[dtype], REQUESTS, "forward", warm=True)
+    # the wrappers' launches that the replays stand for (their kernels counted above)
+    launches = {**s.launches, **{k: n * REQUESTS for k, n in SERVE_LAUNCHES[dtype].items()}}
 
     eye = torch.eye(3, device=DEVICE)
     for i, (out, RT) in enumerate(results):
@@ -1948,22 +2073,22 @@ def harness_config(dtype: str = "float32", recon: bool = False, n_pts: int = N):
 
 
 def run_harness(cfg, model, records, seed: int):
-    """``batched_pose_inference`` with every counter set to 0 just before:
-    (pred_results, crops/s, launches)."""
+    """``batched_pose_inference`` on a copy of ``records``: (pred_results,
+    crops/s)."""
     from hspose_tpu_torch.evaluation.evaluate import batched_pose_inference
 
-    counts = counters()
-    reset_counts(counts)
-    preds, rate = batched_pose_inference(cfg, model, copy.deepcopy(records), seed)
+    out = batched_pose_inference(cfg, model, copy.deepcopy(records), seed)
     torch.cuda.synchronize()
-    return preds, rate, read_counts(counts)
+    return out
 
 
 def phase_harness(smi: str, rates: dict | None = None) -> dict:
     """The eval harness on in-memory records, HARNESS_BATCHES batches of
     (B, N): fp32, bf16, and fp32 with ``eval.recon`` on a model with the
     train heads (the same backbone and pose-head weights).  Gates: exact
-    launch counts per batch (with recon, K16 twice and no K17/K18); the fp32
+    launch counts per batch, the graph replays' kernels by name
+    (``check_served``), recon's eager launches by its wrappers (K16 twice
+    and no K17/K18); the fp32
     poses bit for bit those of ``eval_forward`` + ``generate_RT`` on the same
     crops and pool samples, and the recon run's poses those of the fp32 run;
     chamfer and EMD finite and positive; then ``compute_degree_cm_mAP``.
@@ -1996,13 +2121,22 @@ def phase_harness(smi: str, rates: dict | None = None) -> dict:
                 raise AssertionError(f"the recon model lacks backbone weights: {missing}")
         else:
             m = model if dtype == "float32" else build_seeded_model(DEVICE, dtype)
-        run_harness(cfg, m, records, seed)  # warm: the first call of each tier builds caches
-        preds[tier], _, launches = run_harness(cfg, m, records, seed)
-        per_batch = dict(SERVE_LAUNCHES[dtype], **({"chamfer_min": 2} if recon else {}))
-        log(phase, f"{tier}: {HARNESS_BATCHES} batches of ({B}, {N}, 3), launches "
+        # warm: the first call of each tier builds caches and captures the graph
+        run_harness(cfg, m, records, seed)
+        s = served(lambda: run_harness(cfg, m, records, seed))
+        preds[tier], launches = s.result[0], s.launches
+        log(phase, f"{tier}: {HARNESS_BATCHES} batches of ({B}, {N}, 3), graph replays "
+                   f"{s.replays}, kernels {s.kernels}, wrapper launches "
                    f"{ {k: v for k, v in launches.items() if v} }")
-        check_counts(launches, per_batch, HARNESS_BATCHES, f"{tier} harness batch")
-        _, rate, _ = run_harness(cfg, m, rate_records, seed)
+        if recon:  # with_heads: the eager route, every launch through a wrapper
+            if s.replays or s.captures:
+                raise AssertionError(f"{tier}: {s.replays} graph replays, {s.captures} captures")
+            check_counts(launches, dict(SERVE_LAUNCHES[dtype], chamfer_min=2), HARNESS_BATCHES,
+                         f"{tier} harness batch")
+        else:
+            check_served(s, SERVE_LAUNCHES[dtype], HARNESS_BATCHES, f"{tier} harness batch",
+                         warm=True)
+        _, rate = run_harness(cfg, m, rate_records, seed)
         alone = f" (forward alone {rates[dtype]:.1f} crops/s)" if rates else ""
         log(phase, f"{tier}: {rate} crops/s over {HARNESS_RATE_BATCHES} batches of ({B}, {N}, 3)"
                    f"{alone} on {smi}")
@@ -2111,12 +2245,15 @@ def phase_k5(smi: str) -> tuple[dict, dict]:
     cfg = harness_config(n_pts=N_LARGE)
     records = harness_records(np.random.default_rng(SEED + 11), N_LARGE, 1)
     model = build_seeded_model(DEVICE)
-    run_harness(cfg, model, records, SEED)  # warm
-    preds, _, launches = run_harness(cfg, model, records, SEED)
-    log(phase, f"one fp32 harness batch of ({B}, {N_LARGE}, 3): launches "
-               f"{ {k: v for k, v in launches.items() if v} }")
-    check_counts(launches, {"knn": 6, "knn_streamed": 3, "hs_surface": 1, "hs_support": 4,
-                            "orl_global": 5, "heads_epilogue": 1}, 1, f"N={N_LARGE} harness batch")
+    run_harness(cfg, model, records, SEED)  # warm: the graph's capture
+    s = served(lambda: run_harness(cfg, model, records, SEED))
+    preds = s.result[0]
+    log(phase, f"one fp32 harness batch of ({B}, {N_LARGE}, 3): graph replays {s.replays}, "
+               f"kernels {s.kernels}")
+    per_forward = {"knn": 6, "knn_streamed": 3, "hs_surface": 1, "hs_support": 4,
+                   "orl_global": 5, "heads_epilogue": 1}
+    check_served(s, per_forward, 1, f"N={N_LARGE} harness batch", warm=True)
+    launches = {**s.launches, **per_forward}  # the launches the replay stands for
     RT = np.concatenate([r["pred_RTs"] for r in preds])
     if not np.isfinite(RT).all():
         raise AssertionError(f"N={N_LARGE}: poses not finite")
@@ -2557,16 +2694,13 @@ def phase_loop(smi: str, tree: str | None = None, keep: str | None = None) -> di
         ckpt = latest_checkpoint(f"{tmp}/run")
         eval_cfg = parse_overrides(data + ["eval.eval_seed=5", f"train.resume_model={ckpt}",
                                            f"train.model_save={tmp}/eval"])
-        counts = counters()
-        reset_counts(counts)
-        summary = evaluate(eval_cfg, device=DEVICE)
-        torch.cuda.synchronize()
-        launches = read_counts(counts)
+        s = served(lambda: evaluate(eval_cfg, device=DEVICE))
+        summary = s.result
         batches = math.ceil(crops / eval_cfg.eval.eval_batch)
         log(phase, f"eval CLI on {os.path.basename(ckpt)}: {crops} crops in {batches} batches, "
-                   f"launches { {k: v for k, v in launches.items() if v} }; "
+                   f"graph replays {s.replays}, captures {s.captures}, kernels {s.kernels}; "
                    f"3D IoU at 25 {summary['IoU25']:.1f}, 10 degree 10cm {summary['10d10cm']:.1f}")
-        check_counts(launches, SERVE_LAUNCHES["float32"], batches, "eval batch")
+        check_served(s, SERVE_LAUNCHES["float32"], batches, "eval batch")
         if not all(map(math.isfinite, summary.values())):
             raise AssertionError(f"eval summary not finite: {summary}")
         if keep is not None:
@@ -2599,11 +2733,10 @@ def phase_probes(smi: str) -> None:
     for dtype, serve_k in PROBE_TIERS:
         tier = ("fp32" if dtype == "float32" else "bf16") + (f"+k{serve_k}" if serve_k else "")
         model = build_seeded_model(DEVICE, dtype, serve_k)
-        counts = counters()
-        reset_counts(counts)
-        (RT, s), = fmp.predict(model, batches, pool_device="cpu")
-        launches = read_counts(counts)
-        check_counts(launches, SERVE_LAUNCHES[dtype], 1, f"B={fmp.EVAL_BS} {tier} forward")
+        # the pool samples drawn on the host go up to the card for the graph's replay
+        got = served(lambda: fmp.predict(model, batches, pool_device="cpu"))
+        (RT, s), = got.result
+        check_served(got, SERVE_LAUNCHES[dtype], 1, f"B={fmp.EVAL_BS} {tier} forward")
         t0 = time.perf_counter()
         fmp.predict(model, batches, pool_device="cpu")
         wall = time.perf_counter() - t0
@@ -2615,8 +2748,9 @@ def phase_probes(smi: str) -> None:
                    np.abs(s[:PROBE_CPU_CROPS] - s_cpu).max())
         bound = SLICE_ATOL if dtype == "float32" else SLICE_ATOL_BF16
         table = fmp.assemble(batches, [(RT, s)])
-        log(phase, f"{tier}: one predict batch of ({fmp.EVAL_BS}, {fmp.N_PTS}, 3), launches "
-                   f"{ {k: v for k, v in launches.items() if v} }; first {PROBE_CPU_CROPS} "
+        log(phase, f"{tier}: one predict batch of ({fmp.EVAL_BS}, {fmp.N_PTS}, 3), graph "
+                   f"replays {got.replays}, captures {got.captures}, kernels {got.kernels}; "
+                   f"first {PROBE_CPU_CROPS} "
                    f"crops against the CPU plain ops, max abs diff {diff:.2e} (bound {bound}); "
                    f"second call {wall * 1e3:.1f} ms (host clock, with the host copies); "
                    "table " + ", ".join(f"{k} {v:.2f}" for k, v in table.items()))
@@ -2637,11 +2771,10 @@ def phase_probes(smi: str) -> None:
         losses, skipped = [], 0
         for part in range(2):
             if part:
-                reset_counts(counts)
-                errs = ts.pose_errors(model, eval_batch, torch.Generator(
-                    device=DEVICE).manual_seed(ts.EVAL_POOL_SEED))
-                check_counts(read_counts(counts), SERVE_LAUNCHES[dt], 1,
-                             f"{tier} pose_errors forward")
+                got = served(lambda: ts.pose_errors(model, eval_batch, torch.Generator(
+                    device=DEVICE).manual_seed(ts.EVAL_POOL_SEED)))
+                errs = got.result
+                check_served(got, SERVE_LAUNCHES[dt], 1, f"{tier} pose_errors forward")
                 if not (model.training and all(map(np.isfinite, errs))):
                     raise AssertionError(f"{tier}: pose_errors {errs}, train mode "
                                          f"{model.training} after it")
@@ -2771,16 +2904,14 @@ def phase_device_sampling(smi: str, tree: str, host: dict) -> None:
         ckpt = latest_checkpoint(f"{tmp}/run")
         cfg = parse_overrides(data + ["eval.sample_mode=device", "eval.eval_seed=5",
                                       f"train.resume_model={ckpt}", f"train.model_save={tmp}/eval"])
-        counts = counters()
-        reset_counts(counts)
-        summary = evaluate(cfg, device=DEVICE)
-        torch.cuda.synchronize()
-        launches = read_counts(counts)
+        s = served(lambda: evaluate(cfg, device=DEVICE))
+        summary = s.result
         batches = math.ceil(test_crops(tree) / cfg.eval.eval_batch)
         log(phase, f"eval CLI, eval.sample_mode=device, on {os.path.basename(ckpt)}: "
-                   f"{batches} batches, launches { {k: v for k, v in launches.items() if v} }; "
+                   f"{batches} batches, graph replays {s.replays}, captures {s.captures}, "
+                   f"kernels {s.kernels}; "
                    f"3D IoU at 25 {summary['IoU25']:.1f}, 10 degree 10cm {summary['10d10cm']:.1f}")
-        check_counts(launches, SERVE_LAUNCHES["float32"], batches, "device-mode eval batch")
+        check_served(s, SERVE_LAUNCHES["float32"], batches, "device-mode eval batch")
         if not all(map(math.isfinite, summary.values())):
             raise AssertionError(f"eval summary not finite: {summary}")
 
@@ -2793,10 +2924,11 @@ def phase_device_sampling(smi: str, tree: str, host: dict) -> None:
             base = load_eval_images(rcfg, SEED, num_workers=4)
             n = sum(len(d["cat_id_0base"]) for d, _, _ in base)
             reps = math.ceil((DEVICE_RATE_BATCHES + 1) * B / n)
-            run_harness(rcfg, model, base, SEED)  # warm
-            _, rates[mode], launches = run_harness(rcfg, model, base * reps, SEED)
-            check_counts(launches, SERVE_LAUNCHES["float32"], math.ceil(n * reps / B),
-                         f"{mode}-mode harness batch")
+            run_harness(rcfg, model, base, SEED)  # warm: the graph's capture
+            check_served(served(lambda: run_harness(rcfg, model, base, SEED)),
+                         SERVE_LAUNCHES["float32"], math.ceil(n / B), f"{mode}-mode harness batch",
+                         warm=True)
+            _, rates[mode] = run_harness(rcfg, model, base * reps, SEED)
         log(phase, f"harness at B={B}, {DEVICE_RATE_BATCHES}+ batches of the test images' crops: "
                    f"device mode {rates['device']:.1f} crops/s, host mode {rates['host']:.1f} "
                    f"crops/s on {smi}")
@@ -3175,16 +3307,13 @@ def sp_rank(rank: int, world: int, tmp: str, device: str) -> None:
                 RT_v, s_v = serve()
             got[dtype][variant] = dict(against_one(rec, one, rank, world), RT=RT_v.cpu(),
                                        scales=s_v.cpu())
-        if dtype == "float32":
+        if dtype == "float32":  # the dp harness: each rank's forwards are graph replays
             cfg = dataclasses.replace(harness_config(), parallel=ParallelConfig(dp=world))
-            counts = counters()
-            reset_counts(counts)
-            preds, _ = batched_pose_inference(cfg, model, job["records"], job["seed"])
-            sync()
-            h_launches = read_counts(counts)
+            h = served(lambda: batched_pose_inference(cfg, model, job["records"], job["seed"]))
+            preds, _ = h.result
             got["harness"] = {"RT": np.concatenate([r["pred_RTs"] for r in preds]),
                               "scales": np.concatenate([r["pred_scales"] for r in preds]),
-                              "launches": h_launches}
+                              "served": h._replace(result=None)._asdict()}
     torch.save(got, os.path.join(tmp, f"rank{rank}.pt"))
     dist.destroy_process_group()
 
@@ -3219,7 +3348,9 @@ def phase_sp_forward(smi: str) -> dict:
     launches, want, one = {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         m = model if dtype == "float32" else build_seeded_model(DEVICE, dtype)
-        with sp_probe() as one[dtype]:
+        # the probe reads the forward's intermediates as they run: the eager route
+        # (its poses are the graph's, bit for bit: phase 29)
+        with sp_probe() as one[dtype], eager_route():
             out = eval_forward(m, pc, obj, pool_samples=samples)
         RT = generate_RT(out.p_green_R, out.p_red_R, out.f_green_R, out.f_red_R, out.pred_T, sym)
         want[dtype] = {"RT": RT.cpu(), "pred_s": out.pred_s.cpu()}
@@ -3294,19 +3425,19 @@ def phase_sp_forward(smi: str) -> dict:
     log(phase, "fp32 products on point rows, all rows against each sp = 2 shard's rows, max abs "
                "gap: " + ", ".join(f"{k} {v:.2e}" for k, v in row_split_gaps(model, world).items()))
 
-    preds, _, _ = run_harness(harness_config(), model, records, seed)
+    preds, _ = run_harness(harness_config(), model, records, seed)
     want_RT = np.concatenate([r["pred_RTs"] for r in preds])
     want_s = np.concatenate([r["pred_scales"] for r in preds])
     for r, got in enumerate(ranks):
         h = got["harness"]
-        check_counts(h["launches"], SERVE_LAUNCHES["float32"], HARNESS_BATCHES,
-                     f"rank {r} dp harness batch")
+        hs = Served(**h["served"])
+        check_served(hs, SERVE_LAUNCHES["float32"], HARNESS_BATCHES, f"rank {r} dp harness batch")
         d_rt = np.abs(h["RT"] - want_RT).max()
         d_s = np.abs(h["scales"] - want_s).max()
         same = np.array_equal(h["RT"], want_RT) and np.array_equal(h["scales"], want_s)
         log(phase, f"rank {r}: parallel.dp=2 harness, {HARNESS_BATCHES} batches of ({B}, {N}, 3) "
-                   f"({B // 2} rows a rank), launches per batch "
-                   f"{ {k: v // HARNESS_BATCHES for k, v in h['launches'].items() if v} }; "
+                   f"({B // 2} rows a rank), graph replays {hs.replays}, captures "
+                   f"{hs.captures}, kernels {hs.kernels}; "
                    f"against the one-process harness: bit for bit {same}, max abs RT {d_rt:.3e}, "
                    f"scales {d_s:.3e} (bound {SLICE_ATOL})")
         if not (d_rt <= SLICE_ATOL and d_s <= SLICE_ATOL):
@@ -3701,7 +3832,7 @@ def phase_dp_train(smi: str, ranks_done=None) -> None:
     # one-process harness they are held to
     one = build_seeded_model(DEVICE)
     one.factored = lambda: False
-    preds, _, _ = run_harness(harness_config(), one, records, seed)
+    preds, _ = run_harness(harness_config(), one, records, seed)
     want_RT = np.concatenate([r["pred_RTs"] for r in preds])
     want_s = np.concatenate([r["pred_scales"] for r in preds])
     for r, got in enumerate(ranks):
@@ -4065,6 +4196,216 @@ def heads_tier(phase: str, rec: dict, rng, dtype: str, smi: str, failed: list) -
         failed.append(f"{dtype} pose gap over its bound {over:.3f}")
 
 
+GRAPH_BATCHES = (96, 24)  # phase 29: the benchmark's eval.eval_batch and the eval CLI's
+GRAPH_PROFILED = 3  # phase 29: forwards profiled on each route (< 1024 queued launches)
+GRAPH_TIMED = 20  # phase 29: forwards timed on each route
+GRAPH_DEVICE_REL = 0.05  # phase 29: device time a forward, graph against eager
+GRAPH_HARNESS_CROPS = 13 * B  # phase 29: three batches of 96 and a short one of 24
+
+
+@contextlib.contextmanager
+def eager_route():
+    """Serve every forward on the eager route inside the block, op by op:
+    phase 29's other side, and phase 26's one-process forward, whose
+    intermediates ``sp_probe`` reads as they run (a CUDA graph replay,
+    ``models/graphed.py``, runs no Python)."""
+    from hspose_tpu_torch.models import graphed
+
+    real = graphed.eligible
+    graphed.eligible = lambda *args: False
+    try:
+        yield
+    finally:
+        graphed.eligible = real
+
+
+def device_kernels(fn, n: int) -> tuple[float, float, dict]:
+    """Kernels a call of ``fn`` runs as ``torch.profiler`` sees them from a
+    session started after the call's first run (a graph captured before it):
+    (count, device ms summed, count by name), each a call, copies and sets
+    left out, as ``portbench/trace.py`` leaves them out.  A sleep kernel
+    holds the card while the host enqueues the ``n`` calls, so that both
+    routes' kernels run back to back at the clocks of a busy card."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(QUEUE_CYCLES * 5)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.is_user_annotation
+          and not any(p in e.name for p in ("Memcpy", "Memset", "spin_kernel"))]
+    ms = sum(e.time_range.end - e.time_range.start for e in ks) / 1e3
+    return len(ks) / n, ms / n, Counter(e.name for e in ks)
+
+
+def host_and_wall_ms(fn) -> tuple[float, float]:
+    """(host ms of a call on an idle card, wall ms a call back to back),
+    over GRAPH_TIMED calls each."""
+    fn()
+    host = 0.0
+    for _ in range(GRAPH_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GRAPH_TIMED):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * host / GRAPH_TIMED, 1e3 * (time.perf_counter() - t0) / GRAPH_TIMED
+
+
+def phase_graph(smi: str) -> dict:
+    """Phase 29: the served forward as one CUDA graph replay
+    (``models/graphed.py``) against the eager route, in both tiers at B = 96
+    and 24, N = 1028: the poses of both routes (bit for bit, or the largest
+    gap within phase 28's bounds), the capture's time, two replays' outputs
+    unaliased, a recapture after ``load_state_dict`` serving the new weights,
+    the host's enqueue and the wall time a forward on each route, and the
+    kernels a profiler session started after the capture sees on each route
+    (every eager kernel, device time within GRAPH_DEVICE_REL, each route's
+    lower of two sessions in turns) and the
+    replays' serving kernels against SERVE_LAUNCHES (``served``); then the
+    harness,
+    pinned uploads and graph replays, against the harness on the eager
+    route, bit for bit, with each one's crops/s.  Raises after every
+    reading has printed."""
+    from hspose_tpu_torch.evaluation.evaluate import batched_pose_inference
+    from hspose_tpu_torch.models.hspose import eval_forward
+
+    phase, rec, failed = "graph", {}, []
+    rng = np.random.default_rng(SEED + 29)
+    for dtype in ("float32", "bfloat16"):
+        bf16 = dtype == "bfloat16"
+        model = build_seeded_model(DEVICE, dtype)
+
+        def over(got, want):
+            """The largest gap over its phase-28 bound, and whether every bit agrees."""
+            worst = max(float((x - y).abs().max()) / (
+                HEADS_POSE_ATOL_BF16 if bf16 else HEADS_FP32_REL * max(float(y.abs().max()), 1.0))
+                for x, y in zip(got, want))
+            return worst, all(torch.equal(x, y) for x, y in zip(got, want))
+
+        for b in GRAPH_BATCHES:
+            label = f"{dtype} B={b}"
+            pc, pc2 = cloud_b(rng, b, N), cloud_b(rng, b, N)
+            obj = torch.from_numpy(rng.integers(0, 6, size=b).astype(np.int32)).to(DEVICE)
+            smp = [torch.from_numpy(rng.permutation(N)[:N // 4]).to(DEVICE),
+                   torch.from_numpy(rng.permutation(N // 4)[:N // 16]).to(DEVICE)]
+
+            def graph(x=pc):
+                return eval_forward(model, x, obj, pool_samples=smp)
+
+            def eager(x=pc):
+                with eager_route():
+                    return eval_forward(model, x, obj, pool_samples=smp)
+
+            want, want2 = eager(), eager(pc2)
+            captures = model.graphs.captures
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = graph()
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            first = [x.clone() for x in got]
+            got2 = graph(pc2)
+            gap, bits = over(got, want)
+            gap2, bits2 = over(got2, want2)
+            unaliased = (all(torch.equal(x, y) for x, y in zip(got, first))
+                         and not {x.data_ptr() for x in got} & {x.data_ptr() for x in got2})
+            log(phase, f"{label}: capture and first replay {capture_s:.3f} s; graph against "
+                       f"eager poses bit for bit {bits} / {bits2} (largest gap over its bound "
+                       f"{gap:.3f} / {gap2:.3f}); two replays' outputs unaliased {unaliased}")
+            if not (gap <= 1 and gap2 <= 1 and unaliased):
+                failed.append(f"{label}: gap {gap:.3f} / {gap2:.3f}, unaliased {unaliased}")
+
+            # two sessions a route in turns, each route's lower device time: a
+            # session at a low clock reads neither route
+            runs = {eager: [], graph: []}
+            for fn in (eager, graph, eager, graph):
+                runs[fn].append(device_kernels(fn, GRAPH_PROFILED))
+            n_e, ms_e, names_e = min(runs[eager], key=lambda r: r[1])
+            n_g, ms_g, names_g = min(runs[graph], key=lambda r: r[1])
+            replays = served(lambda: [graph() for _ in range(GRAPH_PROFILED)])
+            try:  # the replays' serving kernels, by name, against SERVE_LAUNCHES
+                check_served(replays, SERVE_LAUNCHES[dtype], GRAPH_PROFILED, f"{label} replays",
+                             warm=True)
+            except AssertionError as e:
+                failed.append(str(e))
+            host_e, wall_e = host_and_wall_ms(eager)
+            host_g, wall_g = host_and_wall_ms(graph)
+            missing, extra = dict(names_e - names_g), dict(names_g - names_e)
+            log(phase, f"{label}: profiler started after the capture sees {n_g:.1f} kernels a "
+                       f"graphed forward, {ms_g:.3f} device ms, against {n_e:.1f} and {ms_e:.3f} "
+                       f"eager ({ms_g / ms_e:.4f}x; kernels the graph's lack {missing}, kernels "
+                       f"only the graph's have {extra}); serving kernels over {GRAPH_PROFILED} "
+                       f"replays {replays.kernels}; host "
+                       f"enqueue {host_g:.3f} ms graph, {host_e:.3f} ms eager; wall a forward "
+                       f"back to back {wall_g:.3f} ms graph, {wall_e:.3f} ms eager on {smi}")
+            rec[f"{dtype}_b{b}"] = {"capture_s": capture_s, "bits": bits and bits2,
+                                    "kernels": [n_g, n_e], "device_ms": [ms_g, ms_e],
+                                    "host_ms": [host_g, host_e], "wall_ms": [wall_g, wall_e]}
+            # the graph's own copies (inputs in, outputs out) may add kernels
+            if missing or n_g < n_e or abs(ms_g / ms_e - 1) > GRAPH_DEVICE_REL:
+                failed.append(f"{label}: profiled kernels {n_g} / {n_e}, device ms "
+                              f"{ms_g:.3f} / {ms_e:.3f}")
+
+            # new weights: the next call captures anew and serves them
+            state = {k: (v * 1.01 if v.is_floating_point() else v)
+                     for k, v in model.state_dict().items()}
+            model.load_state_dict(state)
+            want3, got3 = eager(), graph()
+            gap3, bits3 = over(got3, want3)
+            captured = model.graphs.captures - captures
+            moved = not all(torch.equal(x, y) for x, y in zip(got3, first))
+            log(phase, f"{label}: after load_state_dict {captured} captures at this B in all "
+                       f"(the old weights' graph dropped); poses moved {moved}, against eager "
+                       f"bit for bit {bits3} (largest gap over its bound {gap3:.3f})")
+            if not (captured == 2 and moved and gap3 <= 1):
+                failed.append(f"{label}: captures {captured}, moved {moved}, gap {gap3:.3f}")
+
+        # the harness: pinned uploads and graph replays against the eager route
+        for b in GRAPH_BATCHES:
+            records = harness_records(np.random.default_rng(SEED + 30), N,
+                                      GRAPH_HARNESS_CROPS // B)
+            cfg = harness_config(dtype)
+            cfg = cfg.replace(eval=dataclasses.replace(cfg.eval, eval_batch=b))
+            runs = {}
+            for route in ("graph", "eager", "graph"):
+                ctx = eager_route() if route == "eager" else contextlib.nullcontext()
+                with ctx:
+                    preds, rate = batched_pose_inference(cfg, model, copy.deepcopy(records),
+                                                         SEED)
+                runs.setdefault(route, []).append(
+                    (np.concatenate([r["pred_RTs"] for r in preds]),
+                     np.concatenate([r["pred_scales"] for r in preds]), rate))
+            same = all(np.array_equal(g[0], e[0]) and np.array_equal(g[1], e[1])
+                       for g in runs["graph"] for e in runs["eager"])
+            gap = max(float(np.abs(g[i] - runs["eager"][0][i]).max())
+                      for g in runs["graph"] for i in (0, 1))
+            log(phase, f"{dtype} harness, eval_batch {b}, {GRAPH_HARNESS_CROPS} crops: graph "
+                       f"route and pinned uploads against the eager route bit for bit {same} "
+                       f"(largest gap {gap:.3e}); crops/s graph "
+                       f"{', '.join(f'{g[2]:.1f}' for g in runs['graph'])}, eager "
+                       f"{runs['eager'][0][2]:.1f} on {smi}")
+            rec[f"{dtype}_harness_b{b}"] = {"same": same, "gap": gap}
+            limit = HEADS_POSE_ATOL_BF16 if bf16 else HEADS_FP32_REL
+            if not gap <= limit:
+                failed.append(f"{dtype} harness eval_batch {b}: gap {gap:.3e}")
+        del model
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("graph: " + "; ".join(failed))
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -4072,7 +4413,8 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     if sys.argv[1:2] == ["--phase"]:
-        phases = {"heads": phase_heads, "harness": phase_harness, "sp-forward": phase_sp_forward}
+        phases = {"heads": phase_heads, "graph": phase_graph, "harness": phase_harness,
+                  "sp-forward": phase_sp_forward}
         for name in sys.argv[2:]:
             print(json.dumps(phases[name](smi)))
         return 0
@@ -4112,6 +4454,7 @@ def main() -> int:
     launches["chamfer_min"] = phase_harness(smi, {"float32": fp32_rate,
                                                   "bfloat16": bf16_rate})["chamfer_min"]
     rec.update(phase_heads(smi))
+    phase_graph(smi)
     k5_rec, k5_launches = phase_k5(smi)
     rec.update(k5_rec)
     launches["knn_streamed"] = k5_launches["knn_streamed"]

@@ -9,8 +9,11 @@ Detection crops are batched across images into fixed-size batches of
 through ``eval_forward`` and ``generate_RT`` on the CUDA card, unless a
 function is given ``device="cpu"`` (the tests) or the CLI runs with
 ``HSPOSE_PLATFORM=cpu``, the variable the JAX CLI reads to pick its
-platform.  A batch's results are fetched only after the next batch has been
-submitted.
+platform.  On the card a batch's inputs are copied from pinned host memory
+without waiting for the card, and its forward is one CUDA graph replay
+(``models/graphed.py``), so the host stacks and submits the next batch
+while the card runs this one; a batch's results are fetched only after the
+next batch has been submitted.
 
 Several GPUs serve as the JAX harness's (dp, sp) or (dp, mp) mesh does
 (hspose_tpu/evaluation/evaluate.py:58-132), one process per GPU:
@@ -273,12 +276,19 @@ def _serve(cfg, model, image_records, seed, pool_samples, sample_scores):
                 state["timed_from"] = state["fetched"]
 
     def to_device(v, n_valid, dtype, cut=None):
-        """This rank's rows of the padded batch (and ``cut`` of each row)."""
-        batch = np.stack(v[:n_valid] + [v[0]] * (B - n_valid))[rows]
+        """This rank's rows of the padded batch (and ``cut`` of each row),
+        stacked and cast in one pass into host memory, pinned for the card."""
+        items = (v[:n_valid] + [v[0]] * (B - n_valid))[rows]
         if cut is not None:
-            batch = batch[:, cut]
-        batch = torch.from_numpy(batch.astype(dtype))
-        with span("sync.upload"):  # a pageable copy waits for the card's queue
+            items = [x[cut] for x in items]
+        batch = torch.empty((len(items), *np.shape(items[0])), dtype=dtype,
+                            pin_memory=device.type == "cuda")
+        np.stack(items, out=batch.numpy(), casting="unsafe")  # astype's cast
+        if device.type == "cuda":
+            # from pinned memory the copy is queued behind the forwards in flight,
+            # and the caching host allocator keeps the block until it has run
+            return batch.to(device, non_blocking=True)
+        with span("sync.upload"):  # a pageable copy waits for the device's queue
             return batch.to(device)
 
     def submit(n_valid):
@@ -286,12 +296,12 @@ def _serve(cfg, model, image_records, seed, pool_samples, sample_scores):
         batch_no = state["batch_no"]
         if mesh.active:
             with span("harness.to_device", batch_no):
-                inputs = ({k: to_device(v, n_valid, np.float32,
+                inputs = ({k: to_device(v, n_valid, torch.float32,
                                         points if k == "pcl_in" else None)
                            for k, v in crops.items()},
-                          to_device(ids, n_valid, np.int32),
-                          to_device(syms, n_valid, np.float32),
-                          to_device(means, n_valid, np.float32))
+                          to_device(ids, n_valid, torch.int32),
+                          to_device(syms, n_valid, torch.float32),
+                          to_device(means, n_valid, torch.float32))
             with span("harness.forward", batch_no):
                 outs = forward_fn(*inputs, batch_no)
             mine = owners[rows.start:min(rows.stop, n_valid)]

@@ -19,6 +19,7 @@ from hspose_tpu_torch.losses import (
     prop_rot_loss,
     recon_6face_loss,
 )
+from hspose_tpu_torch.models import graphed
 from hspose_tpu_torch.models.heads import KEEP_PROB
 from hspose_tpu_torch.models.posenet import PoseNet9D, PoseNetOutput, PoseNetTrainOutput
 from hspose_tpu_torch.ops.cuda_knn import MAX_K
@@ -107,11 +108,21 @@ def eval_forward(model: PoseNet9D, pc: torch.Tensor, obj_id: torch.Tensor,
     holds this rank's contiguous shard of the points, the pools' kept rows
     are drawn (or given) over the global cloud of ``pc.shape[1] * sp``
     points, the same on every rank, and the outputs are the same on every
-    rank of the group.  None is the one-device forward."""
+    rank of the group.  None is the one-device forward.
+
+    On the CUDA card, a forward in eval mode on one process, without
+    ``with_heads``, on the factored heads is served as one CUDA graph
+    replay (``models/graphed.py``), its outputs fresh tensors; every other
+    forward runs the module's ops one by one."""
     with span("model.eval_forward"):
         if pool_samples is None:
             sp = 1 if sp_group is None else torch.distributed.get_world_size(sp_group)
             pool_samples = draw_pool_samples(pc.shape[1] * sp, generator, pc.device)
+        if graphed.eligible(model, pc, with_heads, sp_group):
+            # samples drawn or kept on the host (fast_mode_parity's pool_device="cpu")
+            # go up here: inside a capture their pageable copy would raise
+            pool_samples = [s.to(pc.device) for s in pool_samples]
+            return PoseNetOutput(*graphed.forward(model, pc, obj_id, pool_samples))
         return model(pc, obj_id, pool_samples, with_heads=with_heads, sp_group=sp_group)
 
 

@@ -17,6 +17,7 @@ from torch import nn
 
 from hspose_tpu_torch.config import ModelConfig
 from hspose_tpu_torch.models.face_recon import FEAT_C, FaceRecon, compute_dtype
+from hspose_tpu_torch.models.graphed import Graphs
 from hspose_tpu_torch.models.heads import FirstLayers, PoseTsHead, RotationHead
 from hspose_tpu_torch.parallel.sp import mean_over_shards
 
@@ -53,6 +54,7 @@ class PoseNet9D(nn.Module):
         self.rot_red = RotationHead(feat_c, device=device, dtype=dt)
         self.ts = PoseTsHead(feat_c, device=device, dtype=dt)
         self.first_layers = FirstLayers(tuple(head.vec for head in self.pose_heads()))
+        self.graphs = Graphs()  # the served forward's last CUDA graph (models/graphed.py)
 
     def pose_heads(self) -> tuple[nn.Module, ...]:
         return self.rot_green, self.rot_red, self.ts

@@ -9,11 +9,14 @@ of 192 crops (eight records of 24) through ``batched_pose_inference`` at
 ``eval.eval_batch`` 96, each twice to warm up, then once more under
 ``torch.cuda.set_sync_debug_mode("warn")``, which reports each implicit
 synchronisation (a ``.cpu()``, ``float()`` or ``bool()`` of a device
-tensor, a pageable host-to-device copy, a solver's error check).  The
-spans (``utils/spans.py``) are recorded here by a stand-in for the
-profiler that keeps the open spans' names.  Prints, per path, the count of
-syncs by the innermost open span and the Python frames of any sync that no
-``hspose.sync.*`` span holds; exits 1 when there is one.
+tensor, a pageable host-to-device copy, a solver's error check).  A served
+request's syncs are the two ``hspose.sync.fetch`` reads of each batch's
+outputs in ``land``: its inputs go up from pinned memory without waiting,
+and its forwards are graph replays.  The spans (``utils/spans.py``) are
+recorded here by a stand-in for the profiler that keeps the open spans'
+names.  Prints, per path, the count of syncs by the innermost open span
+and the Python frames of any sync that no ``hspose.sync.*`` span holds;
+exits 1 when there is one.
 """
 
 from __future__ import annotations

@@ -30,6 +30,11 @@ The spans, by path:
   ``hspose.model.eval_forward`` and ``hspose.model.generate_RT``, and
   ``hspose.harness.land`` (fetch a batch's outputs and fill its records;
   ident the batch it lands, the one before the last submitted);
+* a forward served as a CUDA graph (``models/graphed.py``), inside
+  ``hspose.model.eval_forward``: ``hspose.model.graph_capture`` (one a
+  capture, the eager warm-up forwards included; ident the model's count of
+  captures, from 0), then ``hspose.model.graph_replay`` (copy the inputs
+  in, replay, clone the outputs); the eager route records neither;
 * training (``engine/train_step.py``): ``hspose.train.step`` (one a
   step), inside it ``hspose.train.forward`` (augmentation, posenet,
   losses), ``hspose.train.backward`` (on the calling thread),
@@ -38,8 +43,10 @@ The spans, by path:
   records;
 * ``hspose.sync.<site>`` around every read that makes the host wait for
   the card, nested in its caller's span: ``upload`` (each pageable
-  host-to-device copy: ``to_device``'s inputs, and in the train forward
-  the Python-list indices and host constants it copies to the card),
+  host-to-device copy: ``to_device``'s inputs where the device is not a
+  CUDA card, whose copies come from pinned memory and do not wait, and in
+  the train forward the Python-list indices and host constants it copies
+  to the card),
   ``solve`` (``torch.linalg.solve``'s error check in the plane fits),
   ``fetch`` (each output's ``.cpu()`` in ``land``), ``finite`` (the NaN
   guard, and with ``train.debug_nan`` each term's check), ``clip``

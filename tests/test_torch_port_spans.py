@@ -163,6 +163,25 @@ def test_harness_records_each_batch_and_lands_it_after_the_next():
     assert len(whole) == 1
     assert all(inside(e, whole[0]) for e in evs if e[0].startswith("hspose.harness.")
                and e is not whole[0])
+    # the CPU's forwards take the eager route, which records no graph span
+    assert not [e for e in evs if e[0].startswith("hspose.model.graph_")]
+
+
+def test_eager_forward_records_its_one_span_and_no_graph_span():
+    """An eval forward on the eager route (every CPU forward) records
+    ``hspose.model.eval_forward`` alone, as before the graph route."""
+    from hspose_tpu_torch.models.hspose import draw_pool_samples, eval_forward
+
+    cfg = HSPoseConfig()
+    torch.manual_seed(0)
+    model = build_model(cfg.model, device="cpu").eval()
+    g = torch.Generator().manual_seed(1)
+    pc = torch.randn(B, N, 3, generator=g) * 0.2
+    obj = torch.arange(B, dtype=torch.int32) % 6
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        eval_forward(model, pc, obj, pool_samples=draw_pool_samples(N, g, "cpu"))
+        eval_forward(model, pc, obj, generator=g)
+    assert [(e[0], e[4]) for e in events(prof)] == [("hspose.model.eval_forward", None)] * 2
 
 
 @pytest.mark.parametrize("name,ident", [("harness.to_device", 7), ("sync.fetch", None)])
