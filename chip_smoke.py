@@ -306,6 +306,24 @@ not 0:
    ``GRAPH_DEVICE_REL``); then the harness (pinned uploads, graph replays)
    against the harness on the eager route (``eager_route``).  It also runs
    alone: ``python3 chip_smoke.py --phase graph``.
+30. the train step's forward, losses and backward as one CUDA graph replay
+   (``engine/graphed_step.py``) against the eager route (``eager_step``),
+   in both tiers at B = 24, N = 1028, from one set of weights and one
+   generator seed on each route and on both routes again (the controls):
+   ``STEP_GRAPH_STEPS`` finite steps (past RAdam's switch and the first
+   lookahead) with a batch of NaN mean shapes (finite clouds, no bowl or
+   mug) after ``STEP_GRAPH_POISON`` of them, every step's metrics and the
+   parameters, BatchNorm statistics and Ranger's state after them bit for
+   bit (bf16, whose eager step does not repeat its bits run to run: the
+   metrics, and the state within ``STEP_GRAPH_BF16_REL`` or the gap a route
+   shows against itself in the phase); the NaN step skipped with nothing
+   moved on every route and the next step replayed; the capturing step's
+   time; the kernels a profiler session started after the capture sees on
+   each route (the port's kernels by name the same on both, 9 KNN searches
+   a step; PyTorch's and the libraries' printed); host and wall time a step
+   on each route, and the state of both routes bit for bit after those
+   steps too (fp32).  It also runs alone:
+   ``python3 chip_smoke.py --phase train-graph``.
 
 A served forward on the card is a graph replay, which calls no op wrapper:
 the phases that count a served path's launches (5-7, 18, 19, 23-26) count
@@ -315,12 +333,18 @@ kernels of ``SERVE_LAUNCHES`` (``KERNEL_NAMES``, ``LAUNCH_KERNELS``) once a
 forward and once for each of a capture's ``WARMUP`` eager forwards, and the
 wrappers' counters at those of the captures' eager forwards alone.  The
 slice and harness phases capture before the session, so that every kernel
-counted ran in a replay.  The eager paths (training, ``eval.recon``, sp,
-mp) keep the wrappers' counters.
+counted ran in a replay.  The eager paths (``eval.recon``, sp, mp, dp and
+mp training, device sampling) keep the wrappers' counters.  So does a
+train step on a batch of clouds on the card, whose first step is eager and
+whose second captures its graph: the phases that count such steps' launches
+(9, 11, 23, 24) count the wrappers' calls of their eager steps and
+captures (``wrapper_steps``), and phase 30 counts the replays' kernels by
+name.
 
 ``python3 chip_smoke.py --phase <name> ...`` runs only the named phases, in
 order, after the environment and the build: ``heads`` (28), ``graph`` (29),
-``harness`` (18) and ``sp-forward`` (26's two-rank forward).
+``train-graph`` (30), ``harness`` (18) and ``sp-forward`` (26's two-rank
+forward).
 
 Each kernel's ``bound_ms`` is the least time the card could take for its
 calls: per call the larger of the bytes it must move (each input read once,
@@ -1796,7 +1820,8 @@ def phase_train(smi: str, tier: str = "float32") -> tuple[dict, float]:
     torch.cuda.synchronize()
     launches = read_counts(counts)
     log(phase, f"{TRAIN_STEPS} steps of ({TRAIN_B}, {N}, 3): launches {launches}")
-    check_counts(launches, TRAIN_LAUNCHES[tier], TRAIN_STEPS, "train step")
+    check_counts(launches, TRAIN_LAUNCHES[tier], wrapper_steps(step, TRAIN_STEPS, 0, 0),
+                 "train step")
     for i, m in enumerate(metrics):
         log(phase, f"step {i}: total_loss {m['total_loss']:.6f}, skipped_nan "
                    f"{m['skipped_nan']}, {len(m) - 2} loss terms")
@@ -2645,8 +2670,8 @@ def phase_loop(smi: str, tree: str | None = None, keep: str | None = None) -> di
                    f"decode {decode}: launches { {k: v for k, v in launches.items() if v} }")
         if decode != "numpy":
             raise AssertionError(f"the loader decodes by {decode}; expected numpy (no libpng)")
-        check_counts(launches, TRAIN_LAUNCHES["float32"], LOOP_EPOCHS * LOOP_STEPS,
-                     "train loop step")
+        check_counts(launches, TRAIN_LAUNCHES["float32"],
+                     wrapper_steps(step, LOOP_EPOCHS * LOOP_STEPS, 0, 0), "train loop step")
         losses = {r["step"]: r["total_loss"] for r in recs if "total_loss" in r}
         if len(losses) != LOOP_EPOCHS * LOOP_STEPS or not all(map(math.isfinite,
                                                                    losses.values())):
@@ -2679,9 +2704,10 @@ def phase_loop(smi: str, tree: str | None = None, keep: str | None = None) -> di
         if differ or got.keys() != want.keys() or opt.count != saved["optimizer_count"]:
             raise AssertionError(f"the restored state is not the saved one: {differ[:5]}")
 
-        _, _, _, launches, recs_b = run("resumed", "train.resume=true",
-                                        f"train.resume_model={first}")
-        check_counts(launches, TRAIN_LAUNCHES["float32"], LOOP_STEPS, "resumed loop step")
+        _, _, resumed_step, launches, recs_b = run("resumed", "train.resume=true",
+                                                   f"train.resume_model={first}")
+        check_counts(launches, TRAIN_LAUNCHES["float32"],
+                     wrapper_steps(resumed_step, LOOP_STEPS, 0, 0), "resumed loop step")
         resumed = {r["step"]: r["total_loss"] for r in recs_b if "total_loss" in r}
         gap = max(abs(v - losses[k]) / abs(losses[k]) for k, v in resumed.items())
         log(phase, f"resumed epoch 1 against the unbroken run: steps {sorted(resumed)}, "
@@ -2779,11 +2805,12 @@ def phase_probes(smi: str) -> None:
                     raise AssertionError(f"{tier}: pose_errors {errs}, train mode "
                                          f"{model.training} after it")
             reset_counts(counts)
+            graphs = (step.graphs.replays, step.graphs.captures)
             got, n = ts.train_steps(step, rng, half, TRAIN_B, N, DEVICE, log_every=1,
                                     log=lambda msg: None)
             torch.cuda.synchronize()
-            check_counts(read_counts(counts), TRAIN_LAUNCHES[tier], half,
-                         f"{tier} sanity step")
+            check_counts(read_counts(counts), TRAIN_LAUNCHES[tier],
+                         wrapper_steps(step, half, *graphs), f"{tier} sanity step")
             losses += [v for _, v in got]
             skipped += n
         log(phase, f"{tier} ({dt}, bwd_store={store}, train_v4_small={v4}): {PROBE_STEPS} "
@@ -4219,13 +4246,14 @@ def eager_route():
         graphed.eligible = real
 
 
-def device_kernels(fn, n: int) -> tuple[float, float, dict]:
+def device_kernels(fn, n: int, start=None) -> tuple[float, float, dict]:
     """Kernels a call of ``fn`` runs as ``torch.profiler`` sees them from a
     session started after the call's first run (a graph captured before it):
     (count, device ms summed, count by name), each a call, copies and sets
     left out, as ``portbench/trace.py`` leaves them out.  A sleep kernel
     holds the card while the host enqueues the ``n`` calls, so that both
-    routes' kernels run back to back at the clocks of a busy card."""
+    routes' kernels run back to back at the clocks of a busy card; or
+    ``start()`` is the session's first device work."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
@@ -4233,7 +4261,10 @@ def device_kernels(fn, n: int) -> tuple[float, float, dict]:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(QUEUE_CYCLES * 5)
+        if start is None:
+            torch.cuda._sleep(QUEUE_CYCLES * 5)
+        else:
+            start()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -4406,6 +4437,262 @@ def phase_graph(smi: str) -> dict:
     return rec
 
 
+STEP_GRAPH_STEPS = 8  # phase 30: finite steps, past RAdam's switch (5) and the lookahead (6)
+STEP_GRAPH_POISON = 4  # phase 30: a batch of NaN mean shapes after this many steps
+STEP_GRAPH_PROFILED = 2  # phase 30: steps profiled on each route
+STEP_GRAPH_ROUTES = ("graph", "eager", "graph again", "eager again")  # phase 30: the last
+# two are the controls
+# phase 30, bf16: the largest state gap between the routes over the largest value of the
+# tensor.  The bf16 step does not repeat its bits on the card even on the eager route (a few
+# leaves' gradients, now and then, from the first steps on), so its routes are held to bits
+# in the metrics and, in the state, to this share or to the larger gap that a route shows
+# against itself in the same phase; a fault of the graph (a stale input, a missed copy)
+# moves the losses, and a state by its own size
+STEP_GRAPH_BF16_REL = 1e-3
+# phase 30: kernels by name that are PyTorch's or a library's (portbench/trace.py's list,
+# and the sleep); every other kernel is the port's, whose counts a step both routes share
+LIBRARY_KERNELS = ("at::", "at_cuda_detail", "cub::", "c10::", "cublas", "cutlass", "xmma",
+                   "cudnn", "nccl", "nvjet", "gemv", "gemmSN", "splitKreduce", "Memcpy", "Memset",
+                   "memcpy", "memset", "sm90_", "sm80_", "ampere_", "spin_kernel")
+
+
+@contextlib.contextmanager
+def eager_step():
+    """Run every train step inside the block op by op (the eager route of
+    ``engine/train_step.py``): phase 30's other side."""
+    from hspose_tpu_torch.engine import graphed_step
+
+    real = graphed_step.eligible
+    graphed_step.eligible = lambda *args: False
+    try:
+        yield
+    finally:
+        graphed_step.eligible = real
+
+
+def train_state(model, step) -> dict:
+    """Every number a train step moves: the parameters, the BatchNorm
+    statistics, Ranger's state and its count."""
+    out = {f"model.{k}": v.detach().clone() for k, v in model.state_dict().items()}
+    opt = step.optimizer
+    for name, p in model.named_parameters():
+        for k, v in opt.state[p].items():
+            out[f"opt.{name}.{k}"] = v.clone()
+    out["opt.count"] = torch.tensor(opt.count)
+    return out
+
+
+def state_gap(a: dict, b: dict) -> tuple[int, float]:
+    """(tensors that differ, their largest difference) of two ``train_state``s."""
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    return len(differ), max((float((a[k].double() - b[k].double()).abs().max())
+                             for k in differ), default=0.0)
+
+
+def state_rel_gap(a: dict, b: dict) -> float:
+    """The largest difference of two ``train_state``s' tensors over the
+    largest value of that tensor in ``b``."""
+    gaps = [float((a[k].double() - b[k].double()).abs().max()
+                  / b[k].double().abs().max().clamp_min(1e-30))
+            for k in a if not torch.equal(a[k], b[k])]
+    return max(gaps, default=0.0)
+
+
+def short(names: dict) -> dict:
+    """Kernel counts by name, each name cut to 60 characters."""
+    return {k[:60]: v for k, v in names.items()}
+
+
+def first_split(a: list, b: list):
+    """(step, tensors that differ, the four largest gaps with their names) at
+    the first step whose ``train_state``s in ``a`` and ``b`` differ; None
+    where none does."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        differ = [k for k in x if not torch.equal(x[k], y[k])]
+        if differ:
+            gaps = sorted(((float((x[k].double() - y[k].double()).abs().max()), k)
+                           for k in differ), reverse=True)
+            return i, len(differ), [(k, f"{g:.3e}") for g, k in gaps[:4]]
+    return None
+
+
+def same_metrics(a: dict, b: dict) -> bool:
+    """Every metric equal, NaN equal to NaN."""
+    return a.keys() == b.keys() and all(a[k] == b[k] or (a[k] != a[k] and b[k] != b[k])
+                                        for k in a)
+
+
+def wrapper_steps(step, steps: int, replays: int, captures: int) -> int:
+    """Of ``steps`` train steps taken since ``step.graphs`` read ``replays``
+    replays and ``captures`` captures, those whose kernels the wrappers'
+    counters see: the eager steps and the captures (a replay calls no
+    wrapper; phase 30 counts its kernels by name)."""
+    g = step.graphs
+    return steps - (g.replays - replays) + (g.captures - captures)
+
+
+def phase_train_graph(smi: str) -> dict:
+    """Phase 30: the train step's forward, losses and backward as one CUDA
+    graph replay (``engine/graphed_step.py``) against the eager route, in
+    both tiers at B = 24, N = 1028: STEP_GRAPH_STEPS finite steps with a
+    batch of NaN mean shapes after STEP_GRAPH_POISON of them, from one set of
+    weights and one generator seed on each route (and on both routes again,
+    the controls): the metrics of every step and, after the last, the
+    parameters, BatchNorm statistics and Ranger's state bit for bit (bf16:
+    the metrics, and the state within STEP_GRAPH_BF16_REL or the gap a
+    route shows against itself; where each pair of routes first parts is
+    printed); the NaN step skipped on every route with nothing moved, and
+    the step after it replayed; the capture's time; the kernels a profiler
+    session started after the capture sees on each route (the port's
+    kernels, by name, the same on both, 9 KNN searches a step; PyTorch's
+    and the libraries' printed: a session can lose the record of an eager
+    draw kernel); host and wall time a step on each route, and the state of
+    both routes bit for bit after those steps too (fp32).  Raises after
+    every reading has printed."""
+    from hspose_tpu_torch.config import HSPoseConfig, ModelConfig, TrainConfig
+    from hspose_tpu_torch.engine.train_step import build_train_step, to_device
+    from hspose_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    phase, rec, failed = "train-graph", {}, []
+    batches = [to_device(synthetic_train_batch(B, N, seed=SEED + 30 + i), DEVICE)
+               for i in range(STEP_GRAPH_STEPS)]
+    # a batch whose losses are not finite over finite clouds: NaN mean shapes, no bowl or
+    # mug (their box-cage taper would carry the NaN into the cloud).  A NaN cloud leaves
+    # K1's selections unordered: its indices stay INT_MAX, and the next gather asserts
+    first = batches[0]
+    poison = dict(first, mean_shape=torch.full_like(first["mean_shape"], float("nan")),
+                  cat_id=torch.zeros_like(first["cat_id"]))
+    order = batches[:STEP_GRAPH_POISON] + [poison] + batches[STEP_GRAPH_POISON:]
+    for dtype in ("float32", "bfloat16"):
+        label = f"{dtype} B={B}"
+        cfg = HSPoseConfig(model=ModelConfig(compute_dtype=dtype),
+                           train=dataclasses.replace(TrainConfig(), batch_size=B))
+        base = build_train_model(DEVICE, cfg.model)
+        runs = {}
+        for route in STEP_GRAPH_ROUTES:
+            model = copy.deepcopy(base)
+            step = build_train_step(cfg, model,
+                                    torch.Generator(device=DEVICE).manual_seed(SEED + 31))
+            ctx = contextlib.nullcontext if route.startswith("graph") else eager_step
+            metrics, replays, capture_s, states = [], [], 0.0, []
+            for i, batch in enumerate(order):
+                before = states[-1] if batch is poison else None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with ctx():
+                    metrics.append(step(batch))
+                torch.cuda.synchronize()
+                if i == 1:
+                    capture_s = time.perf_counter() - t0
+                replays.append(step.graphs.replays)
+                states.append(train_state(model, step))
+                if before is not None:
+                    moved, _ = state_gap(before, states[-1])
+                    if not (metrics[-1]["skipped_nan"] == 1.0 and moved == 0):
+                        failed.append(f"{label} {route}: NaN step skipped "
+                                      f"{metrics[-1]['skipped_nan']}, {moved} tensors moved")
+            runs[route] = {"model": model, "step": step, "metrics": metrics,
+                           "replays": replays, "state": states[-1], "states": states,
+                           "capture_s": capture_s, "ctx": ctx}
+        g, e, g2, e2 = (runs[r] for r in STEP_GRAPH_ROUTES)
+        splits = {f"{a} / {b}": first_split(runs[a]["states"], runs[b]["states"])
+                  for a, b in (("graph", "eager"), ("graph", "graph again"),
+                               ("eager", "eager again"))}
+        log(phase, f"{label}: the first step whose state differs (step from 0, tensors, "
+                   f"largest gaps): {splits}")
+        skipped = [[m["skipped_nan"] for m in r["metrics"]] for r in (g, e, e2)]
+        # the routes against themselves: how far the bf16 step parts from its own bits
+        own = max(state_rel_gap(g2["state"], g["state"]), state_rel_gap(e2["state"], e["state"]))
+        del g2
+        same_g = all(same_metrics(a, b) for a, b in zip(g["metrics"], e["metrics"]))
+        same_e = all(same_metrics(a, b) for a, b in zip(e2["metrics"], e["metrics"]))
+        differ_g, gap_g = state_gap(g["state"], e["state"])
+        differ_e, gap_e = state_gap(e2["state"], e["state"])
+        rel_g = state_rel_gap(g["state"], e["state"])
+        exact = dtype == "float32"  # bf16: the state as STEP_GRAPH_BF16_REL says
+        n = len(order)
+        want_replays = list(range(n))  # the first step is the warm-up
+        log(phase, f"{label}: {STEP_GRAPH_STEPS} steps and a NaN step after "
+                   f"{STEP_GRAPH_POISON}: metrics graph against eager bit for bit {same_g} "
+                   f"(eager again {same_e}); after them {differ_g} of {len(e['state'])} state "
+                   f"tensors differ, largest gap {gap_g:.3e}, {rel_g:.3e} of its tensor's "
+                   f"largest value (eager again {differ_e}, {gap_e:.3e}; the routes "
+                   f"against themselves {own:.3e} of the tensor); skipped {skipped[0]} / "
+                   f"{skipped[1]} / {skipped[2]}; "
+                   f"replays after each step {g['replays']}; {g['step'].graphs.captures} "
+                   f"capture, the capturing step {g['capture_s']:.3f} s; optimizer count "
+                   f"{g['step'].optimizer.count}; losses "
+                   f"{[round(m['total_loss'], 6) for m in g['metrics']]}")
+        rec[f"{dtype}_steps"] = {"bits": same_g and differ_g == 0, "control": same_e and
+                                 differ_e == 0, "gap": gap_g, "rel_gap": rel_g,
+                                 "capture_s": g["capture_s"]}
+        if not (same_g and (differ_g == 0
+                            or not exact and rel_g <= max(STEP_GRAPH_BF16_REL, own))):
+            failed.append(f"{label}: graph against eager metrics {same_g}, {differ_g} state "
+                          f"tensors differ by up to {gap_g:.3e} ({rel_g:.3e} of the tensor)")
+        if (g["replays"] != want_replays or g["step"].graphs.captures != 1
+                or e["step"].graphs.replays != 0
+                or any(s != [float(b is poison) for b in order] for s in skipped)
+                or g["step"].optimizer.count != STEP_GRAPH_STEPS):
+            failed.append(f"{label}: replays {g['replays']}, captures "
+                          f"{g['step'].graphs.captures}, skipped {skipped}")
+
+        # the kernels of both routes, two sessions a route in turns (each
+        # route's lower device time), the same batches on both
+        def stepper(r):
+            taken = [0]
+
+            def fn():
+                with r["ctx"]():
+                    r["step"](batches[taken[0] % len(batches)])
+                taken[0] += 1
+            return fn
+
+        fns = {"graph": stepper(g), "eager": stepper(e)}
+        sessions = {"graph": [], "eager": []}
+        for route in ("eager", "graph", "eager", "graph"):
+            sessions[route].append(device_kernels(fns[route], STEP_GRAPH_PROFILED,
+                                                  session_start))
+        n_e, ms_e, names_e = min(sessions["eager"], key=lambda r: r[1])
+        n_g, ms_g, names_g = min(sessions["graph"], key=lambda r: r[1])
+        knn = {route: sum(c for name, c in names.items() if "::knn_kernel<" in name)
+               / STEP_GRAPH_PROFILED for route, names in (("graph", names_g), ("eager", names_e))}
+        port = {route: {k: v for k, v in names.items()
+                        if not any(p in k for p in LIBRARY_KERNELS)}
+                for route, names in (("graph", names_g), ("eager", names_e))}
+        missing, extra = dict(names_e - names_g), dict(names_g - names_e)
+        host_e, wall_e = host_and_wall_ms(fns["eager"])
+        host_g, wall_g = host_and_wall_ms(fns["graph"])
+        differ_t, gap_t = state_gap(train_state(g["model"], g["step"]),
+                                    train_state(e["model"], e["step"]))
+        log(phase, f"{label}: profiler started after the capture sees {n_g:.1f} kernels a "
+                   f"graphed step, {ms_g:.3f} device ms, against {n_e:.1f} and {ms_e:.3f} eager "
+                   f"({ms_g / ms_e:.4f}x); KNN searches a step {knn['graph']:.1f} graph, "
+                   f"{knn['eager']:.1f} eager; the port's kernels the same on both routes "
+                   f"{port['graph'] == port['eager']} ({len(port['eager'])} names, "
+                   f"{sum(port['eager'].values()) / STEP_GRAPH_PROFILED:.0f} launches a step); "
+                   f"kernels the graph's lack {short(missing)}, kernels only the graph's have "
+                   f"{short(extra)}; host {host_g:.3f} ms a step graph, {host_e:.3f} "
+                   f"eager (the card idle before each); wall a step back to back "
+                   f"{wall_g:.3f} ms graph, {wall_e:.3f} ms eager "
+                   f"({B / wall_g * 1e3:.1f} / {B / wall_e * 1e3:.1f} samples/s) on {smi}; "
+                   f"after {g['step'].optimizer.count} steps {differ_t} state tensors differ "
+                   f"(largest gap {gap_t:.3e})")
+        rec[f"{dtype}_b{B}"] = {"kernels": [n_g, n_e], "device_ms": [ms_g, ms_e],
+                                "host_ms": [host_g, host_e], "wall_ms": [wall_g, wall_e],
+                                "differ_after": differ_t}
+        if (port["graph"] != port["eager"] or knn["graph"] != 9 or knn["eager"] != 9
+                or exact and differ_t):
+            failed.append(f"{label}: the port's kernels graph {short(port['graph'])}, eager "
+                          f"{short(port['eager'])}; KNN {knn}; {differ_t} state tensors differ "
+                          f"after the timed steps")
+        del runs, g, e, e2, fns, base, splits
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("train-graph: " + "; ".join(failed))
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -4414,7 +4701,7 @@ def main() -> int:
     phase_build()
     if sys.argv[1:2] == ["--phase"]:
         phases = {"heads": phase_heads, "graph": phase_graph, "harness": phase_harness,
-                  "sp-forward": phase_sp_forward}
+                  "sp-forward": phase_sp_forward, "train-graph": phase_train_graph}
         for name in sys.argv[2:]:
             print(json.dumps(phases[name](smi)))
         return 0
@@ -4455,6 +4742,7 @@ def main() -> int:
                                                   "bfloat16": bf16_rate})["chamfer_min"]
     rec.update(phase_heads(smi))
     phase_graph(smi)
+    phase_train_graph(smi)
     k5_rec, k5_launches = phase_k5(smi)
     rec.update(k5_rec)
     launches["knn_streamed"] = k5_launches["knn_streamed"]

@@ -7,6 +7,17 @@ BatchNorm running statistics (which the forward has already moved, so they
 are put back from a copy), the optimizer state and count, and with
 ``train.accumulate`` > 1 the gradient accumulator and its micro-step count.
 
+Every step runs its forward, losses and backward, then reads the total
+loss, every term and the finiteness flags from the card in one copy
+(``metric_values``; Ranger's clip decision is the step's one other read),
+and only then decides: a finite step's gradients go to the optimizer or the
+accumulator, a non-finite step's are never read.  Under autograd's anomaly
+mode (the train CLI's ``train.debug_nan``), which raises on the NaN
+gradients of a non-finite loss, the backward runs after the decision, and
+only for a finite loss.  On the CUDA card a step on a batch of clouds on
+one process replays that pass as one CUDA graph (``engine/graphed_step.py``);
+every other step runs it op by op.
+
 ``train.accumulate`` = k > 1 is ``optax.MultiSteps(tx, every_k_schedule=k)``
 around the optimizer, as the JAX package builds it: each finite micro-batch
 moves the running mean of the gradients, acc + (g - acc) / (m + 1) at
@@ -40,6 +51,8 @@ import numpy as np
 import torch
 
 from hspose_tpu_torch.config import HSPoseConfig
+from hspose_tpu_torch.engine import graphed_step
+from hspose_tpu_torch.engine.graphed_step import Pass
 from hspose_tpu_torch.engine.optimizer import Ranger
 from hspose_tpu_torch.models.hspose import TrainDraws, train_forward
 from hspose_tpu_torch.models.posenet import PoseNet9D
@@ -54,10 +67,38 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def _finite(v: torch.Tensor) -> bool:
-    """Whether every entry of ``v`` is finite: a read that waits for the device."""
-    with span("sync.finite"):
-        return bool(torch.isfinite(v).all())
+def metric_values(total: torch.Tensor, loss_dicts, debug_nan: bool) -> torch.Tensor:
+    """The step's metrics as one float32 vector on the card, to be read in one
+    go: the total loss, every term of ``loss_dicts`` in its order, whether the
+    total is finite, and with ``debug_nan`` whether each family's terms are."""
+    total = total.detach()
+    terms = [v.detach() for d in loss_dicts.values() for v in d.values()]
+    flags = [torch.isfinite(total).all()]
+    if debug_nan:
+        flags += [torch.stack([torch.isfinite(v.detach()).all() for v in d.values()]).all()
+                  for d in loss_dicts.values()]
+    return torch.stack([v.float().reshape(()) for v in [total, *terms, *flags]])
+
+
+def layout_of(loss_dicts) -> tuple:
+    """((family, (term, ...)), ...): the order of ``metric_values``."""
+    return tuple((fam, tuple(d)) for fam, d in loss_dicts.items())
+
+
+def read_metrics(values: list, terms: tuple, debug_nan: bool) -> tuple[Dict[str, float], bool]:
+    """(metrics, whether the total loss is finite) from the host's copy of
+    ``metric_values``."""
+    it = iter(values)
+    metrics = {"total_loss": next(it), "skipped_nan": 0.0}  # placed second, set below
+    for fam, names in terms:
+        for k in names:
+            metrics[f"{fam}/{k}"] = next(it)
+    ok = next(it) == 1.0
+    metrics["skipped_nan"] = float(not ok)
+    if debug_nan:
+        for fam, _ in terms:
+            metrics[f"finite/{fam}"] = next(it)
+    return metrics, ok
 
 
 def check_finite_metrics(metrics: Dict[str, float]) -> None:
@@ -81,7 +122,8 @@ def build_train_step(cfg: HSPoseConfig, model: PoseNet9D, generator: torch.Gener
     ``train.debug_nan`` ``finite/<family>`` (1.0 when every term of the
     family is finite, else 0.0).  With ``train.accumulate`` > 1 the
     micro-step count is ``step.mini_step`` and the running mean of the
-    gradients ``step.accumulator`` (one tensor per parameter).
+    gradients ``step.accumulator`` (one tensor per parameter).  The graphs
+    of the graphed route, with their counts, are ``step.graphs``.
 
     ``mesh`` trains on a (dp, mp) layout (module docstring): ``model`` is
     laid out on it here, before the optimizer takes its parameters, and
@@ -102,6 +144,9 @@ def build_train_step(cfg: HSPoseConfig, model: PoseNet9D, generator: torch.Gener
     bn_buffers = [b for name, b in model.named_buffers()
                   if name.endswith(("running_mean", "running_var"))]
     acc = [torch.zeros_like(p) for p in params] if k_steps > 1 else []
+    state = params + bn_buffers  # what a graph reads by address
+    graphs = graphed_step.Graphs()
+    debug_nan = cfg.train.debug_nan
 
     def accumulate() -> None:
         """MultiSteps' update: fold this micro-batch's gradients into the
@@ -118,15 +163,41 @@ def build_train_step(cfg: HSPoseConfig, model: PoseNet9D, generator: torch.Gener
                 a.zero_()
         step.mini_step = (step.mini_step + 1) % k_steps
 
-    def run(batch: Dict[str, torch.Tensor], draws: TrainDraws | None) -> Dict[str, float]:
+    def forward_backward(batch: Dict[str, torch.Tensor], draws: TrainDraws | None,
+                         backward: bool = True) -> Pass:
+        """The eager pass; inside a capture, the graph's (``graphed_step.py``).
+        Without ``backward`` the loss is left ``pending``."""
         saved = [b.clone() for b in bn_buffers]
         optimizer.zero_grad(set_to_none=True)
         with span("train.forward"):
             total, loss_dicts = train_forward(cfg, model, batch, generator, draws, dp_group)
-        ok = _finite(total)
-        if ok:
+        if backward:
             with span("train.backward"):
                 total.backward()
+        return Pass(metric_values(total, loss_dicts, debug_nan), layout_of(loss_dicts), saved,
+                    [p.grad for p in params], None if backward else total)
+
+    def run(batch: Dict[str, torch.Tensor], draws: TrainDraws | None) -> Dict[str, float]:
+        graphed = graphed_step.eligible(batch, mesh)
+        if graphed:
+            out = graphed_step.run(graphs, model, batch, draws, generator, state,
+                                   forward_backward)
+        else:
+            # anomaly mode raises on the NaN gradients of a non-finite loss:
+            # its backward waits for the decision
+            out = forward_backward(batch, draws, backward=not torch.is_anomaly_enabled())
+        with span("train.metrics"):
+            with span("sync.metrics"):
+                values = out.values.tolist()
+            metrics, ok = read_metrics(values, out.terms, debug_nan)
+        if ok:
+            if out.pending is not None:
+                with span("train.backward"):
+                    out.pending.backward()
+            if graphed:  # the graph writes its own gradients
+                for p, g in zip(params, out.grads):
+                    if p.grad is not g:
+                        p.grad = g
             reduce_gradients(params, dp_group)
             broadcast_gradients(replicated, mp_group)
             if k_steps > 1:
@@ -135,18 +206,7 @@ def build_train_step(cfg: HSPoseConfig, model: PoseNet9D, generator: torch.Gener
                 optimizer.step()
         else:
             with torch.no_grad():
-                for b, s in zip(bn_buffers, saved):
-                    b.copy_(s)
-        with span("train.metrics"):
-            with span("sync.total"):
-                metrics = {"total_loss": float(total.detach()), "skipped_nan": float(not ok)}
-            for fam, d in loss_dicts.items():
-                for k, v in d.items():
-                    with span("sync.term"):
-                        metrics[f"{fam}/{k}"] = float(v.detach())
-            if cfg.train.debug_nan:
-                for fam, d in loss_dicts.items():
-                    metrics[f"finite/{fam}"] = float(all(_finite(v) for v in d.values()))
+                torch._foreach_copy_(bn_buffers, list(out.saved))
         return metrics
 
     def step(batch: Dict[str, torch.Tensor], draws: TrainDraws | None = None
@@ -157,4 +217,5 @@ def build_train_step(cfg: HSPoseConfig, model: PoseNet9D, generator: torch.Gener
     step.optimizer = optimizer
     step.mini_step = 0
     step.accumulator = acc
+    step.graphs = graphs
     return step

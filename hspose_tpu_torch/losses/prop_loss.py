@@ -12,7 +12,7 @@ from hspose_tpu_torch.geometry.rotations import (
     get_vertical_rot_vec,
 )
 from hspose_tpu_torch.losses.fs_net_loss import l1
-from hspose_tpu_torch.utils.spans import span
+from hspose_tpu_torch.utils.consts import const
 
 _Y_REF = (-1.0, 1.0, -1.0)
 _YX_REF = (1.0, 1.0, -1.0)
@@ -51,6 +51,11 @@ def _yx_reflection_flag(sym):
     return (sym[:, 0] == 0) & (sym[:, 1] == 1)
 
 
+def _reflection_signs(like):
+    """The y and yx reflections' signs per axis, of ``like``'s type and device."""
+    return (const(_Y_REF, like.device, like.dtype), const(_YX_REF, like.device, like.dtype))
+
+
 def prop_sym_matching_loss(PC, PC_re, p_g_vec, p_r_vec, p_t, gt_R, gt_t, sym):
     """Returns (res_p_recon, res_p_rt)."""
     cano = _project(gt_R, gt_t, PC)
@@ -59,10 +64,7 @@ def prop_sym_matching_loss(PC, PC_re, p_g_vec, p_r_vec, p_t, gt_R, gt_t, sym):
     yx_flag = _yx_reflection_flag(sym)[:, None, None]
     no_flag = ((sym[:, 0] == 0) & (sym[:, 1] != 1))[:, None, None]
 
-    with span("sync.upload"):  # a pageable copy waits for the device's queue
-        y_sign = cano.new_tensor(_Y_REF)
-    with span("sync.upload"):
-        yx_sign = cano.new_tensor(_YX_REF)
+    y_sign, yx_sign = _reflection_signs(cano)
     y_ref = cano * y_sign
     yx_ref = cano * yx_sign
     gt_pc = (torch.where(y_flag, _to_world(gt_R, gt_t, y_ref), 0.0)

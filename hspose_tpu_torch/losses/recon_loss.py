@@ -20,19 +20,14 @@ import torch
 from hspose_tpu_torch.config import LossConfig
 from hspose_tpu_torch.geometry.planes import fit_plane_weighted
 from hspose_tpu_torch.geometry.rotations import batch_dot, get_vertical_rot_vec
-from hspose_tpu_torch.utils.spans import span
+from hspose_tpu_torch.utils.consts import const
 
 FACE_REMAP = (1, 0, 2, 3, 5, 4)
 
 
 def _remapped(*faces):
-    """Each (B, N, 6, ...) face tensor with its faces in ``FACE_REMAP`` order;
-    each index is a list the host copies to the device first, a sync."""
-    out = []
-    for f in faces:
-        with span("sync.upload"):
-            out.append(f[:, :, list(FACE_REMAP)])
-    return out
+    """Each (B, N, 6, ...) face tensor with its faces in ``FACE_REMAP`` order."""
+    return [f[:, :, const(FACE_REMAP, f.device)] for f in faces]
 
 
 def _select_sum(res, sym_flag, obj_ids, xz_only: bool = False):
@@ -156,12 +151,15 @@ def _geo_recon_loss_s(pre_s, dis_up, dis_down, sym_flag, obj_ids):
     return res_up + res_down
 
 
+def _y_rows(n):
+    """(B, 3, 3) with the y face's normal n[:, 1] in every row."""
+    return n[:, const((1, 1, 1), n.device)]
+
+
 def _geo_recon_loss_self_cal(n_up, n_down, sym_flag, obj_ids):
     res_parallel = _select_sum((n_up + n_down).abs().mean(-1), sym_flag, obj_ids)
-    with span("sync.upload"):  # the list index is copied to the device first
-        y_up = n_up[:, [1, 1, 1]]
-    with span("sync.upload"):
-        y_down = n_down[:, [1, 1, 1]]
+    y_up = _y_rows(n_up)
+    y_down = _y_rows(n_down)
     res_v_up = _select_sum(batch_dot(y_up, n_up).abs(), sym_flag, obj_ids, xz_only=True)
     res_v_down = _select_sum(batch_dot(y_down, n_down).abs(), sym_flag, obj_ids,
                              xz_only=True)

@@ -12,7 +12,9 @@ synchronisation (a ``.cpu()``, ``float()`` or ``bool()`` of a device
 tensor, a pageable host-to-device copy, a solver's error check).  A served
 request's syncs are the two ``hspose.sync.fetch`` reads of each batch's
 outputs in ``land``: its inputs go up from pinned memory without waiting,
-and its forwards are graph replays.  The spans (``utils/spans.py``) are
+and its forwards are graph replays.  A train step's (its third, a graph
+replay) are its one ``hspose.sync.metrics`` read and Ranger's
+``hspose.sync.clip``.  The spans (``utils/spans.py``) are
 recorded here by a stand-in for the profiler that keeps the open spans'
 names.  Prints, per path, the count of syncs by the innermost open span
 and the Python frames of any sync that no ``hspose.sync.*`` span holds;

@@ -36,23 +36,23 @@ The spans, by path:
   captures, from 0), then ``hspose.model.graph_replay`` (copy the inputs
   in, replay, clone the outputs); the eager route records neither;
 * training (``engine/train_step.py``): ``hspose.train.step`` (one a
-  step), inside it ``hspose.train.forward`` (augmentation, posenet,
-  losses), ``hspose.train.backward`` (on the calling thread),
-  ``hspose.train.metrics`` (the metrics' fetches), and the optimizer's
-  own ``Optimizer.step#Ranger.step``, which ``torch.optim.Optimizer``
-  records;
+  step), inside it ``hspose.train.forward`` (one a step: on the eager
+  route augmentation, posenet and losses enqueued, then
+  ``hspose.train.backward``, on the calling thread; on the graphed route,
+  ``engine/graphed_step.py``, the step's draws, ``hspose.train.graph_capture``
+  where the step captures (ident the step's count of captures, from 0) and
+  ``hspose.train.graph_replay`` (copy the batch and draws in, replay),
+  with no backward span), ``hspose.train.metrics`` (the metrics' one
+  fetch), and the optimizer's own ``Optimizer.step#Ranger.step``, which
+  ``torch.optim.Optimizer`` records;
 * ``hspose.sync.<site>`` around every read that makes the host wait for
   the card, nested in its caller's span: ``upload`` (each pageable
   host-to-device copy: ``to_device``'s inputs where the device is not a
-  CUDA card, whose copies come from pinned memory and do not wait, and in
-  the train forward the Python-list indices and host constants it copies
-  to the card),
-  ``solve`` (``torch.linalg.solve``'s error check in the plane fits),
-  ``fetch`` (each output's ``.cpu()`` in ``land``), ``finite`` (the NaN
-  guard, and with ``train.debug_nan`` each term's check), ``clip``
-  (Ranger's clip decision), ``total`` and ``term`` (the metrics'
-  ``float()``).  Their count is the number of such reads, their
-  durations the host's wait.
+  CUDA card, whose copies come from pinned memory and do not wait),
+  ``fetch`` (each output's ``.cpu()`` in ``land``), ``metrics`` (the
+  train step's one read of its losses and finiteness flags) and ``clip``
+  (Ranger's clip decision).  Their count is the number of such reads,
+  their durations the host's wait.
 """
 
 from __future__ import annotations
